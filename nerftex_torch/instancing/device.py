@@ -1,0 +1,609 @@
+"""Device instancer: per-ray hit intervals, per-sample overlap resolution,
+local frames and texture parameters, in PyTorch.
+
+Counterpart of nerftex_tpu/instancing/device.py for the main render path
+(``nearest`` overlap selection, directional light, no shadow rays):
+
+  1. ``_per_ray``: slab tests of every ray against every instance's local
+     box (or the exact fan-culled candidates), top-K nearest intervals
+     clipped at the first mesh hit (Moller-Trumbore, optionally over the
+     fan-culled triangles), the union of intervals as sorted events with
+     prefix sums, and the per-ray sample layout (``n_steps``, offset);
+  2. ``_per_sample_grid``: arc-length sample positions mapped to world t,
+     the ``nearest`` pick among the active intervals, then
+     ``_per_sample_grid_tail``: local transforms, the texture-driven
+     parameter slots (through kernels.tex_gather) and the light direction;
+  3. ``render_grid_sorted``: the per-ray stage for all rays, rays sorted by
+     step count, each sorted block run at its own maximum step count
+     (all-empty blocks take the caller's terminator-only shading), and the
+     results put back in ray order.  ``get_model_input`` is the dense grid
+     over ``min(n_samples, max_steps_per_ray)`` steps, the exactness
+     yardstick of the sorted path.
+
+The JAX package's one-hot selects, packed permutes, layout barriers and
+``lax.switch`` buckets exist for the TPU; here they are plain indexing,
+``torch.sort`` and per-block dynamic shapes, with the same results.
+Per-ray stratified offsets come from ``u_offset`` when the caller gives
+them (e.g. offsets drawn by JAX, for parity), else 0.5 with
+``deterministic_offset``, else this instancer's ``torch.Generator``.
+"""
+
+import math
+
+import numpy as np
+import torch
+
+from nerftex_torch.instancing.scene import Scene
+from nerftex_torch.kernels.tex_gather import sample_channel
+from nerftex_torch.models.encodings import check_matmul_precision, round_operand
+from nerftex_torch.ops.volume import mean_distance
+
+T_FAR = 100.0
+_INF = float("inf")
+
+
+class DeviceScene:
+    """The compiled Scene's tables as tensors on one device."""
+
+    def __init__(self, scene: Scene, device: torch.device):
+        def t(x, dtype=torch.float32):
+            return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+
+        n = scene.n_instances()
+        self.n_instances = n
+        inv = np.asarray(scene.inverse, np.float32).reshape(n, 4, 4)
+        self.inv_rot = t(inv[:, :3, :3])
+        self.inv_trans = t(inv[:, :3, 3])
+        self.dir_inv = t(np.asarray(scene.dir_inverse, np.float32).reshape(n, 3, 3))
+        self.origins = t(np.asarray(scene.origins, np.float32).reshape(n, 3))
+        self.b_0 = t(scene.b_0)
+        self.b_1 = t(scene.b_1)
+
+        mesh = scene.base_mesh
+        self.n_tris = 0
+        if mesh is not None and len(mesh.F):
+            V, F = mesh.V, mesh.F
+            v0 = V[F[:, 0]]
+            e1 = V[F[:, 1]] - V[F[:, 0]]
+            e2 = V[F[:, 2]] - V[F[:, 0]]
+            self.tri_v0, self.tri_e1, self.tri_e2 = t(v0), t(e1), t(e2)
+            self.n_tris = len(F)
+            # Triangle bounding spheres for the block-fan cull.
+            cen = v0 + (e1 + e2) / 3.0
+            rad = np.maximum(
+                np.linalg.norm(cen - v0, axis=-1),
+                np.maximum(np.linalg.norm(cen - (v0 + e1), axis=-1),
+                           np.linalg.norm(cen - (v0 + e2), axis=-1)),
+            )
+            self.tri_center, self.tri_radius = t(cen), t(rad)
+
+        self.anchor_uv = self.uv_jacobian = None
+        if getattr(scene, "anchor_uv", None) is not None:
+            self.anchor_uv = t(scene.anchor_uv)
+            self.uv_jacobian = t(scene.uv_jacobian)
+
+        # Parameter texture channels at their own [W, H] (v from the bottom).
+        self.tex_channels = [t(c).contiguous() for c in scene.texture_channels]
+
+        # Per-instance world bounding spheres: the 8 corners of the local
+        # patch box pushed through each forward transform.
+        if n:
+            fwd = np.asarray(scene.forward, np.float32).reshape(n, 4, 4)
+            b0 = np.asarray(scene.b_0, np.float32)
+            b1 = np.asarray(scene.b_1, np.float32)
+            corners = np.array([[x, y, z] for x in (b0[0], b1[0]) for y in (b0[1], b1[1])
+                                for z in (b0[2], b1[2])], np.float32)
+            wc = np.einsum("nij,kj->nki", fwd[:, :3, :3], corners) + fwd[:, None, :3, 3]
+            center = wc.mean(1)
+            self.inst_center = t(center)
+            self.inst_radius = t(np.linalg.norm(wc - center[:, None], axis=-1).max(1))
+
+        # A uniformly scaled rotation (the mesh placement path always is)
+        # lets the local direction transform reuse inv_rot.
+        self.uniform_scale = None
+        if n:
+            scales = np.linalg.norm(np.asarray(scene.forward)[:, :3, 0], axis=-1)
+            dir_from_inv = inv[:, :3, :3] * scales[:, None, None]
+            if (np.abs(scales - scales[0]) < 1e-5 * max(scales[0], 1e-9)).all() and np.abs(
+                dir_from_inv - np.asarray(scene.dir_inverse, np.float32)
+            ).max() < 1e-4:
+                self.uniform_scale = float(scales[0])
+
+        self.patch_scale = float(scene.patch_scale)
+        self.light_dir_idx = int(scene.light_dir_idx)
+        self.light_strength_idx = int(scene.light_strength_idx)
+        self.texture_parameter_idxs = tuple(scene.texture_parameter_idxs)
+        self.use_mean_distance = bool(scene.use_mean_distance)
+
+
+# ---------------------------------------------------------------------------
+# geometry helpers
+# ---------------------------------------------------------------------------
+
+
+def _moller_trumbore(o, d, v0, e1, e2, t_max=T_FAR):
+    """First-hit distance of each ray [R,3] to each triangle [T,3]:
+    t [R,T], inf where missed."""
+    ox, oy, oz = (o[:, c, None] for c in range(3))
+    dx, dy, dz = (d[:, c, None] for c in range(3))
+    e2x, e2y, e2z = e2.unbind(-1)
+    e1x, e1y, e1z = e1.unbind(-1)
+    v0x, v0y, v0z = v0.unbind(-1)
+
+    px = dy * e2z - dz * e2y
+    py = dz * e2x - dx * e2z
+    pz = dx * e2y - dy * e2x
+    det = e1x * px + e1y * py + e1z * pz
+    inv_det = 1.0 / torch.where(det.abs() < 1e-12, 1e-12, det)
+
+    tx = ox - v0x
+    ty = oy - v0y
+    tz = oz - v0z
+    u = (tx * px + ty * py + tz * pz) * inv_det
+
+    qx = ty * e1z - tz * e1y
+    qy = tz * e1x - tx * e1z
+    qz = tx * e1y - ty * e1x
+    v = (dx * qx + dy * qy + dz * qz) * inv_det
+    t = (e2x * qx + e2y * qy + e2z * qz) * inv_det
+
+    ok = (det.abs() > 1e-12) & (u >= 0) & (v >= 0) & (u + v <= 1) & (t > 1e-6) & (t < t_max)
+    return torch.where(ok, t, _INF)
+
+
+def _block_fan(rays_o, rays_d):
+    """Anisotropic bound of a ray block: origin sphere (o_c, r_o), mean
+    direction u, principal in-fan axis w (power iteration), fan normal,
+    out-of-plane sine bound and in-plane half-angle."""
+    eps = 1e-12
+    o_c = rays_o.mean(0)
+    r_o = torch.sqrt(torch.clamp(torch.max(torch.sum((rays_o - o_c) ** 2, -1)), min=0.0))
+    d_n = rays_d / torch.clamp(torch.linalg.norm(rays_d, dim=-1, keepdim=True), min=eps)
+    u = d_n.mean(0)
+    u = u / torch.clamp(torch.linalg.norm(u), min=eps)
+
+    resid = d_n - (d_n @ u)[:, None] * u
+    cov = resid.T @ resid
+    w = cov[:, torch.argmax(torch.diagonal(cov))] + 1e-20
+    for _ in range(3):
+        w = cov @ w
+        w = w / torch.clamp(torch.linalg.norm(w), min=eps)
+    w = w - (w @ u) * u
+    w = w / torch.clamp(torch.linalg.norm(w), min=eps)
+    nrm = torch.linalg.cross(u, w)
+    nrm = nrm / torch.clamp(torch.linalg.norm(nrm), min=eps)
+
+    sin_perp = torch.max(torch.abs(d_n @ nrm)) + 1e-6
+    s_in = torch.max(torch.atan2(torch.abs(d_n @ w), d_n @ u)) + 1e-6
+    return o_c, r_o, u, w, nrm, sin_perp, s_in
+
+
+def _fan_keep(fan, centers, radii):
+    """Conservative sphere-vs-fan test: True for every sphere that can
+    intersect a ray of the block."""
+    o_c, r_o, u, w, nrm, sin_perp, s_in = fan
+    v = centers - o_c
+    dist = torch.linalg.norm(v, dim=-1)
+    reach = radii + r_o
+    inside = dist <= reach
+    out_ok = torch.abs(v @ nrm) <= (dist + reach) * sin_perp + reach
+    va = v @ u
+    vb = v @ w
+    pd = torch.sqrt(va**2 + vb**2)
+    theta = torch.atan2(torch.abs(vb), va)
+    dtheta = torch.clamp(torch.clamp(theta - s_in, min=0.0), max=math.pi / 2)
+    in_ok = (theta <= s_in) | (pd * torch.sin(dtheta) <= reach)
+    return inside | (out_ok & in_ok)
+
+
+def _keep_to_candidates(keep, C):
+    """The first C kept ids in ascending order and their validity."""
+    n = keep.shape[0]
+    idx = torch.arange(n, device=keep.device)
+    prio = torch.sort(torch.where(keep, idx, n + idx)).values[:C]
+    cand_valid = prio < n
+    return torch.where(cand_valid, prio, 0), cand_valid
+
+
+def _dists_grid(n_steps, total, tiny, S, step):
+    """Sample spacing [Rb, S] from the per-ray scalars: uniform ``step``, a
+    shortened last interval, and the single sample of a tiny interval."""
+    i_grid = torch.arange(S, device=n_steps.device)[None, :]
+    ns = n_steps[:, None]
+    dists = torch.where(i_grid == ns - 1, step + total[:, None] - ns * step,
+                        torch.full((1, S), step, dtype=torch.float32, device=n_steps.device))
+    dists = torch.where(tiny[:, None], torch.where(i_grid == 0, total[:, None], 0.0), dists)
+    return torch.where(i_grid < ns, dists, 0.0)
+
+
+# ---------------------------------------------------------------------------
+# the instancer
+# ---------------------------------------------------------------------------
+
+
+class DeviceInstancer:
+    """Per-ray and per-sample instancing of one compiled Scene on one
+    device; see the module docstring for the stages."""
+
+    def __init__(
+        self,
+        scene: Scene,
+        device: torch.device,
+        max_hits: int = 64,
+        ray_block: int = 256,
+        max_steps_per_ray: int = 512,
+        cull_budget: int = 0,
+        tri_cull_budget: int = 0,
+        seed: int = 0,
+        deterministic_offset: bool = False,
+        matmul_precision: str = "float32",
+    ):
+        if scene.cast_shadow_rays:
+            raise NotImplementedError("shadow rays come with the shadows slice")
+        if scene.instance_sampling_method != "nearest":
+            raise NotImplementedError(
+                f"instance_sampling_method={scene.instance_sampling_method!r} comes with the "
+                "shadows slice; this slice ports 'nearest'"
+            )
+        if scene.light_strength_idx >= 0:
+            raise NotImplementedError("point lights come with the shadows slice")
+        self.device = device
+        self.ds = DeviceScene(scene, device)
+        self.max_hits = max_hits
+        self.ray_block = ray_block
+        self.max_steps_per_ray = max_steps_per_ray
+        # Exact speed tiers: a block whose conservative keep set fits the
+        # budget tests only those candidates, any other block all of them.
+        self.cull_budget = cull_budget
+        self.tri_cull_budget = tri_cull_budget
+        self.deterministic_offset = deterministic_offset
+        # Operand rounding of the slab test's ray-to-local matmuls (see
+        # models.encodings.round_operand).
+        self.matmul_precision = check_matmul_precision(matmul_precision)
+        self.generator = torch.Generator(device=device).manual_seed(seed)
+
+        ds = self.ds
+        n = ds.n_instances
+        self.use_jac = bool(ds.texture_parameter_idxs) and ds.anchor_uv is not None
+        # One [N, D] per-instance table read once per sample: inv_rot 9,
+        # inv_trans 3, [dir_inv 9], [anchor_uv 2, uv_jacobian 6, origins 3].
+        cols = [ds.inv_rot.reshape(n, 9), ds.inv_trans]
+        if ds.uniform_scale is None:
+            cols.append(ds.dir_inv.reshape(n, 9))
+        if self.use_jac:
+            cols += [ds.anchor_uv, ds.uv_jacobian.reshape(n, 6), ds.origins]
+        self.inst_table = torch.cat(cols, -1).contiguous()
+
+    def n_instances(self) -> int:
+        return self.ds.n_instances
+
+    # -- ray batches ------------------------------------------------------
+
+    def _prepare(self, rays_o, rays_d, parameters, u_offset, extra=()):
+        """Float32 tensors on this device, padded to a multiple of the ray
+        block; u_offset is drawn here when the caller gives none."""
+        dev = self.device
+
+        def f32(x):
+            return torch.as_tensor(x, dtype=torch.float32, device=dev)
+
+        rays_o, rays_d, parameters = f32(rays_o), f32(rays_d), f32(parameters)
+        r = rays_o.shape[0]
+        if u_offset is not None:
+            u_off = f32(u_offset).reshape(r)
+        elif self.deterministic_offset:
+            u_off = torch.full((r,), 0.5, device=dev)
+        else:
+            u_off = torch.rand(r, generator=self.generator, device=dev)
+        block = min(self.ray_block, r)
+        n_pad = -(-r // block) * block
+        extra = tuple(extra)
+        if n_pad > r:
+            pad = n_pad - r
+            rays_o = torch.cat([rays_o, rays_o.new_zeros(pad, 3)])
+            rays_d = torch.cat([rays_d, rays_d.new_tensor([[0, 0, 1.0]]).expand(pad, 3)])
+            parameters = torch.cat([parameters, parameters.new_zeros(pad, parameters.shape[1])])
+            u_off = torch.cat([u_off, u_off.new_full((pad,), 0.5)])
+            extra = tuple(torch.cat([e, e.new_zeros((pad,) + e.shape[1:])]) for e in extra)
+        return rays_o, rays_d, parameters, u_off, extra, r, block
+
+    def get_model_input(self, rays_o, rays_d, parameters, n_samples, step_size, u_offset=None):
+        """Dense grid over S = min(n_samples, max_steps_per_ray) steps:
+        rays_d [R,S,3] (local), pts [R,S,3] (local), t, dists,
+        alpha_weight, instance_id [R,S], parameters [R,S,P],
+        color_last [R,1,3], alpha_last [R,1], hit [R] and the overflow
+        counts."""
+        rays_o, rays_d, parameters, u_off, _, r, block = self._prepare(
+            rays_o, rays_d, parameters, u_offset)
+        S = min(int(n_samples), self.max_steps_per_ray)
+        step = float(step_size)
+        outs = [self._block(rays_o[i:i + block], rays_d[i:i + block], parameters[i:i + block],
+                            S, step, u_off[i:i + block])
+                for i in range(0, rays_o.shape[0], block)]
+        return {
+            k: (sum(o[k] for o in outs) if k.startswith("overflow")
+                else torch.cat([o[k] for o in outs])[:r])
+            for k in outs[0]
+        }
+
+    def _block(self, rays_o, rays_d, parameters, S, step, u_off):
+        ray = self._per_ray(rays_o, rays_d, parameters, S, step, u_off)
+        sample = self._per_sample_grid(ray, rays_o, rays_d, parameters, S, step)
+        return {
+            **self._assemble_grid(ray, sample, rays_d, parameters, S, step),
+            "overflow_hits": ray["overflow_hits"],
+            "overflow_steps": ray["overflow_steps"],
+        }
+
+    def render_grid_sorted(self, rays_o, rays_d, parameters, n_samples, step_size, shade_block,
+                           extra=(), empty_block=None, u_offset=None):
+        """Occupancy-sorted render.  shade_block(inst_block, extra_block)
+        and empty_block(ray_tables_block, extra_block) return tuples of
+        [Rb, ...] tensors; empty_block serves the sorted blocks in which
+        every ray has zero marching steps.  Returns (tuple of [R, ...],
+        aux = {hit [R], overflow_hits, overflow_steps})."""
+        rays_o, rays_d, parameters, u_off, extra, r, block = self._prepare(
+            rays_o, rays_d, parameters, u_offset, extra)
+        step = float(step_size)
+        cap = min(int(n_samples), self.max_steps_per_ray)
+        n_rows = rays_o.shape[0]
+
+        # 1. per-ray tables, blocked in ray order (the culls bound each
+        # original block's ray fan).
+        per_block = [self._per_ray(rays_o[i:i + block], rays_d[i:i + block],
+                                   parameters[i:i + block], cap, step, u_off[i:i + block])
+                     for i in range(0, n_rows, block)]
+        overflow_hits = sum(t["overflow_hits"] for t in per_block)
+        overflow_steps = sum(t["overflow_steps"] for t in per_block)
+        tables = {k: None if v is None else torch.cat([t[k] for t in per_block])
+                  for k, v in per_block[0].items() if not k.startswith("overflow")}
+        hit = tables["hit"]
+
+        # 2. occupancy sort, descending and stable.
+        order = torch.argsort(tables["n_steps"], descending=True, stable=True)
+        tables_s = {k: None if v is None else v[order] for k, v in tables.items()}
+        rays_o_s, rays_d_s, prm_s = rays_o[order], rays_d[order], parameters[order]
+        extra_s = tuple(e[order] for e in extra)
+
+        # 3. each sorted block at its own maximum step count (its first ray's).
+        block_max = tables_s["n_steps"][::block].tolist()
+        outs = []
+        for b, s_max in enumerate(block_max):
+            sl = slice(b * block, (b + 1) * block)
+            ray = {k: (None if v is None else v[sl]) for k, v in tables_s.items()}
+            ext = tuple(e[sl] for e in extra_s)
+            if s_max == 0 and empty_block is not None:
+                outs.append(empty_block(ray, ext))
+                continue
+            S_b = max(int(s_max), 1)
+            sample = self._per_sample_grid(ray, rays_o_s[sl], rays_d_s[sl], prm_s[sl], S_b, step)
+            inst = self._assemble_grid(ray, sample, rays_d_s[sl], prm_s[sl], S_b, step)
+            outs.append(shade_block(inst, ext))
+
+        # 4. back to ray order, padding dropped.
+        inv_order = torch.empty_like(order)
+        inv_order[order] = torch.arange(n_rows, device=order.device)
+        result = tuple(torch.cat(parts)[inv_order][:r] for parts in zip(*outs))
+        aux = {"hit": hit[:r], "overflow_hits": overflow_hits, "overflow_steps": overflow_steps}
+        return result, aux
+
+    # -- per-ray stage ----------------------------------------------------
+
+    def _per_ray(self, rays_o, rays_d, parameters, S, step, u_off):
+        ds = self.ds
+        Rb = rays_o.shape[0]
+        K = min(self.max_hits, ds.n_instances)
+        P = parameters.shape[-1]
+        dev = rays_o.device
+
+        C = self.cull_budget
+        C = max(C, K) if (C and max(C, K) < ds.n_instances) else 0
+        TC = self.tri_cull_budget
+        TC = TC if (TC and 0 < TC < ds.n_tris) else 0
+        fan = _block_fan(rays_o, rays_d) if (C or TC) else None
+
+        # mesh first hit (clamps the intervals' exits)
+        if ds.n_tris > 0:
+            t_all = None
+            if TC:
+                keep_t = _fan_keep(fan, ds.tri_center, ds.tri_radius)
+                if int(keep_t.sum()) <= TC:
+                    tcand, tvalid = _keep_to_candidates(keep_t, TC)
+                    t_all = _moller_trumbore(rays_o, rays_d, ds.tri_v0[tcand],
+                                             ds.tri_e1[tcand], ds.tri_e2[tcand])
+                    t_all = torch.where(tvalid[None, :], t_all, _INF)
+            if t_all is None:
+                t_all = _moller_trumbore(rays_o, rays_d, ds.tri_v0, ds.tri_e1, ds.tri_e2)
+            t_mesh = t_all.min(-1).values
+        else:
+            t_mesh = torch.full((Rb,), _INF, device=dev)
+        mesh_hit = torch.isfinite(t_mesh)
+
+        # instance slab intervals + top-K nearest
+        def intervals_topk(inv_rot_n, inv_trans_n, inst_ids, cand_valid):
+            n_cols = inv_trans_n.shape[0]
+            t0 = torch.full((Rb, n_cols), -_INF, device=dev)
+            t1 = torch.full((Rb, n_cols), _INF, device=dev)
+            prec = self.matmul_precision
+            o_r, d_r = round_operand(rays_o, prec), round_operand(rays_d, prec)
+            for c in range(3):
+                rot_c = round_operand(inv_rot_n[:, c, :].T, prec)
+                o_lc = o_r @ rot_c + inv_trans_n[:, c]
+                d_lc = d_r @ rot_c
+                inv_dl = 1.0 / torch.where(d_lc.abs() < 1e-12, 1e-12, d_lc)
+                t_a = (ds.b_0[c] - o_lc) * inv_dl
+                t_b = (ds.b_1[c] - o_lc) * inv_dl
+                t0 = torch.maximum(t0, torch.minimum(t_a, t_b))
+                t1 = torch.minimum(t1, torch.maximum(t_a, t_b))
+            if cand_valid is not None:
+                t0 = torch.where(cand_valid[None, :], t0, _INF)
+                t1 = torch.where(cand_valid[None, :], t1, -_INF)
+            box_hit = (t0 < t1) & (t1 > 0) & (t0 < T_FAR)
+            t0c = torch.clamp(t0, 0.0, T_FAR)
+            t1c = torch.minimum(torch.clamp(t1, 0.0, T_FAR), t_mesh[:, None])
+            valid_iv = box_hit & (t0c < t1c)
+            overflow = torch.clamp(valid_iv.sum(-1) - K, min=0).sum()
+            score = torch.where(valid_iv, t0c, _INF)
+            # Stable ascending sort: equal scores keep the lowest column
+            # first, the tie order of lax.top_k in the JAX package.
+            score_s, sel = torch.sort(score, dim=-1, stable=True)
+            sel = sel[:, :K]
+            tk0 = score_s[:, :K]
+            kvalid = torch.isfinite(tk0)
+            tk1 = torch.where(kvalid, t1c.gather(1, sel), _INF)
+            hit_box = (box_hit & (t1 > 0)).any(-1)
+            return tk0, tk1, inst_ids[sel], kvalid, overflow, hit_box
+
+        res = None
+        if C:
+            keep_i = _fan_keep(fan, ds.inst_center, ds.inst_radius)
+            if int(keep_i.sum()) <= C:
+                cand, cand_valid = _keep_to_candidates(keep_i, C)
+                res = intervals_topk(ds.inv_rot[cand], ds.inv_trans[cand], cand, cand_valid)
+        if res is None:
+            res = intervals_topk(ds.inv_rot, ds.inv_trans,
+                                 torch.arange(ds.n_instances, device=dev), None)
+        tk0, tk1, inst_idx, kvalid, overflow_hits, hit_box = res
+
+        # |o + t d - c|^2 = a + 2 t b + t^2 (|d| = 1) per hit slot, for the
+        # nearest-anchor pick.
+        diff = rays_o[:, None, :] - ds.origins[inst_idx]
+        sel_a = torch.sum(diff * diff, -1)
+        sel_b = torch.sum(rays_d[:, None, :] * diff, -1)
+
+        # union of intervals via sorted events (starts before ends at equal t)
+        times = torch.cat([tk0, tk1], -1)
+        delta = torch.cat([torch.ones_like(tk0, dtype=torch.int32),
+                           torch.full_like(tk1, -1, dtype=torch.int32)], -1)
+        times_s, ev = torch.sort(times, dim=-1, stable=True)
+        count = torch.cumsum(delta.gather(1, ev), -1)
+        finite_t = torch.isfinite(times_s)
+        nxt = torch.cat([times_s[:, 1:], times_s[:, -1:]], -1)
+        gap = torch.where(torch.isfinite(nxt) & finite_t, nxt - times_s, 0.0)
+        seg_len = torch.where(count > 0, gap, 0.0)
+        cum_incl = torch.cumsum(seg_len, -1)
+        cum_excl = cum_incl - seg_len
+        total = cum_incl[:, -1]
+        arc_corr = torch.where(finite_t, times_s - cum_excl, 0.0)
+
+        # per-ray sample layout
+        necessary = torch.floor(total / step).to(torch.int32)
+        overflow_steps = torch.clamp(necessary - S, min=0).sum()
+        tiny = (necessary == 0) & (total > 0)
+        n_steps = torch.where(tiny, 1, torch.clamp(necessary, max=S)).to(torch.int32)
+        t_offset = torch.where(tiny, u_off * total, u_off * step)
+
+        light_dir_w = None
+        if ds.light_dir_idx >= 0 and P > ds.light_dir_idx + 2:
+            light_dir_w = parameters[:, ds.light_dir_idx:ds.light_dir_idx + 3]
+
+        # terminator: one opaque mesh with color 0
+        return {
+            "tk0": tk0, "tk1": tk1, "inst_idx": inst_idx, "kvalid": kvalid,
+            "sel_a": sel_a, "sel_b": sel_b,
+            "cum_incl": cum_incl.contiguous(), "arc_corr": arc_corr,
+            "total": total, "n_steps": n_steps, "t_offset": t_offset, "tiny": tiny,
+            "color_last": torch.zeros(Rb, 1, 3, device=dev),
+            "alpha_last": mesh_hit[:, None].float(),
+            "hit": hit_box | mesh_hit,
+            "light_dir_w": light_dir_w,
+            "overflow_hits": overflow_hits, "overflow_steps": overflow_steps,
+        }
+
+    # -- per-sample stage, dense [Rb, S] grid ------------------------------
+
+    def _per_sample_grid(self, ray, rays_o, rays_d, parameters, S, step):
+        ds = self.ds
+        K = ray["tk0"].shape[-1]
+        i_grid = torch.arange(S, dtype=torch.float32, device=rays_o.device)[None, :]
+        s_arc = i_grid * step + ray["t_offset"][:, None]                  # [Rb,S]
+
+        # Arc length -> world t: corr[clip(#(cum_incl <= s), 0, 2K-1)].
+        j = torch.searchsorted(ray["cum_incl"], s_arc, right=True)
+        j = torch.clamp(j, max=2 * K - 1)
+        t_mu = s_arc + ray["arc_corr"].gather(1, j)
+        t_pt = mean_distance(t_mu, step) if ds.use_mean_distance else t_mu
+        pts_w = rays_o[:, None, :] + rays_d[:, None, :] * t_pt[..., None]  # [Rb,S,3]
+
+        # nearest overlap resolution over the K hit slots
+        tk0 = ray["tk0"][:, None, :]
+        tk1 = ray["tk1"][:, None, :]
+        kvalid = ray["kvalid"][:, None, :]
+        tp = t_pt[..., None]
+        active = kvalid & (tk0 <= tp) & (tp < tk1)
+        n_active = active.sum(-1)
+        iv_dist = torch.maximum(tk0 - tp, tp - tk1)
+        iv_dist = torch.where(kvalid, torch.clamp(iv_dist, min=0.0), _INF)
+        fallback = torch.nn.functional.one_hot(torch.argmin(iv_dist, -1), K).bool()
+        active = torch.where((n_active == 0)[..., None], fallback, active)
+        d2_k = ray["sel_a"][:, None, :] + 2.0 * tp * ray["sel_b"][:, None, :] + (t_pt * t_pt)[..., None]
+        d2_k = torch.where(active, torch.clamp(d2_k, min=0.0), _INF)
+        sel_k = torch.argmin(d2_k, -1)
+        weight = torch.ones_like(s_arc)
+        return self._per_sample_grid_tail(ray, rays_d, parameters, sel_k, weight, t_mu, pts_w)
+
+    def _per_sample_grid_tail(self, ray, rays_d, parameters, sel_k, weight, t_mu, pts_w):
+        """Downstream of the overlap pick: the picked instance's local
+        frame, texture-driven parameters and the light direction."""
+        ds = self.ds
+        Rb, S = sel_k.shape
+        P = parameters.shape[-1]
+
+        inst = ray["inst_idx"].gather(1, sel_k)                           # [Rb,S]
+        vals = self.inst_table[inst]                                      # [Rb,S,D]
+        rot = vals[..., 0:9].reshape(Rb, S, 3, 3)
+        pts_l = torch.sum(rot * pts_w[..., None, :], -1) + vals[..., 9:12]
+        d0 = 12
+        if ds.uniform_scale is not None:
+            dinv = rot * ds.uniform_scale
+        else:
+            dinv = vals[..., d0:d0 + 9].reshape(Rb, S, 3, 3)
+            d0 += 9
+        dirs_l = torch.sum(dinv * rays_d[:, None, None, :], -1)
+
+        params_out = parameters[:, None, :].expand(Rb, S, P).clone()
+        if self.use_jac:
+            a_uv = vals[..., d0:d0 + 2]
+            jac = vals[..., d0 + 2:d0 + 8].reshape(Rb, S, 2, 3)
+            rel = pts_w - vals[..., d0 + 8:d0 + 11]
+            uv = torch.clamp(a_uv + torch.sum(jac * rel[..., None, :], -1), 0.0, 1.0)
+            uv = uv.contiguous()
+            for i, slot in enumerate(ds.texture_parameter_idxs):
+                params_out[..., slot] = params_out[..., slot] * sample_channel(ds.tex_channels[i], uv)
+
+        if ray["light_dir_w"] is not None:
+            li = ds.light_dir_idx
+            light = ray["light_dir_w"][:, None, :]                          # [Rb,1,3]
+            vec_n = light / torch.clamp(torch.linalg.norm(light, dim=-1, keepdim=True), min=1e-12)
+            params_out[..., li:li + 3] = torch.sum(dinv * vec_n[..., None, :], -1)
+
+        return {
+            "pts": pts_l,
+            "dirs": dirs_l,
+            "parameters": params_out,
+            "t": t_mu,
+            "weight": weight,
+            "instance_id": inst.to(torch.int32),
+        }
+
+    def _assemble_grid(self, ray, sample, rays_d, parameters, S, step):
+        """Mask the per-sample outputs into the dense [Rb, S] model input
+        (invalid slots get benign values).  Every ray of the block must
+        have n_steps <= S."""
+        Rb = rays_d.shape[0]
+        P = parameters.shape[-1]
+        valid = torch.arange(S, device=rays_d.device)[None, :] < ray["n_steps"][:, None]
+        emit = valid[..., None]
+        return {
+            "rays_d": torch.where(emit, sample["dirs"], rays_d[:, None, :].expand(Rb, S, 3)),
+            "pts": torch.where(emit, sample["pts"], 0.0),
+            "t": torch.where(valid, sample["t"], 0.0),
+            "dists": _dists_grid(ray["n_steps"], ray["total"], ray["tiny"], S, step),
+            "color_last": ray["color_last"],
+            "alpha_last": ray["alpha_last"],
+            "alpha_weight": torch.where(valid, sample["weight"], 1.0),
+            "instance_id": torch.where(valid, sample["instance_id"], 0).to(torch.int32),
+            "hit": ray["hit"],
+            "parameters": torch.where(emit, sample["parameters"],
+                                      parameters[:, None, :].expand(Rb, S, P)),
+        }

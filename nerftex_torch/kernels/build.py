@@ -1,0 +1,97 @@
+"""Build and load the port's CUDA kernels.
+
+Each kernel is one ``csrc/*.cu`` file with a plain C interface, compiled
+by ``nvcc`` for ``sm_90a`` into a shared library and loaded with ctypes.
+Builds happen at first use (or all at once through ``build``, one nvcc
+process per source, started together) into ``nerftex_torch/_build/``, keyed by a hash
+of the source and the flags, so an edited source is rebuilt and an
+unchanged one is reused.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build")
+
+# kernel name -> (source file, extra nvcc flags)
+SOURCES = {
+    "tex_fetch": ("tex_fetch.cu", []),
+    "mlp_fused": ("mlp_fused.cu", []),
+}
+_BASE_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+]
+
+_LOADED = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels are built on a machine "
+                           "with the CUDA toolkit")
+    return path
+
+
+def library_path(name: str) -> str:
+    src, flags = SOURCES[name]
+    h = hashlib.sha256()
+    with open(os.path.join(CSRC, src), "rb") as f:
+        h.update(f.read())
+    h.update(" ".join(_BASE_FLAGS + flags).encode())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
+
+
+def build(names=None) -> dict:
+    """Compile the named kernels (default: all) that are not built yet, one
+    nvcc process per source, all started together.  Returns
+    {name: seconds} for the ones compiled; raises with nvcc's output on a
+    failed build."""
+    names = list(SOURCES) if names is None else list(names)
+    todo = [n for n in names if not os.path.exists(library_path(n))]
+    if not todo:
+        return {}
+    nvcc = _nvcc()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    procs = {}
+    t0 = time.perf_counter()
+    for name in todo:
+        src, flags = SOURCES[name]
+        tmp = f"{library_path(name)}.{os.getpid()}.tmp"
+        cmd = [nvcc, *_BASE_FLAGS, *flags, "-o", tmp, os.path.join(CSRC, src)]
+        procs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                             stderr=subprocess.STDOUT))
+    seconds, failed = {}, []
+    for name, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        seconds[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"{name}:\n{out.decode(errors='replace')}")
+            continue
+        os.replace(tmp, library_path(name))
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return seconds
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if needed."""
+    if name not in _LOADED:
+        build([name])
+        lib = ctypes.CDLL(library_path(name))
+        lib.nt_error_string.argtypes = [ctypes.c_int]
+        lib.nt_error_string.restype = ctypes.c_char_p
+        _LOADED[name] = lib
+    return _LOADED[name]
+
+
+def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error code."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc} ({lib.nt_error_string(rc).decode()})")

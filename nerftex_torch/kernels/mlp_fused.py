@@ -1,0 +1,170 @@
+"""Fused ParamNerf inference MLP: CUDA kernel and its plain version.
+
+Counterpart of nerftex_tpu/kernels/mlp_pallas.py (``make_fused_apply``).
+``pack`` lays a ParamNerf's dense chain out as a layer table plus flat,
+zero-padded weights; ``mlp_fused(pos_map, dir_map, packed)`` runs the chain
+on a CPU tensor with ``mlp_fused_plain`` and on a CUDA tensor with
+``csrc/mlp_fused.cu``.  Both compute each layer with f32 accumulation over
+``packed.dtype`` operands and round every layer's output to that dtype.
+"""
+
+import ctypes
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from nerftex_torch.kernels import build
+
+BUF_POS, BUF_DIR, BUF_HA, BUF_HB, OUT = 0, 1, 2, 3, -1
+MAX_WIDTH = 256
+MAX_LAYERS = 32
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+@dataclass
+class PackedMLP:
+    dtype: torch.dtype
+    weights: torch.Tensor     # flat [sum K_pad * n_pad] in dtype
+    biases: torch.Tensor      # flat [sum n_pad] f32 (dtype-rounded values)
+    table: np.ndarray         # [n_layers, 11] int64, LayerDesc order
+    pos_dim: int
+    dir_dim: int
+    pos_pad: int
+    dir_pad: int
+    macs: int                 # multiply-adds per sample at the real widths
+
+
+def pack(layers, pos_dim: int, dir_dim: int, dtype: torch.dtype) -> PackedMLP:
+    """layers: list of (weight [out, in] as in nn.Linear, bias [out],
+    segments, dst, relu, out_col) in execution order, where segments lists
+    the input buffers whose concatenation feeds the layer (BUF_POS /
+    BUF_DIR of the real widths pos_dim / dir_dim, or a hidden buffer) and
+    dst is a hidden buffer or OUT (then out_col is the first output column).
+    Each segment's rows are padded to a multiple of 16 with zero rows, each
+    layer's outputs to a multiple of 16 with zero columns."""
+    if len(layers) > MAX_LAYERS:
+        raise ValueError(f"{len(layers)} layers > {MAX_LAYERS}")
+    pos_pad, dir_pad = _round_up(pos_dim, 16), _round_up(dir_dim, 16)
+    real = {BUF_POS: pos_dim, BUF_DIR: dir_dim}
+    padded = {BUF_POS: pos_pad, BUF_DIR: dir_pad}
+    device = layers[0][0].device
+    w_parts, b_parts, table = [], [], []
+    w_off = b_off = macs = 0
+    for weight, bias, segments, dst, relu, out_col in layers:
+        n_out, k_real = weight.shape
+        if len(segments) > 2:
+            raise ValueError("a layer takes at most two input segments")
+        if dst != OUT and n_out % 16:
+            raise ValueError(f"hidden width {n_out} is not a multiple of 16")
+        n_pad = _round_up(n_out, 16)
+        if n_pad > MAX_WIDTH:
+            raise ValueError(f"layer width {n_out} > {MAX_WIDTH}")
+        k_pads = [padded[s] for s in segments]
+        w = torch.zeros(sum(k_pads), n_pad, dtype=torch.float32, device=device)
+        src_row = dst_row = 0
+        for s, kp in zip(segments, k_pads):
+            k = real[s]
+            w[dst_row:dst_row + k, :n_out] = weight[:, src_row:src_row + k].T.float()
+            src_row += k
+            dst_row += kp
+        if src_row != k_real:
+            raise ValueError(f"segments cover {src_row} inputs, weight has {k_real}")
+        b = torch.zeros(n_pad, dtype=torch.float32, device=device)
+        b[:n_out] = bias.float()
+        w_parts.append(w.reshape(-1))
+        b_parts.append(b.to(dtype).float())
+        seg = list(zip(segments, k_pads)) + [(-1, 0)] * (2 - len(segments))
+        table.append([w_off, b_off, seg[0][0], seg[0][1], seg[1][0], seg[1][1],
+                      n_pad, dst, n_out, out_col, int(relu)])
+        w_off += w.numel()
+        b_off += n_pad
+        macs += k_real * n_out
+        if dst != OUT:
+            real[dst] = padded[dst] = n_pad
+    return PackedMLP(
+        dtype=dtype,
+        weights=torch.cat(w_parts).to(dtype).contiguous(),
+        biases=torch.cat(b_parts).contiguous(),
+        table=np.asarray(table, np.int64),
+        pos_dim=pos_dim, dir_dim=dir_dim, pos_pad=pos_pad, dir_pad=dir_pad, macs=macs,
+    )
+
+
+def _pad_cast(x: torch.Tensor, width: int, dtype: torch.dtype) -> torch.Tensor:
+    out = torch.zeros(x.shape[0], width, dtype=dtype, device=x.device)
+    out[:, : x.shape[1]] = x
+    return out
+
+
+def mlp_fused_plain(pos_map: torch.Tensor, dir_map: torch.Tensor, packed: PackedMLP) -> torch.Tensor:
+    """The layer table run as PyTorch matmuls: [N, 4] f32."""
+    bufs = {
+        BUF_POS: _pad_cast(pos_map, packed.pos_pad, packed.dtype),
+        BUF_DIR: _pad_cast(dir_map, packed.dir_pad, packed.dtype),
+    }
+    out = torch.zeros(pos_map.shape[0], 4, dtype=torch.float32, device=pos_map.device)
+    for w_off, b_off, s0, k0, s1, k1, n_pad, dst, n_out, out_col, relu in packed.table.tolist():
+        x = torch.cat([bufs[s0], bufs[s1]], 1) if s1 >= 0 else bufs[s0]
+        k = k0 + (k1 if s1 >= 0 else 0)
+        w = packed.weights[w_off:w_off + k * n_pad].view(k, n_pad)
+        y = x.float() @ w.float() + packed.biases[b_off:b_off + n_pad]
+        if relu:
+            y = torch.relu(y)
+        y = y.to(packed.dtype)
+        if dst == OUT:
+            out[:, out_col:out_col + n_out] = y[:, :n_out].float()
+        else:
+            bufs[dst] = y
+    return out
+
+
+def _lib():
+    lib = build.load("mlp_fused")
+    p = ctypes.c_void_p
+    lib.nt_mlp_fused.argtypes = [ctypes.c_int, p, p, ctypes.c_int, ctypes.c_int, p, p, p,
+                                 ctypes.c_int, p, ctypes.c_int, p]
+    lib.nt_mlp_fused.restype = ctypes.c_int
+    return lib
+
+
+def mlp_fused(pos_map: torch.Tensor, dir_map: torch.Tensor, packed: PackedMLP) -> torch.Tensor:
+    """Fused forward of the packed chain: pos_map [N, pos_dim] and dir_map
+    [N, dir_dim] float32 -> [N, 4] float32 (rgb logits, density)."""
+    if pos_map.device.type == "cpu":
+        return mlp_fused_plain(pos_map, dir_map, packed)
+    dev = pos_map.device
+    if dev.type != "cuda" or dir_map.device != dev or packed.weights.device != dev:
+        raise ValueError("pos_map, dir_map and the packed weights must be on one CUDA device")
+    if pos_map.dtype != torch.float32 or dir_map.dtype != torch.float32:
+        raise TypeError("pos_map and dir_map must be float32")
+    n = pos_map.shape[0]
+    if pos_map.shape != (n, packed.pos_dim) or dir_map.shape != (n, packed.dir_dim):
+        raise ValueError(f"need pos_map [N, {packed.pos_dim}] and dir_map [N, {packed.dir_dim}], "
+                         f"got {tuple(pos_map.shape)} and {tuple(dir_map.shape)}")
+    if packed.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"unsupported operand dtype {packed.dtype}")
+    if n >= 2**31:
+        raise ValueError(f"{n} samples in one call; split them (chunked_apply)")
+    out = torch.empty(n, 4, dtype=torch.float32, device=dev)
+    if n == 0:
+        return out
+    pos = _pad_cast(pos_map, packed.pos_pad, packed.dtype)
+    dirs = _pad_cast(dir_map, packed.dir_pad, packed.dtype)
+    table = np.ascontiguousarray(packed.table)
+    lib = _lib()
+    rc = lib.nt_mlp_fused(
+        int(packed.dtype == torch.bfloat16), pos.data_ptr(), dirs.data_ptr(),
+        packed.pos_pad, packed.dir_pad, packed.weights.data_ptr(), packed.biases.data_ptr(),
+        table.ctypes.data, len(table), out.data_ptr(), n,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    build.check(lib, rc, "mlp_fused")
+    mlp_fused.launches += 1
+    return out
+
+
+mlp_fused.launches = 0

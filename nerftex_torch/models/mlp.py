@@ -1,0 +1,226 @@
+"""Conditioned NeRF MLP (counterpart of nerftex_tpu/models/mlp.py ParamNerf).
+
+``ParamNerf.forward`` is the plain path: the JAX ``apply`` written with
+PyTorch ops, including its compute-dtype rounding (``_dense``/``_dense_cat``:
+every partial product and the bias add round to ``compute_dtype``).
+``ParamNerf.infer`` is the inference path of the renderer: encodings and
+parameter MLPs in float32, then the dense chain through
+``kernels.mlp_fused`` (the CUDA kernel on a CUDA tensor, its plain version
+on the CPU).
+"""
+
+from typing import Union
+
+import torch
+from torch import nn
+
+from nerftex_torch.kernels import mlp_fused as fused
+from nerftex_torch.utils.util import instantiate, resolve_device
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _dense(layer: nn.Linear, x: torch.Tensor, dtype) -> torch.Tensor:
+    return _dense_cat(layer, [x], dtype)
+
+
+def _dense_cat(layer: nn.Linear, xs, dtype) -> torch.Tensor:
+    """dense(concat(xs)) as a sum of row-block products in ``dtype``,
+    starting from the bias, as the JAX ``_dense_cat`` does."""
+    w = layer.weight.to(dtype)
+    out = layer.bias.to(dtype)
+    off = 0
+    for x in xs:
+        d = x.shape[-1]
+        out = out + x.to(dtype) @ w[:, off:off + d].T
+        off += d
+    if off != w.shape[1]:
+        raise ValueError(f"inputs cover {off} of {w.shape[1]} weight rows")
+    return out
+
+
+class ParamNerf(nn.Module):
+    """NeRF MLP conditioned on geometry/appearance parameters.  Constructor
+    arguments follow the JAX factory (``models/mlp.py:201``); weights are
+    glorot-uniform from a seed-0 ``torch.Generator`` and are normally
+    replaced by ``render.checkpoint.load_jax_params``."""
+
+    def __init__(
+        self,
+        pos_embedding: dict,
+        dir_embedding: dict,
+        param_embedding: dict,
+        n_parameters: Union[int, list],
+        n_pos: int = 3,
+        param_depth: int = 0,
+        param_width: int = 128,
+        depth: int = 8,
+        width: int = 256,
+        skips: list = (4,),
+        color_depth: int = 1,
+        embedding_config: dict = None,
+        include_param_dims: bool = False,
+        name: str = "model",
+        compute_dtype: str = "float32",
+        device=None,
+    ) -> None:
+        super().__init__()
+        if n_pos != 3 or embedding_config is not None or include_param_dims:
+            raise NotImplementedError(
+                "n_pos != 3 and extra embeddings (the IPE/mip variants) come with the mip slice"
+            )
+        if isinstance(n_parameters, int):
+            n_parameters = [n_parameters, 0]
+        self.name = name
+        self.n_geo, self.n_app = int(n_parameters[0]), int(n_parameters[1])
+        self.depth, self.width = int(depth), int(width)
+        self.skips = tuple(skips)
+        self.color_depth = int(color_depth)
+        self.compute_dtype = _DTYPES[compute_dtype]
+
+        self.pos_fm = instantiate(pos_embedding)
+        self.dir_fm = instantiate(dir_embedding)
+        self.param_fm = instantiate(param_embedding)
+
+        device = resolve_device(device)
+        generator = torch.Generator().manual_seed(0)
+
+        def dense(fan_in, fan_out):
+            layer = nn.Linear(fan_in, fan_out, device=device)
+            limit = (6.0 / (fan_in + fan_out)) ** 0.5
+            with torch.no_grad():
+                w = (torch.rand(fan_out, fan_in, generator=generator) * 2 - 1) * limit
+                layer.weight.copy_(w)
+                layer.bias.zero_()
+            return layer
+
+        geo_dim = 0
+        self.param_geo = nn.ModuleList()
+        if self.n_geo > 0:
+            geo_dim = self.param_fm.out_dim(self.n_geo)
+            for _ in range(param_depth):
+                self.param_geo.append(dense(geo_dim, param_width))
+                geo_dim = param_width
+        app_dim = 0
+        self.param_app = nn.ModuleList()
+        if self.n_app > 0:
+            app_dim = self.param_fm.out_dim(self.n_app)
+            for _ in range(param_depth):
+                self.param_app.append(dense(app_dim, param_width))
+                app_dim = param_width
+
+        self.pos_dim = self.pos_fm.out_dim(3) + geo_dim
+        self.dir_dim = self.dir_fm.out_dim(3) + app_dim
+        self.trunk = nn.ModuleList()
+        in_dim = self.pos_dim
+        for i in range(self.depth):
+            self.trunk.append(dense(in_dim, width))
+            in_dim = width + (self.pos_dim if i in self.skips else 0)
+        self.alpha = dense(in_dim, 1)
+        self.bottleneck = dense(in_dim, width)
+        in_dim = width + self.dir_dim
+        self.color_layers = nn.ModuleList()
+        for _ in range(self.color_depth):
+            self.color_layers.append(dense(in_dim, width))
+            in_dim = width
+        self.pre_color = dense(in_dim, width // 2)
+        self.color = dense(width // 2, 3)
+        self._packed = {}
+
+    # -- plain path -------------------------------------------------------
+
+    def _param_part(self, layers, prms, dtype):
+        g = self.param_fm(prms).to(dtype)
+        for layer in layers:
+            g = torch.relu(_dense(layer, g, dtype))
+        return g
+
+    def forward(self, pos, dirs, prms):
+        """(color logits [N, 3], density [N, 1]), float32, computed in
+        ``compute_dtype`` as the JAX ``apply``."""
+        cdt = self.compute_dtype
+        pos_parts = [self.pos_fm(pos).to(cdt)]
+        dir_parts = [self.dir_fm(dirs).to(cdt)]
+        if self.n_geo > 0:
+            pos_parts.append(self._param_part(self.param_geo, prms[:, : self.n_geo], cdt))
+        if self.n_app > 0:
+            dir_parts.append(self._param_part(self.param_app, prms[:, self.n_geo:], cdt))
+        parts = list(pos_parts)
+        for i, layer in enumerate(self.trunk):
+            h = torch.relu(_dense_cat(layer, parts, cdt))
+            parts = pos_parts + [h] if i in self.skips else [h]
+        density = _dense_cat(self.alpha, parts, cdt)
+        h = _dense_cat(self.bottleneck, parts, cdt)
+        parts = dir_parts + [h]
+        for layer in self.color_layers:
+            h = torch.relu(_dense_cat(layer, parts, cdt))
+            parts = [h]
+        h = torch.relu(_dense_cat(self.pre_color, parts, cdt))
+        color = _dense(self.color, h, cdt)
+        return color.float(), density.float()
+
+    # -- fused inference path ---------------------------------------------
+
+    def feature_maps(self, pos, dirs, prms):
+        """pos_map [N, pos_dim] and dir_map [N, dir_dim] in float32: the
+        encodings with the parameter features joined, as the Pallas wrapper
+        builds them outside its kernel."""
+        pos_map = [self.pos_fm(pos)]
+        dir_map = [self.dir_fm(dirs)]
+        if self.n_geo > 0:
+            pos_map.append(self._param_part(self.param_geo, prms[:, : self.n_geo], torch.float32))
+        if self.n_app > 0:
+            dir_map.append(self._param_part(self.param_app, prms[:, self.n_geo:], torch.float32))
+        return torch.cat(pos_map, -1), torch.cat(dir_map, -1)
+
+    def fused_layers(self):
+        """The dense chain as kernels.mlp_fused.pack's layer list."""
+        P, D, HA, HB, OUT = fused.BUF_POS, fused.BUF_DIR, fused.BUF_HA, fused.BUF_HB, fused.OUT
+        layers = []
+        cur = None
+        for i, layer in enumerate(self.trunk):
+            segs = [P] if i == 0 else ([P, cur] if (i - 1) in self.skips else [cur])
+            nxt = HA if cur != HA else HB
+            layers.append((layer.weight, layer.bias, segs, nxt, True, 0))
+            cur = nxt
+        segs = [P, cur] if (self.depth - 1) in self.skips else [cur]
+        nxt = HA if cur != HA else HB
+        layers.append((self.alpha.weight, self.alpha.bias, segs, OUT, False, 3))
+        layers.append((self.bottleneck.weight, self.bottleneck.bias, segs, nxt, False, 0))
+        cur, segs = nxt, [D, nxt]
+        for layer in list(self.color_layers) + [self.pre_color]:
+            nxt = HA if cur != HA else HB
+            layers.append((layer.weight, layer.bias, segs, nxt, True, 0))
+            cur, segs = nxt, [nxt]
+        layers.append((self.color.weight, self.color.bias, segs, OUT, False, 0))
+        return layers
+
+    def packed(self) -> fused.PackedMLP:
+        """The fused kernel's weight layout, rebuilt whenever the compute
+        dtype or a parameter changes (keyed by storage and in-place version)."""
+        key = (self.compute_dtype,) + tuple((p.data_ptr(), p._version) for p in self.parameters())
+        if self._packed.get("key") != key:
+            with torch.no_grad():
+                self._packed = {"key": key, "value": fused.pack(
+                    self.fused_layers(), self.pos_dim, self.dir_dim, self.compute_dtype)}
+        return self._packed["value"]
+
+    @torch.no_grad()
+    def infer(self, pos, dirs, prms):
+        """Inference forward through the fused MLP: (color [N, 3], density [N, 1])."""
+        pos_map, dir_map = self.feature_maps(pos, dirs, prms)
+        out = fused.mlp_fused(pos_map, dir_map, self.packed())
+        return out[:, :3], out[:, 3:4]
+
+
+class Nerf(ParamNerf):
+    """Classic NeRF MLP (counterpart of the JAX ``Nerf`` factory,
+    ``models/mlp.py:131``): a ParamNerf without parameter inputs or color
+    layers.  Accepts and ignores a parameter input, as the reference does."""
+
+    def __init__(self, pos_embedding: dict, dir_embedding: dict, depth: int = 8,
+                 width: int = 256, skips: list = (4,), name: str = "model",
+                 compute_dtype: str = "float32", device=None, **kwargs) -> None:
+        super().__init__(pos_embedding, dir_embedding, None, [0, 0], depth=depth, width=width,
+                         skips=skips, color_depth=0, name=name, compute_dtype=compute_dtype,
+                         device=device)

@@ -1,0 +1,108 @@
+"""Renderer base: the chunked batch loop (counterpart of
+nerftex_tpu/render/renderer.py ``Renderer.__call__`` and ``chunked_apply``).
+
+Inference only in this slice: the stratified training renderer, remat and
+importance sampling come with the training slice.
+"""
+
+import torch
+
+from nerftex_torch.utils.util import resolve_device
+
+
+def chunked_apply(fn, inputs, net_chunk: int):
+    """fn(*inputs) over the leading axis in pieces of at most net_chunk rows;
+    the outputs (a tuple) are concatenated back."""
+    n = inputs[0].shape[0]
+    if n <= net_chunk:
+        return fn(*inputs)
+    outs = [fn(*(x[i:i + net_chunk] for x in inputs)) for i in range(0, n, net_chunk)]
+    return tuple(torch.cat(parts) for parts in zip(*outs))
+
+
+class Renderer:
+    """Chunked ray-batch loop; subclasses implement ``render_rays``."""
+
+    def __init__(
+        self,
+        model=None,
+        n_samples: int = 64,
+        render_chunk: int = 32768,
+        net_chunk: int = 65536,
+        raw_noise_std: float = 0,
+        blur_idx: int = None,
+        map_exr: bool = False,
+        device=None,
+        **kwargs,
+    ) -> None:
+        if raw_noise_std:
+            raise NotImplementedError("raw_noise_std > 0 comes with the training slice")
+        if blur_idx is not None:
+            raise NotImplementedError("blur_idx comes with the mip/filtered slice")
+        self.device = resolve_device(device)
+        self.model = None if model is None else model.to(self.device)
+        self.n_samples = n_samples
+        self.render_chunk = render_chunk
+        self.net_chunk = net_chunk
+        self.map_exr = map_exr
+
+    def render_rays(self, rays_o, rays_d, t, parameters, cone_scale, composite_bkgd,
+                    bkgd_color, u_offset=None) -> dict:
+        raise NotImplementedError
+
+    @torch.inference_mode()
+    def __call__(self, rays_o, rays_d, t, parameters, cone_scale, composite_bkgd: bool = False,
+                 bkgd_color=(1, 1, 1.0), training: bool = False, u_offset=None, **kwargs) -> dict:
+        """Render a [B, R] ray grid in chunks of render_chunk rays.
+
+        rays_o/rays_d [B,R,3], t [B,R,2] (inf on proxy miss), parameters
+        [B,P], cone_scale [B,R,1]; optional u_offset [B,R] per-ray
+        stratified offsets in [0, 1).  Returns {"color_pred": [B,R,3],
+        "alpha_pred": [B,R]} as tensors on the renderer's device."""
+        if training:
+            raise NotImplementedError("training renders come with the training slice")
+
+        def f32(x):
+            return torch.as_tensor(x, dtype=torch.float32, device=self.device)
+
+        rays_o, rays_d, t, cone_scale = f32(rays_o), f32(rays_d), f32(t), f32(cone_scale)
+        b, r = rays_o.shape[0], rays_o.shape[1]
+        n = b * r
+        parameters = f32(parameters).reshape(b, -1)
+        flat = {
+            "rays_o": rays_o.reshape(n, 3),
+            "rays_d": rays_d.reshape(n, 3),
+            "t": t.reshape(n, 2),
+            "parameters": parameters.repeat_interleave(r, 0),
+            "cone_scale": cone_scale.reshape(n, -1),
+        }
+        if u_offset is not None:
+            flat["u_offset"] = f32(u_offset).reshape(n)
+
+        chunk = min(self.render_chunk, n)
+        n_pad = -(-n // chunk) * chunk
+        if n_pad > n:
+            fill = {"t": float("inf"), "u_offset": 0.5}
+            flat = {k: torch.cat([v, v.new_full((n_pad - n,) + v.shape[1:], fill.get(k, 0.0))])
+                    for k, v in flat.items()}
+
+        outs = []
+        for i in range(0, n_pad, chunk):
+            c = {k: v[i:i + chunk] for k, v in flat.items()}
+            outs.append(self.render_rays(
+                c["rays_o"], c["rays_d"], c["t"], c["parameters"], c["cone_scale"],
+                composite_bkgd, bkgd_color, u_offset=c.get("u_offset"),
+            ))
+
+        out = {}
+        for name in outs[0]:
+            if name.startswith("_"):
+                out[name] = sum(int(o[name]) for o in outs)
+                continue
+            v = torch.cat([o[name] for o in outs])[:n]
+            out[name] = v.reshape((b, r) + v.shape[1:])
+        self._report_diagnostics(out)
+        return out
+
+    def _report_diagnostics(self, out: dict) -> None:
+        pass

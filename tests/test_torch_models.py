@@ -1,0 +1,177 @@
+"""nerftex_torch models against the JAX package on the same inputs and the
+same transplanted weights: FourierFeatures, ParamNerf (plain forward, f32
+and bf16) and Nerf, the fused MLP's plain version against the Pallas kernel
+in interpret mode, and the weight transplant."""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import nerftex_tpu.models.mlp as jax_mlp
+from nerftex_tpu.kernels.mlp_pallas import make_fused_apply
+from nerftex_tpu.models.encodings import FourierFeatures as JaxFourier
+from nerftex_tpu.utils import rng
+from nerftex_tpu.utils import util as jax_util
+from nerftex_torch.kernels import mlp_fused as fused
+from nerftex_torch.models.encodings import FourierFeatures
+from nerftex_torch.render.checkpoint import flatten_params, load_jax_params
+from nerftex_torch.utils.util import instantiate
+
+
+def _cfg(n_pos_bands=10, n_dir_bands=4, n_param_bands=4, **kw):
+    def ff(n):
+        return {"module": "network.model.FourierFeatures", "n_freq_bands": n}
+
+    cfg = {"module": "network.model.ParamNerf", "pos_embedding": ff(n_pos_bands),
+           "dir_embedding": ff(n_dir_bands), "param_embedding": ff(n_param_bands),
+           "n_parameters": [1, 6]}
+    cfg.update(kw)
+    return cfg
+
+
+def _pair(**kw):
+    """(JAX model, port ParamNerf with the JAX weights) from one config."""
+    rng.set_seed(0)
+    jax_mlp._INIT_COUNTER[0] = 0
+    cfg = _cfg(**kw)
+    jm = jax_util.instantiate(jax_util.EasyDict(cfg))["model"]
+    tm = instantiate(cfg, device="cpu")
+    load_jax_params(tm, jax.tree.map(np.asarray, jm.params))
+    return jm, tm
+
+
+def _inputs(n, n_prm=7, seed=0):
+    rs = np.random.RandomState(seed)
+    return (rs.uniform(-1, 1, (n, 3)).astype(np.float32),
+            rs.normal(size=(n, 3)).astype(np.float32),
+            rs.uniform(0, 1, (n, n_prm)).astype(np.float32))
+
+
+SMALL = dict(depth=3, width=64, skips=[1])
+
+
+@pytest.fixture(scope="module")
+def small_f32():
+    return _pair(**SMALL)
+
+
+@pytest.mark.parametrize("n_bands", [0, 4, 10])
+def test_fourier_features_match_jax(n_bands):
+    x = np.random.RandomState(n_bands).uniform(-2, 2, (50, 3)).astype(np.float32)
+    want = np.asarray(JaxFourier(n_bands)(x))
+    got = FourierFeatures(n_bands)(torch.tensor(x)).numpy()
+    assert got.shape == want.shape
+    # Same band order; sin/cos of the same f32 arguments up to libm ulps.
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-6)
+
+
+def test_fourier_bf16_operand_rounds_only_the_lift():
+    x = torch.tensor(np.random.RandomState(1).uniform(-2, 2, (20, 3)).astype(np.float32))
+    got = FourierFeatures(4, matmul_precision="bfloat16")(x)
+    xb = x.to(torch.bfloat16).float()
+    want = torch.cat([x, FourierFeatures(4)(xb)[:, 3:]], -1)
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError):
+        FourierFeatures(4, matmul_precision="tf32")
+
+
+def test_param_nerf_f32_forward_and_fused_plain_match_jax(small_f32):
+    jm, tm = small_f32
+    pos, dirs, prm = _inputs(300)
+    c_j, d_j = (np.asarray(v) for v in jm.apply(jm.params, pos, dirs, prm))
+    args = (torch.tensor(pos), torch.tensor(dirs), torch.tensor(prm))
+    with torch.no_grad():
+        c_f, d_f = tm(*args)
+    c_i, d_i = tm.infer(*args)
+    for got, want in ((c_f, c_j), (d_f, d_j), (c_i, c_j), (d_i, d_j)):
+        assert got.shape == want.shape and got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
+
+
+def test_param_nerf_bf16_forward_matches_jax():
+    jm, tm = _pair(compute_dtype="bfloat16", **SMALL)
+    pos, dirs, prm = _inputs(300, seed=3)
+    c_j, d_j = (np.asarray(v) for v in jm.apply(jm.params, pos, dirs, prm))
+    with torch.no_grad():
+        c_t, d_t = tm(torch.tensor(pos), torch.tensor(dirs), torch.tensor(prm))
+    # Both round every partial product and bias add to bf16 (2^-8 relative);
+    # a product accumulated in another order can round one step apart, so
+    # allow a few bf16 ulps of the output scale.
+    scale = max(1.0, float(np.abs(c_j).max()), float(np.abs(d_j).max()))
+    np.testing.assert_allclose(c_t.numpy(), c_j, rtol=0, atol=3 * 2**-8 * scale)
+    np.testing.assert_allclose(d_t.numpy(), d_j, rtol=0, atol=3 * 2**-8 * scale)
+
+
+@pytest.mark.parametrize("variant", ["carpet_width", "param_mlp_geo_only"])
+def test_fused_plain_matches_pallas_interpret(variant):
+    """The fused kernel's plain version against the Pallas kernel run in
+    interpret mode (as tests/test_pallas_mlp.py runs it)."""
+    if variant == "carpet_width":
+        jm, tm = _pair()
+        n_prm = 7
+    else:
+        jm, tm = _pair(n_pos_bands=4, n_dir_bands=2, n_param_bands=2, n_parameters=[2, 0],
+                       param_depth=1, depth=3, width=64, skips=[1], color_depth=2)
+        n_prm = 2
+    pos, dirs, prm = _inputs(200, n_prm=n_prm, seed=5)
+    pallas = make_fused_apply(jm.static_topology, interpret=True, tile=128)
+    c_j, d_j = (np.asarray(v) for v in pallas(jm.params, pos, dirs, prm))
+    c_t, d_t = tm.infer(torch.tensor(pos), torch.tensor(dirs), torch.tensor(prm))
+    np.testing.assert_allclose(c_t.numpy(), c_j, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(d_t.numpy(), d_j, rtol=0, atol=1e-5)
+
+
+def test_fused_pack_layout(small_f32):
+    _, tm = small_f32
+    packed = tm.packed()
+    assert packed.pos_dim == 63 + 9 and packed.dir_dim == 27 + 54
+    assert (packed.pos_pad, packed.dir_pad) == (80, 96)
+    # trunk 3 + alpha + bottleneck + color_depth 1 + pre_color + color
+    assert len(packed.table) == 8
+    assert packed.table[:, 6].max() <= fused.MAX_WIDTH
+    assert (packed.table[:, 0] % 16 == 0).all()   # 32-byte aligned bf16 tiles
+    assert packed.macs == sum(m.weight.numel() for m in tm.modules()
+                              if isinstance(m, torch.nn.Linear))
+    # The cached layout follows the parameters and the compute dtype.
+    assert tm.packed() is packed
+    tm.compute_dtype = torch.bfloat16
+    assert tm.packed().weights.dtype == torch.bfloat16
+    tm.compute_dtype = torch.float32
+    with torch.no_grad():
+        tm.color.bias.add_(1.0)
+    assert tm.packed() is not packed
+    with torch.no_grad():
+        tm.color.bias.sub_(1.0)
+
+
+def test_load_jax_params_checks_keys_and_shapes(small_f32):
+    jm, tm = small_f32
+    flat = flatten_params(jax.tree.map(np.asarray, jm.params))
+    assert flat["trunk/0/w"].shape == (72, 64)
+    load_jax_params(tm, flat)
+    assert torch.equal(tm.trunk[0].weight, torch.tensor(flat["trunk/0/w"]).T)
+    with pytest.raises(KeyError):
+        load_jax_params(tm, {k: v for k, v in flat.items() if k != "alpha/b"})
+    bad = dict(flat, **{"alpha/w": np.zeros((3, 1), np.float32)})
+    with pytest.raises(ValueError):
+        load_jax_params(tm, bad)
+
+
+def test_nerf_matches_jax():
+    rng.set_seed(0)
+    jax_mlp._INIT_COUNTER[0] = 0
+    ff = {"module": "network.model.FourierFeatures", "n_freq_bands": 6}
+    cfg = {"module": "network.model.Nerf", "pos_embedding": ff,
+           "dir_embedding": dict(ff, n_freq_bands=2), "depth": 4, "width": 64, "skips": [2]}
+    jm = jax_util.instantiate(jax_util.EasyDict(cfg))["model"]
+    tm = instantiate(cfg, device="cpu")
+    load_jax_params(tm, jax.tree.map(np.asarray, jm.params))
+    pos, dirs, prm = _inputs(100, n_prm=0, seed=7)
+    c_j, d_j = (np.asarray(v) for v in jm.apply(jm.params, pos, dirs, prm))
+    args = (torch.tensor(pos), torch.tensor(dirs), torch.tensor(prm))
+    with torch.no_grad():
+        c_f, d_f = tm(*args)
+    c_i, d_i = tm.infer(*args)
+    for got, want in ((c_f, c_j), (d_f, d_j), (c_i, c_j), (d_i, d_j)):
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)

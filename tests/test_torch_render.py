@@ -1,0 +1,188 @@
+"""A small frame through nerftex_torch's config-built InstanceRenderer
+against the JAX package's sorted InstanceRenderer: the bench view at 24x24
+rays, the carpet scene, a narrow ParamNerf with the same weights, once with
+deterministic offsets and once with the offsets JAX draws injected."""
+
+import os
+
+import jax
+import numpy as np
+import pytest
+
+import nerftex_tpu.models.mlp as jax_mlp
+from nerftex_tpu.utils import rng
+from nerftex_tpu.utils import util as jax_util
+from nerftex_torch.render.checkpoint import load_jax_params
+from nerftex_torch.ops.rays import frame_rays
+from nerftex_torch.utils.util import instantiate
+
+from scripts.make_torch_bench_inputs import jax_u_offsets
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+H = W = 24
+RAY_BLOCK, RENDER_CHUNK = 64, 512
+
+
+def _model_cfg():
+    def ff(n):
+        return {"module": "network.model.FourierFeatures", "n_freq_bands": n}
+
+    return {"module": "network.model.ParamNerf", "pos_embedding": ff(10),
+            "dir_embedding": ff(4), "param_embedding": ff(4), "n_parameters": [1, 6],
+            "depth": 3, "width": 64, "skips": [1]}
+
+
+def _renderer_cfg(deterministic, sorted_blocks=True):
+    return {
+        "module": "network.renderer.InstanceRenderer",
+        "n_samples": 1024, "render_chunk": RENDER_CHUNK, "net_chunk": 4096,
+        "step_size": 0.002, "sorted_blocks": sorted_blocks,
+        "instancer_config": {
+            "module": "instancer.instancer.Instancer",
+            "b_0": [-1.4, -1.2, -0.1], "b_1": [1.2, 1.2, 1.8],
+            "cast_shadow_rays": False,
+            "textures": [os.path.join(ROOT, "meshes", "smooth_checkerboard.png"), "", "", "",
+                         "light"],
+            "mesh_path": os.path.join(ROOT, "meshes", "cloth_mesh.ply"),
+            "patch_origins_path": os.path.join(ROOT, "meshes", "cloth_anchor_points.ply"),
+            "patch_scale": 0.09, "jitter_amount": 1.0, "instance_sampling_method": "nearest",
+            "max_hits": 16, "ray_block": RAY_BLOCK, "max_steps_per_ray": 320,
+            "cull_budget": 448, "tri_cull_budget": 384,
+            "deterministic_offset": deterministic,
+        },
+    }
+
+
+@pytest.fixture(scope="module")
+def frame():
+    data = frame_rays(H, W, np.array([0.47, -0.65, 0.6]) * 6.0, 0.55,
+                      [1, 1, 1, 0.1, 0, 0, 1.0])
+    rng.set_seed(0)
+    jax_mlp._INIT_COUNTER[0] = 0
+    jm = jax_util.instantiate(jax_util.EasyDict(_model_cfg()))["model"]
+    tm = instantiate(_model_cfg(), device="cpu")
+    load_jax_params(tm, jax.tree.map(np.asarray, jm.params))
+    return data, jm, tm
+
+
+def _jax_render(data, jm, deterministic, key):
+    r = jax_util.instantiate(jax_util.EasyDict(dict(_renderer_cfg(deterministic), model=jm)))
+    out = r(**data, training=False, key=key)
+    return np.asarray(out["color_pred"]), np.asarray(out["alpha_pred"])
+
+
+def _torch_render(data, tm, deterministic, sorted_blocks=True, **kw):
+    r = instantiate(dict(_renderer_cfg(deterministic, sorted_blocks), model=tm, device="cpu"))
+    out = r(**data, **kw)
+    return out["color_pred"].numpy(), out["alpha_pred"].numpy()
+
+
+def _compare(got, want):
+    (c_t, a_t), (c_j, a_j) = got, want
+    assert c_t.shape == c_j.shape == (1, H * W, 3) and a_t.shape == a_j.shape == (1, H * W)
+    assert a_j.max() > 0.5
+    # The float32 frames are not bit-equal: the highest positional band
+    # multiplies local coordinates (|x| up to ~20) by 2^9, so one float32
+    # ulp of geometry (XLA contracts fmas, PyTorch rounds each operation)
+    # moves a sin argument by ~1e-3, and a knife-edge nearest pick (see
+    # test_torch_instancer) swaps a sample's patch.  Measured here: 68-73 dB,
+    # max pixel error 1.3e-2; a wrong frame measures below 30 dB.
+    err = np.maximum(np.abs(c_t - c_j).max(-1), np.abs(a_t - a_j))
+    mse = np.mean(np.concatenate([c_t - c_j, (a_t - a_j)[..., None]], -1) ** 2)
+    assert 10 * np.log10(1 / mse) >= 60
+    assert np.mean(err > 1e-3) <= 0.02
+    assert err.max() <= 3e-2
+
+
+def test_frame_matches_jax_deterministic_offsets(frame):
+    data, jm, tm = frame
+    want = _jax_render(data, jm, True, jax.random.key(0))
+    _compare(_torch_render(data, tm, True), want)
+
+
+def test_frame_matches_jax_with_injected_offsets(frame):
+    data, jm, tm = frame
+    key = jax.random.key(1)
+    want = _jax_render(data, jm, False, key)
+    u = jax_u_offsets(key, H * W, RENDER_CHUNK, RAY_BLOCK)
+    _compare(_torch_render(data, tm, False, u_offset=u[None]), want)
+
+
+def test_sorted_frame_equals_dense_frame(frame):
+    data, _, tm = frame
+    c_s, a_s = _torch_render(data, tm, True)
+    c_d, a_d = _torch_render(data, tm, True, sorted_blocks=False)
+    # Same per-sample inputs and MLP rows; only the composite's reduction
+    # length differs (block max vs the full grid), so a few ulps.
+    np.testing.assert_allclose(c_s, c_d, rtol=0, atol=5e-7)
+    np.testing.assert_allclose(a_s, a_d, rtol=0, atol=5e-7)
+
+
+def test_carpet_render_config_instantiates():
+    """configs/config_carpet_render.py's model and renderer configs resolve
+    to the port's classes."""
+    from configs.config_carpet_render import config
+
+    from nerftex_torch.models.mlp import ParamNerf
+    from nerftex_torch.render.instance_renderer import InstanceRenderer
+
+    model = instantiate(config["model_config"], device="cpu")
+    assert isinstance(model, ParamNerf) and model.pos_dim == 72 and model.dir_dim == 81
+    cfg = dict(config["renderer_config"], model=model, device="cpu")
+    cfg["instancer_config"] = dict(
+        cfg["instancer_config"],
+        textures=[os.path.join(ROOT, t) if t.endswith(".png") else t
+                  for t in cfg["instancer_config"]["textures"]],
+        mesh_path=os.path.join(ROOT, cfg["instancer_config"]["mesh_path"]),
+        patch_origins_path=os.path.join(ROOT, cfg["instancer_config"]["patch_origins_path"]),
+    )
+    r = instantiate(cfg)
+    assert isinstance(r, InstanceRenderer)
+    assert r.instancer.n_instances() == 900 and r.patch_scale == 0.09
+    assert r.render_chunk == 16384 and r.net_chunk == 32768
+
+
+def test_unported_options_raise():
+    cfg = _renderer_cfg(True)
+    for key, value in (("cast_shadow_rays", True), ("instance_sampling_method", "random"),
+                       ("instance_sampling_method", "nearest_blend"), ("pallas_selk", True)):
+        bad = dict(cfg, instancer_config=dict(cfg["instancer_config"], **{key: value}))
+        with pytest.raises(NotImplementedError):
+            instantiate(dict(bad, device="cpu"))
+    with pytest.raises(NotImplementedError):
+        instantiate(dict(cfg, sample_budget_per_ray=160, device="cpu"))
+
+
+def test_bench_rays_match_tpu_golden():
+    """Two ray blocks of the bench frame through the full-width bf16 port
+    (bench weights and JAX-drawn offsets from tests/torch_bench_inputs.npz)
+    against the TPU-rendered golden frame, at bench.py's 55 dB floor.  The
+    golden's slab-test and Fourier-lift matmuls took bf16 operands on the
+    TPU, so the port renders with matmul_precision="bfloat16"."""
+    inputs = np.load(os.path.join(ROOT, "tests", "torch_bench_inputs.npz"))
+    params = {k[len("param/"):]: inputs[k] for k in inputs.files if k.startswith("param/")}
+
+    def ff(n):
+        return {"module": "network.model.FourierFeatures", "n_freq_bands": n,
+                "matmul_precision": "bfloat16"}
+
+    model = instantiate({"module": "network.model.ParamNerf", "pos_embedding": ff(10),
+                         "dir_embedding": ff(4), "param_embedding": ff(4),
+                         "n_parameters": [1, 6], "compute_dtype": "bfloat16"}, device="cpu")
+    load_jax_params(model, params)
+    cfg = _renderer_cfg(False)
+    cfg["instancer_config"].update(max_hits=48, ray_block=1024, matmul_precision="bfloat16")
+    renderer = instantiate(dict(cfg, render_chunk=262144, net_chunk=32768, model=model,
+                                device="cpu"))
+    data = frame_rays(512, 512, np.array([0.47, -0.65, 0.6]) * 6.0, 0.55,
+                      [1, 1, 1, 0.1, 0, 0, 1.0])
+    sel = np.concatenate([np.arange(128 * 1024, 129 * 1024), np.arange(150 * 1024, 151 * 1024)])
+    sub = {k: (v if k == "parameters" else v[:, sel]) for k, v in data.items()}
+    out = renderer(**sub, u_offset=inputs["u_offset"][sel][None])
+    color, alpha = out["color_pred"][0].numpy(), out["alpha_pred"][0].numpy()
+    golden = np.load(os.path.join(ROOT, "tests", "golden_bench_frame.npz"))
+    err = np.concatenate([color - golden["color"][sel].astype(np.float32),
+                          (alpha - golden["alpha"][sel].astype(np.float32))[:, None]], -1)
+    assert alpha.max() > 0.5
+    assert 10 * np.log10(1 / np.mean(err**2)) >= 55.0

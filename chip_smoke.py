@@ -14,7 +14,15 @@ Phases (any failure raises and exits non-zero):
      the config-built port with the transplanted bench weights and the
      JAX-drawn per-ray offsets (tests/torch_bench_inputs.npz), checked
      against tests/golden_bench_frame.npz at bench.py's 55 dB floor, with
-     both kernels' launch counts from that render, then timed (best of 3).
+     the kernels' launch counts from that render, then timed (best of 3);
+  5. the plush frame (configs/config_plush_render.py at 800x800 with the
+     plush operating point: shadow rays, nearest_blend picks through the
+     selk_resolve kernel) rendered through the config-built port with the
+     transplanted plush weights (tests/torch_plush_inputs.npz) and JAX's
+     own random draws for key(1) (nerftex_torch.utils.jax_rng), checked
+     against tests/golden_scene_plush.npz at scripts/bench_scene.py's
+     50 dB floor on the same 10x box downsample, with every kernel's launch
+     count from that render, then timed (best of 2).
 The last two lines of stdout are the kernels JSON and the device JSON.
 """
 
@@ -29,6 +37,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_PSNR_DB = 55.0                 # bench.py's floor
+PLUSH_GOLDEN_PSNR_DB = 50.0           # scripts/bench_scene.py's floor
 TEX_SAMPLES = 1 << 20                 # >= 1M uv samples
 MLP_SAMPLES = 262144                  # one render chunk's worth of samples
 # Tolerances, kernel vs plain version on the same card:
@@ -42,6 +51,16 @@ MLP_SAMPLES = 262144                  # one render chunk's worth of samples
 TEX_ATOL = 4e-7
 MLP_F32_TOL = 1e-4                    # x max(1, max|plain|)
 MLP_BF16_TOL = 5e-2                   # x max(1, max|plain|)
+#  selk_resolve: nearest and random picks and n_active exact (the same
+#    comparisons in the same order); nearest_blend sums its weights and
+#    cumsum in slot order, the plain version in PyTorch's reduction order,
+#    so a pick may differ where u sits within 1e-5 of a cum value (the JAX
+#    package's pin, tests/test_selk_kernel.py) and p_sel by the sums'
+#    rounding where the picks agree.
+SELK_SHAPE = (2048, 1280, 128)        # plush: ray block, step cap, max_hits
+SELK_EDGE = 1e-5
+SELK_P_RTOL = 1e-4
+SELK_OPS_PER_ELEMENT = 15             # per (sample, hit slot); selk_resolve.cu
 
 H100_BYTES_PER_S = 3.35e12            # HBM3, SXM data sheet
 H100_BF16_FLOPS = 989e12              # dense tensor-core bf16
@@ -107,6 +126,75 @@ def renderer_config(matmul_precision):
     }
 
 
+def plush_model_config():
+    """configs/config_plush_render.py's ParamNerf in bf16, with the TPU's
+    bf16 operands in the Fourier lift (as the golden was rendered)."""
+    def ff(n):
+        return {"module": "network.model.FourierFeatures", "n_freq_bands": n,
+                "matmul_precision": "bfloat16"}
+
+    return {"module": "network.model.ParamNerf", "pos_embedding": ff(10),
+            "dir_embedding": ff(4), "param_embedding": ff(4), "n_parameters": [1, 4],
+            "param_depth": 0, "color_depth": 1, "compute_dtype": "bfloat16"}
+
+
+def plush_renderer_config():
+    """configs/config_plush_render.py's renderer and instancer with the plush
+    operating point (nerftex_tpu/operating_points.py) and the flags that
+    wrote tests/golden_scene_plush.npz (scripts/ab_round3e.sh: the whole
+    frame in one render chunk, ray block 2048)."""
+    return {
+        "module": "network.renderer.InstanceRenderer",
+        "n_samples": 1280, "render_chunk": 640000, "net_chunk": 65536, "step_size": 0.0005,
+        "density_reweighting": True, "sorted_blocks": True,
+        "instancer_config": {
+            "module": "instancer.instancer.Instancer",
+            "b_0": [-1.1, -1.1, -0.2], "b_1": [1.1, 1.1, 1.1], "cast_shadow_rays": True,
+            "textures": ["", "meshes/checkerboard.png", "light"],
+            "mesh_path": "meshes/stanford_bunny.ply", "patch_scale": 0.04,
+            "min_shadow_samples": 4, "n_shadow_samples": 128, "min_texture_samples": 4,
+            "n_texture_samples": 128, "jitter_amount": 0.3,
+            "instance_sampling_method": "nearest_blend",
+            "ray_block": 2048, "max_hits": 128, "max_steps_per_ray": 1280,
+            "cull_budget": 384, "tri_cull_budget": 1024, "shadow_cull_budget": 768,
+            "shadow_tri_cull_budget": 1536, "pallas_selk": True,
+            "matmul_precision": "bfloat16",
+        },
+    }
+
+
+def plush_data():
+    """The plush frame's rays (the JAX test dataset's first item)."""
+    import math
+
+    from nerftex_torch.ops.rays import frame_rays
+
+    inp = np.load(os.path.join(ROOT, "tests", "torch_plush_inputs.npz"))
+    h, w, angle = int(inp["height"]), int(inp["width"]), float(inp["angle"])
+    data = frame_rays(h, w, inp["eye"], angle, inp["parameters"], (-0.9, -0.6, -0.8),
+                      (0.9, 0.8, 0.9), focal=w / math.tan(angle / 2) / 2)
+    params = {k[len("param/"):]: inp[k] for k in inp.files if k.startswith("param/")}
+    return data, params, h, w
+
+
+def plush_golden_psnr(out, h, w):
+    """scripts/bench_scene.py check_golden's comparison: the frame box-
+    downsampled 10x (800 -> 80) against the float16 golden."""
+    color = out["color_pred"][0].float().cpu().numpy()
+    alpha = out["alpha_pred"][0].float().cpu().numpy()
+    if color.shape != (h * w, 3) or alpha.shape != (h * w,):
+        raise AssertionError(f"frame shapes {color.shape} {alpha.shape}")
+    if not (np.isfinite(color).all() and np.isfinite(alpha).all()):
+        raise AssertionError("plush frame has non-finite values")
+    f = 10
+    frame = np.concatenate([color.reshape(h, w, 3), alpha.reshape(h, w, 1)], -1)
+    small = frame.reshape(h // f, f, w // f, f, 4).mean((1, 3))
+    g = np.load(os.path.join(ROOT, "tests", "golden_scene_plush.npz"))["frame"].astype(np.float32)
+    if g.shape != small.shape:
+        raise AssertionError(f"plush golden {g.shape} != frame {small.shape}")
+    return 10 * np.log10(1.0 / max(float(np.mean((small - g) ** 2)), 1e-12))
+
+
 def golden_psnr(out):
     """bench.py _check_golden's comparison."""
     color = out["color_pred"][0].float().cpu().numpy()
@@ -157,6 +245,110 @@ def check_tex(tex_gather, channel):
     log(f"tex_fetch: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
         f"grid_sample {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms")
     return row
+
+
+def selk_inputs(rb, s, k):
+    """Overlap-resolution inputs at the plush shapes, made from a numpy
+    seed in the render path's layout: each ray's valid hit slots are a
+    prefix, ascending in tk0 (one ray in 16 has none), and samples spread
+    over [0, 3] so some fall outside every interval."""
+    rs = np.random.RandomState(3)
+    n_valid = rs.randint(1, k + 1, rb)
+    n_valid[::16] = 0
+    slot = np.arange(k)[None, :]
+    kvalid = slot < n_valid[:, None]
+    tk0 = np.sort(rs.uniform(0.0, 2.5, (rb, k)), -1)
+    tk1 = tk0 + rs.uniform(0.01, 0.3, (rb, k))
+    tk0, tk1 = np.where(kvalid, tk0, np.inf), np.where(kvalid, tk1, np.inf)
+    c = rs.uniform(0.0, 2.5, (rb, k))
+    sel_a = c * c + rs.uniform(0.0, 0.01, (rb, k))
+    t_pt = rs.uniform(0.0, 3.0, (rb, s))
+    u_sel = rs.uniform(size=(rb, s))
+    dev = torch.device("cuda")
+
+    def f32(x):
+        return torch.tensor(x.astype(np.float32), device=dev)
+
+    args = (f32(tk0), f32(tk1), torch.tensor(kvalid, device=dev), f32(sel_a), f32(-c),
+            f32(t_pt), f32(u_sel))
+    return args, n_valid
+
+
+def check_selk(selk):
+    """The selk_resolve kernel against its plain version at the plush
+    shapes, for each method; times of the main path's method
+    (nearest_blend) and the bound."""
+    rb, s, k = SELK_SHAPE
+    args, n_valid = selk_inputs(rb, s, k)
+    blend = 0.2 * 0.04                  # plush: 0.2 x patch_scale
+    per_method = {}
+    for method in ("random", "nearest", "nearest_blend"):
+        got = selk.selk_resolve(*args, method=method, blend_range=blend)
+        ref = selk.selk_resolve_plain(*args, method=method, blend_range=blend)
+        torch.cuda.synchronize()
+        sel, p, n = got
+        r_sel, r_p, r_n = ref
+        if not torch.equal(n, r_n):
+            raise AssertionError(f"selk_resolve {method}: n_active differs")
+        same = sel == r_sel
+        n_mism = int((~same).sum())
+        max_edge = 0.0
+        if method != "nearest_blend" and n_mism:
+            raise AssertionError(f"selk_resolve {method}: {n_mism} picks differ")
+        if n_mism:
+            # Knife edges: u within SELK_EDGE of a value of the plain cumsum.
+            r, c = torch.nonzero(~same, as_tuple=True)
+            cum = blend_cum(selk, [a[r] for a in args[:5]], args[5][r, c], blend)
+            max_edge = float((args[6][r, c][:, None] - cum).abs().min(-1).values.max())
+            if not max_edge <= SELK_EDGE:
+                raise AssertionError(f"selk_resolve nearest_blend: {n_mism} picks differ off "
+                                     f"knife edges (max distance {max_edge})")
+        p_err = float((p[same] - r_p[same]).abs().max())
+        if not torch.allclose(p[same], r_p[same], rtol=SELK_P_RTOL, atol=1e-7):
+            raise AssertionError(f"selk_resolve {method}: p_sel off by {p_err}")
+        per_method[method] = {"mismatches": n_mism, "max_knife_edge": max_edge,
+                              "max_abs_err": p_err,
+                              "ms": time_ms(lambda: selk.selk_resolve(*args, method=method,
+                                                                      blend_range=blend)),
+                              "plain_ms": time_ms(lambda: selk.selk_resolve_plain(
+                                  *args, method=method, blend_range=blend), iters=3, warmup=1)}
+        log(f"selk_resolve {method}: {rb}x{s}x{k}, picks differing {n_mism} of {sel.numel()} "
+            f"(max knife edge {max_edge:.3g}), max |p - plain| {p_err:.3g}, "
+            f"kernel {per_method[method]['ms']:.4f} ms, plain {per_method[method]['plain_ms']:.3f} ms")
+    # Bytes: five [Rb, K] tables and two [Rb, S] planes in, three out.  The
+    # K loop ends at each ray's last valid slot (at least slot 0).
+    nbytes = rb * k * (4 * 4 + 1) + rb * s * 8 + rb * s * 12
+    flops = SELK_OPS_PER_ELEMENT * s * int(np.maximum(n_valid, 1).sum())
+    main = per_method["nearest_blend"]
+    row = {
+        "name": "selk_resolve", "route": "cuda",
+        "source": "nerftex_torch/kernels/csrc/selk_resolve.cu",
+        "replaces": "nerftex_tpu/kernels/selk_resolve.py:144",
+        "max_abs_err": main["max_abs_err"], "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": max(nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS) * 1e3,
+        "bound_by": "operations" if flops / H100_F32_FLOPS > nbytes / H100_BYTES_PER_S
+        else "bytes",
+        "library_ms": None,
+        "shape": list(SELK_SHAPE), "methods": per_method,
+    }
+    log(f"selk_resolve: bound {row['bound_ms']:.4f} ms ({row['bound_by']}: {flops:.3g} "
+        f"operations, {nbytes / 1e6:.1f} MB)")
+    return row
+
+
+def blend_cum(selk, tables, t, blend):
+    """The plain version's nearest_blend cumsum [M, K] at single samples
+    (tables [M, K], t [M]), for the knife-edge check."""
+    tk0, tk1, kv, sa, sb = tables
+    tp = t[:, None]
+    active = kv & (tk0 <= tp) & (tp < tk1)
+    iv = torch.where(kv, torch.maximum(tk0 - tp, tp - tk1).clamp(min=0), float("inf"))
+    fb = torch.nn.functional.one_hot(iv.argmin(-1), tk0.shape[-1]).bool()
+    active = torch.where((active.sum(-1) == 0)[:, None], fb, active)
+    d2 = selk.anchor_d2(sa, sb, tp).clamp(min=0)
+    dist = torch.where(active, d2.sqrt(), float("inf"))
+    w = torch.where(active, (blend + dist.min(-1, keepdim=True).values - dist).clamp(min=0), 0.0)
+    return torch.cumsum(w / w.sum(-1, keepdim=True).clamp(min=1e-20), -1)
 
 
 def cublas_chain(packed):
@@ -249,11 +441,13 @@ def main():
     sys.path.insert(0, ROOT)
     os.chdir(ROOT)
     from nerftex_torch.instancing.scene import load_texture_channels
-    from nerftex_torch.kernels import build, mlp_fused as fused, tex_gather
+    from nerftex_torch.kernels import build, mlp_fused as fused, selk_resolve as selk, tex_gather
     from nerftex_torch.ops.rays import frame_rays
+    from nerftex_torch.utils import jax_rng
     from nerftex_torch.render.checkpoint import load_jax_params
     from nerftex_torch.utils.util import instantiate
 
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -268,6 +462,7 @@ def main():
         f"({', '.join(f'{k} {v:.1f} s' for k, v in built.items()) or 'cached'})")
 
     # -- kernels vs plain --------------------------------------------------------
+    t_phase = time.perf_counter()
     inputs = np.load(os.path.join(ROOT, "tests", "torch_bench_inputs.npz"))
     params = {k[len("param/"):]: inputs[k] for k in inputs.files if k.startswith("param/")}
     channel = load_texture_channels(os.path.join(ROOT, "meshes", "smooth_checkerboard.png"))[0]
@@ -280,8 +475,20 @@ def main():
     # The main path runs the bf16 variant; the f32 one rides along in its row.
     rows["mlp_fused"] = dict(mlp["bfloat16"], float32_variant={
         k: mlp["float32"][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")})
+    rows["selk_resolve"] = check_selk(selk)
+    log(f"phase kernels: {time.perf_counter() - t_phase:.1f} s")
+    counters = {"tex_fetch": tex_gather.sample_channel, "mlp_fused": fused.mlp_fused,
+                "selk_resolve": selk.selk_resolve}
+
+    def reset_counts():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read_counts():
+        return {name: fn.launches for name, fn in counters.items()}
 
     # -- the bench frame -------------------------------------------------------
+    t_phase = time.perf_counter()
     data = frame_rays(512, 512, np.array([0.47, -0.65, 0.6]) * 6.0, 0.55,
                       [1, 1, 1, 0.1, 0, 0, 1.0])
     u_offset = inputs["u_offset"][None]
@@ -295,18 +502,16 @@ def main():
     # Fourier lift's f32 matmuls run at DEFAULT precision (bf16 operands);
     # the port reproduces that with matmul_precision="bfloat16".
     renderer = build_renderer("bfloat16")
-    tex_gather.sample_channel.launches = 0
-    fused.mlp_fused.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     out = renderer(**data, u_offset=u_offset)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = {"tex_fetch": tex_gather.sample_channel.launches,
-                "mlp_fused": fused.mlp_fused.launches}
-    log(f"bench frame (first render {first_s:.2f} s): launches {launches}")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"the main path did not launch {name}")
+    carpet_launches = read_counts()
+    log(f"bench frame (first render {first_s:.2f} s): launches {carpet_launches}")
+    for name in ("tex_fetch", "mlp_fused"):
+        if carpet_launches[name] <= 0:
+            raise AssertionError(f"the bench frame did not launch {name}")
     psnr = golden_psnr(out)
     log(f"golden check: {psnr:.2f} dB (floor {GOLDEN_PSNR_DB})")
     if not psnr >= GOLDEN_PSNR_DB:
@@ -326,10 +531,53 @@ def main():
     # Informational: the same frame with every matmul operand in f32.
     f32_out = build_renderer("float32")(**data, u_offset=u_offset)
     log(f"golden check with float32 matmul operands: {golden_psnr(f32_out):.2f} dB (not gated)")
+    del renderer, out, f32_out
+    carpet = {"rays_per_s": rays_per_s, "best_ms": best * 1e3, "golden_psnr_db": psnr}
+    log(f"phase bench frame: {time.perf_counter() - t_phase:.1f} s")
 
-    kernels = [dict(row, launches=launches[name]) for name, row in rows.items()]
-    log(json.dumps({"frame": {"rays_per_s": rays_per_s, "best_ms": best * 1e3,
-                              "golden_psnr_db": psnr, "card": card}}))
+    # -- the plush frame ----------------------------------------------------------
+    t_phase = time.perf_counter()
+    p_data, p_params, h, w = plush_data()
+    model = instantiate(plush_model_config(), device="cuda")
+    load_jax_params(model, p_params)
+    renderer = instantiate(dict(plush_renderer_config(), model=model, device="cuda"))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = renderer(**p_data, key=jax_rng.key(1))
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    plush_launches = read_counts()
+    log(f"plush frame (first render {first_s:.2f} s): launches {plush_launches}, shadow "
+        f"branches {renderer.instancer.device_instancer.shadow_branches}")
+    for name, n in plush_launches.items():
+        if n <= 0:
+            raise AssertionError(f"the plush frame did not launch {name}")
+    p_psnr = plush_golden_psnr(out, h, w)
+    log(f"plush golden check: {p_psnr:.2f} dB (floor {PLUSH_GOLDEN_PSNR_DB}, 10x downsample)")
+    if not p_psnr >= PLUSH_GOLDEN_PSNR_DB:
+        raise AssertionError(f"plush frame diverged from golden: {p_psnr:.2f} dB")
+    p_best = float("inf")
+    for _ in range(2):
+        t0 = time.perf_counter()
+        renderer(**p_data, key=jax_rng.key(1))
+        torch.cuda.synchronize()
+        p_best = min(p_best, time.perf_counter() - t0)
+    p_peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"plush frame: best of 2 warm renders {p_best * 1e3:.1f} ms -> "
+        f"{h * w / p_best:.1f} rays/s, peak device memory {p_peak:.2f} GiB on {card}")
+    log(f"phase plush frame: {time.perf_counter() - t_phase:.1f} s")
+    plush = {"rays_per_s": h * w / p_best, "best_ms": p_best * 1e3, "golden_psnr_db": p_psnr,
+             "peak_gib": p_peak}
+
+    kernels = [dict(row, launches=plush_launches[name],
+                    launches_per_frame={"bench": carpet_launches[name],
+                                        "plush": plush_launches[name]})
+               for name, row in rows.items()]
+    log(json.dumps({"frames": {"bench": carpet, "plush": plush}, "card": card,
+                    "seconds": time.perf_counter() - t_start}))
+    log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

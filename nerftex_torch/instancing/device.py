@@ -1,45 +1,67 @@
 """Device instancer: per-ray hit intervals, per-sample overlap resolution,
 local frames and texture parameters, in PyTorch.
 
-Counterpart of nerftex_tpu/instancing/device.py for the main render path
-(``nearest`` overlap selection, directional light, no shadow rays):
+Counterpart of nerftex_tpu/instancing/device.py for the grid render paths
+(``random``, ``nearest`` and ``nearest_blend`` overlap selection, a
+directional light, optional shadow rays):
 
   1. ``_per_ray``: slab tests of every ray against every instance's local
      box (or the exact fan-culled candidates), top-K nearest intervals
      clipped at the first mesh hit (Moller-Trumbore, optionally over the
      fan-culled triangles), the union of intervals as sorted events with
-     prefix sums, and the per-ray sample layout (``n_steps``, offset);
+     prefix sums, the per-ray sample layout (``n_steps``, offset) and,
+     with shadows, the per-ray ``shadow_blocked`` table: occlusion toward
+     the light of ``shadow_samples`` points spread over the inside arc,
+     through the exact skip/culled/full branch of ``_occlusion_branched``;
   2. ``_per_sample_grid``: arc-length sample positions mapped to world t,
-     the ``nearest`` pick among the active intervals, then
-     ``_per_sample_grid_tail``: local transforms, the texture-driven
-     parameter slots (through kernels.tex_gather) and the light direction;
+     the overlap pick among the active intervals (kernels.selk_resolve
+     with ``pallas_selk``, else its plain chain) and its density weight,
+     then ``_per_sample_grid_tail``: local transforms, the texture-driven
+     parameter slots (through kernels.tex_gather) and the light direction,
+     pointed down for samples whose shadow bucket is blocked;
   3. ``render_grid_sorted``: the per-ray stage for all rays, rays sorted by
-     step count, each sorted block run at its own maximum step count
-     (all-empty blocks take the caller's terminator-only shading), and the
-     results put back in ray order.  ``get_model_input`` is the dense grid
-     over ``min(n_samples, max_steps_per_ray)`` steps, the exactness
-     yardstick of the sorted path.
+     step count, each sorted block run at its own maximum step count and,
+     for K >= 64, at the JAX package's hit tier (all-empty blocks take the
+     caller's terminator-only shading), and the results put back in ray
+     order.  ``get_model_input`` is the dense grid over
+     ``min(n_samples, max_steps_per_ray)`` steps, the exactness yardstick
+     of the sorted path.
 
 The JAX package's one-hot selects, packed permutes, layout barriers and
 ``lax.switch`` buckets exist for the TPU; here they are plain indexing,
-``torch.sort`` and per-block dynamic shapes, with the same results.
-Per-ray stratified offsets come from ``u_offset`` when the caller gives
-them (e.g. offsets drawn by JAX, for parity), else 0.5 with
-``deterministic_offset``, else this instancer's ``torch.Generator``.
+``torch.sort`` and per-block dynamic shapes, with the same results.  The
+culls' branches are chosen on the host, one synchronisation per block.
+
+Random draws.  Per-ray stratified offsets come from ``u_offset`` when the
+caller gives them, else 0.5 with ``deterministic_offset``, else from a
+``key`` (utils.jax_rng: the very numbers the JAX package draws from the
+same key), else from this instancer's ``torch.Generator``.  The per-sample
+pick draws ``u_sel`` from the key or the generator likewise.
 """
 
+import bisect
 import math
 
 import numpy as np
 import torch
 
 from nerftex_torch.instancing.scene import Scene
+from nerftex_torch.kernels.selk_resolve import fma, selk_resolve, selk_resolve_plain
 from nerftex_torch.kernels.tex_gather import sample_channel
 from nerftex_torch.models.encodings import check_matmul_precision, round_operand
 from nerftex_torch.ops.volume import mean_distance
+from nerftex_torch.utils import jax_rng
 
 T_FAR = 100.0
 _INF = float("inf")
+# The sorted path's per-sample stream folds this into the key (JAX's
+# render_grid_sorted), disjoint from the per-block folds of the offsets.
+_SORTED_FOLD = 0x7FFFFFFF
+# Shadow queries are chunked over points so that each [points, columns]
+# float32 plane stays at or under 2^24 elements (64 MiB); the box and
+# triangle tests hold about 15 such planes at once (~1 GiB).  One plush
+# block's full query would be [65536, 3120] per plane (0.8 GiB).
+_SHADOW_PLANE = 1 << 24
 
 
 class DeviceScene:
@@ -67,6 +89,8 @@ class DeviceScene:
             e1 = V[F[:, 1]] - V[F[:, 0]]
             e2 = V[F[:, 2]] - V[F[:, 0]]
             self.tri_v0, self.tri_e1, self.tri_e2 = t(v0), t(e1), t(e2)
+            # Geometric normals for the shadow query's front-face test.
+            self.tri_ng = torch.linalg.cross(self.tri_e1, self.tri_e2)
             self.n_tris = len(F)
             # Triangle bounding spheres for the block-fan cull.
             cen = v0 + (e1 + e2) / 3.0
@@ -114,6 +138,9 @@ class DeviceScene:
         self.light_strength_idx = int(scene.light_strength_idx)
         self.texture_parameter_idxs = tuple(scene.texture_parameter_idxs)
         self.use_mean_distance = bool(scene.use_mean_distance)
+        self.cast_shadow_rays = bool(scene.cast_shadow_rays)
+        self.instance_sampling_method = scene.instance_sampling_method
+        self.nearest_blend_range = 0.2 * self.patch_scale
 
 
 # ---------------------------------------------------------------------------
@@ -205,6 +232,60 @@ def _keep_to_candidates(keep, C):
     return torch.where(cand_valid, prio, 0), cand_valid
 
 
+def _dot3(a, b):
+    """sum(a * b, -1) over 3 components as XLA evaluates it:
+    fma(a2, b2, fma(a1, b1, a0 b0))."""
+    return fma(a[..., 2], b[..., 2], fma(a[..., 1], b[..., 1], a[..., 0] * b[..., 0]))
+
+
+def _light_cone(light_dir, valid):
+    """Cone bound of the valid rows' light directions: unit mean axis, a
+    conservative tan of the half-angle, and a ``wide`` flag (cos below
+    0.1) that turns culling off."""
+    eps = 1e-12
+    l = light_dir / torch.clamp(torch.linalg.norm(light_dir, dim=-1, keepdim=True), min=eps)
+    w = valid.float()[:, None]
+    u = torch.sum(l * w, 0) / torch.clamp(torch.sum(w), min=1.0)
+    u = u / torch.clamp(torch.linalg.norm(u), min=eps)
+    cos_min = torch.min(torch.where(valid, l @ u, 1.0))
+    cos_safe = torch.clamp(cos_min, min=0.1)
+    sin_max = torch.sqrt(torch.clamp(1.0 - cos_safe * cos_safe, min=0.0))
+    return u, sin_max / cos_safe, cos_min <= 0.1
+
+
+def _swept_keep(c, r, u_l, tan_a, centers, radii):
+    """Conservative sphere-vs-swept-cone test: False only for spheres that
+    no segment from the ball (c, r) toward the light cone can reach."""
+    v = centers - c
+    va = v @ u_l
+    lat2 = torch.sum(v * v, -1) - va * va
+    reach = radii + r
+    slack = reach + torch.clamp(va + reach, min=0.0) * tan_a
+    return (va >= -reach) & (lat2 <= slack * slack)
+
+
+def _point_bound(pts, valid):
+    """Bounding sphere of pts[valid], its radius inflated by a relative
+    epsilon; a zero sphere at the origin when nothing is valid."""
+    pts_safe = torch.where(valid[:, None], pts, 0.0)
+    w = valid.float()[:, None]
+    c = torch.sum(pts_safe * w, 0) / torch.clamp(torch.sum(w), min=1.0)
+    d2 = torch.sum((pts_safe - c) ** 2, -1)
+    r = torch.sqrt(torch.max(torch.where(valid, d2, 0.0)))
+    return c, r * 1.001 + 1e-5
+
+
+def _slice_hits(ray, K_b):
+    """A block's per-ray tables cut to their first K_b hit slots (2 K_b
+    events)."""
+    ray = dict(ray)
+    for k in ("tk0", "tk1", "inst_idx", "kvalid", "sel_a", "sel_b"):
+        ray[k] = ray[k][:, :K_b]
+    for k in ("cum_incl", "arc_corr"):
+        ray[k] = ray[k][:, :2 * K_b].contiguous()
+    return ray
+
+
 def _dists_grid(n_steps, total, tiny, S, step):
     """Sample spacing [Rb, S] from the per-ray scalars: uniform ``step``, a
     shortened last interval, and the single sample of a tiny interval."""
@@ -234,28 +315,37 @@ class DeviceInstancer:
         max_steps_per_ray: int = 512,
         cull_budget: int = 0,
         tri_cull_budget: int = 0,
+        shadow_samples: int = 32,
+        shadow_cull_budget: int = 0,
+        shadow_tri_cull_budget: int = 0,
         seed: int = 0,
         deterministic_offset: bool = False,
+        pallas_selk: bool = False,
         matmul_precision: str = "float32",
     ):
-        if scene.cast_shadow_rays:
-            raise NotImplementedError("shadow rays come with the shadows slice")
-        if scene.instance_sampling_method != "nearest":
-            raise NotImplementedError(
-                f"instance_sampling_method={scene.instance_sampling_method!r} comes with the "
-                "shadows slice; this slice ports 'nearest'"
-            )
+        if scene.instance_sampling_method not in ("random", "nearest", "nearest_blend"):
+            raise ValueError(
+                f"unknown instance_sampling_method {scene.instance_sampling_method!r}")
         if scene.light_strength_idx >= 0:
-            raise NotImplementedError("point lights come with the shadows slice")
+            raise NotImplementedError("point lights come with the grass slice")
         self.device = device
         self.ds = DeviceScene(scene, device)
         self.max_hits = max_hits
         self.ray_block = ray_block
         self.max_steps_per_ray = max_steps_per_ray
         # Exact speed tiers: a block whose conservative keep set fits the
-        # budget tests only those candidates, any other block all of them.
+        # budget tests only those candidates, any other block all of them;
+        # likewise for the shadow query's swept-cone keep sets.
         self.cull_budget = cull_budget
         self.tri_cull_budget = tri_cull_budget
+        self.shadow_samples = shadow_samples
+        self.shadow_cull_budget = shadow_cull_budget
+        self.shadow_tri_cull_budget = shadow_tri_cull_budget
+        # The overlap pick through the selk_resolve kernel (CUDA tensors)
+        # instead of the [Rb, S, K] chain; the JAX package's per-scene knob.
+        self.pallas_selk = bool(pallas_selk)
+        # How often the shadow query took each exact branch (diagnostic).
+        self.shadow_branches = {"skip": 0, "culled": 0, "full": 0}
         self.deterministic_offset = deterministic_offset
         # Operand rounding of the slab test's ray-to-local matmuls (see
         # models.encodings.round_operand).
@@ -279,9 +369,11 @@ class DeviceInstancer:
 
     # -- ray batches ------------------------------------------------------
 
-    def _prepare(self, rays_o, rays_d, parameters, u_offset, extra=()):
+    def _prepare(self, rays_o, rays_d, parameters, u_offset, key, extra=()):
         """Float32 tensors on this device, padded to a multiple of the ray
-        block; u_offset is drawn here when the caller gives none."""
+        block; u_offset is drawn here when the caller gives none: from
+        ``key`` as JAX draws it for each ray block (split(fold_in(key,
+        block))[0]), else from this instancer's generator."""
         dev = self.device
 
         def f32(x):
@@ -289,46 +381,65 @@ class DeviceInstancer:
 
         rays_o, rays_d, parameters = f32(rays_o), f32(rays_d), f32(parameters)
         r = rays_o.shape[0]
+        block = min(self.ray_block, r)
+        n_pad = -(-r // block) * block
         if u_offset is not None:
             u_off = f32(u_offset).reshape(r)
         elif self.deterministic_offset:
             u_off = torch.full((r,), 0.5, device=dev)
+        elif key is not None:
+            u_off = torch.cat([jax_rng.uniform(jax_rng.split(jax_rng.fold_in(key, b))[0],
+                                               (block,), dev)
+                               for b in range(n_pad // block)])
         else:
             u_off = torch.rand(r, generator=self.generator, device=dev)
-        block = min(self.ray_block, r)
-        n_pad = -(-r // block) * block
         extra = tuple(extra)
         if n_pad > r:
             pad = n_pad - r
             rays_o = torch.cat([rays_o, rays_o.new_zeros(pad, 3)])
             rays_d = torch.cat([rays_d, rays_d.new_tensor([[0, 0, 1.0]]).expand(pad, 3)])
             parameters = torch.cat([parameters, parameters.new_zeros(pad, parameters.shape[1])])
-            u_off = torch.cat([u_off, u_off.new_full((pad,), 0.5)])
+            if u_off.shape[0] < n_pad:
+                u_off = torch.cat([u_off, u_off.new_full((pad,), 0.5)])
             extra = tuple(torch.cat([e, e.new_zeros((pad,) + e.shape[1:])]) for e in extra)
         return rays_o, rays_d, parameters, u_off, extra, r, block
 
-    def get_model_input(self, rays_o, rays_d, parameters, n_samples, step_size, u_offset=None):
+    def _draw_u_sel(self, shape, key=None, full_width=None):
+        """The per-sample pick's uniforms [Rb, S] (None for ``nearest``):
+        JAX's draw under ``key``, else this instancer's generator."""
+        if self.ds.instance_sampling_method == "nearest":
+            return None
+        if key is not None:
+            return jax_rng.uniform(key, shape, self.device, full_width=full_width)
+        return torch.rand(shape, generator=self.generator, device=self.device)
+
+    def get_model_input(self, rays_o, rays_d, parameters, n_samples, step_size, u_offset=None,
+                        key=None):
         """Dense grid over S = min(n_samples, max_steps_per_ray) steps:
         rays_d [R,S,3] (local), pts [R,S,3] (local), t, dists,
         alpha_weight, instance_id [R,S], parameters [R,S,P],
         color_last [R,1,3], alpha_last [R,1], hit [R] and the overflow
-        counts."""
+        counts.  With ``key``, block b draws its pick uniforms from
+        split(fold_in(key, b))[1], as the JAX package's dense path does."""
         rays_o, rays_d, parameters, u_off, _, r, block = self._prepare(
-            rays_o, rays_d, parameters, u_offset)
+            rays_o, rays_d, parameters, u_offset, key)
         S = min(int(n_samples), self.max_steps_per_ray)
         step = float(step_size)
-        outs = [self._block(rays_o[i:i + block], rays_d[i:i + block], parameters[i:i + block],
-                            S, step, u_off[i:i + block])
-                for i in range(0, rays_o.shape[0], block)]
+        outs = []
+        for b, i in enumerate(range(0, rays_o.shape[0], block)):
+            k_sample = None if key is None else jax_rng.split(jax_rng.fold_in(key, b))[1]
+            outs.append(self._block(rays_o[i:i + block], rays_d[i:i + block],
+                                    parameters[i:i + block], S, step, u_off[i:i + block],
+                                    self._draw_u_sel((block, S), k_sample)))
         return {
             k: (sum(o[k] for o in outs) if k.startswith("overflow")
                 else torch.cat([o[k] for o in outs])[:r])
             for k in outs[0]
         }
 
-    def _block(self, rays_o, rays_d, parameters, S, step, u_off):
+    def _block(self, rays_o, rays_d, parameters, S, step, u_off, u_sel):
         ray = self._per_ray(rays_o, rays_d, parameters, S, step, u_off)
-        sample = self._per_sample_grid(ray, rays_o, rays_d, parameters, S, step)
+        sample = self._per_sample_grid(ray, rays_o, rays_d, parameters, S, step, u_sel)
         return {
             **self._assemble_grid(ray, sample, rays_d, parameters, S, step),
             "overflow_hits": ray["overflow_hits"],
@@ -336,17 +447,22 @@ class DeviceInstancer:
         }
 
     def render_grid_sorted(self, rays_o, rays_d, parameters, n_samples, step_size, shade_block,
-                           extra=(), empty_block=None, u_offset=None):
+                           extra=(), empty_block=None, u_offset=None, key=None):
         """Occupancy-sorted render.  shade_block(inst_block, extra_block)
         and empty_block(ray_tables_block, extra_block) return tuples of
         [Rb, ...] tensors; empty_block serves the sorted blocks in which
-        every ray has zero marching steps.  Returns (tuple of [R, ...],
-        aux = {hit [R], overflow_hits, overflow_steps})."""
+        every ray has zero marching steps.  With ``key`` (a jax_rng key)
+        the offsets and pick uniforms are the JAX package's draws: sorted
+        block b draws uniform(split(fold_in(fold_in(key, 0x7FFFFFFF),
+        b))[0], (Rb, S_bucket)) and uses its first S_b columns.  Returns
+        (tuple of [R, ...], aux = {hit [R], overflow_hits,
+        overflow_steps})."""
         rays_o, rays_d, parameters, u_off, extra, r, block = self._prepare(
-            rays_o, rays_d, parameters, u_offset, extra)
+            rays_o, rays_d, parameters, u_offset, key, extra)
         step = float(step_size)
         cap = min(int(n_samples), self.max_steps_per_ray)
         n_rows = rays_o.shape[0]
+        n_blocks = n_rows // block
 
         # 1. per-ray tables, blocked in ray order (the culls bound each
         # original block's ray fan).
@@ -365,18 +481,37 @@ class DeviceInstancer:
         rays_o_s, rays_d_s, prm_s = rays_o[order], rays_d[order], parameters[order]
         extra_s = tuple(e[order] for e in extra)
 
-        # 3. each sorted block at its own maximum step count (its first ray's).
-        block_max = tables_s["n_steps"][::block].tolist()
+        # 3. each sorted block at its own maximum step count (its first
+        # ray's) and, for K >= 64, at the JAX package's hit tier: valid hits
+        # are a prefix of the K slots, so the [.., K] tables cut to the
+        # smallest tier that holds the block's hits; the pick counts the
+        # trailing slots of that width, as JAX does.
+        K = tables["tk0"].shape[-1]
+        k_tiers = sorted({min(K, 8), max(1, K // 4), K}) if K >= 64 else [K]
+        block_hits = tables_s["kvalid"].sum(-1).reshape(n_blocks, block).max(-1).values
+        block_max, block_hits = torch.stack(
+            [tables_s["n_steps"][::block].long(), block_hits]).tolist()
+        # JAX's step-capacity buckets: a block's pick uniforms are drawn at
+        # its bucket's width.
+        buckets = sorted({min(cap, 8), *(max(1, cap * q // 8) for q in range(1, 9)), cap})
+        k_sorted = None if key is None else jax_rng.fold_in(key, _SORTED_FOLD)
         outs = []
-        for b, s_max in enumerate(block_max):
+        for b, (s_max, n_hits) in enumerate(zip(block_max, block_hits)):
             sl = slice(b * block, (b + 1) * block)
             ray = {k: (None if v is None else v[sl]) for k, v in tables_s.items()}
             ext = tuple(e[sl] for e in extra_s)
             if s_max == 0 and empty_block is not None:
                 outs.append(empty_block(ray, ext))
                 continue
+            K_b = k_tiers[bisect.bisect_left(k_tiers, n_hits)]
+            if K_b < K:
+                ray = _slice_hits(ray, K_b)
             S_b = max(int(s_max), 1)
-            sample = self._per_sample_grid(ray, rays_o_s[sl], rays_d_s[sl], prm_s[sl], S_b, step)
+            k_sample = None if key is None else jax_rng.split(jax_rng.fold_in(k_sorted, b))[0]
+            u_sel = self._draw_u_sel((block, S_b), k_sample,
+                                     full_width=buckets[bisect.bisect_left(buckets, s_max)])
+            sample = self._per_sample_grid(ray, rays_o_s[sl], rays_d_s[sl], prm_s[sl], S_b, step,
+                                           u_sel)
             inst = self._assemble_grid(ray, sample, rays_d_s[sl], prm_s[sl], S_b, step)
             outs.append(shade_block(inst, ext))
 
@@ -466,10 +601,11 @@ class DeviceInstancer:
         tk0, tk1, inst_idx, kvalid, overflow_hits, hit_box = res
 
         # |o + t d - c|^2 = a + 2 t b + t^2 (|d| = 1) per hit slot, for the
-        # nearest-anchor pick.
+        # anchor-distance picks; the 3-term dots rounded as XLA contracts
+        # them (the picks' distances cancel these terms, see selk_resolve).
         diff = rays_o[:, None, :] - ds.origins[inst_idx]
-        sel_a = torch.sum(diff * diff, -1)
-        sel_b = torch.sum(rays_d[:, None, :] * diff, -1)
+        sel_a = _dot3(diff, diff)
+        sel_b = _dot3(rays_d[:, None, :].expand_as(diff), diff)
 
         # union of intervals via sorted events (starts before ends at equal t)
         times = torch.cat([tk0, tk1], -1)
@@ -493,9 +629,12 @@ class DeviceInstancer:
         n_steps = torch.where(tiny, 1, torch.clamp(necessary, max=S)).to(torch.int32)
         t_offset = torch.where(tiny, u_off * total, u_off * step)
 
-        light_dir_w = None
+        light_dir_w = shadow_blocked = None
         if ds.light_dir_idx >= 0 and P > ds.light_dir_idx + 2:
             light_dir_w = parameters[:, ds.light_dir_idx:ds.light_dir_idx + 3]
+            if ds.cast_shadow_rays:
+                shadow_blocked = self._shadow_blocked_sparse(
+                    rays_o, rays_d, light_dir_w, cum_incl, cum_excl, times_s, total)
 
         # terminator: one opaque mesh with color 0
         return {
@@ -506,13 +645,133 @@ class DeviceInstancer:
             "color_last": torch.zeros(Rb, 1, 3, device=dev),
             "alpha_last": mesh_hit[:, None].float(),
             "hit": hit_box | mesh_hit,
-            "light_dir_w": light_dir_w,
+            "light_dir_w": light_dir_w, "shadow_blocked": shadow_blocked,
             "overflow_hits": overflow_hits, "overflow_steps": overflow_steps,
         }
 
+    # -- shadows -----------------------------------------------------------
+
+    def _shadow_blocked_sparse(self, rays_o, rays_d, light_dir, cum_incl, cum_excl, times_s,
+                               total):
+        """Occlusion toward the light at ``shadow_samples`` points spread
+        uniformly over each ray's inside arc: blocked [Rb, Ssh].  Rays with
+        no arc are invalid rows whose (unused) results are not-blocked."""
+        n_sh = self.shadow_samples
+        frac = (torch.arange(n_sh, device=total.device) + 0.5) / n_sh
+        s_sh = frac[None, :] * total[:, None]                                # [Rb,Ssh]
+        j = torch.clamp(torch.searchsorted(cum_incl, s_sh, right=True), max=cum_incl.shape[-1] - 1)
+        t_sh = times_s.gather(1, j) + (s_sh - cum_excl.gather(1, j))
+        pts = rays_o[:, None, :] + rays_d[:, None, :] * t_sh[..., None]
+        valid = (total > 0) & torch.isfinite(times_s[:, 0])
+        return self._occlusion_branched(pts, light_dir[:, None, :], valid[:, None])
+
+    def _occlusion_branched(self, pts, light_dir, pt_valid):
+        """``_shadow_query`` through the exact 3-way block branch, chosen on
+        the host: no valid point -> nothing is blocked; the swept-cone keep
+        sets of the valid points' bounding sphere fit the shadow budgets ->
+        the query over those candidates only; otherwise -> the full query.
+        pts [..., 3]; light_dir broadcastable to pts; pt_valid
+        broadcastable to pts[..., 0]."""
+        ds = self.ds
+        C = self.shadow_cull_budget
+        C = C if (C and C < ds.n_instances) else 0
+        TC = self.shadow_tri_cull_budget
+        TC = TC if (TC and 0 < TC < ds.n_tris) else 0
+        shape = pts.shape[:-1]
+        flat_p = pts.reshape(-1, 3)
+        flat_l = light_dir.expand(pts.shape).reshape(-1, 3)
+        fvalid = pt_valid.expand(shape).reshape(-1)
+
+        fits = torch.zeros((), dtype=torch.bool, device=pts.device)
+        keep_i = keep_t = None
+        if C or TC:
+            c, r = _point_bound(flat_p, fvalid)
+            u_l, tan_a, wide = _light_cone(flat_l, fvalid)
+            fits = ~wide
+            if C:
+                keep_i = _swept_keep(c, r, u_l, tan_a, ds.inst_center, ds.inst_radius)
+                fits = fits & (keep_i.sum() <= C)
+            if TC:
+                keep_t = _swept_keep(c, r, u_l, tan_a, ds.tri_center, ds.tri_radius)
+                fits = fits & (keep_t.sum() <= TC)
+        any_valid, fits = torch.stack([fvalid.any(), fits]).tolist()
+        self.shadow_branches["full" if any_valid and not fits else
+                             "culled" if any_valid else "skip"] += 1
+        if not any_valid:
+            return torch.zeros(shape, dtype=torch.bool, device=pts.device)
+        inst_sel = tri_sel = None
+        if fits:
+            inst_sel = None if keep_i is None else _keep_to_candidates(keep_i, C)
+            tri_sel = None if keep_t is None else _keep_to_candidates(keep_t, TC)
+        return self._shadow_query(flat_p, flat_l, inst_sel, tri_sel).reshape(shape)
+
+    def _shadow_query(self, pts, light_dir, inst_sel=None, tri_sel=None):
+        """Whether anything blocks each point [M, 3] toward its light
+        direction [M, 3]: a top or bottom face of an instance box (the top
+        only from above), or a mesh triangle hit from its front.
+        inst_sel/tri_sel: optional (ids, valid) candidate subsets; invalid
+        (padding) columns never block.  Computed in chunks of points so
+        that no [points, columns] plane exceeds _SHADOW_PLANE elements."""
+        ds = self.ds
+        if inst_sel is not None:
+            rot, trans = ds.inv_rot[inst_sel[0]], ds.inv_trans[inst_sel[0]]
+            col_valid = inst_sel[1]
+        else:
+            rot, trans, col_valid = ds.inv_rot, ds.inv_trans, None
+        tris = None
+        if ds.n_tris > 0:
+            if tri_sel is not None:
+                ids = tri_sel[0]
+                tris = (ds.tri_v0[ids], ds.tri_e1[ids], ds.tri_e2[ids], ds.tri_ng[ids], tri_sel[1])
+            else:
+                tris = (ds.tri_v0, ds.tri_e1, ds.tri_e2, ds.tri_ng, None)
+        n_cols = max(rot.shape[0], 0 if tris is None else tris[0].shape[0], 1)
+        m = max(1, _SHADOW_PLANE // n_cols)
+        return torch.cat([self._shadow_chunk(pts[i:i + m], light_dir[i:i + m], rot, trans,
+                                             col_valid, tris)
+                          for i in range(0, pts.shape[0], m)])
+
+    def _shadow_chunk(self, p, l, rot, trans, col_valid, tris):
+        ds = self.ds
+
+        def row(c, v):
+            return (v[:, 0, None] * rot[:, c, 0] + v[:, 1, None] * rot[:, c, 1]
+                    + v[:, 2, None] * rot[:, c, 2])
+
+        # Local-frame rays as broadcast multiply-adds, [m, N] per component.
+        o_lx = row(0, p) + trans[:, 0]
+        o_ly = row(1, p) + trans[:, 1]
+        o_lz = row(2, p) + trans[:, 2]
+        d_lx, d_ly, dz = row(0, l), row(1, l), row(2, l)
+        safe_dz = torch.where(dz.abs() < 1e-12, 1e-12, dz)
+        dz_ok = dz.abs() > 1e-12
+
+        def face(z_plane):
+            t = (z_plane - o_lz) / safe_dz
+            px = o_lx + t * d_lx
+            py = o_ly + t * d_ly
+            return ((t > 0) & (t < T_FAR) & (px >= ds.b_0[0]) & (px <= ds.b_1[0])
+                    & (py >= ds.b_0[1]) & (py <= ds.b_1[1]) & dz_ok)
+
+        face_ok = (face(ds.b_1[2]) & (dz < 0)) | face(ds.b_0[2])
+        if col_valid is not None:
+            face_ok = face_ok & col_valid
+        blocked = face_ok.any(-1)
+
+        if tris is not None:
+            v0, e1, e2, ng, tri_valid = tris
+            t_hit = _moller_trumbore(p, l, v0, e1, e2)
+            front = (l[:, 0, None] * ng[:, 0] + l[:, 1, None] * ng[:, 1]
+                     + l[:, 2, None] * ng[:, 2]) < 0
+            tri_ok = torch.isfinite(t_hit) & front
+            if tri_valid is not None:
+                tri_ok = tri_ok & tri_valid
+            blocked = blocked | tri_ok.any(-1)
+        return blocked
+
     # -- per-sample stage, dense [Rb, S] grid ------------------------------
 
-    def _per_sample_grid(self, ray, rays_o, rays_d, parameters, S, step):
+    def _per_sample_grid(self, ray, rays_o, rays_d, parameters, S, step, u_sel=None):
         ds = self.ds
         K = ray["tk0"].shape[-1]
         i_grid = torch.arange(S, dtype=torch.float32, device=rays_o.device)[None, :]
@@ -525,24 +784,25 @@ class DeviceInstancer:
         t_pt = mean_distance(t_mu, step) if ds.use_mean_distance else t_mu
         pts_w = rays_o[:, None, :] + rays_d[:, None, :] * t_pt[..., None]  # [Rb,S,3]
 
-        # nearest overlap resolution over the K hit slots
-        tk0 = ray["tk0"][:, None, :]
-        tk1 = ray["tk1"][:, None, :]
-        kvalid = ray["kvalid"][:, None, :]
-        tp = t_pt[..., None]
-        active = kvalid & (tk0 <= tp) & (tp < tk1)
-        n_active = active.sum(-1)
-        iv_dist = torch.maximum(tk0 - tp, tp - tk1)
-        iv_dist = torch.where(kvalid, torch.clamp(iv_dist, min=0.0), _INF)
-        fallback = torch.nn.functional.one_hot(torch.argmin(iv_dist, -1), K).bool()
-        active = torch.where((n_active == 0)[..., None], fallback, active)
-        d2_k = ray["sel_a"][:, None, :] + 2.0 * tp * ray["sel_b"][:, None, :] + (t_pt * t_pt)[..., None]
-        d2_k = torch.where(active, torch.clamp(d2_k, min=0.0), _INF)
-        sel_k = torch.argmin(d2_k, -1)
-        weight = torch.ones_like(s_arc)
-        return self._per_sample_grid_tail(ray, rays_d, parameters, sel_k, weight, t_mu, pts_w)
+        # Overlap resolution over the K hit slots: the kernel with
+        # pallas_selk (its plain version for CPU tensors), else the [Rb,S,K]
+        # chain; then the pick's density weight.
+        method = ds.instance_sampling_method
+        resolve = selk_resolve if self.pallas_selk else selk_resolve_plain
+        sel_k, p_sel, n_active = resolve(
+            ray["tk0"], ray["tk1"], ray["kvalid"], ray["sel_a"], ray["sel_b"], t_pt, u_sel,
+            method=method, blend_range=ds.nearest_blend_range)
+        if method == "random":
+            weight = n_active.to(torch.float32)
+        elif method == "nearest":
+            weight = torch.ones_like(s_arc)
+        else:
+            weight = 1.0 / torch.clamp(p_sel, min=1e-20)
+        weight = torch.where(n_active == 1, 1.0, weight)
+        return self._per_sample_grid_tail(ray, rays_d, parameters, sel_k.long(), weight, s_arc,
+                                          t_mu, pts_w)
 
-    def _per_sample_grid_tail(self, ray, rays_d, parameters, sel_k, weight, t_mu, pts_w):
+    def _per_sample_grid_tail(self, ray, rays_d, parameters, sel_k, weight, s_arc, t_mu, pts_w):
         """Downstream of the overlap pick: the picked instance's local
         frame, texture-driven parameters and the light direction."""
         ds = self.ds
@@ -575,7 +835,18 @@ class DeviceInstancer:
             li = ds.light_dir_idx
             light = ray["light_dir_w"][:, None, :]                          # [Rb,1,3]
             vec_n = light / torch.clamp(torch.linalg.norm(light, dim=-1, keepdim=True), min=1e-12)
-            params_out[..., li:li + 3] = torch.sum(dinv * vec_n[..., None, :], -1)
+            local_l = torch.sum(dinv * vec_n[..., None, :], -1)
+            blocked = ray.get("shadow_blocked")
+            if blocked is not None:
+                # A sample takes the shadow sample of its arc-length bucket;
+                # shadowed samples see the light straight from below.
+                n_sh = blocked.shape[-1]
+                bucket = torch.floor(
+                    s_arc / torch.clamp(ray["total"][:, None], min=1e-12) * n_sh).long()
+                shadowed = blocked.gather(1, torch.clamp(bucket, 0, n_sh - 1))
+                down = local_l.new_tensor([0.0, 0.0, -1.0])
+                local_l = torch.where(shadowed[..., None], down, local_l)
+            params_out[..., li:li + 3] = local_l
 
         return {
             "pts": pts_l,

@@ -43,19 +43,9 @@ class Instancer:
         matmul_precision: str = "float32",
         device=None,
     ):
-        if cast_shadow_rays:
-            raise NotImplementedError("cast_shadow_rays=True comes with the shadows slice")
-        if instance_sampling_method in ("random", "nearest_blend"):
-            raise NotImplementedError(
-                f"instance_sampling_method={instance_sampling_method!r} comes with the shadows "
-                "slice; this slice ports 'nearest'"
-            )
-        if pallas_selk:
-            raise NotImplementedError("pallas_selk (the selk_resolve kernel) comes with the "
-                                      "shadows/plush slice")
         if auxiliary_meshes:
             raise NotImplementedError("auxiliary meshes (shaded terminators) come with the "
-                                      "shadows slice")
+                                      "grass slice")
         device = resolve_device(device)
         self.scene = Scene(
             b_0, b_1,
@@ -85,8 +75,12 @@ class Instancer:
             max_steps_per_ray=max_steps_per_ray,
             cull_budget=cull_budget,
             tri_cull_budget=tri_cull_budget,
+            shadow_samples=shadow_samples,
+            shadow_cull_budget=shadow_cull_budget,
+            shadow_tri_cull_budget=shadow_tri_cull_budget,
             seed=seed,
             deterministic_offset=deterministic_offset,
+            pallas_selk=pallas_selk,
             matmul_precision=matmul_precision,
         )
 

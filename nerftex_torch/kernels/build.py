@@ -22,6 +22,7 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file_
 SOURCES = {
     "tex_fetch": ("tex_fetch.cu", []),
     "mlp_fused": ("mlp_fused.cu", []),
+    "selk_resolve": ("selk_resolve.cu", []),
 }
 _BASE_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

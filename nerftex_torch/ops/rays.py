@@ -47,11 +47,18 @@ def rays_from_camera(image_plane_loc, height, width, focal, c2w):
 
 
 def frame_rays(h, w, eye, angle, parameters, proxy_b0=(-1.5, -1.5, -1.5),
-               proxy_b1=(1.5, 1.5, 1.5)) -> dict:
+               proxy_b1=(1.5, 1.5, 1.5), focal=None) -> dict:
     """Batch of one [h, w] frame: normalized rays from ``eye`` looking at
     the origin, proxy-box t, per-frame parameters [1, P] and cone scale,
-    each with a leading batch axis of 1."""
-    focal = w / np.tan(angle / 2) / 2
+    each with a leading batch axis of 1.
+
+    The focal length defaults to ``w / np.tan(angle / 2) / 2``, a NumPy
+    float64 that makes the pixel grid's arithmetic float64 (as
+    scripts/bench_render.py's frame does); the JAX package's GenerateData
+    datasets use a Python float there, which keeps it float32: pass
+    ``focal=float(...)`` to build their rays."""
+    if focal is None:
+        focal = w / np.tan(angle / 2) / 2
     c2w = look_at(np.asarray(eye, np.float64))
     idx = np.arange(h * w)
     loc = np.stack([idx // w, idx % w], -1).astype(np.float32)

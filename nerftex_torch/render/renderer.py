@@ -1,5 +1,7 @@
 """Renderer base: the chunked batch loop (counterpart of
 nerftex_tpu/render/renderer.py ``Renderer.__call__`` and ``chunked_apply``).
+Given a key (utils.jax_rng), the chunk that starts at ray i renders under
+fold_in(key, i), as the JAX package's loop does.
 
 Inference only in this slice: the stratified training renderer, remat and
 importance sampling come with the training slice.
@@ -7,6 +9,7 @@ importance sampling come with the training slice.
 
 import torch
 
+from nerftex_torch.utils import jax_rng
 from nerftex_torch.utils.util import resolve_device
 
 
@@ -47,18 +50,21 @@ class Renderer:
         self.map_exr = map_exr
 
     def render_rays(self, rays_o, rays_d, t, parameters, cone_scale, composite_bkgd,
-                    bkgd_color, u_offset=None) -> dict:
+                    bkgd_color, u_offset=None, key=None) -> dict:
         raise NotImplementedError
 
     @torch.inference_mode()
     def __call__(self, rays_o, rays_d, t, parameters, cone_scale, composite_bkgd: bool = False,
-                 bkgd_color=(1, 1, 1.0), training: bool = False, u_offset=None, **kwargs) -> dict:
+                 bkgd_color=(1, 1, 1.0), training: bool = False, u_offset=None, key=None,
+                 **kwargs) -> dict:
         """Render a [B, R] ray grid in chunks of render_chunk rays.
 
         rays_o/rays_d [B,R,3], t [B,R,2] (inf on proxy miss), parameters
         [B,P], cone_scale [B,R,1]; optional u_offset [B,R] per-ray
-        stratified offsets in [0, 1).  Returns {"color_pred": [B,R,3],
-        "alpha_pred": [B,R]} as tensors on the renderer's device."""
+        stratified offsets in [0, 1); optional key, a jax_rng key whose
+        draws are the JAX package's for the same key.  Returns
+        {"color_pred": [B,R,3], "alpha_pred": [B,R]} as tensors on the
+        renderer's device."""
         if training:
             raise NotImplementedError("training renders come with the training slice")
 
@@ -92,6 +98,7 @@ class Renderer:
             outs.append(self.render_rays(
                 c["rays_o"], c["rays_d"], c["t"], c["parameters"], c["cone_scale"],
                 composite_bkgd, bkgd_color, u_offset=c.get("u_offset"),
+                key=None if key is None else jax_rng.fold_in(key, i),
             ))
 
         out = {}

@@ -1,0 +1,108 @@
+"""JAX's default random streams, bit for bit, in PyTorch.
+
+The JAX package draws its per-ray marching offsets and per-sample overlap
+picks from ``jax.random`` keys.  Its default generator is threefry2x32 with
+``jax_threefry_partitionable`` on: a counter-based hash, so the same draws
+can be computed anywhere.  This module reproduces the calls the render
+path makes:
+
+  key(seed)           key data [seed >> 32, seed & 0xffffffff]
+  fold_in(key, data)  threefry(key, counters (0, data))
+  split(key, num)     row i = threefry(key, counters (0, i))
+  uniform(key, shape) bits1 ^ bits2 of threefry(key, the flat iota over
+                      shape as (hi, lo) words), the top 23 bits as the
+                      mantissa of a float in [1, 2), minus 1
+
+A key is an int64 tensor [2] holding two uint32 words (on the CPU; keys
+are tiny).  ``uniform`` draws on the device it is given.  All uint32
+arithmetic runs in int64 with a 32-bit mask, because PyTorch's uint32
+support is partial; every add and rotation is masked back to 32 bits.
+"""
+
+import torch
+
+_MASK = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _rotl(x, r):
+    return ((x << r) | (x >> (32 - r))) & _MASK
+
+
+def threefry2x32(k0: int, k1: int, x0: torch.Tensor, x1: torch.Tensor):
+    """Threefry-2x32 (20 rounds) of the counter pairs (x0, x1), int64
+    tensors of uint32 values, under the key words k0, k1 (Python ints)."""
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = (x0 + ks[0]) & _MASK
+    x1 = (x1 + ks[1]) & _MASK
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _MASK
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _MASK
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _MASK
+    return x0, x1
+
+
+def _words(key):
+    k0, k1 = (int(v) for v in torch.as_tensor(key).reshape(2).tolist())
+    return k0, k1
+
+
+def key(seed: int) -> torch.Tensor:
+    """``jax.random.key_data(jax.random.key(seed))`` for a 64-bit seed (JAX
+    with 64-bit types off first cuts the seed to its low 32 bits)."""
+    seed = int(seed) & 0xFFFFFFFFFFFFFFFF
+    return torch.tensor([seed >> 32, seed & _MASK], dtype=torch.int64)
+
+
+def fold_in(key, data: int) -> torch.Tensor:
+    """``jax.random.fold_in``: the key hashed with the counters (0, data)."""
+    k0, k1 = _words(key)
+    y0, y1 = threefry2x32(k0, k1, torch.zeros(1, dtype=torch.int64),
+                          torch.tensor([int(data) & _MASK], dtype=torch.int64))
+    return torch.cat([y0, y1])
+
+
+def split(key, num: int = 2) -> torch.Tensor:
+    """``jax.random.split`` (partitionable): [num, 2] keys."""
+    k0, k1 = _words(key)
+    y0, y1 = threefry2x32(k0, k1, torch.zeros(num, dtype=torch.int64),
+                          torch.arange(num, dtype=torch.int64))
+    return torch.stack([y0, y1], -1)
+
+
+def bits_at(key, counters: torch.Tensor) -> torch.Tensor:
+    """The 32 random bits (int64) that ``jax.random.bits`` puts at flat
+    positions ``counters`` (an int64 tensor) of any draw under ``key``."""
+    k0, k1 = _words(key)
+    y0, y1 = threefry2x32(k0, k1, counters >> 32, counters & _MASK)
+    return y0 ^ y1
+
+
+def uniform_at(key, counters: torch.Tensor) -> torch.Tensor:
+    """Float32 uniforms in [0, 1) at flat positions ``counters``."""
+    mant = ((bits_at(key, counters) >> 9) | 0x3F800000).to(torch.int32)
+    return mant.view(torch.float32) - 1.0
+
+
+def uniform(key, shape, device="cpu", full_width: int = None) -> torch.Tensor:
+    """``jax.random.uniform(key, shape)`` (float32) on ``device``.
+
+    With ``full_width``, the leading ``shape[-1]`` columns of
+    ``uniform(key, shape[:-1] + (full_width,))``, computed without drawing
+    the rest."""
+    shape = tuple(int(s) for s in shape)
+    if full_width is None or not shape:
+        n = 1
+        for s in shape:
+            n *= s
+        counters = torch.arange(n, dtype=torch.int64, device=device).reshape(shape)
+    else:
+        rows = 1
+        for s in shape[:-1]:
+            rows *= s
+        counters = (torch.arange(rows, dtype=torch.int64, device=device)[:, None] * int(full_width)
+                    + torch.arange(shape[-1], dtype=torch.int64, device=device)[None, :])
+        counters = counters.reshape(shape)
+    return uniform_at(key, counters)

@@ -1,16 +1,19 @@
-"""Where the time of one bench frame goes in the PyTorch port (CUDA card).
+"""Where the time of one frame goes in the PyTorch port (CUDA card).
 
-Builds the bench renderer exactly as chip_smoke.py does, renders the frame
-twice to warm up, then profiles one render with torch.profiler and prints:
-the wall time, the summed device time of all kernels, the device idle share
-(1 - busy / wall), the number of kernel launches, and the kernels ranked by
-device time.  It also times the render's two stages separately with
-synchronised host clocks: the per-ray stage (culls, slab tests, top-K,
-event walk) and the rest (sort, per-sample stage, MLP, composite).
+Builds the bench frame's renderer (``--scene bench``, the 512x512 carpet
+frame) or the plush frame's (``--scene plush``, 800x800) exactly as
+chip_smoke.py does, renders the frame twice to warm up, then profiles one
+render with torch.profiler and prints: the wall time, the summed device
+time of all kernels, the device idle share (1 - busy / wall), the number
+of kernel launches, and the kernels ranked by device time.  It also times
+the render's stages with synchronised host clocks: the per-ray stage
+(culls, slab tests, top-K, event walk, and within it the shadow pass), the
+per-sample stage (arc-to-world map, overlap pick, local frames, texture
+fetch) and the rest (sort, MLP, composite).
 
 Run from the repo root on a machine with a CUDA card:
 
-    python3 scripts/profile_torch_frame.py [--top 25]
+    python3 scripts/profile_torch_frame.py [--scene bench|plush] [--top 25]
 """
 
 import argparse
@@ -26,54 +29,67 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--scene", choices=("bench", "plush"), default="bench")
     ap.add_argument("--top", type=int, default=25)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_torch_frame: needs a CUDA card")
     sys.path.insert(0, ROOT)
     os.chdir(ROOT)
-    from chip_smoke import card_line, model_config, renderer_config
+    import chip_smoke
     from nerftex_torch.instancing.device import DeviceInstancer
     from nerftex_torch.ops.rays import frame_rays
     from nerftex_torch.render.checkpoint import load_jax_params
+    from nerftex_torch.utils import jax_rng
     from nerftex_torch.utils.util import instantiate
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    inputs = np.load(os.path.join(ROOT, "tests", "torch_bench_inputs.npz"))
-    params = {k[len("param/"):]: inputs[k] for k in inputs.files if k.startswith("param/")}
-    model = instantiate(model_config("bfloat16"), device="cuda")
+    if args.scene == "bench":
+        inputs = np.load(os.path.join(ROOT, "tests", "torch_bench_inputs.npz"))
+        params = {k[len("param/"):]: inputs[k] for k in inputs.files if k.startswith("param/")}
+        model = instantiate(chip_smoke.model_config("bfloat16"), device="cuda")
+        r_cfg = chip_smoke.renderer_config("bfloat16")
+        data = frame_rays(512, 512, np.array([0.47, -0.65, 0.6]) * 6.0, 0.55,
+                          [1, 1, 1, 0.1, 0, 0, 1.0])
+        kw = {"u_offset": inputs["u_offset"][None]}
+    else:
+        data, params, _, _ = chip_smoke.plush_data()
+        model = instantiate(chip_smoke.plush_model_config(), device="cuda")
+        r_cfg = chip_smoke.plush_renderer_config()
+        kw = {"key": jax_rng.key(1)}
     load_jax_params(model, params)
-    renderer = instantiate(dict(renderer_config("bfloat16"), model=model, device="cuda"))
-    data = frame_rays(512, 512, np.array([0.47, -0.65, 0.6]) * 6.0, 0.55,
-                      [1, 1, 1, 0.1, 0, 0, 1.0])
-    u_offset = inputs["u_offset"][None]
+    renderer = instantiate(dict(r_cfg, model=model, device="cuda"))
     for _ in range(2):
-        renderer(**data, u_offset=u_offset)
+        renderer(**data, **kw)
     torch.cuda.synchronize()
 
-    # Stage split: time _per_ray calls inside one render.
-    per_ray_s = [0.0]
-    orig = DeviceInstancer._per_ray
+    # Stage split: synchronised host time of each stage's calls in one render.
+    stages = {"_per_ray": 0.0, "_shadow_blocked_sparse": 0.0, "_per_sample_grid": 0.0}
+    originals = {name: getattr(DeviceInstancer, name) for name in stages}
 
-    def timed(self, *a, **kw):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = orig(self, *a, **kw)
-        torch.cuda.synchronize()
-        per_ray_s[0] += time.perf_counter() - t0
-        return out
+    def timed(name):
+        def run(self, *a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = originals[name](self, *a, **k)
+            torch.cuda.synchronize()
+            stages[name] += time.perf_counter() - t0
+            return out
+        return run
 
-    DeviceInstancer._per_ray = timed
+    for name in stages:
+        setattr(DeviceInstancer, name, timed(name))
     t0 = time.perf_counter()
-    renderer(**data, u_offset=u_offset)
+    renderer(**data, **kw)
     torch.cuda.synchronize()
     split_wall = time.perf_counter() - t0
-    DeviceInstancer._per_ray = orig
+    for name, fn in originals.items():
+        setattr(DeviceInstancer, name, fn)
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        renderer(**data, u_offset=u_offset)
+        renderer(**data, **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
@@ -82,9 +98,10 @@ def main():
     busy_us = sum(a.self_device_time_total for a in kernels)
     n_launches = sum(a.count for a in kernels)
     by_name = {a.key: (a.count, a.self_device_time_total) for a in kernels}
-    print(f"card: {card_line()}")
-    print(f"stage split (synchronised): per-ray stage {per_ray_s[0] * 1e3:.1f} ms of "
-          f"{split_wall * 1e3:.1f} ms")
+    print(f"card: {chip_smoke.card_line()}  scene: {args.scene}")
+    print(f"stage split (synchronised): per-ray stage {stages['_per_ray'] * 1e3:.1f} ms "
+          f"(shadow pass {stages['_shadow_blocked_sparse'] * 1e3:.1f} ms), per-sample stage "
+          f"{stages['_per_sample_grid'] * 1e3:.1f} ms, of {split_wall * 1e3:.1f} ms")
     print(f"profiled render: wall {wall * 1e3:.1f} ms, device busy {busy_us / 1e3:.1f} ms, "
           f"idle share {1 - busy_us / 1e6 / wall:.3f}, kernel launches {n_launches}")
     print(f"{'device ms':>10} {'share':>6} {'calls':>6}  kernel")

@@ -60,3 +60,68 @@ def test_mlp_fused_kernel_matches_plain(cuda, dtype, tol):
     ref = fused.mlp_fused_plain(pos_map, dir_map, packed)
     scale = max(1.0, float(ref.abs().max()))
     assert float((got - ref).abs().max()) <= tol * scale
+
+
+def selk_inputs(rs, rb, s, k, device="cpu"):
+    """Random overlap-resolution inputs (tests/test_selk_kernel.py's recipe
+    in numpy): valid slots at random, one all-invalid ray, one ray whose
+    intervals no sample reaches."""
+    tk0 = rs.uniform(0.0, 2.0, (rb, k))
+    tk1 = tk0 + rs.uniform(0.05, 0.8, (rb, k))
+    kvalid = rs.uniform(size=(rb, k)) > 0.3
+    kvalid[0] = False
+    tk0[1], tk1[1] = tk0[1] + 10.0, tk1[1] + 10.0
+    c = rs.uniform(0.0, 2.5, (rb, k))
+    sel_a = c * c + rs.uniform(0.0, 0.2, (rb, k))
+    t_pt = rs.uniform(-0.1, 2.6, (rb, s))
+    u_sel = rs.uniform(size=(rb, s))
+
+    def f32(x):
+        return torch.tensor(x.astype(np.float32), device=device)
+
+    return (f32(tk0), f32(tk1), torch.tensor(kvalid, device=device), f32(sel_a), f32(-c),
+            f32(t_pt), f32(u_sel))
+
+
+@pytest.mark.parametrize("method", ["random", "nearest", "nearest_blend"])
+def test_selk_kernel_matches_plain(cuda, method):
+    from nerftex_torch.kernels import selk_resolve as selk
+
+    rs = np.random.RandomState(2)
+    args = selk_inputs(rs, 37, 45, 5, cuda)         # 37 rays: not a multiple of the tile
+    before = selk.selk_resolve.launches
+    sel, p, n = selk.selk_resolve(*args, method=method, blend_range=0.15)
+    assert selk.selk_resolve.launches == before + 1
+    ref_sel, ref_p, ref_n = selk.selk_resolve_plain(*args, method=method, blend_range=0.15)
+    torch.cuda.synchronize()
+    assert torch.equal(n, ref_n)
+    assert (n[0] == 1).all() and (sel[0] == 0).all()
+    same = sel == ref_sel
+    if method != "nearest_blend":
+        assert same.all()
+    else:
+        # The kernel sums the weights and the cumsum in slot order, the
+        # plain version in PyTorch's reduction order: a pick may differ only
+        # where u sits within 1e-5 of a cum value (tests/test_selk_kernel.py).
+        assert same.float().mean() > 0.99
+        if not same.all():
+            cum = _blend_cum(selk, *args, 0.15)
+            edge = (args[-1][..., None] - cum).abs().min(-1).values
+            assert (edge[~same] <= 1e-5).all()
+    torch.testing.assert_close(p[same], ref_p[same], rtol=1e-5, atol=1e-7)
+
+
+def _blend_cum(selk, tk0, tk1, kvalid, sel_a, sel_b, t_pt, u_sel, blend):
+    """The plain version's nearest_blend cumsum [Rb, S, K], for knife-edge
+    checks."""
+    K = tk0.shape[-1]
+    tp = t_pt[..., None]
+    active = kvalid[:, None] & (tk0[:, None] <= tp) & (tp < tk1[:, None])
+    iv = torch.maximum(tk0[:, None] - tp, tp - tk1[:, None])
+    iv = torch.where(kvalid[:, None], iv.clamp(min=0), float("inf"))
+    fb = torch.nn.functional.one_hot(iv.argmin(-1), K).bool()
+    active = torch.where((active.sum(-1) == 0)[..., None], fb, active)
+    d2 = selk.anchor_d2(sel_a[:, None], sel_b[:, None], tp).clamp(min=0)
+    dist = torch.where(active, d2.sqrt(), float("inf"))
+    w = torch.where(active, (blend + dist.min(-1, keepdim=True).values - dist).clamp(min=0), 0.0)
+    return torch.cumsum(w / w.sum(-1, keepdim=True).clamp(min=1e-20), -1)

@@ -145,8 +145,9 @@ def test_carpet_render_config_instantiates():
 
 def test_unported_options_raise():
     cfg = _renderer_cfg(True)
-    for key, value in (("cast_shadow_rays", True), ("instance_sampling_method", "random"),
-                       ("instance_sampling_method", "nearest_blend"), ("pallas_selk", True)):
+    point_light = cfg["instancer_config"]["textures"][:-1] + ["point"]
+    for key, value in (("textures", point_light),
+                       ("auxiliary_meshes", [(cfg["instancer_config"]["mesh_path"], "")])):
         bad = dict(cfg, instancer_config=dict(cfg["instancer_config"], **{key: value}))
         with pytest.raises(NotImplementedError):
             instantiate(dict(bad, device="cpu"))

@@ -8,13 +8,15 @@ Phases (any failure raises and exits non-zero):
   1. card name and power limit, torch and CUDA versions;
   2. build of every kernel from nerftex_torch/kernels/csrc (one nvcc per
      source, started together);
-  3. each kernel against its plain PyTorch version on the card at the main
-     path's shapes, with times (kernel, plain, library call) and the bound;
+  3. each kernel against its plain PyTorch version on the card at each
+     frame's shapes and inputs (the bench frame's and the plush frame's
+     texture channel, ParamNerf weights and overlap-pick shapes), with
+     times (kernel, plain, library call) and the bound;
   4. the bench frame (bench.py's 512x512 carpet workload) rendered through
      the config-built port with the transplanted bench weights and the
      JAX-drawn per-ray offsets (tests/torch_bench_inputs.npz), checked
      against tests/golden_bench_frame.npz at bench.py's 55 dB floor, with
-     the kernels' launch counts from that render, then timed (best of 3);
+     every kernel's launch count from that render, then timed (best of 3);
   5. the plush frame (configs/config_plush_render.py at 800x800 with the
      plush operating point: shadow rays, nearest_blend picks through the
      selk_resolve kernel) rendered through the config-built port with the
@@ -23,7 +25,8 @@ Phases (any failure raises and exits non-zero):
      against tests/golden_scene_plush.npz at scripts/bench_scene.py's
      50 dB floor on the same 10x box downsample, with every kernel's launch
      count from that render, then timed (best of 2).
-The last two lines of stdout are the kernels JSON and the device JSON.
+The last two lines of stdout are the kernels JSON (one row per kernel and
+frame) and the device JSON.
 """
 
 import json
@@ -39,7 +42,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_PSNR_DB = 55.0                 # bench.py's floor
 PLUSH_GOLDEN_PSNR_DB = 50.0           # scripts/bench_scene.py's floor
 TEX_SAMPLES = 1 << 20                 # >= 1M uv samples
-MLP_SAMPLES = 262144                  # one render chunk's worth of samples
+MLP_SAMPLES = {"bench": 262144,       # one render chunk's worth of samples
+               "plush": 65536}        # the plush renderer's net_chunk
 # Tolerances, kernel vs plain version on the same card:
 #  tex_fetch: both round every lerp operation separately (no fma), so they
 #    agree to the bit; 4e-7 is the JAX package's <= 2 ulp contract
@@ -57,7 +61,10 @@ MLP_BF16_TOL = 5e-2                   # x max(1, max|plain|)
 #    so a pick may differ where u sits within 1e-5 of a cum value (the JAX
 #    package's pin, tests/test_selk_kernel.py) and p_sel by the sums'
 #    rounding where the picks agree.
-SELK_SHAPE = (2048, 1280, 128)        # plush: ray block, step cap, max_hits
+SELK_SHAPE = {"bench": (1024, 320, 48),      # ray block, step cap, max_hits
+              "plush": (2048, 1280, 128)}
+SELK_METHODS = {"bench": ("nearest",), "plush": ("random", "nearest", "nearest_blend")}
+SELK_BLEND = 0.2 * 0.04               # plush: 0.2 x patch_scale
 SELK_EDGE = 1e-5
 SELK_P_RTOL = 1e-4
 SELK_OPS_PER_ELEMENT = 15             # per (sample, hit slot); selk_resolve.cu
@@ -163,6 +170,12 @@ def plush_renderer_config():
     }
 
 
+def npz_params(name):
+    """The transplanted ParamNerf weights in tests/<name>."""
+    inp = np.load(os.path.join(ROOT, "tests", name))
+    return {k[len("param/"):]: inp[k] for k in inp.files if k.startswith("param/")}
+
+
 def plush_data():
     """The plush frame's rays (the JAX test dataset's first item)."""
     import math
@@ -173,8 +186,7 @@ def plush_data():
     h, w, angle = int(inp["height"]), int(inp["width"]), float(inp["angle"])
     data = frame_rays(h, w, inp["eye"], angle, inp["parameters"], (-0.9, -0.6, -0.8),
                       (0.9, 0.8, 0.9), focal=w / math.tan(angle / 2) / 2)
-    params = {k[len("param/"):]: inp[k] for k in inp.files if k.startswith("param/")}
-    return data, params, h, w
+    return data, npz_params("torch_plush_inputs.npz"), h, w
 
 
 def plush_golden_psnr(out, h, w):
@@ -209,7 +221,9 @@ def golden_psnr(out):
     return 10 * np.log10(1.0 / max(float(np.mean(err * err)), 1e-12))
 
 
-def check_tex(tex_gather, channel):
+def check_tex(tex_gather, channel, texture):
+    """The texture fetch on one channel of ``texture`` against its plain
+    version at uv samples that reach past the borders."""
     dev = torch.device("cuda")
     rs = np.random.RandomState(0)
     uv = torch.tensor(rs.uniform(-0.05, 1.05, (TEX_SAMPLES, 2)).astype(np.float32), device=dev)
@@ -218,7 +232,8 @@ def check_tex(tex_gather, channel):
     ref = tex_gather.sample_channel_plain(tex, uv)
     torch.cuda.synchronize()
     err = float((got - ref).abs().max())
-    log(f"tex_fetch: {TEX_SAMPLES} samples, max |kernel - plain| = {err:.3g} (tol {TEX_ATOL})")
+    log(f"tex_fetch ({texture}): {TEX_SAMPLES} samples, max |kernel - plain| = {err:.3g} "
+        f"(tol {TEX_ATOL})")
     if not err <= TEX_ATOL:
         raise AssertionError(f"tex_fetch disagrees with its plain version: {err}")
     w, h = tex.shape
@@ -241,8 +256,9 @@ def check_tex(tex_gather, channel):
             image, grid, mode="bilinear", padding_mode="border", align_corners=True), iters=50),
         "library": "torch.nn.functional.grid_sample (bilinear, border, align_corners)",
         "library_max_abs_err": lib_err,
+        "texture": texture,
     }
-    log(f"tex_fetch: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+    log(f"tex_fetch ({texture}): kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
         f"grid_sample {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms")
     return row
 
@@ -274,15 +290,15 @@ def selk_inputs(rb, s, k):
     return args, n_valid
 
 
-def check_selk(selk):
-    """The selk_resolve kernel against its plain version at the plush
-    shapes, for each method; times of the main path's method
-    (nearest_blend) and the bound."""
-    rb, s, k = SELK_SHAPE
+def check_selk(selk, frame):
+    """The selk_resolve kernel against its plain version at ``frame``'s
+    shapes, for each method given; times of the frame's method (the last
+    one) and the bound."""
+    rb, s, k = SELK_SHAPE[frame]
     args, n_valid = selk_inputs(rb, s, k)
-    blend = 0.2 * 0.04                  # plush: 0.2 x patch_scale
+    blend = SELK_BLEND
     per_method = {}
-    for method in ("random", "nearest", "nearest_blend"):
+    for method in SELK_METHODS[frame]:
         got = selk.selk_resolve(*args, method=method, blend_range=blend)
         ref = selk.selk_resolve_plain(*args, method=method, blend_range=blend)
         torch.cuda.synchronize()
@@ -319,7 +335,7 @@ def check_selk(selk):
     # K loop ends at each ray's last valid slot (at least slot 0).
     nbytes = rb * k * (4 * 4 + 1) + rb * s * 8 + rb * s * 12
     flops = SELK_OPS_PER_ELEMENT * s * int(np.maximum(n_valid, 1).sum())
-    main = per_method["nearest_blend"]
+    main = per_method[SELK_METHODS[frame][-1]]
     row = {
         "name": "selk_resolve", "route": "cuda",
         "source": "nerftex_torch/kernels/csrc/selk_resolve.cu",
@@ -329,7 +345,7 @@ def check_selk(selk):
         "bound_by": "operations" if flops / H100_F32_FLOPS > nbytes / H100_BYTES_PER_S
         else "bytes",
         "library_ms": None,
-        "shape": list(SELK_SHAPE), "methods": per_method,
+        "shape": [rb, s, k], "methods": per_method,
     }
     log(f"selk_resolve: bound {row['bound_ms']:.4f} ms ({row['bound_by']}: {flops:.3g} "
         f"operations, {nbytes / 1e6:.1f} MB)")
@@ -380,15 +396,16 @@ def cublas_chain(packed):
     return run
 
 
-def check_mlp(fused, model, dtype_name):
+def check_mlp(fused, model, dtype_name, n_samples):
     """The fused MLP of ``model`` (compute dtype ``dtype_name``) against its
-    plain version on random encodable inputs."""
+    plain version on ``n_samples`` random encodable inputs."""
     dev = torch.device("cuda")
     rs = np.random.RandomState(1)
-    pos = torch.tensor(rs.uniform(-1, 1, (MLP_SAMPLES, 3)).astype(np.float32), device=dev)
-    dirs = torch.tensor(rs.normal(size=(MLP_SAMPLES, 3)).astype(np.float32), device=dev)
+    n_prm = model.n_geo + model.n_app
+    pos = torch.tensor(rs.uniform(-1, 1, (n_samples, 3)).astype(np.float32), device=dev)
+    dirs = torch.tensor(rs.normal(size=(n_samples, 3)).astype(np.float32), device=dev)
     dirs = dirs / dirs.norm(dim=-1, keepdim=True)
-    prms = torch.tensor(rs.uniform(0, 1, (MLP_SAMPLES, 7)).astype(np.float32), device=dev)
+    prms = torch.tensor(rs.uniform(0, 1, (n_samples, n_prm)).astype(np.float32), device=dev)
     packed = model.packed()
     with torch.no_grad():
         pos_map, dir_map = model.feature_maps(pos, dirs, prms)
@@ -400,14 +417,15 @@ def check_mlp(fused, model, dtype_name):
     scale = max(1.0, float(ref.abs().max()))
     err = float((got - ref).abs().max())
     tol = (MLP_BF16_TOL if dtype_name == "bfloat16" else MLP_F32_TOL) * scale
-    log(f"mlp_fused {dtype_name}: N={MLP_SAMPLES}, max |kernel - plain| = {err:.3g} "
+    log(f"mlp_fused {dtype_name}: N={n_samples}, {n_prm} parameters, dir map "
+        f"{packed.dir_dim} wide (padded {packed.dir_pad}), max |kernel - plain| = {err:.3g} "
         f"(tol {tol:.3g}, max|plain| {scale:.3g}), mean err {float((got - ref).abs().mean()):.3g}")
     if not err <= tol:
         raise AssertionError(f"mlp_fused {dtype_name} disagrees with its plain version: {err}")
     elt = 2 if dtype_name == "bfloat16" else 4
-    nbytes = (MLP_SAMPLES * (packed.pos_pad + packed.dir_pad) * elt
-              + packed.weights.numel() * elt + packed.biases.numel() * 4 + MLP_SAMPLES * 16)
-    flops = 2 * packed.macs * MLP_SAMPLES
+    nbytes = (n_samples * (packed.pos_pad + packed.dir_pad) * elt
+              + packed.weights.numel() * elt + packed.biases.numel() * 4 + n_samples * 16)
+    flops = 2 * packed.macs * n_samples
     peak = H100_BF16_FLOPS if dtype_name == "bfloat16" else H100_F32_FLOPS
     row = {
         "name": "mlp_fused", "route": "cuda",
@@ -419,7 +437,7 @@ def check_mlp(fused, model, dtype_name):
         "bound_ms": max(nbytes / H100_BYTES_PER_S, flops / peak) * 1e3,
         "bound_by": "operations" if flops / peak > nbytes / H100_BYTES_PER_S else "bytes",
         "library_ms": None,
-        "macs_per_sample": packed.macs,
+        "macs_per_sample": packed.macs, "samples": n_samples,
     }
     if dtype_name == "bfloat16":
         run = cublas_chain(packed)
@@ -464,18 +482,25 @@ def main():
     # -- kernels vs plain --------------------------------------------------------
     t_phase = time.perf_counter()
     inputs = np.load(os.path.join(ROOT, "tests", "torch_bench_inputs.npz"))
-    params = {k[len("param/"):]: inputs[k] for k in inputs.files if k.startswith("param/")}
-    channel = load_texture_channels(os.path.join(ROOT, "meshes", "smooth_checkerboard.png"))[0]
-    rows = {"tex_fetch": check_tex(tex_gather, channel)}
+    params = npz_params("torch_bench_inputs.npz")
+    rows = {}
+    for frame, texture in (("bench", "smooth_checkerboard.png"), ("plush", "checkerboard.png")):
+        channel = load_texture_channels(os.path.join(ROOT, "meshes", texture))[0]
+        rows[frame] = {"tex_fetch": check_tex(tex_gather, channel, texture)}
     mlp = {}
     for name in ("bfloat16", "float32"):
         probe = instantiate(model_config("float32", compute_dtype=name), device="cuda")
         load_jax_params(probe, params)
-        mlp[name] = check_mlp(fused, probe, name)
+        mlp[name] = check_mlp(fused, probe, name, MLP_SAMPLES["bench"])
     # The main path runs the bf16 variant; the f32 one rides along in its row.
-    rows["mlp_fused"] = dict(mlp["bfloat16"], float32_variant={
+    rows["bench"]["mlp_fused"] = dict(mlp["bfloat16"], float32_variant={
         k: mlp["float32"][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")})
-    rows["selk_resolve"] = check_selk(selk)
+    probe = instantiate(plush_model_config(), device="cuda")
+    load_jax_params(probe, npz_params("torch_plush_inputs.npz"))
+    rows["plush"]["mlp_fused"] = check_mlp(fused, probe, "bfloat16", MLP_SAMPLES["plush"])
+    del probe
+    for frame in ("bench", "plush"):
+        rows[frame]["selk_resolve"] = check_selk(selk, frame)
     log(f"phase kernels: {time.perf_counter() - t_phase:.1f} s")
     counters = {"tex_fetch": tex_gather.sample_channel, "mlp_fused": fused.mlp_fused,
                 "selk_resolve": selk.selk_resolve}
@@ -509,7 +534,7 @@ def main():
     first_s = time.perf_counter() - t0
     carpet_launches = read_counts()
     log(f"bench frame (first render {first_s:.2f} s): launches {carpet_launches}")
-    for name in ("tex_fetch", "mlp_fused"):
+    for name in counters:
         if carpet_launches[name] <= 0:
             raise AssertionError(f"the bench frame did not launch {name}")
     psnr = golden_psnr(out)
@@ -571,10 +596,9 @@ def main():
     plush = {"rays_per_s": h * w / p_best, "best_ms": p_best * 1e3, "golden_psnr_db": p_psnr,
              "peak_gib": p_peak}
 
-    kernels = [dict(row, launches=plush_launches[name],
-                    launches_per_frame={"bench": carpet_launches[name],
-                                        "plush": plush_launches[name]})
-               for name, row in rows.items()]
+    launches = {"bench": carpet_launches, "plush": plush_launches}
+    kernels = [dict(row, frame=frame, launches=launches[frame][name])
+               for frame in ("bench", "plush") for name, row in rows[frame].items()]
     log(json.dumps({"frames": {"bench": carpet, "plush": plush}, "card": card,
                     "seconds": time.perf_counter() - t_start}))
     log(card)

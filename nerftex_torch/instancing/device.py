@@ -14,8 +14,8 @@ directional light, optional shadow rays):
      the light of ``shadow_samples`` points spread over the inside arc,
      through the exact skip/culled/full branch of ``_occlusion_branched``;
   2. ``_per_sample_grid``: arc-length sample positions mapped to world t,
-     the overlap pick among the active intervals (kernels.selk_resolve
-     with ``pallas_selk``, else its plain chain) and its density weight,
+     the overlap pick among the active intervals (kernels.selk_resolve)
+     and its density weight,
      then ``_per_sample_grid_tail``: local transforms, the texture-driven
      parameter slots (through kernels.tex_gather) and the light direction,
      pointed down for samples whose shadow bucket is blocked;
@@ -46,7 +46,7 @@ import numpy as np
 import torch
 
 from nerftex_torch.instancing.scene import Scene
-from nerftex_torch.kernels.selk_resolve import fma, selk_resolve, selk_resolve_plain
+from nerftex_torch.kernels.selk_resolve import fma, selk_resolve
 from nerftex_torch.kernels.tex_gather import sample_channel
 from nerftex_torch.models.encodings import check_matmul_precision, round_operand
 from nerftex_torch.ops.volume import mean_distance
@@ -320,7 +320,6 @@ class DeviceInstancer:
         shadow_tri_cull_budget: int = 0,
         seed: int = 0,
         deterministic_offset: bool = False,
-        pallas_selk: bool = False,
         matmul_precision: str = "float32",
     ):
         if scene.instance_sampling_method not in ("random", "nearest", "nearest_blend"):
@@ -341,9 +340,6 @@ class DeviceInstancer:
         self.shadow_samples = shadow_samples
         self.shadow_cull_budget = shadow_cull_budget
         self.shadow_tri_cull_budget = shadow_tri_cull_budget
-        # The overlap pick through the selk_resolve kernel (CUDA tensors)
-        # instead of the [Rb, S, K] chain; the JAX package's per-scene knob.
-        self.pallas_selk = bool(pallas_selk)
         # How often the shadow query took each exact branch (diagnostic).
         self.shadow_branches = {"skip": 0, "culled": 0, "full": 0}
         self.deterministic_offset = deterministic_offset
@@ -784,12 +780,10 @@ class DeviceInstancer:
         t_pt = mean_distance(t_mu, step) if ds.use_mean_distance else t_mu
         pts_w = rays_o[:, None, :] + rays_d[:, None, :] * t_pt[..., None]  # [Rb,S,3]
 
-        # Overlap resolution over the K hit slots: the kernel with
-        # pallas_selk (its plain version for CPU tensors), else the [Rb,S,K]
-        # chain; then the pick's density weight.
+        # Overlap resolution over the K hit slots (the kernel; its plain
+        # [Rb,S,K] chain for CPU tensors), then the pick's density weight.
         method = ds.instance_sampling_method
-        resolve = selk_resolve if self.pallas_selk else selk_resolve_plain
-        sel_k, p_sel, n_active = resolve(
+        sel_k, p_sel, n_active = selk_resolve(
             ray["tk0"], ray["tk1"], ray["kvalid"], ray["sel_a"], ray["sel_b"], t_pt, u_sel,
             method=method, blend_range=ds.nearest_blend_range)
         if method == "random":

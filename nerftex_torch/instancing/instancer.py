@@ -43,6 +43,10 @@ class Instancer:
         matmul_precision: str = "float32",
         device=None,
     ):
+        # pallas_selk is accepted so that the JAX package's configs load, and
+        # ignored: the overlap pick always runs the selk_resolve kernel on
+        # the card (its plain version on the CPU).
+        del pallas_selk
         if auxiliary_meshes:
             raise NotImplementedError("auxiliary meshes (shaded terminators) come with the "
                                       "grass slice")
@@ -80,7 +84,6 @@ class Instancer:
             shadow_tri_cull_budget=shadow_tri_cull_budget,
             seed=seed,
             deterministic_offset=deterministic_offset,
-            pallas_selk=pallas_selk,
             matmul_precision=matmul_precision,
         )
 

@@ -183,3 +183,29 @@ def test_sorted_blocks_equal_dense_grid(setup):
             want = torch.where(m, want, torch.zeros_like(want))
         assert torch.equal(got, want), k
     assert torch.equal(aux["hit"], dense["hit"])
+
+
+@pytest.mark.parametrize("pallas_selk", [False, True])
+def test_pallas_selk_is_ignored(setup, monkeypatch, pallas_selk):
+    """The port has no pallas_selk knob: an Instancer built with either
+    value resolves every pick through kernels.selk_resolve (its plain
+    version for these CPU tensors) and gives the same model input."""
+    import nerftex_torch.instancing.device as device
+
+    _, td, (o, d, p) = setup
+    calls = []
+    real = device.selk_resolve
+
+    def counted(*args, **kwargs):
+        calls.append(kwargs["method"])
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(device, "selk_resolve", counted)
+    inst = Instancer(mesh_path=os.path.join(ROOT, "meshes", "cloth_mesh.ply"), patch_scale=0.09,
+                     patch_origins_path=os.path.join(ROOT, "meshes", "cloth_anchor_points.ply"),
+                     device="cpu", pallas_selk=pallas_selk, **SCENE_KW, **DEV_KW)
+    got = inst.device_instancer.get_model_input(o, d, p, N_SAMPLES, STEP)
+    assert calls and set(calls) == {"nearest"}
+    want = td.get_model_input(o, d, p, N_SAMPLES, STEP)
+    for k, v in got.items():
+        assert torch.equal(v, want[k]), k

@@ -11,12 +11,16 @@ Phases (any failure raises and exits non-zero):
   3. each kernel against its plain PyTorch version on the card at each
      frame's shapes and inputs (the bench frame's and the plush frame's
      texture channel, ParamNerf weights and overlap-pick shapes), with
-     times (kernel, plain, library call) and the bound;
+     times (kernel, plain, library call) and the bound.  ``ms`` is event
+     time over back-to-back calls (host dispatch included); ``device_ms``
+     is the same calls captured in a CUDA graph and replayed, the card's
+     own time per call;
   4. the bench frame (bench.py's 512x512 carpet workload) rendered through
      the config-built port with the transplanted bench weights and the
      JAX-drawn per-ray offsets (tests/torch_bench_inputs.npz), checked
      against tests/golden_bench_frame.npz at bench.py's 55 dB floor, with
-     every kernel's launch count from that render, then timed (best of 3);
+     every kernel's launch count from that render (and which variant of
+     tex_fetch and mlp_fused ran), then timed (best of 3);
   5. the plush frame (configs/config_plush_render.py at 800x800 with the
      plush operating point: shadow rays, nearest_blend picks through the
      selk_resolve kernel) rendered through the config-built port with the
@@ -24,7 +28,7 @@ Phases (any failure raises and exits non-zero):
      own random draws for key(1) (nerftex_torch.utils.jax_rng), checked
      against tests/golden_scene_plush.npz at scripts/bench_scene.py's
      50 dB floor on the same 10x box downsample, with every kernel's launch
-     count from that render, then timed (best of 2).
+     count and variant from that render, then timed (best of 2).
 The last two lines of stdout are the kernels JSON (one row per kernel and
 frame) and the device JSON.
 """
@@ -41,18 +45,20 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_PSNR_DB = 55.0                 # bench.py's floor
 PLUSH_GOLDEN_PSNR_DB = 50.0           # scripts/bench_scene.py's floor
-TEX_SAMPLES = 1 << 20                 # >= 1M uv samples
-MLP_SAMPLES = {"bench": 262144,       # one render chunk's worth of samples
-               "plush": 65536}        # the plush renderer's net_chunk
+TEX_SAMPLES = (1 << 20, 1024 * 320)   # 1M uv samples; one bench ray block (1024 x 320)
+MLP_SAMPLES = {"bench": (262144,      # one render chunk's worth of samples
+                         32768),      # the bench renderer's net_chunk (one launch)
+               "plush": (65536,)}     # the plush renderer's net_chunk
+# Variants the frames must run (byte-valued textures, bf16 weights).
+FRAME_VARIANTS = {"tex_fetch": "byte_quad", "mlp_fused": "wgmma_bf16"}
 # Tolerances, kernel vs plain version on the same card:
-#  tex_fetch: both round every lerp operation separately (no fma), so they
-#    agree to the bit; 4e-7 is the JAX package's <= 2 ulp contract
-#    (tests/test_tex_kernel.py).
+#  tex_fetch: both variants round every lerp operation separately (no fma)
+#    and give the byte texels b / 255 correctly rounded, so they agree to
+#    the bit with sample_channel_plain.
 #  mlp_fused f32: FMA accumulation vs cuBLAS f32 (TF32 off) over K <= 337,
 #    relative error ~K * 2^-24 per layer through 13 layers.
 #  mlp_fused bf16: every layer's output is rounded to bf16 (2^-8 relative);
 #    a different summation order flips single roundings, which propagate.
-TEX_ATOL = 4e-7
 MLP_F32_TOL = 1e-4                    # x max(1, max|plain|)
 MLP_BF16_TOL = 5e-2                   # x max(1, max|plain|)
 #  selk_resolve: nearest and random picks and n_active exact (the same
@@ -90,6 +96,34 @@ def time_ms(fn, iters=20, warmup=3):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters=50, replays=3):
+    """The card's time per call of ``fn``: ``iters`` calls captured in one
+    CUDA graph, replayed ``replays`` times, best replay over ``iters``.  No
+    host dispatch is left in it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / iters)
+    del graph
+    return best
 
 
 def card_line():
@@ -222,45 +256,61 @@ def golden_psnr(out):
 
 
 def check_tex(tex_gather, channel, texture):
-    """The texture fetch on one channel of ``texture`` against its plain
-    version at uv samples that reach past the borders."""
+    """Both variants of the texture fetch on one channel of ``texture``
+    against the plain version, bit for bit, at uv samples that reach past
+    the borders, at each of TEX_SAMPLES; times of the byte_quad variant the
+    frames run, the f32 variant and grid_sample."""
     dev = torch.device("cuda")
-    rs = np.random.RandomState(0)
-    uv = torch.tensor(rs.uniform(-0.05, 1.05, (TEX_SAMPLES, 2)).astype(np.float32), device=dev)
     tex = torch.tensor(channel, device=dev).contiguous()
-    got = tex_gather.sample_channel(tex, uv)
-    ref = tex_gather.sample_channel_plain(tex, uv)
-    torch.cuda.synchronize()
-    err = float((got - ref).abs().max())
-    log(f"tex_fetch ({texture}): {TEX_SAMPLES} samples, max |kernel - plain| = {err:.3g} "
-        f"(tol {TEX_ATOL})")
-    if not err <= TEX_ATOL:
-        raise AssertionError(f"tex_fetch disagrees with its plain version: {err}")
+    quads = tex_gather.byte_quads(tex)
+    if quads is None:
+        raise AssertionError(f"{texture} is not byte valued")
     w, h = tex.shape
-    grid = (uv * 2 - 1).reshape(1, 1, -1, 2)
     image = tex.T.reshape(1, 1, h, w)
-    lib_out = torch.nn.functional.grid_sample(image, grid, mode="bilinear",
-                                              padding_mode="border", align_corners=True)
-    lib_err = float((lib_out.reshape(-1) - ref).abs().max())
-    nbytes = TEX_SAMPLES * (8 + 4) + tex.numel() * 4
-    row = {
-        "name": "tex_fetch", "route": "cuda",
-        "source": "nerftex_torch/kernels/csrc/tex_fetch.cu",
-        "replaces": "nerftex_tpu/kernels/tex_gather.py:121",
-        "max_abs_err": err,
-        "ms": time_ms(lambda: tex_gather.sample_channel(tex, uv), iters=50),
-        "plain_ms": time_ms(lambda: tex_gather.sample_channel_plain(tex, uv), iters=50),
-        "bound_ms": max(nbytes / H100_BYTES_PER_S, TEX_SAMPLES * 20 / H100_F32_FLOPS) * 1e3,
-        "bound_by": "bytes",
-        "library_ms": time_ms(lambda: torch.nn.functional.grid_sample(
-            image, grid, mode="bilinear", padding_mode="border", align_corners=True), iters=50),
-        "library": "torch.nn.functional.grid_sample (bilinear, border, align_corners)",
-        "library_max_abs_err": lib_err,
-        "texture": texture,
-    }
-    log(f"tex_fetch ({texture}): kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-        f"grid_sample {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms")
-    return row
+    shapes = []
+    for n in TEX_SAMPLES:
+        rs = np.random.RandomState(0)
+        uv = torch.tensor(rs.uniform(-0.05, 1.05, (n, 2)).astype(np.float32), device=dev)
+        ref = tex_gather.sample_channel_plain(tex, uv)
+        err = 0.0
+        for variant, q, plain in (("byte_quad", quads, tex_gather.fetch_quads_plain(quads, w, h, uv)),
+                                  ("f32", None, ref)):
+            got = tex_gather.sample_channel(tex, uv, q)
+            torch.cuda.synchronize()
+            if not (torch.equal(got, ref) and torch.equal(got, plain)):
+                raise AssertionError(f"tex_fetch {variant} on {texture} disagrees with its plain "
+                                     f"version: max {float((got - ref).abs().max())}")
+            err = max(err, float((got - plain).abs().max()))
+        grid = (uv * 2 - 1).reshape(1, 1, -1, 2)
+
+        def library():
+            return torch.nn.functional.grid_sample(image, grid, mode="bilinear",
+                                                   padding_mode="border", align_corners=True)
+
+        lib_err = float((library().reshape(-1) - ref).abs().max())
+        nbytes = n * (8 + 4) + quads.numel()
+        shapes.append({
+            "samples": n, "max_abs_err": err,
+            "ms": time_ms(lambda: tex_gather.sample_channel(tex, uv, quads), iters=50),
+            "device_ms": device_ms(lambda: tex_gather.sample_channel(tex, uv, quads)),
+            "f32_variant_device_ms": device_ms(lambda: tex_gather.sample_channel(tex, uv)),
+            "plain_ms": time_ms(lambda: tex_gather.fetch_quads_plain(quads, w, h, uv), iters=50),
+            "bound_ms": max(nbytes / H100_BYTES_PER_S, n * 20 / H100_F32_FLOPS) * 1e3,
+            "bound_by": "bytes",
+            "library_ms": time_ms(library, iters=50),
+            "library_device_ms": device_ms(library),
+            "library_max_abs_err": lib_err,
+        })
+        log(f"tex_fetch ({texture}, {n} samples): byte_quad and f32 bit-equal to plain; "
+            f"byte_quad device {shapes[-1]['device_ms']:.4f} ms (dispatch "
+            f"{shapes[-1]['ms']:.4f}), f32 device {shapes[-1]['f32_variant_device_ms']:.4f} ms, "
+            f"grid_sample device {shapes[-1]['library_device_ms']:.4f} ms (dispatch "
+            f"{shapes[-1]['library_ms']:.4f}), bound {shapes[-1]['bound_ms']:.4f} ms")
+    return dict(shapes[0], name="tex_fetch", route="cuda", variant="byte_quad",
+                source="nerftex_torch/kernels/csrc/tex_fetch.cu",
+                replaces="nerftex_tpu/kernels/tex_gather.py:121",
+                library="torch.nn.functional.grid_sample (bilinear, border, align_corners)",
+                texture=texture, shapes=shapes[1:])
 
 
 def selk_inputs(rb, s, k):
@@ -326,11 +376,14 @@ def check_selk(selk, frame):
                               "max_abs_err": p_err,
                               "ms": time_ms(lambda: selk.selk_resolve(*args, method=method,
                                                                       blend_range=blend)),
+                              "device_ms": device_ms(lambda: selk.selk_resolve(
+                                  *args, method=method, blend_range=blend)),
                               "plain_ms": time_ms(lambda: selk.selk_resolve_plain(
                                   *args, method=method, blend_range=blend), iters=3, warmup=1)}
         log(f"selk_resolve {method}: {rb}x{s}x{k}, picks differing {n_mism} of {sel.numel()} "
             f"(max knife edge {max_edge:.3g}), max |p - plain| {p_err:.3g}, "
-            f"kernel {per_method[method]['ms']:.4f} ms, plain {per_method[method]['plain_ms']:.3f} ms")
+            f"kernel {per_method[method]['ms']:.4f} ms (device {per_method[method]['device_ms']:.4f}), "
+            f"plain {per_method[method]['plain_ms']:.3f} ms")
     # Bytes: five [Rb, K] tables and two [Rb, S] planes in, three out.  The
     # K loop ends at each ray's last valid slot (at least slot 0).
     nbytes = rb * k * (4 * 4 + 1) + rb * s * 8 + rb * s * 12
@@ -340,7 +393,8 @@ def check_selk(selk, frame):
         "name": "selk_resolve", "route": "cuda",
         "source": "nerftex_torch/kernels/csrc/selk_resolve.cu",
         "replaces": "nerftex_tpu/kernels/selk_resolve.py:144",
-        "max_abs_err": main["max_abs_err"], "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "max_abs_err": main["max_abs_err"], "ms": main["ms"], "device_ms": main["device_ms"],
+        "plain_ms": main["plain_ms"],
         "bound_ms": max(nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS) * 1e3,
         "bound_by": "operations" if flops / H100_F32_FLOPS > nbytes / H100_BYTES_PER_S
         else "bytes",
@@ -396,59 +450,68 @@ def cublas_chain(packed):
     return run
 
 
-def check_mlp(fused, model, dtype_name, n_samples):
+def check_mlp(fused, model, dtype_name, sizes):
     """The fused MLP of ``model`` (compute dtype ``dtype_name``) against its
-    plain version on ``n_samples`` random encodable inputs."""
+    plain version on random encodable inputs of each of ``sizes`` samples;
+    the row is the first size's, the others ride along in ``shapes``."""
     dev = torch.device("cuda")
-    rs = np.random.RandomState(1)
     n_prm = model.n_geo + model.n_app
-    pos = torch.tensor(rs.uniform(-1, 1, (n_samples, 3)).astype(np.float32), device=dev)
-    dirs = torch.tensor(rs.normal(size=(n_samples, 3)).astype(np.float32), device=dev)
-    dirs = dirs / dirs.norm(dim=-1, keepdim=True)
-    prms = torch.tensor(rs.uniform(0, 1, (n_samples, n_prm)).astype(np.float32), device=dev)
     packed = model.packed()
-    with torch.no_grad():
-        pos_map, dir_map = model.feature_maps(pos, dirs, prms)
-        got = fused.mlp_fused(pos_map, dir_map, packed)
-        ref = fused.mlp_fused_plain(pos_map, dir_map, packed)
-    torch.cuda.synchronize()
-    if not torch.isfinite(got).all():
-        raise AssertionError(f"mlp_fused {dtype_name}: non-finite output")
-    scale = max(1.0, float(ref.abs().max()))
-    err = float((got - ref).abs().max())
-    tol = (MLP_BF16_TOL if dtype_name == "bfloat16" else MLP_F32_TOL) * scale
-    log(f"mlp_fused {dtype_name}: N={n_samples}, {n_prm} parameters, dir map "
-        f"{packed.dir_dim} wide (padded {packed.dir_pad}), max |kernel - plain| = {err:.3g} "
-        f"(tol {tol:.3g}, max|plain| {scale:.3g}), mean err {float((got - ref).abs().mean()):.3g}")
-    if not err <= tol:
-        raise AssertionError(f"mlp_fused {dtype_name} disagrees with its plain version: {err}")
     elt = 2 if dtype_name == "bfloat16" else 4
-    nbytes = (n_samples * (packed.pos_pad + packed.dir_pad) * elt
-              + packed.weights.numel() * elt + packed.biases.numel() * 4 + n_samples * 16)
-    flops = 2 * packed.macs * n_samples
     peak = H100_BF16_FLOPS if dtype_name == "bfloat16" else H100_F32_FLOPS
-    row = {
-        "name": "mlp_fused", "route": "cuda",
-        "source": "nerftex_torch/kernels/csrc/mlp_fused.cu",
-        "replaces": "nerftex_tpu/kernels/mlp_pallas.py:119",
-        "max_abs_err": err,
-        "ms": time_ms(lambda: fused.mlp_fused(pos_map, dir_map, packed)),
-        "plain_ms": time_ms(lambda: fused.mlp_fused_plain(pos_map, dir_map, packed)),
-        "bound_ms": max(nbytes / H100_BYTES_PER_S, flops / peak) * 1e3,
-        "bound_by": "operations" if flops / peak > nbytes / H100_BYTES_PER_S else "bytes",
-        "library_ms": None,
-        "macs_per_sample": packed.macs, "samples": n_samples,
-    }
-    if dtype_name == "bfloat16":
-        run = cublas_chain(packed)
-        pos_b = torch.nn.functional.pad(pos_map, (0, packed.pos_pad - packed.pos_dim)).bfloat16()
-        dir_b = torch.nn.functional.pad(dir_map, (0, packed.dir_pad - packed.dir_dim)).bfloat16()
-        row["cublas_layers_ms"] = time_ms(lambda: run(pos_b, dir_b))
-    log(f"mlp_fused {dtype_name}: kernel {row['ms']:.3f} ms "
-        f"({flops / row['ms'] / 1e9:.1f} TFLOP/s), plain {row['plain_ms']:.3f} ms, "
-        f"bound {row['bound_ms']:.3f} ms"
-        + (f", cuBLAS bf16 layers {row['cublas_layers_ms']:.3f} ms" if "cublas_layers_ms" in row else ""))
-    return row
+    run = cublas_chain(packed) if dtype_name == "bfloat16" else None
+    shapes = []
+    for n_samples in sizes:
+        rs = np.random.RandomState(1)
+        pos = torch.tensor(rs.uniform(-1, 1, (n_samples, 3)).astype(np.float32), device=dev)
+        dirs = torch.tensor(rs.normal(size=(n_samples, 3)).astype(np.float32), device=dev)
+        dirs = dirs / dirs.norm(dim=-1, keepdim=True)
+        prms = torch.tensor(rs.uniform(0, 1, (n_samples, n_prm)).astype(np.float32), device=dev)
+        with torch.no_grad():
+            pos_map, dir_map = model.feature_maps(pos, dirs, prms)
+            got = fused.mlp_fused(pos_map, dir_map, packed)
+            ref = fused.mlp_fused_plain(pos_map, dir_map, packed)
+        torch.cuda.synchronize()
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"mlp_fused {dtype_name}: non-finite output")
+        scale = max(1.0, float(ref.abs().max()))
+        err = float((got - ref).abs().max())
+        mean_err = float((got - ref).abs().mean())
+        tol = (MLP_BF16_TOL if dtype_name == "bfloat16" else MLP_F32_TOL) * scale
+        log(f"mlp_fused {dtype_name}: N={n_samples}, {n_prm} parameters, dir map "
+            f"{packed.dir_dim} wide (padded {packed.dir_pad}), max |kernel - plain| = {err:.3g} "
+            f"(tol {tol:.3g}, max|plain| {scale:.3g}), mean err {mean_err:.3g}")
+        if not err <= tol:
+            raise AssertionError(f"mlp_fused {dtype_name} disagrees with its plain version: {err}")
+        nbytes = (n_samples * (packed.pos_pad + packed.dir_pad) * elt
+                  + packed.weights.numel() * elt + packed.biases.numel() * 4 + n_samples * 16)
+        flops = 2 * packed.macs * n_samples
+        row = {
+            "samples": n_samples, "max_abs_err": err, "mean_abs_err": mean_err,
+            "ms": time_ms(lambda: fused.mlp_fused(pos_map, dir_map, packed)),
+            "device_ms": device_ms(lambda: fused.mlp_fused(pos_map, dir_map, packed), iters=20),
+            "plain_ms": time_ms(lambda: fused.mlp_fused_plain(pos_map, dir_map, packed)),
+            "bound_ms": max(nbytes / H100_BYTES_PER_S, flops / peak) * 1e3,
+            "bound_by": "operations" if flops / peak > nbytes / H100_BYTES_PER_S else "bytes",
+            "library_ms": None,
+            "macs_per_sample": packed.macs,
+        }
+        row["tflops"] = flops / row["device_ms"] / 1e9
+        if run is not None:
+            pos_b = torch.nn.functional.pad(pos_map, (0, packed.pos_pad - packed.pos_dim)).bfloat16()
+            dir_b = torch.nn.functional.pad(dir_map, (0, packed.dir_pad - packed.dir_dim)).bfloat16()
+            row["cublas_layers_ms"] = time_ms(lambda: run(pos_b, dir_b))
+            row["cublas_layers_device_ms"] = device_ms(lambda: run(pos_b, dir_b), iters=20)
+        log(f"mlp_fused {dtype_name}: N={n_samples} kernel device {row['device_ms']:.4f} ms "
+            f"({row['tflops']:.1f} TFLOP/s, {row['bound_ms'] / row['device_ms']:.3f} of the bound), "
+            f"dispatch {row['ms']:.4f} ms, plain {row['plain_ms']:.3f} ms, bound "
+            f"{row['bound_ms']:.4f} ms"
+            + (f", cuBLAS bf16 layers device {row['cublas_layers_device_ms']:.4f} ms (dispatch "
+               f"{row['cublas_layers_ms']:.4f})" if run is not None else ""))
+        shapes.append(row)
+    return dict(shapes[0], name="mlp_fused", route="cuda", variant=fused.VARIANTS[packed.dtype],
+                source="nerftex_torch/kernels/csrc/mlp_fused.cu",
+                replaces="nerftex_tpu/kernels/mlp_pallas.py:119", shapes=shapes[1:])
 
 
 def main():
@@ -491,10 +554,12 @@ def main():
     for name in ("bfloat16", "float32"):
         probe = instantiate(model_config("float32", compute_dtype=name), device="cuda")
         load_jax_params(probe, params)
-        mlp[name] = check_mlp(fused, probe, name, MLP_SAMPLES["bench"])
+        sizes = MLP_SAMPLES["bench"] if name == "bfloat16" else MLP_SAMPLES["bench"][:1]
+        mlp[name] = check_mlp(fused, probe, name, sizes)
     # The main path runs the bf16 variant; the f32 one rides along in its row.
     rows["bench"]["mlp_fused"] = dict(mlp["bfloat16"], float32_variant={
-        k: mlp["float32"][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")})
+        k: mlp["float32"][k] for k in ("variant", "max_abs_err", "ms", "device_ms", "plain_ms",
+                                       "bound_ms", "bound_by")})
     probe = instantiate(plush_model_config(), device="cuda")
     load_jax_params(probe, npz_params("torch_plush_inputs.npz"))
     rows["plush"]["mlp_fused"] = check_mlp(fused, probe, "bfloat16", MLP_SAMPLES["plush"])
@@ -508,9 +573,21 @@ def main():
     def reset_counts():
         for fn in counters.values():
             fn.launches = 0
+            if hasattr(fn, "variant_launches"):
+                fn.variant_launches = dict.fromkeys(fn.variant_launches, 0)
 
     def read_counts():
-        return {name: fn.launches for name, fn in counters.items()}
+        return ({name: fn.launches for name, fn in counters.items()},
+                {name: dict(counters[name].variant_launches) for name in FRAME_VARIANTS})
+
+    def check_counts(frame, launches, variants):
+        for name, n in launches.items():
+            if n <= 0:
+                raise AssertionError(f"the {frame} frame did not launch {name}")
+        for name, want in FRAME_VARIANTS.items():
+            if variants[name][want] != launches[name]:
+                raise AssertionError(f"the {frame} frame ran {name} variants {variants[name]}, "
+                                     f"not {want} alone")
 
     # -- the bench frame -------------------------------------------------------
     t_phase = time.perf_counter()
@@ -532,11 +609,10 @@ def main():
     out = renderer(**data, u_offset=u_offset)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    carpet_launches = read_counts()
-    log(f"bench frame (first render {first_s:.2f} s): launches {carpet_launches}")
-    for name in counters:
-        if carpet_launches[name] <= 0:
-            raise AssertionError(f"the bench frame did not launch {name}")
+    carpet_launches, carpet_variants = read_counts()
+    log(f"bench frame (first render {first_s:.2f} s): launches {carpet_launches}, variants "
+        f"{carpet_variants}")
+    check_counts("bench", carpet_launches, carpet_variants)
     psnr = golden_psnr(out)
     log(f"golden check: {psnr:.2f} dB (floor {GOLDEN_PSNR_DB})")
     if not psnr >= GOLDEN_PSNR_DB:
@@ -573,12 +649,11 @@ def main():
     out = renderer(**p_data, key=jax_rng.key(1))
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    plush_launches = read_counts()
-    log(f"plush frame (first render {first_s:.2f} s): launches {plush_launches}, shadow "
-        f"branches {renderer.instancer.device_instancer.shadow_branches}")
-    for name, n in plush_launches.items():
-        if n <= 0:
-            raise AssertionError(f"the plush frame did not launch {name}")
+    plush_launches, plush_variants = read_counts()
+    log(f"plush frame (first render {first_s:.2f} s): launches {plush_launches}, variants "
+        f"{plush_variants}, shadow branches "
+        f"{renderer.instancer.device_instancer.shadow_branches}")
+    check_counts("plush", plush_launches, plush_variants)
     p_psnr = plush_golden_psnr(out, h, w)
     log(f"plush golden check: {p_psnr:.2f} dB (floor {PLUSH_GOLDEN_PSNR_DB}, 10x downsample)")
     if not p_psnr >= PLUSH_GOLDEN_PSNR_DB:

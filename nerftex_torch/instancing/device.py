@@ -47,7 +47,7 @@ import torch
 
 from nerftex_torch.instancing.scene import Scene
 from nerftex_torch.kernels.selk_resolve import fma, selk_resolve
-from nerftex_torch.kernels.tex_gather import sample_channel
+from nerftex_torch.kernels.tex_gather import byte_quads, sample_channel
 from nerftex_torch.models.encodings import check_matmul_precision, round_operand
 from nerftex_torch.ops.volume import mean_distance
 from nerftex_torch.utils import jax_rng
@@ -106,8 +106,11 @@ class DeviceScene:
             self.anchor_uv = t(scene.anchor_uv)
             self.uv_jacobian = t(scene.uv_jacobian)
 
-        # Parameter texture channels at their own [W, H] (v from the bottom).
+        # Parameter texture channels at their own [W, H] (v from the bottom),
+        # each with its byte-quad table where the channel is byte valued
+        # (None otherwise: the fetch then reads the f32 channel).
         self.tex_channels = [t(c).contiguous() for c in scene.texture_channels]
+        self.tex_quads = [byte_quads(c) for c in self.tex_channels]
 
         # Per-instance world bounding spheres: the 8 corners of the local
         # patch box pushed through each forward transform.
@@ -823,7 +826,8 @@ class DeviceInstancer:
             uv = torch.clamp(a_uv + torch.sum(jac * rel[..., None, :], -1), 0.0, 1.0)
             uv = uv.contiguous()
             for i, slot in enumerate(ds.texture_parameter_idxs):
-                params_out[..., slot] = params_out[..., slot] * sample_channel(ds.tex_channels[i], uv)
+                texel = sample_channel(ds.tex_channels[i], uv, ds.tex_quads[i])
+                params_out[..., slot] = params_out[..., slot] * texel
 
         if ray["light_dir_w"] is not None:
             li = ds.light_dir_idx

@@ -29,7 +29,15 @@ _BASE_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC",
 ]
 
-_LOADED = {}
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# kernel name -> (C entry point, its argument types); set once, at load
+ENTRIES = {
+    "tex_fetch": ("nt_tex_fetch", [_I, _P, _I, _I, _P, _P, ctypes.c_longlong, _P]),
+    "mlp_fused": ("nt_mlp_fused", [_I, _P, _P, _I, _I, _P, _P, _P, _I, _P, _I, _P]),
+    "selk_resolve": ("nt_selk_resolve", [_P] * 7 + [_I, _I, _I, _I, ctypes.c_float] + [_P] * 4),
+}
+
+_LOADED = {}  # name -> (library, entry point)
 
 
 def _nvcc() -> str:
@@ -81,18 +89,24 @@ def build(names=None) -> dict:
     return seconds
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if needed."""
+def entry(name: str):
+    """The C entry point of kernel ``name`` with its argument types set,
+    the library built and loaded first if needed."""
     if name not in _LOADED:
         build([name])
         lib = ctypes.CDLL(library_path(name))
         lib.nt_error_string.argtypes = [ctypes.c_int]
         lib.nt_error_string.restype = ctypes.c_char_p
-        _LOADED[name] = lib
-    return _LOADED[name]
+        fn_name, argtypes = ENTRIES[name]
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _LOADED[name] = (lib, fn)
+    return _LOADED[name][1]
 
 
-def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
-    """Raise if a launch returned a CUDA error code."""
+def check(name: str, rc: int) -> None:
+    """Raise if a launch of kernel ``name`` returned a CUDA error code."""
     if rc != 0:
-        raise RuntimeError(f"{what}: CUDA error {rc} ({lib.nt_error_string(rc).decode()})")
+        msg = _LOADED[name][0].nt_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")

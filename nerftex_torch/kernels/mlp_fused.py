@@ -4,12 +4,17 @@ Counterpart of nerftex_tpu/kernels/mlp_pallas.py (``make_fused_apply``).
 ``pack`` lays a ParamNerf's dense chain out as a layer table plus flat,
 zero-padded weights; ``mlp_fused(pos_map, dir_map, packed)`` runs the chain
 on a CPU tensor with ``mlp_fused_plain`` and on a CUDA tensor with
-``csrc/mlp_fused.cu``.  Both compute each layer with f32 accumulation over
-``packed.dtype`` operands and round every layer's output to that dtype.
+``csrc/mlp_fused.cu``, whose variant follows ``packed.dtype``:
+
+  wgmma_bf16  bf16 operands, warp-specialised wgmma over ``packed.slabs``;
+  fma_f32     f32 operands, plain FMA over ``packed.weights``.
+
+Both compute each layer with f32 accumulation over ``packed.dtype``
+operands and round every layer's output to that dtype.
 """
 
-import ctypes
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
@@ -19,6 +24,7 @@ from nerftex_torch.kernels import build
 BUF_POS, BUF_DIR, BUF_HA, BUF_HB, OUT = 0, 1, 2, 3, -1
 MAX_WIDTH = 256
 MAX_LAYERS = 32
+VARIANTS = {torch.bfloat16: "wgmma_bf16", torch.float32: "fma_f32"}
 
 
 def _round_up(x: int, m: int) -> int:
@@ -28,14 +34,24 @@ def _round_up(x: int, m: int) -> int:
 @dataclass
 class PackedMLP:
     dtype: torch.dtype
-    weights: torch.Tensor     # flat [sum K_pad * n_pad] in dtype
+    weights: torch.Tensor     # flat [sum K_pad * n_pad] in dtype, each layer row-major
     biases: torch.Tensor      # flat [sum n_pad] f32 (dtype-rounded values)
-    table: np.ndarray         # [n_layers, 11] int64, LayerDesc order
+    table: np.ndarray         # [n_layers, 11] int64, LayerDesc order, C-contiguous
     pos_dim: int
     dir_dim: int
     pos_pad: int
     dir_pad: int
     macs: int                 # multiply-adds per sample at the real widths
+    # bf16 only: the same weights at the same offsets, each layer laid out
+    # [K_pad / 8][n_pad][8] (wgmma's K-major core matrices, no swizzle), so
+    # every 64-deep K slab is one contiguous block for the kernel's bulk copy.
+    slabs: Optional[torch.Tensor] = None
+
+
+def slab_image(w: torch.Tensor) -> torch.Tensor:
+    """[K_pad, n_pad] -> the flat [K_pad / 8][n_pad][8] core-matrix image."""
+    k, n = w.shape
+    return w.reshape(k // 8, 8, n).permute(0, 2, 1).reshape(-1)
 
 
 def pack(layers, pos_dim: int, dir_dim: int, dtype: torch.dtype) -> PackedMLP:
@@ -52,7 +68,7 @@ def pack(layers, pos_dim: int, dir_dim: int, dtype: torch.dtype) -> PackedMLP:
     real = {BUF_POS: pos_dim, BUF_DIR: dir_dim}
     padded = {BUF_POS: pos_pad, BUF_DIR: dir_pad}
     device = layers[0][0].device
-    w_parts, b_parts, table = [], [], []
+    w_parts, s_parts, b_parts, table = [], [], [], []
     w_off = b_off = macs = 0
     for weight, bias, segments, dst, relu, out_col in layers:
         n_out, k_real = weight.shape
@@ -76,6 +92,7 @@ def pack(layers, pos_dim: int, dir_dim: int, dtype: torch.dtype) -> PackedMLP:
         b = torch.zeros(n_pad, dtype=torch.float32, device=device)
         b[:n_out] = bias.float()
         w_parts.append(w.reshape(-1))
+        s_parts.append(slab_image(w))
         b_parts.append(b.to(dtype).float())
         seg = list(zip(segments, k_pads)) + [(-1, 0)] * (2 - len(segments))
         table.append([w_off, b_off, seg[0][0], seg[0][1], seg[1][0], seg[1][1],
@@ -89,8 +106,9 @@ def pack(layers, pos_dim: int, dir_dim: int, dtype: torch.dtype) -> PackedMLP:
         dtype=dtype,
         weights=torch.cat(w_parts).to(dtype).contiguous(),
         biases=torch.cat(b_parts).contiguous(),
-        table=np.asarray(table, np.int64),
+        table=np.ascontiguousarray(table, np.int64),
         pos_dim=pos_dim, dir_dim=dir_dim, pos_pad=pos_pad, dir_pad=dir_pad, macs=macs,
+        slabs=torch.cat(s_parts).to(dtype).contiguous() if dtype == torch.bfloat16 else None,
     )
 
 
@@ -122,15 +140,6 @@ def mlp_fused_plain(pos_map: torch.Tensor, dir_map: torch.Tensor, packed: Packed
     return out
 
 
-def _lib():
-    lib = build.load("mlp_fused")
-    p = ctypes.c_void_p
-    lib.nt_mlp_fused.argtypes = [ctypes.c_int, p, p, ctypes.c_int, ctypes.c_int, p, p, p,
-                                 ctypes.c_int, p, ctypes.c_int, p]
-    lib.nt_mlp_fused.restype = ctypes.c_int
-    return lib
-
-
 def mlp_fused(pos_map: torch.Tensor, dir_map: torch.Tensor, packed: PackedMLP) -> torch.Tensor:
     """Fused forward of the packed chain: pos_map [N, pos_dim] and dir_map
     [N, dir_dim] float32 -> [N, 4] float32 (rgb logits, density)."""
@@ -145,7 +154,7 @@ def mlp_fused(pos_map: torch.Tensor, dir_map: torch.Tensor, packed: PackedMLP) -
     if pos_map.shape != (n, packed.pos_dim) or dir_map.shape != (n, packed.dir_dim):
         raise ValueError(f"need pos_map [N, {packed.pos_dim}] and dir_map [N, {packed.dir_dim}], "
                          f"got {tuple(pos_map.shape)} and {tuple(dir_map.shape)}")
-    if packed.dtype not in (torch.float32, torch.bfloat16):
+    if packed.dtype not in VARIANTS:
         raise TypeError(f"unsupported operand dtype {packed.dtype}")
     if n >= 2**31:
         raise ValueError(f"{n} samples in one call; split them (chunked_apply)")
@@ -154,17 +163,18 @@ def mlp_fused(pos_map: torch.Tensor, dir_map: torch.Tensor, packed: PackedMLP) -
         return out
     pos = _pad_cast(pos_map, packed.pos_pad, packed.dtype)
     dirs = _pad_cast(dir_map, packed.dir_pad, packed.dtype)
-    table = np.ascontiguousarray(packed.table)
-    lib = _lib()
-    rc = lib.nt_mlp_fused(
-        int(packed.dtype == torch.bfloat16), pos.data_ptr(), dirs.data_ptr(),
-        packed.pos_pad, packed.dir_pad, packed.weights.data_ptr(), packed.biases.data_ptr(),
-        table.ctypes.data, len(table), out.data_ptr(), n,
-        torch.cuda.current_stream(dev).cuda_stream,
+    variant = VARIANTS[packed.dtype]
+    weights = packed.slabs if variant == "wgmma_bf16" else packed.weights
+    rc = build.entry("mlp_fused")(
+        int(variant == "wgmma_bf16"), pos.data_ptr(), dirs.data_ptr(), packed.pos_pad,
+        packed.dir_pad, weights.data_ptr(), packed.biases.data_ptr(), packed.table.ctypes.data,
+        len(packed.table), out.data_ptr(), n, torch.cuda.current_stream(dev).cuda_stream,
     )
-    build.check(lib, rc, "mlp_fused")
+    build.check("mlp_fused", rc)
     mlp_fused.launches += 1
+    mlp_fused.variant_launches[variant] += 1
     return out
 
 
 mlp_fused.launches = 0
+mlp_fused.variant_launches = dict.fromkeys(VARIANTS.values(), 0)

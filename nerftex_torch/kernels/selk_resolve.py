@@ -20,8 +20,6 @@ p_sel is zero for ``nearest`` and ``random``, n_active is clamped to >= 1.
 ``csrc/selk_resolve.cu`` for CUDA tensors.
 """
 
-import ctypes
-
 import torch
 
 from nerftex_torch.kernels import build
@@ -85,16 +83,6 @@ def selk_resolve_plain(tk0, tk1, kvalid, sel_a, sel_b, t_pt, u_sel, method="near
     return sel_k.to(torch.int32), p_sel, n_active.to(torch.int32)
 
 
-def _lib():
-    lib = build.load("selk_resolve")
-    lib.nt_selk_resolve.argtypes = [ctypes.c_void_p] * 7 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ]
-    lib.nt_selk_resolve.restype = ctypes.c_int
-    return lib
-
-
 def selk_resolve(tk0, tk1, kvalid, sel_a, sel_b, t_pt, u_sel, method="nearest_blend",
                  blend_range=0.0):
     """Overlap resolution: tables tk0, tk1, kvalid, sel_a, sel_b [Rb, K] and
@@ -136,14 +124,13 @@ def selk_resolve(tk0, tk1, kvalid, sel_a, sel_b, t_pt, u_sel, method="nearest_bl
     def ptr(d, name):
         return d[name].data_ptr() if name in d else None
 
-    lib = _lib()
-    rc = lib.nt_selk_resolve(
+    rc = build.entry("selk_resolve")(
         ptr(tables, "tk0"), ptr(tables, "tk1"), ptr(tables, "kvalid"), ptr(tables, "sel_a"),
         ptr(tables, "sel_b"), ptr(planes, "t_pt"), ptr(planes, "u_sel"),
         rb, S, K, METHODS[method], float(blend_range),
         sel.data_ptr(), p.data_ptr(), n.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
-    build.check(lib, rc, "selk_resolve")
+    build.check("selk_resolve", rc)
     selk_resolve.launches += 1
     return sel, p, n
 

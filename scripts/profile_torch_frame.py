@@ -5,7 +5,8 @@ frame) or the plush frame's (``--scene plush``, 800x800) exactly as
 chip_smoke.py does, renders the frame twice to warm up, then profiles one
 render with torch.profiler and prints: the wall time, the summed device
 time of all kernels, the device idle share (1 - busy / wall), the number
-of kernel launches, and the kernels ranked by device time.  It also times
+of kernel launches, the kernels ranked by device time, and the port's own
+kernels (tex_fetch, mlp_fused, selk_resolve) whatever their rank.  It also times
 the render's stages with synchronised host clocks: the per-ray stage
 (culls, slab tests, top-K, event walk, and within it the shadow pass), the
 per-sample stage (arc-to-world map, overlap pick, local frames, texture
@@ -13,7 +14,10 @@ fetch) and the rest (sort, MLP, composite).
 
 Run from the repo root on a machine with a CUDA card:
 
-    python3 scripts/profile_torch_frame.py [--scene bench|plush] [--top 25]
+    python3 scripts/profile_torch_frame.py [--scene bench|plush] [--top 25] [--root DIR]
+
+``--root`` is a checkout of this repo (default: this one) whose
+nerftex_torch and chip_smoke.py are profiled, for before/after runs.
 """
 
 import argparse
@@ -25,17 +29,23 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# Kernel names of nerftex_torch/kernels/csrc, old and new (matched anywhere
+# in the profiler's name, which may be demangled or not).
+PORT_KERNELS = ("tex_fetch_kernel", "mlp_fused_kernel", "mlp_wgmma_kernel", "mlp_f32_kernel",
+                "selk_resolve_kernel")
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--scene", choices=("bench", "plush"), default="bench")
     ap.add_argument("--top", type=int, default=25)
+    ap.add_argument("--root", default=ROOT)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_torch_frame: needs a CUDA card")
-    sys.path.insert(0, ROOT)
-    os.chdir(ROOT)
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    os.chdir(root)
     import chip_smoke
     from nerftex_torch.instancing.device import DeviceInstancer
     from nerftex_torch.ops.rays import frame_rays
@@ -45,7 +55,7 @@ def main():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.scene == "bench":
-        inputs = np.load(os.path.join(ROOT, "tests", "torch_bench_inputs.npz"))
+        inputs = np.load(os.path.join(root, "tests", "torch_bench_inputs.npz"))
         params = {k[len("param/"):]: inputs[k] for k in inputs.files if k.startswith("param/")}
         model = instantiate(chip_smoke.model_config("bfloat16"), device="cuda")
         r_cfg = chip_smoke.renderer_config("bfloat16")
@@ -98,7 +108,8 @@ def main():
     busy_us = sum(a.self_device_time_total for a in kernels)
     n_launches = sum(a.count for a in kernels)
     by_name = {a.key: (a.count, a.self_device_time_total) for a in kernels}
-    print(f"card: {chip_smoke.card_line()}  scene: {args.scene}")
+    print(f"card: {chip_smoke.card_line()}  scene: {args.scene}  root: "
+          f"{os.path.relpath(root, ROOT)}")
     print(f"stage split (synchronised): per-ray stage {stages['_per_ray'] * 1e3:.1f} ms "
           f"(shadow pass {stages['_shadow_blocked_sparse'] * 1e3:.1f} ms), per-sample stage "
           f"{stages['_per_sample_grid'] * 1e3:.1f} ms, of {split_wall * 1e3:.1f} ms")
@@ -107,6 +118,10 @@ def main():
     print(f"{'device ms':>10} {'share':>6} {'calls':>6}  kernel")
     for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:args.top]:
         print(f"{t / 1e3:10.2f} {t / busy_us:6.3f} {n:6d}  {name[:110]}")
+    print("the port's kernels:")
+    for name, (n, t) in sorted(by_name.items()):
+        if any(k in name for k in PORT_KERNELS):
+            print(f"{t / 1e3:10.3f} {t / busy_us:6.3f} {n:6d}  {name[:110]}")
 
 
 if __name__ == "__main__":

@@ -22,15 +22,38 @@ def cuda():
 
 
 def test_tex_fetch_kernel_matches_plain(cuda):
+    """The f32 variant on channels that are not byte valued."""
     rs = np.random.RandomState(0)
     for w, h in ((256, 256), (60, 40)):
         tex = torch.tensor(rs.rand(w, h).astype(np.float32), device=cuda)
+        assert tex_gather.byte_quads(tex) is None
         uv = torch.tensor(rs.uniform(-0.1, 1.1, (3, 1000, 2)).astype(np.float32), device=cuda)
         before = tex_gather.sample_channel.launches
+        variants = dict(tex_gather.sample_channel.variant_launches)
         got = tex_gather.sample_channel(tex, uv)
         assert tex_gather.sample_channel.launches == before + 1
+        assert tex_gather.sample_channel.variant_launches == dict(variants, f32=variants["f32"] + 1)
         # Both round every lerp operation separately: bit-equal.
         assert torch.equal(got, tex_gather.sample_channel_plain(tex, uv))
+
+
+def test_tex_fetch_byte_quad_kernel_matches_plain(cuda):
+    """The byte_quad variant on byte-valued channels, odd dims and a
+    sample count that is not a multiple of the block: bit-equal to both
+    plain versions."""
+    rs = np.random.RandomState(5)
+    for w, h in ((256, 256), (61, 37), (2, 9)):
+        tex = torch.tensor(rs.randint(0, 256, (w, h)).astype(np.float32) / np.float32(255.0),
+                           device=cuda)
+        quads = tex_gather.byte_quads(tex)
+        assert quads is not None and quads.device == tex.device
+        uv = torch.tensor(rs.uniform(-0.1, 1.1, (3, 1001, 2)).astype(np.float32), device=cuda)
+        variants = dict(tex_gather.sample_channel.variant_launches)
+        got = tex_gather.sample_channel(tex, uv, quads)
+        assert tex_gather.sample_channel.variant_launches == dict(
+            variants, byte_quad=variants["byte_quad"] + 1)
+        assert torch.equal(got, tex_gather.sample_channel_plain(tex, uv))
+        assert torch.equal(got, tex_gather.fetch_quads_plain(quads, w, h, uv))
 
 
 def test_tex_fetch_kernel_refuses_bad_inputs(cuda):
@@ -39,6 +62,11 @@ def test_tex_fetch_kernel_refuses_bad_inputs(cuda):
         tex_gather.sample_channel(tex, torch.rand(5, 2, device=cuda, dtype=torch.float64))
     with pytest.raises(ValueError):
         tex_gather.sample_channel(tex, torch.rand(2, 5, device=cuda).T)
+    with pytest.raises(ValueError):  # uv not 8-byte aligned
+        tex_gather.sample_channel(tex, torch.rand(23, device=cuda)[1:].view(11, 2))
+    with pytest.raises(ValueError):  # a quad table of other dims
+        tex_gather.sample_channel(tex, torch.rand(5, 2, device=cuda),
+                                  torch.zeros(8, 8, 4, dtype=torch.uint8, device=cuda))
 
 
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 5e-2)])
@@ -49,7 +77,7 @@ def test_mlp_fused_kernel_matches_plain(cuda, dtype, tol):
                          "depth": 4, "width": 128, "skips": [1], "compute_dtype": dtype},
                         device=cuda)
     rs = np.random.RandomState(1)
-    n = 1000                                   # not a multiple of the 64-row tile
+    n = 1000                                   # not a multiple of the 64- or 128-row tile
     pos, dirs, prm = (torch.tensor(rs.uniform(-1, 1, (n, k)).astype(np.float32), device=cuda)
                       for k in (3, 3, 7))
     pos_map, dir_map = model.feature_maps(pos, dirs, prm)
@@ -60,6 +88,48 @@ def test_mlp_fused_kernel_matches_plain(cuda, dtype, tol):
     ref = fused.mlp_fused_plain(pos_map, dir_map, packed)
     scale = max(1.0, float(ref.abs().max()))
     assert float((got - ref).abs().max()) <= tol * scale
+
+
+# The two frames' ParamNerf topologies at full width and depth (bench:
+# chip_smoke.model_config, plush: configs/config_plush_render.py).
+TOPOLOGIES = {"bench": {"n_parameters": [1, 6]},
+              "plush": {"n_parameters": [1, 4], "param_depth": 0, "color_depth": 1}}
+
+
+@pytest.mark.parametrize("n", [1, 127, 1000, 32768 + 37])
+@pytest.mark.parametrize("topology", sorted(TOPOLOGIES))
+def test_mlp_wgmma_matches_plain(cuda, topology, n):
+    """The bf16 wgmma variant with random nonzero biases, on tile counts
+    below, at and above one tile per SM and ragged last tiles."""
+    def ff(bands):
+        return {"module": "network.model.FourierFeatures", "n_freq_bands": bands}
+
+    model = instantiate(dict({"module": "network.model.ParamNerf", "pos_embedding": ff(10),
+                              "dir_embedding": ff(4), "param_embedding": ff(4),
+                              "compute_dtype": "bfloat16"}, **TOPOLOGIES[topology]), device=cuda)
+    rs = np.random.RandomState(7)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.Linear):
+                m.bias.copy_(torch.tensor(rs.uniform(-0.2, 0.2, m.bias.shape).astype(np.float32)))
+    pos = torch.tensor(rs.uniform(-1, 1, (n, 3)).astype(np.float32), device=cuda)
+    dirs = torch.nn.functional.normalize(
+        torch.tensor(rs.normal(size=(n, 3)).astype(np.float32), device=cuda), dim=-1)
+    prm = torch.tensor(rs.uniform(0, 1, (n, model.n_geo + model.n_app)).astype(np.float32),
+                       device=cuda)
+    pos_map, dir_map = model.feature_maps(pos, dirs, prm)
+    packed = model.packed()
+    before = fused.mlp_fused.variant_launches["wgmma_bf16"]
+    got = fused.mlp_fused(pos_map, dir_map, packed)
+    assert fused.mlp_fused.variant_launches["wgmma_bf16"] == before + 1
+    ref = fused.mlp_fused_plain(pos_map, dir_map, packed)
+    torch.cuda.synchronize()
+    err = (got - ref).abs()
+    scale = max(1.0, float(ref.abs().max()))
+    print(f"{topology} N={n}: max |kernel - plain| {float(err.max()):.3g}, "
+          f"mean {float(err.mean()):.3g}, max |plain| {scale:.3g}")
+    assert torch.isfinite(got).all()
+    assert float(err.max()) <= 5e-2 * scale
 
 
 def selk_inputs(rs, rb, s, k, device="cpu"):

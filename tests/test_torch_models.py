@@ -145,6 +145,33 @@ def test_fused_pack_layout(small_f32):
         tm.color.bias.sub_(1.0)
 
 
+@pytest.mark.parametrize("topology", ["bench", "plush"])
+def test_fused_slab_image_unpacks_to_each_layer(topology):
+    """The wgmma variant's [K/8][n_pad][8] image of every layer, read back
+    as [K_pad, n_pad], is the layer's packed weights exactly; every 64-deep
+    K slab starts at w_off + 64 * n_pad."""
+    kw = {"bench": {"n_parameters": [1, 6]},
+          "plush": {"n_parameters": [1, 4], "param_depth": 0, "color_depth": 1}}[topology]
+    tm = instantiate(_cfg(depth=2, skips=[0], compute_dtype="bfloat16", **kw), device="cpu")
+    packed = tm.packed()
+    assert packed.slabs.dtype == torch.bfloat16
+    assert packed.slabs.shape == packed.weights.shape
+    for w_off, _, s0, k0, s1, k1, n_pad, *_ in packed.table.tolist():
+        k = k0 + (k1 if s1 >= 0 else 0)
+        rows = packed.weights[w_off:w_off + k * n_pad].view(k, n_pad)
+        image = packed.slabs[w_off:w_off + k * n_pad].view(k // 8, n_pad, 8)
+        assert torch.equal(image.permute(0, 2, 1).reshape(k, n_pad), rows)
+        for k_slab in range(0, k, 64):
+            depth = min(64, k - k_slab)
+            slab = packed.slabs[w_off + k_slab * n_pad:w_off + (k_slab + depth) * n_pad]
+            assert torch.equal(slab.view(depth // 8, n_pad, 8).permute(0, 2, 1).reshape(depth, n_pad),
+                               rows[k_slab:k_slab + depth])
+    assert len(packed.table) == 2 + 2 + kw.get("color_depth", 1) + 2
+    assert (packed.table[:, 4] >= 0).sum() == 2                    # the skip and the dir concat
+    tm.compute_dtype = torch.float32
+    assert tm.packed().slabs is None
+
+
 def test_load_jax_params_checks_keys_and_shapes(small_f32):
     jm, tm = small_f32
     flat = flatten_params(jax.tree.map(np.asarray, jm.params))

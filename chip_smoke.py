@@ -29,10 +29,15 @@ Phases (any failure raises and exits non-zero):
      against tests/golden_scene_plush.npz at scripts/bench_scene.py's
      50 dB floor on the same 10x box downsample, with every kernel's launch
      count and variant from that render, then timed (best of 2).
-The last two lines of stdout are the kernels JSON (one row per kernel and
-frame) and the device JSON.
+The first render of each frame runs with its selk_resolve calls captured
+(selk_capture); the frame's launch histogram (launches by Rb, S, K and
+method, with the window and valid slots of their inputs) is printed on a
+line of its own, and it and the frame's summed bound go into the frame's
+selk_resolve row.  The last two lines of stdout are the kernels JSON (one
+row per kernel and frame) and the device JSON.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -70,10 +75,15 @@ MLP_BF16_TOL = 5e-2                   # x max(1, max|plain|)
 SELK_SHAPE = {"bench": (1024, 320, 48),      # ray block, step cap, max_hits
               "plush": (2048, 1280, 128)}
 SELK_METHODS = {"bench": ("nearest",), "plush": ("random", "nearest", "nearest_blend")}
+# Render-layout inputs at each frame's hit tiers (device.py: K // 4 and
+# min(K, 8) below the plush frame's max_hits of 128; bench has one tier).
+SELK_RENDER_SHAPES = {"bench": ((1024, 320, 48),),
+                      "plush": ((2048, 1280, 8), (2048, 1280, 32), (2048, 1280, 128))}
 SELK_BLEND = 0.2 * 0.04               # plush: 0.2 x patch_scale
 SELK_EDGE = 1e-5
 SELK_P_RTOL = 1e-4
-SELK_OPS_PER_ELEMENT = 15             # per (sample, hit slot); selk_resolve.cu
+SELK_OPS_PER_SLOT = 15                # per (sample, slot of its stabbing window)
+SELK_OPS_PER_STEP = 4                 # per binary-search step: midpoint, load, compare, select
 
 H100_BYTES_PER_S = 3.35e12            # HBM3, SXM data sheet
 H100_BF16_FLOPS = 989e12              # dense tensor-core bf16
@@ -313,6 +323,17 @@ def check_tex(tex_gather, channel, texture):
                 texture=texture, shapes=shapes[1:])
 
 
+def selk_tensors(tk0, tk1, kvalid, sel_a, sel_b, t_pt, u_sel):
+    """numpy overlap-resolution inputs as the kernel's CUDA tensors."""
+    dev = torch.device("cuda")
+
+    def f32(x):
+        return torch.tensor(x.astype(np.float32), device=dev)
+
+    return (f32(tk0), f32(tk1), torch.tensor(kvalid, device=dev), f32(sel_a), f32(sel_b),
+            f32(t_pt), f32(u_sel))
+
+
 def selk_inputs(rb, s, k):
     """Overlap-resolution inputs at the plush shapes, made from a numpy
     seed in the render path's layout: each ray's valid hit slots are a
@@ -330,80 +351,207 @@ def selk_inputs(rb, s, k):
     sel_a = c * c + rs.uniform(0.0, 0.01, (rb, k))
     t_pt = rs.uniform(0.0, 3.0, (rb, s))
     u_sel = rs.uniform(size=(rb, s))
-    dev = torch.device("cuda")
+    return selk_tensors(tk0, tk1, kvalid, sel_a, -c, t_pt, u_sel)
 
-    def f32(x):
-        return torch.tensor(x.astype(np.float32), device=dev)
 
-    args = (f32(tk0), f32(tk1), torch.tensor(kvalid, device=dev), f32(sel_a), f32(-c),
-            f32(t_pt), f32(u_sel))
-    return args, n_valid
+def selk_render_inputs(rb, s, k):
+    """Overlap-resolution inputs as a sorted block of the render path lays
+    them out: each ray's valid slots a prefix ascending in tk0 (tk0 = tk1 =
+    +inf past it; one ray in 16 has none, one in 5 fills all K), and t
+    increasing along S from just before the first interval, through the
+    gaps between intervals, to past the last one for the last quarter of
+    the samples (a block's padded samples)."""
+    rs = np.random.RandomState(4)
+    n_valid = rs.randint(1, k + 1, rb)
+    n_valid[1::5] = k
+    n_valid[::16] = 0
+    kvalid = np.arange(k)[None, :] < n_valid[:, None]
+    tk0 = np.sort(rs.uniform(0.5, 2.5, (rb, k)), -1)
+    tk1 = tk0 + rs.uniform(0.01, 0.3, (rb, k))
+    first = np.where(n_valid > 0, tk0[:, 0], 0.5) - 0.05
+    last = np.where(kvalid, tk1, -np.inf).max(-1)
+    last = np.where(n_valid > 0, last, 2.5)
+    step = (last - first) / (0.75 * s)
+    t_pt = first[:, None] + step[:, None] * (np.arange(s) + rs.uniform(0.0, 1.0, (rb, s)))
+    tk0, tk1 = np.where(kvalid, tk0, np.inf), np.where(kvalid, tk1, np.inf)
+    c = rs.uniform(0.5, 2.5, (rb, k))
+    sel_a = c * c + rs.uniform(0.0, 0.01, (rb, k))
+    return selk_tensors(tk0, tk1, kvalid, sel_a, -c, t_pt, rs.uniform(size=(rb, s)))
+
+
+def selk_work(tk0, tk1, kvalid, t_pt):
+    """What one selk_resolve launch needs on these inputs, as a device
+    tensor [window slots, search steps, valid slots], read only when asked.
+    A sample's answer lies in its stabbing window.  For a ray in render
+    layout (valid slots a prefix, tk0 non-decreasing, each finite with tk0
+    < tk1) that is the slots from the first whose prefix max of tk1 exceeds
+    t to the last with tk0 <= t, found by two binary searches, and at least
+    the one fallback slot.  Any other ray has to look at each valid slot
+    (at least one)."""
+    K = kvalid.shape[-1]
+    n_valid = kvalid.sum(-1)
+    prefix = (kvalid == (torch.arange(K, device=kvalid.device) < n_valid[:, None])).all(-1)
+    t0 = torch.where(kvalid, tk0, float("inf"))
+    t1 = torch.where(kvalid, tk1, -float("inf"))
+    finite = torch.where(kvalid, torch.isfinite(tk0) & torch.isfinite(tk1) & (tk0 < tk1),
+                         True).all(-1)
+    flagged = prefix & finite & (t0[:, 1:] >= t0[:, :-1]).all(-1)
+    t = t_pt.contiguous()
+    hi = torch.searchsorted(t0.contiguous(), t, right=True)
+    lo = torch.searchsorted(torch.cummax(t1, -1).values.contiguous(), t, right=True)
+    slots = torch.where(flagged[:, None], (hi - lo).clamp(min=1), n_valid.clamp(min=1)[:, None])
+    steps = (flagged * 2 * torch.ceil(torch.log2(n_valid + 1.0))).long().sum() * t.shape[1]
+    return torch.stack([slots.sum(), steps, n_valid.sum()])
+
+
+def selk_bound(rb, s, k, method, work):
+    """(bound ms, what bounds it) of one selk_resolve launch whose inputs
+    need ``work`` = (window slots, search steps, valid slots), from
+    selk_work.  Bytes, each once: the planes read (t, and u unless nearest)
+    and the three written, the validity table, and a record of each valid
+    slot (tk0, tk1, and sel_a, sel_b unless random).  Operations:
+    SELK_OPS_PER_SLOT per window slot and SELK_OPS_PER_STEP per search
+    step."""
+    slots, steps, valid = work
+    planes = 4 if method == "nearest" else 8
+    record = 8 if method == "random" else 16
+    t_bytes = (rb * s * (planes + 12) + rb * k + valid * record) / H100_BYTES_PER_S
+    t_ops = (SELK_OPS_PER_SLOT * slots + SELK_OPS_PER_STEP * steps) / H100_F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, "operations" if t_ops > t_bytes else "bytes"
+
+
+def compare_selk(selk, args, method, blend):
+    """The kernel against its plain version on ``args``: n_active equal,
+    nearest/random picks equal, nearest_blend picks equal off knife edges,
+    p_sel within SELK_P_RTOL where the picks agree.  Returns the counts."""
+    got = selk.selk_resolve(*args, method=method, blend_range=blend)
+    ref = selk.selk_resolve_plain(*args, method=method, blend_range=blend)
+    torch.cuda.synchronize()
+    sel, p, n = got
+    r_sel, r_p, r_n = ref
+    if not torch.equal(n, r_n):
+        raise AssertionError(f"selk_resolve {method}: n_active differs")
+    same = sel == r_sel
+    n_mism = int((~same).sum())
+    max_edge = 0.0
+    if method != "nearest_blend" and n_mism:
+        raise AssertionError(f"selk_resolve {method}: {n_mism} picks differ")
+    if n_mism:
+        # Knife edges: u within SELK_EDGE of a value of the plain cumsum.
+        r, c = torch.nonzero(~same, as_tuple=True)
+        cum = blend_cum(selk, [a[r] for a in args[:5]], args[5][r, c], blend)
+        max_edge = float((args[6][r, c][:, None] - cum).abs().min(-1).values.max())
+        if not max_edge <= SELK_EDGE:
+            raise AssertionError(f"selk_resolve nearest_blend: {n_mism} picks differ off "
+                                 f"knife edges (max distance {max_edge})")
+    p_err = float((p[same] - r_p[same]).abs().max())
+    if not torch.allclose(p[same], r_p[same], rtol=SELK_P_RTOL, atol=1e-7):
+        raise AssertionError(f"selk_resolve {method}: p_sel off by {p_err}")
+    return {"mismatches": n_mism, "max_knife_edge": max_edge, "max_abs_err": p_err}
 
 
 def check_selk(selk, frame):
     """The selk_resolve kernel against its plain version at ``frame``'s
-    shapes, for each method given; times of the frame's method (the last
-    one) and the bound."""
+    check shape, for each method given, with times of the frame's method
+    (the last one) and the bound; then at the render-layout inputs of each
+    of the frame's hit tiers, every method, with device times."""
     rb, s, k = SELK_SHAPE[frame]
-    args, n_valid = selk_inputs(rb, s, k)
+    args = selk_inputs(rb, s, k)
+    work = selk_work(*args[:3], args[5]).tolist()
     blend = SELK_BLEND
     per_method = {}
     for method in SELK_METHODS[frame]:
-        got = selk.selk_resolve(*args, method=method, blend_range=blend)
-        ref = selk.selk_resolve_plain(*args, method=method, blend_range=blend)
-        torch.cuda.synchronize()
-        sel, p, n = got
-        r_sel, r_p, r_n = ref
-        if not torch.equal(n, r_n):
-            raise AssertionError(f"selk_resolve {method}: n_active differs")
-        same = sel == r_sel
-        n_mism = int((~same).sum())
-        max_edge = 0.0
-        if method != "nearest_blend" and n_mism:
-            raise AssertionError(f"selk_resolve {method}: {n_mism} picks differ")
-        if n_mism:
-            # Knife edges: u within SELK_EDGE of a value of the plain cumsum.
-            r, c = torch.nonzero(~same, as_tuple=True)
-            cum = blend_cum(selk, [a[r] for a in args[:5]], args[5][r, c], blend)
-            max_edge = float((args[6][r, c][:, None] - cum).abs().min(-1).values.max())
-            if not max_edge <= SELK_EDGE:
-                raise AssertionError(f"selk_resolve nearest_blend: {n_mism} picks differ off "
-                                     f"knife edges (max distance {max_edge})")
-        p_err = float((p[same] - r_p[same]).abs().max())
-        if not torch.allclose(p[same], r_p[same], rtol=SELK_P_RTOL, atol=1e-7):
-            raise AssertionError(f"selk_resolve {method}: p_sel off by {p_err}")
-        per_method[method] = {"mismatches": n_mism, "max_knife_edge": max_edge,
-                              "max_abs_err": p_err,
-                              "ms": time_ms(lambda: selk.selk_resolve(*args, method=method,
-                                                                      blend_range=blend)),
-                              "device_ms": device_ms(lambda: selk.selk_resolve(
-                                  *args, method=method, blend_range=blend)),
-                              "plain_ms": time_ms(lambda: selk.selk_resolve_plain(
-                                  *args, method=method, blend_range=blend), iters=3, warmup=1)}
-        log(f"selk_resolve {method}: {rb}x{s}x{k}, picks differing {n_mism} of {sel.numel()} "
-            f"(max knife edge {max_edge:.3g}), max |p - plain| {p_err:.3g}, "
-            f"kernel {per_method[method]['ms']:.4f} ms (device {per_method[method]['device_ms']:.4f}), "
-            f"plain {per_method[method]['plain_ms']:.3f} ms")
-    # Bytes: five [Rb, K] tables and two [Rb, S] planes in, three out.  The
-    # K loop ends at each ray's last valid slot (at least slot 0).
-    nbytes = rb * k * (4 * 4 + 1) + rb * s * 8 + rb * s * 12
-    flops = SELK_OPS_PER_ELEMENT * s * int(np.maximum(n_valid, 1).sum())
+        stats = compare_selk(selk, args, method, blend)
+        bound_ms, bound_by = selk_bound(rb, s, k, method, work)
+        per_method[method] = dict(stats, bound_ms=bound_ms, bound_by=bound_by,
+                                  ms=time_ms(lambda: selk.selk_resolve(*args, method=method,
+                                                                       blend_range=blend)),
+                                  device_ms=device_ms(lambda: selk.selk_resolve(
+                                      *args, method=method, blend_range=blend)),
+                                  plain_ms=time_ms(lambda: selk.selk_resolve_plain(
+                                      *args, method=method, blend_range=blend), iters=3,
+                                      warmup=1))
+        log(f"selk_resolve {method}: {rb}x{s}x{k}, picks differing {stats['mismatches']} of "
+            f"{args[5].numel()} (max knife edge {stats['max_knife_edge']:.3g}), max |p - plain| "
+            f"{stats['max_abs_err']:.3g}, kernel {per_method[method]['ms']:.4f} ms (device "
+            f"{per_method[method]['device_ms']:.4f}), plain {per_method[method]['plain_ms']:.3f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by})")
     main = per_method[SELK_METHODS[frame][-1]]
+    render = []
+    for shape in SELK_RENDER_SHAPES[frame]:
+        r_args = selk_render_inputs(*shape)
+        r_work = selk_work(*r_args[:3], r_args[5]).tolist()
+        row = {"shape": list(shape), "window_slots": r_work[0], "valid_slots": r_work[2]}
+        for method in selk.METHODS:
+            row[method] = dict(compare_selk(selk, r_args, method, blend),
+                               device_ms=device_ms(lambda: selk.selk_resolve(
+                                   *r_args, method=method, blend_range=blend), iters=20),
+                               bound_ms=selk_bound(*shape, method, r_work)[0])
+        log(f"selk_resolve render layout {'x'.join(map(str, shape))}: "
+            + ", ".join(f"{m} device {row[m]['device_ms']:.4f} ms, bound {row[m]['bound_ms']:.4f} "
+                        f"({row[m]['mismatches']} picks differ)" for m in selk.METHODS))
+        render.append(row)
     row = {
         "name": "selk_resolve", "route": "cuda",
         "source": "nerftex_torch/kernels/csrc/selk_resolve.cu",
         "replaces": "nerftex_tpu/kernels/selk_resolve.py:144",
         "max_abs_err": main["max_abs_err"], "ms": main["ms"], "device_ms": main["device_ms"],
-        "plain_ms": main["plain_ms"],
-        "bound_ms": max(nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS) * 1e3,
-        "bound_by": "operations" if flops / H100_F32_FLOPS > nbytes / H100_BYTES_PER_S
-        else "bytes",
+        "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": None,
-        "shape": [rb, s, k], "methods": per_method,
+        "shape": [rb, s, k], "window_slots": work[0], "valid_slots": work[2],
+        "methods": per_method, "render_layout": render,
     }
-    log(f"selk_resolve: bound {row['bound_ms']:.4f} ms ({row['bound_by']}: {flops:.3g} "
-        f"operations, {nbytes / 1e6:.1f} MB)")
+    log(f"selk_resolve: bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
     return row
+
+
+@contextlib.contextmanager
+def selk_capture(keep_inputs=False):
+    """While active, record each selk_resolve call of the render path (the
+    calls nerftex_torch.instancing.device makes) in the list it yields: a
+    dict of the launch's key (Rb, S, K, method), its selk_work (left on the
+    device, so recording adds no host sync) and, with ``keep_inputs``, its
+    arguments cloned ("args": positional, keywords)."""
+    import nerftex_torch.instancing.device as device
+
+    real = device.selk_resolve
+    calls = []
+
+    def capture(*a, **k):
+        tk0, tk1, kvalid, t_pt = a[0], a[1], a[2], a[5]
+        call = {"key": (tk0.shape[0], t_pt.shape[1], tk0.shape[1], k["method"]),
+                "work": selk_work(tk0, tk1, kvalid, t_pt)}
+        if keep_inputs:
+            call["args"] = (tuple(None if x is None else x.clone() for x in a), k)
+        calls.append(call)
+        return real(*a, **k)
+
+    device.selk_resolve = capture
+    try:
+        yield calls
+    finally:
+        device.selk_resolve = real
+
+
+def selk_frame_record(calls, launches, frame):
+    """The frame's selk_resolve launches from selk_capture's ``calls``
+    (which must number ``launches``, the wrapper's count): histogram rows
+    [Rb, S, K, method, launches, window slots, valid slots], the work read
+    in one transfer, and the summed bound."""
+    if len(calls) != launches:
+        raise AssertionError(f"{frame} frame: {len(calls)} selk_resolve calls captured, "
+                             f"{launches} launched")
+    works = torch.stack([c["work"] for c in calls]).tolist() if calls else []
+    hist = {}
+    bound = 0.0
+    for call, work in zip(calls, works):
+        n, w, v = hist.get(call["key"], (0, 0, 0))
+        hist[call["key"]] = (n + 1, w + work[0], v + work[2])
+        bound += selk_bound(*call["key"], work)[0]
+    rows = [[*key, *vals] for key, vals in sorted(hist.items())]
+    log(f"selk_resolve launches, {frame} frame ([Rb, S, K, method, launches, window slots, valid "
+        f"slots]): {json.dumps(rows)}; summed bound {bound:.4f} ms")
+    return {"launch_histogram": rows, "frame_bound_ms": bound}
 
 
 def blend_cum(selk, tables, t, blend):
@@ -606,13 +754,16 @@ def main():
     renderer = build_renderer("bfloat16")
     reset_counts()
     t0 = time.perf_counter()
-    out = renderer(**data, u_offset=u_offset)
+    with selk_capture() as selk_calls:
+        out = renderer(**data, u_offset=u_offset)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     carpet_launches, carpet_variants = read_counts()
     log(f"bench frame (first render {first_s:.2f} s): launches {carpet_launches}, variants "
         f"{carpet_variants}")
     check_counts("bench", carpet_launches, carpet_variants)
+    rows["bench"]["selk_resolve"].update(
+        selk_frame_record(selk_calls, carpet_launches["selk_resolve"], "bench"))
     psnr = golden_psnr(out)
     log(f"golden check: {psnr:.2f} dB (floor {GOLDEN_PSNR_DB})")
     if not psnr >= GOLDEN_PSNR_DB:
@@ -646,7 +797,8 @@ def main():
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
-    out = renderer(**p_data, key=jax_rng.key(1))
+    with selk_capture() as selk_calls:
+        out = renderer(**p_data, key=jax_rng.key(1))
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     plush_launches, plush_variants = read_counts()
@@ -654,6 +806,8 @@ def main():
         f"{plush_variants}, shadow branches "
         f"{renderer.instancer.device_instancer.shadow_branches}")
     check_counts("plush", plush_launches, plush_variants)
+    rows["plush"]["selk_resolve"].update(
+        selk_frame_record(selk_calls, plush_launches["selk_resolve"], "plush"))
     p_psnr = plush_golden_psnr(out, h, w)
     log(f"plush golden check: {p_psnr:.2f} dB (floor {PLUSH_GOLDEN_PSNR_DB}, 10x downsample)")
     if not p_psnr >= PLUSH_GOLDEN_PSNR_DB:

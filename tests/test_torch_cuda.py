@@ -195,3 +195,118 @@ def _blend_cum(selk, tk0, tk1, kvalid, sel_a, sel_b, t_pt, u_sel, blend):
     dist = torch.where(active, d2.sqrt(), float("inf"))
     w = torch.where(active, (blend + dist.min(-1, keepdim=True).values - dist).clamp(min=0), 0.0)
     return torch.cumsum(w / w.sum(-1, keepdim=True).clamp(min=1e-20), -1)
+
+
+def _tensors(device, tk0, tk1, kvalid, sel_a, sel_b, t_pt, u_sel):
+    def f32(x):
+        return torch.tensor(np.asarray(x, np.float32), device=device)
+
+    return (f32(tk0), f32(tk1), torch.tensor(kvalid, device=device), f32(sel_a), f32(sel_b),
+            f32(t_pt), f32(u_sel))
+
+
+def _render_layout(rs, rb, s, k):
+    """The render path's layout: valid slots a prefix ascending in tk0
+    (tk0 = tk1 = +inf past it; some rays empty, some full), t increasing
+    along S from before the first interval, through the gaps, to past the
+    last one (padded samples)."""
+    n_valid = rs.randint(0, k + 1, rb)
+    n_valid[1::5] = k
+    n_valid[::7] = 0
+    kvalid = np.arange(k)[None, :] < n_valid[:, None]
+    tk0 = np.sort(rs.uniform(0.5, 3.0, (rb, k)), -1)
+    tk1 = tk0 + rs.uniform(0.01, 0.3, (rb, k))
+    first = np.where(n_valid > 0, tk0[:, 0], 1.0) - 0.2
+    last = np.where(n_valid > 0, np.where(kvalid, tk1, -np.inf).max(-1), 2.0) + 0.3
+    t_pt = first[:, None] + (last - first)[:, None] * np.sort(rs.uniform(size=(rb, s)), -1)
+    c = rs.uniform(0.5, 3.0, (rb, k))
+    return (np.where(kvalid, tk0, np.inf), np.where(kvalid, tk1, np.inf), kvalid,
+            c * c + rs.uniform(0, 0.01, (rb, k)), -c, t_pt, rs.uniform(size=(rb, s)))
+
+
+def _ties(rs, rb, s, k):
+    """Samples before, between and after all intervals, with exact distance
+    ties between the first slot past t and the slot of the largest tk1 below
+    it, and ties of the rounded distance t - tk1 far past every interval."""
+    tk0 = np.full((rb, k), np.inf)
+    tk1 = np.full((rb, k), np.inf)
+    t_pt = np.zeros((rb, s))
+    for r in range(rb):
+        if r % 3 == 0:   # t = 2.5 is 0.5 from slot 0's end and from slot 2's start
+            tk0[r, :4], tk1[r, :4] = [1.0, 1.25, 3.0, 3.5], [2.0, 1.5, 4.0, 5.0]
+            t_pt[r] = np.linspace(0.0, 6.0, s)
+            t_pt[r, :4] = [2.5, 2.5, 0.5, 5.5]
+        elif r % 3 == 1:  # tk1 = 1 and 1 + ulp: t - tk1 rounds equal for large t
+            tk0[r, :4] = [0.5, 0.6, 0.7, 0.8]
+            tk1[r, :4] = [1.0, np.nextafter(np.float32(1.0), np.float32(2.0)), 0.9, 1.0]
+            t_pt[r] = np.linspace(1000.0, 1e6, s)
+        else:             # nested and touching intervals
+            tk0[r, :4], tk1[r, :4] = [0.0, 0.0, 1.0, 1.0], [1.0, 3.0, 2.0, 1.0 + 1e-7]
+            t_pt[r] = np.linspace(-1.0, 4.0, s)
+            t_pt[r, :3] = [1.0, 3.0, 0.0]
+    c = rs.uniform(0.0, 2.5, (rb, k))
+    return tk0, tk1, np.isfinite(tk0), c * c, -c, t_pt, rs.uniform(size=(rb, s))
+
+
+def _wide(rs, rb, s, k):
+    """Every slot overlaps every other and every anchor lies within the
+    blend range of the nearest: more weighed slots than the kernel's
+    candidate list holds."""
+    tk0 = np.sort(rs.uniform(0.0, 0.1, (rb, k)), -1)
+    tk1 = tk0 + rs.uniform(2.0, 3.0, (rb, k))
+    c = rs.uniform(1.0, 1.05, (rb, k))
+    return (tk0, tk1, np.ones((rb, k), bool), c * c, -c,
+            np.sort(rs.uniform(-0.5, 3.5, (rb, s)), -1), rs.uniform(size=(rb, s)))
+
+
+def _all_invalid(rs, rb, s, k):
+    c = rs.uniform(0.0, 2.5, (rb, k))
+    return (np.full((rb, k), np.inf), np.full((rb, k), np.inf), np.zeros((rb, k), bool),
+            c * c, -c, rs.uniform(0.0, 3.0, (rb, s)), rs.uniform(size=(rb, s)))
+
+
+def _general(rs, rb, s, k):
+    return tuple(x.numpy() for x in selk_inputs(rs, rb, s, k))
+
+
+# layout -> (inputs, Rb, S, K).  Rb 1001 with these S packs 3 rays per CTA
+# and leaves a ragged last CTA; S 2500 splits each ray over two CTAs.
+SELK_LAYOUTS = {
+    "general": (_general, 61, 45, 33),
+    "render_k1": (_render_layout, 1001, 40, 1),
+    "render_k8": (_render_layout, 1001, 40, 8),
+    "render_k32": (_render_layout, 1001, 40, 32),
+    "render_k48": (_render_layout, 1001, 40, 48),
+    "render_k128": (_render_layout, 300, 200, 128),
+    "render_long": (_render_layout, 5, 2500, 8),
+    "ties": (_ties, 31, 40, 8),
+    "wide": (_wide, 40, 100, 48),
+    "wide_k128": (_wide, 8, 300, 128),
+    "all_invalid": (_all_invalid, 37, 45, 8),
+}
+
+
+@pytest.mark.parametrize("layout", sorted(SELK_LAYOUTS))
+@pytest.mark.parametrize("method", ["random", "nearest", "nearest_blend"])
+def test_selk_kernel_layouts_match_plain(cuda, method, layout):
+    """The kernel against its plain version on each layout, launched once:
+    nearest/random picks and n_active exact, nearest_blend picks off the
+    cum's knife edges."""
+    from nerftex_torch.kernels import selk_resolve as selk
+
+    make, rb, s, k = SELK_LAYOUTS[layout]
+    args = _tensors(cuda, *make(np.random.RandomState(11), rb, s, k))
+    before = selk.selk_resolve.launches
+    sel, p, n = selk.selk_resolve(*args, method=method, blend_range=0.15)
+    assert selk.selk_resolve.launches == before + 1
+    ref_sel, ref_p, ref_n = selk.selk_resolve_plain(*args, method=method, blend_range=0.15)
+    torch.cuda.synchronize()
+    assert torch.equal(n, ref_n)
+    same = sel == ref_sel
+    if method != "nearest_blend":
+        assert same.all()
+    elif not same.all():
+        cum = _blend_cum(selk, *args, 0.15)
+        edge = (args[-1][..., None] - cum).abs().min(-1).values
+        assert (edge[~same] <= 1e-5).all()
+    torch.testing.assert_close(p[same], ref_p[same], rtol=1e-5, atol=1e-7)

@@ -209,3 +209,52 @@ def test_pallas_selk_is_ignored(setup, monkeypatch, pallas_selk):
     want = td.get_model_input(o, d, p, N_SAMPLES, STEP)
     for k, v in got.items():
         assert torch.equal(v, want[k]), k
+
+
+def _assert_render_layout(tables):
+    """The layout selk_resolve.cu's windowed search relies on: in every row
+    the valid hit slots are a prefix, tk0 is non-decreasing over it and
+    +inf past it, and each valid slot is a finite interval tk0 < tk1.
+    Returns the number of valid slots per ray."""
+    kv, tk0, tk1 = tables["kvalid"], tables["tk0"], tables["tk1"]
+    n = kv.sum(-1)
+    assert torch.equal(kv, torch.arange(kv.shape[-1])[None, :] < n[:, None])
+    assert (tk0[~kv] == float("inf")).all()
+    assert (tk0[:, 1:] >= tk0[:, :-1])[kv[:, 1:]].all()
+    assert torch.isfinite(tk0[kv]).all() and torch.isfinite(tk1[kv]).all()
+    assert (tk0 < tk1)[kv].all()
+    return n
+
+
+def test_per_ray_tables_are_in_render_layout(setup):
+    """The bench view's per-ray tables."""
+    _, td, (o, d, p) = setup
+    n = torch.cat([_assert_render_layout(
+        td._per_ray(torch.tensor(o[i:i + 32]), torch.tensor(d[i:i + 32]),
+                    torch.tensor(p[i:i + 32]), 320, STEP, torch.full((32,), 0.5)))
+        for i in range(0, len(o), 32)])
+    assert int(n.max()) >= 2 and int((n == 0).sum()) < len(n)
+
+
+def test_plush_per_ray_tables_are_in_render_layout():
+    """A 16x16 plush view at the plush frame's max_hits (128) and ray
+    block cut to 64."""
+    import math
+
+    inp = np.load(os.path.join(ROOT, "tests", "torch_plush_inputs.npz"))
+    angle = float(inp["angle"])
+    data = frame_rays(16, 16, inp["eye"], angle, inp["parameters"], (-0.9, -0.6, -0.8),
+                      (0.9, 0.8, 0.9), focal=16 / math.tan(angle / 2) / 2)
+    inst = Instancer(b_0=[-1.1, -1.1, -0.2], b_1=[1.1, 1.1, 1.1],
+                     textures=["", os.path.join(ROOT, "meshes", "checkerboard.png"), "light"],
+                     mesh_path=os.path.join(ROOT, "meshes", "stanford_bunny.ply"),
+                     patch_scale=0.04, jitter_amount=0.3, instance_sampling_method="nearest_blend",
+                     max_hits=128, ray_block=64, max_steps_per_ray=1280, cull_budget=384,
+                     tri_cull_budget=1024, device="cpu").device_instancer
+    o, d = (torch.tensor(data[k][0]) for k in ("rays_o", "rays_d"))
+    p = torch.tensor(data["parameters"]).expand(len(o), -1)
+    n = torch.cat([_assert_render_layout(
+        inst._per_ray(o[i:i + 64], d[i:i + 64], p[i:i + 64], 1280, 0.0005,
+                      torch.full((64,), 0.5)))
+        for i in range(0, len(o), 64)])
+    assert int(n.max()) >= 2 and int((n == 0).sum()) < len(n)

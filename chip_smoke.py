@@ -16,8 +16,8 @@ Phases (any failure raises and exits non-zero):
      is the same calls captured in a CUDA graph and replayed, the card's
      own time per call;
   4. the bench frame (bench.py's 512x512 carpet workload) rendered through
-     the config-built port with the transplanted bench weights and the
-     JAX-drawn per-ray offsets (tests/torch_bench_inputs.npz), checked
+     the config-built port with the transplanted bench weights
+     (tests/torch_bench_inputs.npz) and JAX's own draws for key(1), checked
      against tests/golden_bench_frame.npz at bench.py's 55 dB floor, with
      every kernel's launch count from that render (and which variant of
      tex_fetch and mlp_fused ran), then timed (best of 3);
@@ -28,13 +28,31 @@ Phases (any failure raises and exits non-zero):
      own random draws for key(1) (nerftex_torch.utils.jax_rng), checked
      against tests/golden_scene_plush.npz at scripts/bench_scene.py's
      50 dB floor on the same 10x box downsample, with every kernel's launch
-     count and variant from that render, then timed (best of 2).
+     count and variant from that render, then timed (best of 2);
+  6. the grass frame (configs/config_grass_render.py at 512x512 with the
+     port's grass operating point: a point light, shadow rays, nearest
+     picks, no texture channel) rendered through the config-built port with
+     the transplanted grass weights (tests/torch_grass_inputs.npz) and
+     JAX's draws for key(1), checked against tests/golden_scene_grass.npz
+     at the 50 dB floor on the 8x box downsample, with every kernel's
+     launch count (tex_fetch must stay at 0), then timed (best of 2); then
+     mlp_fused on the frame's first net_chunk of samples and selk_resolve
+     on every launch of the frame, as captured, each against its plain
+     version;
+  7. serving: RenderSession(config_grass_render, operating_point="grass")
+     on the card, restored from a checkpoint of the grass weights in the
+     JAX package's pickle layout, answers four requests (the golden's pose
+     and parameters, two other poses, the light moved); the first response
+     must equal a direct render of its rays under
+     rng.stream_key(STREAM_PERTURB, 0); latency per request and rays/s.
 The first render of each frame runs with its selk_resolve calls captured
 (selk_capture); the frame's launch histogram (launches by Rb, S, K and
 method, with the window and valid slots of their inputs) is printed on a
 line of its own, and it and the frame's summed bound go into the frame's
-selk_resolve row.  The last two lines of stdout are the kernels JSON (one
-row per kernel and frame) and the device JSON.
+selk_resolve row (the grass row sums its times over the frame's launches).
+The last three lines of stdout are the card, the kernels JSON (one row per
+kernel and frame, and the kernels a path did not launch) and the device
+JSON.
 """
 
 import contextlib
@@ -50,6 +68,13 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_PSNR_DB = 55.0                 # bench.py's floor
 PLUSH_GOLDEN_PSNR_DB = 50.0           # scripts/bench_scene.py's floor
+GRASS_GOLDEN_PSNR_DB = 50.0           # the same
+SERVE_MAX_DIFF = 1e-6                 # a request vs the direct render of its rays and key
+# Serving requests at the grass operating point: the golden's pose and
+# parameters, two other poses, and the light moved to the other side.
+GRASS_POSE = [0.30614675, -0.73910363, 0.6]
+SERVE_REQUESTS = ((GRASS_POSE, None), ([0.0, -0.7, 0.7], None), ([0.6, -0.45, 0.66], None),
+                  (GRASS_POSE, [0.0, 0.33, -0.8, 0.0, 0.6]))
 TEX_SAMPLES = (1 << 20, 1024 * 320)   # 1M uv samples; one bench ray block (1024 x 320)
 MLP_SAMPLES = {"bench": (262144,      # one render chunk's worth of samples
                          32768),      # the bench renderer's net_chunk (one launch)
@@ -214,41 +239,95 @@ def plush_renderer_config():
     }
 
 
+def grass_model_config():
+    """configs/config_grass_render.py's ParamNerf in bf16 (the grass
+    operating point's compute dtype), with the TPU's bf16 operands in the
+    Fourier lift (as the golden was rendered)."""
+    from configs.config_grass_render import config
+
+    cfg = dict(config["model_config"], compute_dtype="bfloat16")
+    for k in ("pos_embedding", "dir_embedding", "param_embedding"):
+        cfg[k] = dict(cfg[k], matmul_precision="bfloat16")
+    return cfg
+
+
+def grass_renderer_config():
+    """configs/config_grass_render.py's renderer and instancer at the port's
+    grass operating point (nerftex_torch.operating_points) and the flags
+    that wrote tests/golden_scene_grass.npz (scripts/ab_round3e.sh: ray
+    block 2048, max_hits 96, step cap 1024, culls 512/1024, shadow culls
+    512/2048, the whole frame in one render chunk), with the slab test's
+    bf16 operands."""
+    from configs.config_grass_render import config
+    from nerftex_torch.operating_points import resolve
+
+    op = resolve("grass")
+    cfg = dict(config["renderer_config"], **op["renderer"], render_chunk=512 * 512)
+    cfg["instancer_config"] = dict(cfg["instancer_config"], **op["instancer"],
+                                   matmul_precision="bfloat16")
+    return cfg
+
+
 def npz_params(name):
     """The transplanted ParamNerf weights in tests/<name>."""
     inp = np.load(os.path.join(ROOT, "tests", name))
     return {k[len("param/"):]: inp[k] for k in inp.files if k.startswith("param/")}
 
 
-def plush_data():
-    """The plush frame's rays (the JAX test dataset's first item)."""
+# Each scene frame's golden's box-downsampling factor
+# (scripts/bench_scene.py _downsample_factor).
+DOWNSAMPLE = {"plush": 10, "grass": 8}
+
+
+def proxy_box(scene):
+    """The proxy box (b_0, b_1) of configs/config_<scene>_render.py's test
+    dataset."""
+    import importlib
+
+    cfg = importlib.import_module(f"configs.config_{scene}_render").config
+    proxy = cfg["test_dataset_config"]["proxy_config"]
+    return proxy["b_0"], proxy["b_1"]
+
+
+def scene_data(scene):
+    """A scene frame's rays (the JAX test dataset's first item, from the
+    camera in tests/torch_<scene>_inputs.npz), weights and size."""
     import math
 
     from nerftex_torch.ops.rays import frame_rays
 
-    inp = np.load(os.path.join(ROOT, "tests", "torch_plush_inputs.npz"))
+    npz = f"torch_{scene}_inputs.npz"
+    inp = np.load(os.path.join(ROOT, "tests", npz))
     h, w, angle = int(inp["height"]), int(inp["width"]), float(inp["angle"])
-    data = frame_rays(h, w, inp["eye"], angle, inp["parameters"], (-0.9, -0.6, -0.8),
-                      (0.9, 0.8, 0.9), focal=w / math.tan(angle / 2) / 2)
-    return data, npz_params("torch_plush_inputs.npz"), h, w
+    data = frame_rays(h, w, inp["eye"], angle, inp["parameters"], *proxy_box(scene),
+                      focal=w / math.tan(angle / 2) / 2)
+    return data, npz_params(npz), h, w
 
 
-def plush_golden_psnr(out, h, w):
-    """scripts/bench_scene.py check_golden's comparison: the frame box-
-    downsampled 10x (800 -> 80) against the float16 golden."""
-    color = out["color_pred"][0].float().cpu().numpy()
-    alpha = out["alpha_pred"][0].float().cpu().numpy()
+def scene_golden_psnr(scene, color, alpha, h, w):
+    """scripts/bench_scene.py check_golden's comparison: the frame (color
+    [h*w, 3] and alpha [h*w], premultiplied) box-downsampled by the scene's
+    factor against the float16 golden tests/golden_scene_<scene>.npz."""
+    color = np.asarray(color, np.float32)
+    alpha = np.asarray(alpha, np.float32)
     if color.shape != (h * w, 3) or alpha.shape != (h * w,):
-        raise AssertionError(f"frame shapes {color.shape} {alpha.shape}")
+        raise AssertionError(f"{scene} frame shapes {color.shape} {alpha.shape}")
     if not (np.isfinite(color).all() and np.isfinite(alpha).all()):
-        raise AssertionError("plush frame has non-finite values")
-    f = 10
+        raise AssertionError(f"{scene} frame has non-finite values")
+    f = DOWNSAMPLE[scene]
     frame = np.concatenate([color.reshape(h, w, 3), alpha.reshape(h, w, 1)], -1)
     small = frame.reshape(h // f, f, w // f, f, 4).mean((1, 3))
-    g = np.load(os.path.join(ROOT, "tests", "golden_scene_plush.npz"))["frame"].astype(np.float32)
+    g = np.load(os.path.join(ROOT, "tests", f"golden_scene_{scene}.npz"))["frame"]
+    g = g.astype(np.float32)
     if g.shape != small.shape:
-        raise AssertionError(f"plush golden {g.shape} != frame {small.shape}")
+        raise AssertionError(f"{scene} golden {g.shape} != frame {small.shape}")
     return 10 * np.log10(1.0 / max(float(np.mean((small - g) ** 2)), 1e-12))
+
+
+def frame_psnr(scene, out, h, w):
+    """scene_golden_psnr of a renderer's output."""
+    return scene_golden_psnr(scene, out["color_pred"][0].float().cpu().numpy(),
+                             out["alpha_pred"][0].float().cpu().numpy(), h, w)
 
 
 def golden_psnr(out):
@@ -533,6 +612,69 @@ def selk_capture(keep_inputs=False):
         device.selk_resolve = real
 
 
+@contextlib.contextmanager
+def mlp_capture():
+    """While active, keep a copy of the inputs of the first mlp_fused call
+    of the render path (the maps and packed weights ParamNerf.infer passes)
+    in the dict it yields, under "args"."""
+    import nerftex_torch.models.mlp as mlp
+
+    real = mlp.fused
+    first = {}
+
+    class Capture:
+        """The kernel module as ParamNerf.infer sees it, but for mlp_fused."""
+
+        def __getattr__(self, name):
+            return getattr(real, name)
+
+        @staticmethod
+        def mlp_fused(pos_map, dir_map, packed):
+            if not first:
+                first["args"] = (pos_map.clone(), dir_map.clone(), packed)
+            return real.mlp_fused(pos_map, dir_map, packed)
+
+    mlp.fused = Capture()
+    try:
+        yield first
+    finally:
+        mlp.fused = real
+
+
+def check_selk_frame(selk, calls, frame, blend):
+    """The selk_resolve kernel against its plain version on every launch of
+    a frame, as captured (selk_capture with inputs kept): picks and n_active
+    as compare_selk requires; the frame's summed kernel times (event and
+    graph-replayed), plain time (one synchronised call each) and bound,
+    bound by what bounds the launches that hold most of it."""
+    total = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    bound_by = {"bytes": 0.0, "operations": 0.0}
+    mism, p_err = 0, 0.0
+    works = torch.stack([c["work"] for c in calls]).tolist()
+    for call, work in zip(calls, works):
+        args, kw = call["args"]
+        stats = compare_selk(selk, args, kw["method"], kw["blend_range"])
+        mism += stats["mismatches"]
+        p_err = max(p_err, stats["max_abs_err"])
+        total["ms"] += time_ms(lambda: selk.selk_resolve(*args, **kw), iters=10, warmup=2)
+        total["device_ms"] += device_ms(lambda: selk.selk_resolve(*args, **kw), iters=10)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        selk.selk_resolve_plain(*args, **kw)
+        torch.cuda.synchronize()
+        total["plain_ms"] += (time.perf_counter() - t0) * 1e3
+        bound_ms, by = selk_bound(*call["key"], work)
+        total["bound_ms"] += bound_ms
+        bound_by[by] += bound_ms
+    log(f"selk_resolve on the {frame} frame's {len(calls)} launches: {mism} picks differ, max "
+        f"|p - plain| {p_err:.3g}; summed kernel device {total['device_ms']:.4f} ms (dispatch "
+        f"{total['ms']:.4f}), plain {total['plain_ms']:.2f} ms, bound {total['bound_ms']:.4f} ms")
+    return dict(total, name="selk_resolve", route="cuda", per="frame",
+                source="nerftex_torch/kernels/csrc/selk_resolve.cu",
+                replaces="nerftex_tpu/kernels/selk_resolve.py:144", max_abs_err=p_err,
+                mismatches=mism, bound_by=max(bound_by, key=bound_by.get), library_ms=None)
+
+
 def selk_frame_record(calls, launches, frame):
     """The frame's selk_resolve launches from selk_capture's ``calls``
     (which must number ``launches``, the wrapper's count): histogram rows
@@ -569,16 +711,17 @@ def blend_cum(selk, tables, t, blend):
     return torch.cumsum(w / w.sum(-1, keepdim=True).clamp(min=1e-20), -1)
 
 
-def cublas_chain(packed):
-    """The packed layer chain as bf16 torch.nn.functional.linear calls
-    (cuBLAS), for timing only."""
+def cublas_chain(packed, dtype=torch.bfloat16):
+    """The packed layer chain as torch.nn.functional.linear calls (cuBLAS)
+    in ``dtype`` (float32 with TF32 off), for timing only; it takes the
+    padded pos and dir maps in ``dtype`` (cublas_inputs)."""
     from nerftex_torch.kernels import mlp_fused as fused
 
     layers = []
     for w_off, b_off, s0, k0, s1, k1, n_pad, dst, n_out, col, relu in packed.table.tolist():
         k = k0 + (k1 if s1 >= 0 else 0)
-        w = packed.weights[w_off:w_off + k * n_pad].view(k, n_pad).T.contiguous().bfloat16()
-        b = packed.biases[b_off:b_off + n_pad].bfloat16()
+        w = packed.weights[w_off:w_off + k * n_pad].view(k, n_pad).T.contiguous().to(dtype)
+        b = packed.biases[b_off:b_off + n_pad].to(dtype)
         layers.append((s0, s1, w, b, dst, relu))
 
     def run(pos, dirs):
@@ -598,6 +741,71 @@ def cublas_chain(packed):
     return run
 
 
+def cublas_inputs(packed, pos_map, dir_map, dtype=torch.bfloat16):
+    """The pos and dir maps padded to the packed widths, in ``dtype``."""
+    pad = torch.nn.functional.pad
+    return (pad(pos_map, (0, packed.pos_pad - packed.pos_dim)).to(dtype),
+            pad(dir_map, (0, packed.dir_pad - packed.dir_dim)).to(dtype))
+
+
+def mlp_row(fused, packed, pos_map, dir_map, dtype_name, label):
+    """The fused MLP against its plain version on the feature maps
+    (pos_map, dir_map), with times of the kernel, the plain version and the
+    cuBLAS layer chain in the same dtype, and the bound."""
+    n_samples = pos_map.shape[0]
+    elt = 2 if dtype_name == "bfloat16" else 4
+    peak = H100_BF16_FLOPS if dtype_name == "bfloat16" else H100_F32_FLOPS
+    with torch.no_grad():
+        got = fused.mlp_fused(pos_map, dir_map, packed)
+        ref = fused.mlp_fused_plain(pos_map, dir_map, packed)
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"mlp_fused {dtype_name} ({label}): non-finite output")
+    scale = max(1.0, float(ref.abs().max()))
+    err = float((got - ref).abs().max())
+    mean_err = float((got - ref).abs().mean())
+    tol = (MLP_BF16_TOL if dtype_name == "bfloat16" else MLP_F32_TOL) * scale
+    log(f"mlp_fused {dtype_name} ({label}): N={n_samples}, dir map {packed.dir_dim} wide (padded "
+        f"{packed.dir_pad}), max |kernel - plain| = {err:.3g} (tol {tol:.3g}, max|plain| "
+        f"{scale:.3g}), mean err {mean_err:.3g}")
+    if not err <= tol:
+        raise AssertionError(f"mlp_fused {dtype_name} ({label}) disagrees with its plain version: "
+                             f"{err}")
+    nbytes = (n_samples * (packed.pos_pad + packed.dir_pad) * elt
+              + packed.weights.numel() * elt + packed.biases.numel() * 4 + n_samples * 16)
+    flops = 2 * packed.macs * n_samples
+    dtype = torch.bfloat16 if dtype_name == "bfloat16" else torch.float32
+    run = cublas_chain(packed, dtype)
+    pos_c, dir_c = cublas_inputs(packed, pos_map, dir_map, dtype)
+    row = {
+        "samples": n_samples, "max_abs_err": err, "mean_abs_err": mean_err,
+        "ms": time_ms(lambda: fused.mlp_fused(pos_map, dir_map, packed)),
+        "device_ms": device_ms(lambda: fused.mlp_fused(pos_map, dir_map, packed), iters=20),
+        "plain_ms": time_ms(lambda: fused.mlp_fused_plain(pos_map, dir_map, packed)),
+        "bound_ms": max(nbytes / H100_BYTES_PER_S, flops / peak) * 1e3,
+        "bound_by": "operations" if flops / peak > nbytes / H100_BYTES_PER_S else "bytes",
+        "library_ms": None,
+        "macs_per_sample": packed.macs,
+        "cublas_layers_ms": time_ms(lambda: run(pos_c, dir_c)),
+        "cublas_layers_device_ms": device_ms(lambda: run(pos_c, dir_c), iters=20),
+    }
+    row["tflops"] = flops / row["device_ms"] / 1e9
+    log(f"mlp_fused {dtype_name} ({label}): N={n_samples} kernel device {row['device_ms']:.4f} ms "
+        f"({row['tflops']:.1f} TFLOP/s, {row['bound_ms'] / row['device_ms']:.3f} of the bound), "
+        f"dispatch {row['ms']:.4f} ms, plain {row['plain_ms']:.3f} ms, bound "
+        f"{row['bound_ms']:.4f} ms, cuBLAS {dtype_name} layers device "
+        f"{row['cublas_layers_device_ms']:.4f} ms (dispatch {row['cublas_layers_ms']:.4f})")
+    return row
+
+
+def mlp_kernel_row(fused, packed, shapes):
+    """The kernels-line row of mlp_fused: the first of ``shapes`` (rows of
+    mlp_row), the others riding along."""
+    return dict(shapes[0], name="mlp_fused", route="cuda", variant=fused.VARIANTS[packed.dtype],
+                source="nerftex_torch/kernels/csrc/mlp_fused.cu",
+                replaces="nerftex_tpu/kernels/mlp_pallas.py:119", shapes=shapes[1:])
+
+
 def check_mlp(fused, model, dtype_name, sizes):
     """The fused MLP of ``model`` (compute dtype ``dtype_name``) against its
     plain version on random encodable inputs of each of ``sizes`` samples;
@@ -605,9 +813,6 @@ def check_mlp(fused, model, dtype_name, sizes):
     dev = torch.device("cuda")
     n_prm = model.n_geo + model.n_app
     packed = model.packed()
-    elt = 2 if dtype_name == "bfloat16" else 4
-    peak = H100_BF16_FLOPS if dtype_name == "bfloat16" else H100_F32_FLOPS
-    run = cublas_chain(packed) if dtype_name == "bfloat16" else None
     shapes = []
     for n_samples in sizes:
         rs = np.random.RandomState(1)
@@ -617,49 +822,73 @@ def check_mlp(fused, model, dtype_name, sizes):
         prms = torch.tensor(rs.uniform(0, 1, (n_samples, n_prm)).astype(np.float32), device=dev)
         with torch.no_grad():
             pos_map, dir_map = model.feature_maps(pos, dirs, prms)
-            got = fused.mlp_fused(pos_map, dir_map, packed)
-            ref = fused.mlp_fused_plain(pos_map, dir_map, packed)
-        torch.cuda.synchronize()
-        if not torch.isfinite(got).all():
-            raise AssertionError(f"mlp_fused {dtype_name}: non-finite output")
-        scale = max(1.0, float(ref.abs().max()))
-        err = float((got - ref).abs().max())
-        mean_err = float((got - ref).abs().mean())
-        tol = (MLP_BF16_TOL if dtype_name == "bfloat16" else MLP_F32_TOL) * scale
-        log(f"mlp_fused {dtype_name}: N={n_samples}, {n_prm} parameters, dir map "
-            f"{packed.dir_dim} wide (padded {packed.dir_pad}), max |kernel - plain| = {err:.3g} "
-            f"(tol {tol:.3g}, max|plain| {scale:.3g}), mean err {mean_err:.3g}")
-        if not err <= tol:
-            raise AssertionError(f"mlp_fused {dtype_name} disagrees with its plain version: {err}")
-        nbytes = (n_samples * (packed.pos_pad + packed.dir_pad) * elt
-                  + packed.weights.numel() * elt + packed.biases.numel() * 4 + n_samples * 16)
-        flops = 2 * packed.macs * n_samples
-        row = {
-            "samples": n_samples, "max_abs_err": err, "mean_abs_err": mean_err,
-            "ms": time_ms(lambda: fused.mlp_fused(pos_map, dir_map, packed)),
-            "device_ms": device_ms(lambda: fused.mlp_fused(pos_map, dir_map, packed), iters=20),
-            "plain_ms": time_ms(lambda: fused.mlp_fused_plain(pos_map, dir_map, packed)),
-            "bound_ms": max(nbytes / H100_BYTES_PER_S, flops / peak) * 1e3,
-            "bound_by": "operations" if flops / peak > nbytes / H100_BYTES_PER_S else "bytes",
-            "library_ms": None,
-            "macs_per_sample": packed.macs,
-        }
-        row["tflops"] = flops / row["device_ms"] / 1e9
-        if run is not None:
-            pos_b = torch.nn.functional.pad(pos_map, (0, packed.pos_pad - packed.pos_dim)).bfloat16()
-            dir_b = torch.nn.functional.pad(dir_map, (0, packed.dir_pad - packed.dir_dim)).bfloat16()
-            row["cublas_layers_ms"] = time_ms(lambda: run(pos_b, dir_b))
-            row["cublas_layers_device_ms"] = device_ms(lambda: run(pos_b, dir_b), iters=20)
-        log(f"mlp_fused {dtype_name}: N={n_samples} kernel device {row['device_ms']:.4f} ms "
-            f"({row['tflops']:.1f} TFLOP/s, {row['bound_ms'] / row['device_ms']:.3f} of the bound), "
-            f"dispatch {row['ms']:.4f} ms, plain {row['plain_ms']:.3f} ms, bound "
-            f"{row['bound_ms']:.4f} ms"
-            + (f", cuBLAS bf16 layers device {row['cublas_layers_device_ms']:.4f} ms (dispatch "
-               f"{row['cublas_layers_ms']:.4f})" if run is not None else ""))
-        shapes.append(row)
-    return dict(shapes[0], name="mlp_fused", route="cuda", variant=fused.VARIANTS[packed.dtype],
-                source="nerftex_torch/kernels/csrc/mlp_fused.cu",
-                replaces="nerftex_tpu/kernels/mlp_pallas.py:119", shapes=shapes[1:])
+        shapes.append(mlp_row(fused, packed, pos_map, dir_map, dtype_name,
+                              f"{n_prm} parameters, random inputs"))
+    return mlp_kernel_row(fused, packed, shapes)
+
+
+def serve_grass(params, h, w, reset_counts, read_counts, check_counts, card):
+    """Serve SERVE_REQUESTS through RenderSession(config_grass_render,
+    operating_point="grass") on the card from a checkpoint of the grass
+    weights in the JAX package's pickle layout, written to a temporary
+    target_path.  The first response must equal (SERVE_MAX_DIFF) a direct
+    render of the session's rays for that request under
+    rng.stream_key(STREAM_PERTURB, 0), after the same alpha division.
+    Returns the latencies and PSNR, and the kernels' launch counts over the
+    four requests."""
+    import tempfile
+
+    from configs.config_grass_render import config
+    from nerftex_torch.render.checkpoint import CheckpointManager, unflatten_params
+    from nerftex_torch.render.serve import RenderSession, straight_rgba
+    from nerftex_torch.utils import rng
+
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix="_serve_") as target:
+        CheckpointManager(os.path.join(target, "checkpoints")).save(
+            {"models": {"model": unflatten_params(params)}, "extra": {"step": 1}}, 1)
+        t0 = time.perf_counter()
+        session = RenderSession(dict(config, target_path=target), operating_point="grass",
+                                device="cuda")
+        build_s = time.perf_counter() - t0
+        if not session.restored_from.endswith("ckpt-1.pkl"):
+            raise AssertionError(f"the session restored {session.restored_from}")
+        reset_counts()
+        images, latencies = [], []
+        for pos, prm in SERVE_REQUESTS:
+            t0 = time.perf_counter()
+            images.append(session.render(pos, parameters=prm))
+            latencies.append((time.perf_counter() - t0) * 1e3)
+        launches, variants = read_counts()
+        log(f"serving (4 requests): launches {launches}, variants {variants}")
+        check_counts("grass serving", launches, variants, idle=("tex_fetch",))
+        for img in images:
+            if img.shape != (h, w, 4) or not np.isfinite(img).all():
+                raise AssertionError(f"served frame {img.shape} is not a finite {h}x{w} RGBA")
+        if np.abs(images[3] - images[0]).max() < 1e-3:
+            raise AssertionError("moving the light changed nothing in the served frame")
+
+        rays_o, rays_d, t, cone = session.device_rays(session.pose(SERVE_REQUESTS[0][0]))
+        out = session.renderer(rays_o=rays_o[None], rays_d=rays_d[None], t=t[None],
+                               parameters=session.default_parameters[None],
+                               cone_scale=cone[None],
+                               key=rng.stream_key(rng.STREAM_PERTURB, 0))
+        color, alpha = out["color_pred"][0].cpu().numpy(), out["alpha_pred"][0].cpu().numpy()
+        diff = float(np.abs(straight_rgba(color, alpha, h, w) - images[0]).max())
+        log(f"serving: first response vs direct render under stream_key(STREAM_PERTURB, 0): max "
+            f"|diff| {diff:.3g} (limit {SERVE_MAX_DIFF})")
+        if not diff <= SERVE_MAX_DIFF:
+            raise AssertionError(f"the first served frame differs from the direct render: {diff}")
+        psnr = scene_golden_psnr("grass", color, alpha, h, w)
+        log(f"serving: session build {build_s:.2f} s; latency per request "
+            f"{', '.join(f'{ms:.1f}' for ms in latencies)} ms (first, then warm) -> "
+            f"{', '.join(f'{h * w / ms * 1e3:.1f}' for ms in latencies)} rays/s; first response "
+            f"{psnr:.2f} dB against the grass golden (information only: float32 dots and the "
+            f"session's own draws) on {card}")
+        del session, out
+        torch.cuda.empty_cache()
+    return ({"latency_ms": latencies, "rays_per_s": [h * w / ms * 1e3 for ms in latencies],
+             "session_build_s": build_s, "first_vs_direct_max_diff": diff,
+             "first_golden_psnr_db": psnr}, launches)
 
 
 def main():
@@ -692,7 +921,6 @@ def main():
 
     # -- kernels vs plain --------------------------------------------------------
     t_phase = time.perf_counter()
-    inputs = np.load(os.path.join(ROOT, "tests", "torch_bench_inputs.npz"))
     params = npz_params("torch_bench_inputs.npz")
     rows = {}
     for frame, texture in (("bench", "smooth_checkerboard.png"), ("plush", "checkerboard.png")):
@@ -706,8 +934,9 @@ def main():
         mlp[name] = check_mlp(fused, probe, name, sizes)
     # The main path runs the bf16 variant; the f32 one rides along in its row.
     rows["bench"]["mlp_fused"] = dict(mlp["bfloat16"], float32_variant={
-        k: mlp["float32"][k] for k in ("variant", "max_abs_err", "ms", "device_ms", "plain_ms",
-                                       "bound_ms", "bound_by")})
+        k: mlp["float32"][k] for k in ("variant", "samples", "max_abs_err", "ms", "device_ms",
+                                       "plain_ms", "bound_ms", "bound_by", "cublas_layers_ms",
+                                       "cublas_layers_device_ms")})
     probe = instantiate(plush_model_config(), device="cuda")
     load_jax_params(probe, npz_params("torch_plush_inputs.npz"))
     rows["plush"]["mlp_fused"] = check_mlp(fused, probe, "bfloat16", MLP_SAMPLES["plush"])
@@ -728,12 +957,14 @@ def main():
         return ({name: fn.launches for name, fn in counters.items()},
                 {name: dict(counters[name].variant_launches) for name in FRAME_VARIANTS})
 
-    def check_counts(frame, launches, variants):
+    def check_counts(frame, launches, variants, idle=()):
         for name, n in launches.items():
-            if n <= 0:
+            if name in idle and n:
+                raise AssertionError(f"the {frame} frame launched {name} {n} times, not 0")
+            if name not in idle and n <= 0:
                 raise AssertionError(f"the {frame} frame did not launch {name}")
         for name, want in FRAME_VARIANTS.items():
-            if variants[name][want] != launches[name]:
+            if name not in idle and variants[name][want] != launches[name]:
                 raise AssertionError(f"the {frame} frame ran {name} variants {variants[name]}, "
                                      f"not {want} alone")
 
@@ -741,7 +972,6 @@ def main():
     t_phase = time.perf_counter()
     data = frame_rays(512, 512, np.array([0.47, -0.65, 0.6]) * 6.0, 0.55,
                       [1, 1, 1, 0.1, 0, 0, 1.0])
-    u_offset = inputs["u_offset"][None]
 
     def build_renderer(precision):
         model = instantiate(model_config(precision), device="cuda")
@@ -755,7 +985,7 @@ def main():
     reset_counts()
     t0 = time.perf_counter()
     with selk_capture() as selk_calls:
-        out = renderer(**data, u_offset=u_offset)
+        out = renderer(**data, key=jax_rng.key(1))
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     carpet_launches, carpet_variants = read_counts()
@@ -772,7 +1002,7 @@ def main():
     best = float("inf")
     for _ in range(3):
         t0 = time.perf_counter()
-        out = renderer(**data, u_offset=u_offset)
+        out = renderer(**data, key=jax_rng.key(1))
         torch.cuda.synchronize()
         best = min(best, time.perf_counter() - t0)
     rays_per_s = 512 * 512 / best
@@ -781,7 +1011,7 @@ def main():
     log(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     # Informational: the same frame with every matmul operand in f32.
-    f32_out = build_renderer("float32")(**data, u_offset=u_offset)
+    f32_out = build_renderer("float32")(**data, key=jax_rng.key(1))
     log(f"golden check with float32 matmul operands: {golden_psnr(f32_out):.2f} dB (not gated)")
     del renderer, out, f32_out
     carpet = {"rays_per_s": rays_per_s, "best_ms": best * 1e3, "golden_psnr_db": psnr}
@@ -789,7 +1019,7 @@ def main():
 
     # -- the plush frame ----------------------------------------------------------
     t_phase = time.perf_counter()
-    p_data, p_params, h, w = plush_data()
+    p_data, p_params, h, w = scene_data("plush")
     model = instantiate(plush_model_config(), device="cuda")
     load_jax_params(model, p_params)
     renderer = instantiate(dict(plush_renderer_config(), model=model, device="cuda"))
@@ -808,7 +1038,7 @@ def main():
     check_counts("plush", plush_launches, plush_variants)
     rows["plush"]["selk_resolve"].update(
         selk_frame_record(selk_calls, plush_launches["selk_resolve"], "plush"))
-    p_psnr = plush_golden_psnr(out, h, w)
+    p_psnr = frame_psnr("plush", out, h, w)
     log(f"plush golden check: {p_psnr:.2f} dB (floor {PLUSH_GOLDEN_PSNR_DB}, 10x downsample)")
     if not p_psnr >= PLUSH_GOLDEN_PSNR_DB:
         raise AssertionError(f"plush frame diverged from golden: {p_psnr:.2f} dB")
@@ -824,14 +1054,80 @@ def main():
     log(f"phase plush frame: {time.perf_counter() - t_phase:.1f} s")
     plush = {"rays_per_s": h * w / p_best, "best_ms": p_best * 1e3, "golden_psnr_db": p_psnr,
              "peak_gib": p_peak}
+    del renderer, model, out
 
-    launches = {"bench": carpet_launches, "plush": plush_launches}
+    # -- the grass frame ----------------------------------------------------------
+    t_phase = time.perf_counter()
+    g_data, g_params, h, w = scene_data("grass")
+    model = instantiate(grass_model_config(), device="cuda")
+    load_jax_params(model, g_params)
+    renderer = instantiate(dict(grass_renderer_config(), model=model, device="cuda"))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    with selk_capture(keep_inputs=True) as selk_calls, mlp_capture() as mlp_call:
+        out = renderer(**g_data, key=jax_rng.key(1))
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    grass_launches, grass_variants = read_counts()
+    log(f"grass frame (first render {first_s:.2f} s): launches {grass_launches}, variants "
+        f"{grass_variants}, shadow branches "
+        f"{renderer.instancer.device_instancer.shadow_branches}")
+    # Grass has no texture channel (textures ["", "point"]): no tex_fetch.
+    check_counts("grass", grass_launches, grass_variants, idle=("tex_fetch",))
+    g_psnr = frame_psnr("grass", out, h, w)
+    log(f"grass golden check: {g_psnr:.2f} dB (floor {GRASS_GOLDEN_PSNR_DB}, 8x downsample)")
+    if not g_psnr >= GRASS_GOLDEN_PSNR_DB:
+        raise AssertionError(f"grass frame diverged from golden: {g_psnr:.2f} dB")
+    g_best = float("inf")
+    for _ in range(2):
+        t0 = time.perf_counter()
+        renderer(**g_data, key=jax_rng.key(1))
+        torch.cuda.synchronize()
+        g_best = min(g_best, time.perf_counter() - t0)
+    g_peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"grass frame: best of 2 warm renders {g_best * 1e3:.1f} ms -> "
+        f"{h * w / g_best:.1f} rays/s, peak device memory {g_peak:.2f} GiB on {card}")
+    # The kernels at the grass frame's own inputs: the MLP on its first
+    # net_chunk of samples, the overlap pick on every launch of the frame.
+    rows["grass"] = {
+        "mlp_fused": mlp_kernel_row(fused, mlp_call["args"][2], [mlp_row(
+            fused, mlp_call["args"][2], *mlp_call["args"][:2], "bfloat16",
+            "the grass frame's first net_chunk")]),
+        "selk_resolve": dict(check_selk_frame(selk, selk_calls, "grass",
+                                              renderer.instancer.device_instancer.ds
+                                              .nearest_blend_range),
+                             **selk_frame_record(selk_calls, grass_launches["selk_resolve"],
+                                                 "grass")),
+    }
+    del selk_calls, mlp_call
+    grass = {"rays_per_s": h * w / g_best, "best_ms": g_best * 1e3, "golden_psnr_db": g_psnr,
+             "peak_gib": g_peak, "first_render_s": first_s}
+    del renderer, model, out
+    torch.cuda.empty_cache()
+    log(f"phase grass frame: {time.perf_counter() - t_phase:.1f} s")
+
+    # -- serving: RenderSession at the grass operating point -----------------------
+    t_phase = time.perf_counter()
+    serve, serve_launches = serve_grass(g_params, h, w, reset_counts, read_counts, check_counts,
+                                        card)
+    rows["grass"]["mlp_fused"]["serve_launches"] = serve_launches["mlp_fused"]
+    rows["grass"]["selk_resolve"]["serve_launches"] = serve_launches["selk_resolve"]
+    log(f"phase serving: {time.perf_counter() - t_phase:.1f} s")
+
+    launches = {"bench": carpet_launches, "plush": plush_launches, "grass": grass_launches}
     kernels = [dict(row, frame=frame, launches=launches[frame][name])
-               for frame in ("bench", "plush") for name, row in rows[frame].items()]
-    log(json.dumps({"frames": {"bench": carpet, "plush": plush}, "card": card,
-                    "seconds": time.perf_counter() - t_start}))
+               for frame in ("bench", "plush", "grass") for name, row in rows[frame].items()]
+    log(json.dumps({"frames": {"bench": carpet, "plush": plush, "grass": grass},
+                    "serving": serve, "card": card, "seconds": time.perf_counter() - t_start}))
     log(card)
-    log(json.dumps({"kernels": kernels}))
+    why = "configs/config_grass_render.py has no texture channel (textures ['', 'point'])"
+    log(json.dumps({"kernels": kernels, "not_launched": [
+        {"frame": "grass", "name": "tex_fetch", "launches": grass_launches["tex_fetch"],
+         "why": why},
+        {"frame": "grass serving", "name": "tex_fetch", "launches": serve_launches["tex_fetch"],
+         "why": why}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -3,21 +3,27 @@ local frames and texture parameters, in PyTorch.
 
 Counterpart of nerftex_tpu/instancing/device.py for the grid render paths
 (``random``, ``nearest`` and ``nearest_blend`` overlap selection, a
-directional light, optional shadow rays):
+directional or point light, optional shadow rays, auxiliary meshes with
+shaded terminators):
 
   1. ``_per_ray``: slab tests of every ray against every instance's local
      box (or the exact fan-culled candidates), top-K nearest intervals
-     clipped at the first mesh hit (Moller-Trumbore, optionally over the
-     fan-culled triangles), the union of intervals as sorted events with
-     prefix sums, the per-ray sample layout (``n_steps``, offset) and,
-     with shadows, the per-ray ``shadow_blocked`` table: occlusion toward
-     the light of ``shadow_samples`` points spread over the inside arc,
-     through the exact skip/culled/full branch of ``_occlusion_branched``;
+     clipped at the first hit of the triangle soup (base mesh plus
+     auxiliary meshes; Moller-Trumbore, optionally over the fan-culled
+     triangles), the union of intervals as sorted events with prefix sums,
+     the per-ray sample layout (``n_steps``, offset) and, with shadows, the
+     per-ray ``shadow_blocked`` table: occlusion toward the light of
+     ``shadow_samples`` points spread over the inside arc, through the
+     exact skip/culled/full branch of ``_occlusion_branched``; with
+     auxiliary meshes, the terminator's color (``_shade_terminator``:
+     Lambert plus ambient over the aux mesh's albedo, shadowed, the base
+     mesh black);
   2. ``_per_sample_grid``: arc-length sample positions mapped to world t,
      the overlap pick among the active intervals (kernels.selk_resolve)
      and its density weight,
      then ``_per_sample_grid_tail``: local transforms, the texture-driven
-     parameter slots (through kernels.tex_gather) and the light direction,
+     parameter slots (through kernels.tex_gather) and the light direction
+     (toward a point light's position, with its inverse-square strength),
      pointed down for samples whose shadow bucket is blocked;
   3. ``render_grid_sorted``: the per-ray stage for all rays, rays sorted by
      step count, each sorted block run at its own maximum step count and,
@@ -32,11 +38,14 @@ The JAX package's one-hot selects, packed permutes, layout barriers and
 ``torch.sort`` and per-block dynamic shapes, with the same results.  The
 culls' branches are chosen on the host, one synchronisation per block.
 
-Random draws.  Per-ray stratified offsets come from ``u_offset`` when the
-caller gives them, else 0.5 with ``deterministic_offset``, else from a
-``key`` (utils.jax_rng: the very numbers the JAX package draws from the
-same key), else from this instancer's ``torch.Generator``.  The per-sample
-pick draws ``u_sel`` from the key or the generator likewise.
+Random draws.  Per-ray stratified offsets are 0.5 with
+``deterministic_offset``, else drawn from the caller's ``key``
+(utils.jax_rng: the very numbers the JAX package draws from the same key).
+The per-sample pick draws ``u_sel`` from the key likewise.
+
+A point light's position sits in the light-direction slots; the shadow and
+terminator passes take it as a direction, as the JAX package does (its
+grass golden frame was rendered so).
 """
 
 import bisect
@@ -81,17 +90,27 @@ class DeviceScene:
         self.b_0 = t(scene.b_0)
         self.b_1 = t(scene.b_1)
 
-        mesh = scene.base_mesh
+        # Triangle soup: the base mesh (mesh id 0) then the auxiliary meshes
+        # (1, 2, ...; without a base mesh the first aux mesh takes id 0, as
+        # in the JAX package), with vertex normals and UVs per corner.
+        meshes = ([scene.base_mesh] if scene.base_mesh is not None else []) + scene.aux_meshes
+        self.n_meshes = len(meshes)
+        parts = [(mid, m) for mid, m in enumerate(meshes) if len(m.F)]
         self.n_tris = 0
-        if mesh is not None and len(mesh.F):
-            V, F = mesh.V, mesh.F
-            v0 = V[F[:, 0]]
-            e1 = V[F[:, 1]] - V[F[:, 0]]
-            e2 = V[F[:, 2]] - V[F[:, 0]]
+        if parts:
+            v0 = np.concatenate([m.V[m.F[:, 0]] for _, m in parts])
+            e1 = np.concatenate([m.V[m.F[:, 1]] - m.V[m.F[:, 0]] for _, m in parts])
+            e2 = np.concatenate([m.V[m.F[:, 2]] - m.V[m.F[:, 0]] for _, m in parts])
             self.tri_v0, self.tri_e1, self.tri_e2 = t(v0), t(e1), t(e2)
+            self.tri_n = t(np.concatenate([np.stack([m.N[m.F[:, k]] for k in range(3)], 1)
+                                           for _, m in parts]))                     # [T,3,3]
+            self.tri_uv = t(np.concatenate([np.stack([m.UV[m.F[:, k]] for k in range(3)], 1)
+                                            for _, m in parts]))                    # [T,3,2]
+            self.tri_mesh_id = t(np.concatenate([np.full(len(m.F), mid) for mid, m in parts]),
+                                 torch.int64)
             # Geometric normals for the shadow query's front-face test.
             self.tri_ng = torch.linalg.cross(self.tri_e1, self.tri_e2)
-            self.n_tris = len(F)
+            self.n_tris = len(v0)
             # Triangle bounding spheres for the block-fan cull.
             cen = v0 + (e1 + e2) / 3.0
             rad = np.maximum(
@@ -100,6 +119,19 @@ class DeviceScene:
                            np.linalg.norm(cen - (v0 + e2), axis=-1)),
             )
             self.tri_center, self.tri_radius = t(cen), t(rad)
+
+        # Albedo textures of the meshes as [M, W, H, 3] (gray replicated),
+        # -1 where a mesh has none or is smaller; None when none has one.
+        self.mesh_tex = None
+        if any(m.textures for m in meshes):
+            w = max(c.shape[0] for m in meshes for c in m.textures)
+            h = max(c.shape[1] for m in meshes for c in m.textures)
+            stack = np.full((len(meshes), w, h, 3), -1.0, np.float32)
+            for i, m in enumerate(meshes):
+                chans = m.textures if len(m.textures) >= 3 else m.textures[:1] * 3
+                for c, ch in enumerate(chans[:3]):
+                    stack[i, :ch.shape[0], :ch.shape[1], c] = ch
+            self.mesh_tex = t(stack)
 
         self.anchor_uv = self.uv_jacobian = None
         if getattr(scene, "anchor_uv", None) is not None:
@@ -152,8 +184,8 @@ class DeviceScene:
 
 
 def _moller_trumbore(o, d, v0, e1, e2, t_max=T_FAR):
-    """First-hit distance of each ray [R,3] to each triangle [T,3]:
-    t [R,T], inf where missed."""
+    """First-hit distance of each ray [R,3] to each triangle [T,3] and the
+    barycentrics: (t [R,T], inf where missed; u; v)."""
     ox, oy, oz = (o[:, c, None] for c in range(3))
     dx, dy, dz = (d[:, c, None] for c in range(3))
     e2x, e2y, e2z = e2.unbind(-1)
@@ -178,7 +210,7 @@ def _moller_trumbore(o, d, v0, e1, e2, t_max=T_FAR):
     t = (e2x * qx + e2y * qy + e2z * qz) * inv_det
 
     ok = (det.abs() > 1e-12) & (u >= 0) & (v >= 0) & (u + v <= 1) & (t > 1e-6) & (t < t_max)
-    return torch.where(ok, t, _INF)
+    return torch.where(ok, t, _INF), u, v
 
 
 def _block_fan(rays_o, rays_d):
@@ -321,15 +353,12 @@ class DeviceInstancer:
         shadow_samples: int = 32,
         shadow_cull_budget: int = 0,
         shadow_tri_cull_budget: int = 0,
-        seed: int = 0,
         deterministic_offset: bool = False,
         matmul_precision: str = "float32",
     ):
         if scene.instance_sampling_method not in ("random", "nearest", "nearest_blend"):
             raise ValueError(
                 f"unknown instance_sampling_method {scene.instance_sampling_method!r}")
-        if scene.light_strength_idx >= 0:
-            raise NotImplementedError("point lights come with the grass slice")
         self.device = device
         self.ds = DeviceScene(scene, device)
         self.max_hits = max_hits
@@ -349,7 +378,6 @@ class DeviceInstancer:
         # Operand rounding of the slab test's ray-to-local matmuls (see
         # models.encodings.round_operand).
         self.matmul_precision = check_matmul_precision(matmul_precision)
-        self.generator = torch.Generator(device=device).manual_seed(seed)
 
         ds = self.ds
         n = ds.n_instances
@@ -368,11 +396,11 @@ class DeviceInstancer:
 
     # -- ray batches ------------------------------------------------------
 
-    def _prepare(self, rays_o, rays_d, parameters, u_offset, key, extra=()):
+    def _prepare(self, rays_o, rays_d, parameters, key, extra=()):
         """Float32 tensors on this device, padded to a multiple of the ray
-        block; u_offset is drawn here when the caller gives none: from
-        ``key`` as JAX draws it for each ray block (split(fold_in(key,
-        block))[0]), else from this instancer's generator."""
+        block, and the per-ray offsets u_off: 0.5 with
+        ``deterministic_offset``, else drawn from ``key`` as JAX draws them
+        for each ray block (split(fold_in(key, block))[0])."""
         dev = self.device
 
         def f32(x):
@@ -382,16 +410,11 @@ class DeviceInstancer:
         r = rays_o.shape[0]
         block = min(self.ray_block, r)
         n_pad = -(-r // block) * block
-        if u_offset is not None:
-            u_off = f32(u_offset).reshape(r)
-        elif self.deterministic_offset:
+        if self.deterministic_offset:
             u_off = torch.full((r,), 0.5, device=dev)
-        elif key is not None:
-            u_off = torch.cat([jax_rng.uniform(jax_rng.split(jax_rng.fold_in(key, b))[0],
-                                               (block,), dev)
-                               for b in range(n_pad // block)])
         else:
-            u_off = torch.rand(r, generator=self.generator, device=dev)
+            u_off = jax_rng.uniform_rows(jax_rng.block_keys(key, n_pad // block), block,
+                                         dev).reshape(-1)
         extra = tuple(extra)
         if n_pad > r:
             pad = n_pad - r
@@ -403,30 +426,28 @@ class DeviceInstancer:
             extra = tuple(torch.cat([e, e.new_zeros((pad,) + e.shape[1:])]) for e in extra)
         return rays_o, rays_d, parameters, u_off, extra, r, block
 
-    def _draw_u_sel(self, shape, key=None, full_width=None):
+    def _draw_u_sel(self, shape, key, full_width=None):
         """The per-sample pick's uniforms [Rb, S] (None for ``nearest``):
-        JAX's draw under ``key``, else this instancer's generator."""
+        JAX's draw under ``key``."""
         if self.ds.instance_sampling_method == "nearest":
             return None
-        if key is not None:
-            return jax_rng.uniform(key, shape, self.device, full_width=full_width)
-        return torch.rand(shape, generator=self.generator, device=self.device)
+        return jax_rng.uniform(key, shape, self.device, full_width=full_width)
 
-    def get_model_input(self, rays_o, rays_d, parameters, n_samples, step_size, u_offset=None,
-                        key=None):
+    def get_model_input(self, rays_o, rays_d, parameters, n_samples, step_size, key):
         """Dense grid over S = min(n_samples, max_steps_per_ray) steps:
         rays_d [R,S,3] (local), pts [R,S,3] (local), t, dists,
         alpha_weight, instance_id [R,S], parameters [R,S,P],
         color_last [R,1,3], alpha_last [R,1], hit [R] and the overflow
-        counts.  With ``key``, block b draws its pick uniforms from
-        split(fold_in(key, b))[1], as the JAX package's dense path does."""
+        counts.  Block b draws its pick uniforms from
+        split(fold_in(key, b))[1] of the jax_rng ``key``, as the JAX
+        package's dense path does."""
         rays_o, rays_d, parameters, u_off, _, r, block = self._prepare(
-            rays_o, rays_d, parameters, u_offset, key)
+            rays_o, rays_d, parameters, key)
         S = min(int(n_samples), self.max_steps_per_ray)
         step = float(step_size)
         outs = []
         for b, i in enumerate(range(0, rays_o.shape[0], block)):
-            k_sample = None if key is None else jax_rng.split(jax_rng.fold_in(key, b))[1]
+            k_sample = jax_rng.split(jax_rng.fold_in(key, b))[1]
             outs.append(self._block(rays_o[i:i + block], rays_d[i:i + block],
                                     parameters[i:i + block], S, step, u_off[i:i + block],
                                     self._draw_u_sel((block, S), k_sample)))
@@ -446,18 +467,18 @@ class DeviceInstancer:
         }
 
     def render_grid_sorted(self, rays_o, rays_d, parameters, n_samples, step_size, shade_block,
-                           extra=(), empty_block=None, u_offset=None, key=None):
+                           key, extra=(), empty_block=None):
         """Occupancy-sorted render.  shade_block(inst_block, extra_block)
         and empty_block(ray_tables_block, extra_block) return tuples of
         [Rb, ...] tensors; empty_block serves the sorted blocks in which
-        every ray has zero marching steps.  With ``key`` (a jax_rng key)
-        the offsets and pick uniforms are the JAX package's draws: sorted
+        every ray has zero marching steps.  The offsets and pick uniforms
+        are the JAX package's draws under ``key`` (a jax_rng key): sorted
         block b draws uniform(split(fold_in(fold_in(key, 0x7FFFFFFF),
         b))[0], (Rb, S_bucket)) and uses its first S_b columns.  Returns
         (tuple of [R, ...], aux = {hit [R], overflow_hits,
         overflow_steps})."""
         rays_o, rays_d, parameters, u_off, extra, r, block = self._prepare(
-            rays_o, rays_d, parameters, u_offset, key, extra)
+            rays_o, rays_d, parameters, key, extra)
         step = float(step_size)
         cap = min(int(n_samples), self.max_steps_per_ray)
         n_rows = rays_o.shape[0]
@@ -493,7 +514,10 @@ class DeviceInstancer:
         # JAX's step-capacity buckets: a block's pick uniforms are drawn at
         # its bucket's width.
         buckets = sorted({min(cap, 8), *(max(1, cap * q // 8) for q in range(1, 9)), cap})
-        k_sorted = None if key is None else jax_rng.fold_in(key, _SORTED_FOLD)
+        # Sorted block b draws its pick uniforms from these keys' row b.
+        sample_keys = None
+        if self.ds.instance_sampling_method != "nearest":
+            sample_keys = jax_rng.block_keys(jax_rng.fold_in(key, _SORTED_FOLD), n_blocks)
         outs = []
         for b, (s_max, n_hits) in enumerate(zip(block_max, block_hits)):
             sl = slice(b * block, (b + 1) * block)
@@ -506,7 +530,7 @@ class DeviceInstancer:
             if K_b < K:
                 ray = _slice_hits(ray, K_b)
             S_b = max(int(s_max), 1)
-            k_sample = None if key is None else jax_rng.split(jax_rng.fold_in(k_sorted, b))[0]
+            k_sample = None if sample_keys is None else sample_keys[b]
             u_sel = self._draw_u_sel((block, S_b), k_sample,
                                      full_width=buckets[bisect.bisect_left(buckets, s_max)])
             sample = self._per_sample_grid(ray, rays_o_s[sl], rays_d_s[sl], prm_s[sl], S_b, step,
@@ -536,19 +560,21 @@ class DeviceInstancer:
         TC = TC if (TC and 0 < TC < ds.n_tris) else 0
         fan = _block_fan(rays_o, rays_d) if (C or TC) else None
 
-        # mesh first hit (clamps the intervals' exits)
+        # mesh first hit (clamps the intervals' exits): its distance,
+        # triangle and barycentrics (the first of equal distances).
         if ds.n_tris > 0:
-            t_all = None
+            first = None
             if TC:
                 keep_t = _fan_keep(fan, ds.tri_center, ds.tri_radius)
                 if int(keep_t.sum()) <= TC:
                     tcand, tvalid = _keep_to_candidates(keep_t, TC)
-                    t_all = _moller_trumbore(rays_o, rays_d, ds.tri_v0[tcand],
-                                             ds.tri_e1[tcand], ds.tri_e2[tcand])
-                    t_all = torch.where(tvalid[None, :], t_all, _INF)
-            if t_all is None:
-                t_all = _moller_trumbore(rays_o, rays_d, ds.tri_v0, ds.tri_e1, ds.tri_e2)
-            t_mesh = t_all.min(-1).values
+                    t_all, u_all, v_all = _moller_trumbore(
+                        rays_o, rays_d, ds.tri_v0[tcand], ds.tri_e1[tcand], ds.tri_e2[tcand])
+                    first = (torch.where(tvalid[None, :], t_all, _INF), u_all, v_all, tcand)
+            if first is None:
+                first = (*_moller_trumbore(rays_o, rays_d, ds.tri_v0, ds.tri_e1, ds.tri_e2), None)
+            t_all, u_all, v_all, tri_ids = first
+            t_mesh, best = t_all.min(-1)
         else:
             t_mesh = torch.full((Rb,), _INF, device=dev)
         mesh_hit = torch.isfinite(t_mesh)
@@ -635,13 +661,19 @@ class DeviceInstancer:
                 shadow_blocked = self._shadow_blocked_sparse(
                     rays_o, rays_d, light_dir_w, cum_incl, cum_excl, times_s, total)
 
-        # terminator: one opaque mesh with color 0
+        # terminator: an opaque mesh, black unless an aux mesh is shaded
+        color_last = torch.zeros(Rb, 1, 3, device=dev)
+        if ds.n_tris > 0 and ds.n_meshes > 1:
+            color_last = self._shade_terminator(
+                rays_o, rays_d, t_mesh, best if tri_ids is None else tri_ids[best],
+                u_all.gather(1, best[:, None])[:, 0], v_all.gather(1, best[:, None])[:, 0],
+                mesh_hit, light_dir_w)[:, None, :]
         return {
             "tk0": tk0, "tk1": tk1, "inst_idx": inst_idx, "kvalid": kvalid,
             "sel_a": sel_a, "sel_b": sel_b,
             "cum_incl": cum_incl.contiguous(), "arc_corr": arc_corr,
             "total": total, "n_steps": n_steps, "t_offset": t_offset, "tiny": tiny,
-            "color_last": torch.zeros(Rb, 1, 3, device=dev),
+            "color_last": color_last,
             "alpha_last": mesh_hit[:, None].float(),
             "hit": hit_box | mesh_hit,
             "light_dir_w": light_dir_w, "shadow_blocked": shadow_blocked,
@@ -759,7 +791,7 @@ class DeviceInstancer:
 
         if tris is not None:
             v0, e1, e2, ng, tri_valid = tris
-            t_hit = _moller_trumbore(p, l, v0, e1, e2)
+            t_hit = _moller_trumbore(p, l, v0, e1, e2)[0]
             front = (l[:, 0, None] * ng[:, 0] + l[:, 1, None] * ng[:, 1]
                      + l[:, 2, None] * ng[:, 2]) < 0
             tri_ok = torch.isfinite(t_hit) & front
@@ -767,6 +799,55 @@ class DeviceInstancer:
                 tri_ok = tri_ok & tri_valid
             blocked = blocked | tri_ok.any(-1)
         return blocked
+
+    # -- terminator shading ------------------------------------------------
+
+    def _shade_terminator(self, rays_o, rays_d, t_mesh, tri, u, v, mesh_hit, light_dir):
+        """Color [Rb, 3] of each ray's terminator: Lambert plus 0.2 ambient
+        over the albedo (bilinear in the mesh texture, 0.8 gray without
+        one) for auxiliary meshes, shadowed when cast_shadow_rays; the base
+        mesh renders black, misses 0."""
+        ds = self.ds
+        bary = torch.stack([1 - u - v, u, v], -1)                           # [Rb,3]
+        n = torch.sum(bary[..., None] * ds.tri_n[tri], 1)
+        n = n / torch.clamp(torch.linalg.norm(n, dim=-1, keepdim=True), min=1e-12)
+        uv = torch.sum(bary[..., None] * ds.tri_uv[tri], 1)
+        mid = ds.tri_mesh_id[tri]
+
+        if ds.mesh_tex is not None:
+            w, h = ds.mesh_tex.shape[1], ds.mesh_tex.shape[2]
+            x = torch.clamp(uv[:, 0], 0, 1) * (w - 1)
+            y = torch.clamp(uv[:, 1], 0, 1) * (h - 1)
+            x0 = torch.clamp(torch.floor(x).long(), 0, max(w - 2, 0))
+            y0 = torch.clamp(torch.floor(y).long(), 0, max(h - 2, 0))
+            fx = (x - x0)[:, None]
+            fy = (y - y0)[:, None]
+            x1 = torch.clamp(x0 + 1, max=w - 1)
+            y1 = torch.clamp(y0 + 1, max=h - 1)
+            tex = ds.mesh_tex
+            albedo = (tex[mid, x0, y0] * (1 - fx) * (1 - fy) + tex[mid, x0, y1] * (1 - fx) * fy
+                      + tex[mid, x1, y0] * fx * (1 - fy) + tex[mid, x1, y1] * fx * fy)
+            albedo = torch.where(albedo < 0, 0.8, albedo)        # -1 padding: untextured gray
+        else:
+            albedo = torch.full((rays_o.shape[0], 3), 0.8, device=rays_o.device)
+
+        hit_pt = rays_o + torch.where(mesh_hit, t_mesh, 0.0)[:, None] * rays_d
+        diffuse = torch.zeros(rays_o.shape[0], device=rays_o.device)
+        is_aux = mid > 0
+        if light_dir is not None:
+            ld = light_dir / torch.clamp(torch.linalg.norm(light_dir, dim=-1, keepdim=True),
+                                         min=1e-12)
+            diffuse = torch.clamp(torch.sum(n * ld, -1), min=0.0)
+            if ds.cast_shadow_rays:
+                # Only aux-mesh terminator pixels read the occlusion, so the
+                # branched query skips blocks without them.
+                blocked = self._occlusion_branched(hit_pt + n * 1e-6, light_dir,
+                                                   mesh_hit & is_aux)
+                diffuse = torch.where(blocked, 0.0, diffuse)
+
+        shade = torch.clamp(diffuse + 0.2, max=1.0)[:, None] * albedo
+        color = torch.where(is_aux[:, None], shade, 0.0)
+        return torch.where(mesh_hit[:, None], color, 0.0)
 
     # -- per-sample stage, dense [Rb, S] grid ------------------------------
 
@@ -832,7 +913,10 @@ class DeviceInstancer:
         if ray["light_dir_w"] is not None:
             li = ds.light_dir_idx
             light = ray["light_dir_w"][:, None, :]                          # [Rb,1,3]
-            vec_n = light / torch.clamp(torch.linalg.norm(light, dim=-1, keepdim=True), min=1e-12)
+            # A point light's slots hold its position: each sample looks
+            # toward it.
+            vec = light - pts_w if ds.light_strength_idx >= 0 else light
+            vec_n = vec / torch.clamp(torch.linalg.norm(vec, dim=-1, keepdim=True), min=1e-12)
             local_l = torch.sum(dinv * vec_n[..., None, :], -1)
             blocked = ray.get("shadow_blocked")
             if blocked is not None:
@@ -845,6 +929,11 @@ class DeviceInstancer:
                 down = local_l.new_tensor([0.0, 0.0, -1.0])
                 local_l = torch.where(shadowed[..., None], down, local_l)
             params_out[..., li:li + 3] = local_l
+            if ds.light_strength_idx >= 0:
+                # Inverse-square falloff of the point light's strength.
+                si = ds.light_strength_idx
+                d2l = torch.sum((light - pts_w) ** 2, -1)
+                params_out[..., si] = parameters[:, si, None] / (4 * math.pi * d2l + 1e-6)
 
         return {
             "pts": pts_l,

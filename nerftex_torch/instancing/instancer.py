@@ -47,9 +47,6 @@ class Instancer:
         # ignored: the overlap pick always runs the selk_resolve kernel on
         # the card (its plain version on the CPU).
         del pallas_selk
-        if auxiliary_meshes:
-            raise NotImplementedError("auxiliary meshes (shaded terminators) come with the "
-                                      "grass slice")
         device = resolve_device(device)
         self.scene = Scene(
             b_0, b_1,
@@ -70,6 +67,8 @@ class Instancer:
             self.scene.distribute_instances_on_mesh(mesh_path, patch_scale, patch_origins_path)
             if transformation_export_path is not None:
                 self.scene.export_transformations(transformation_export_path)
+        for aux_mesh_path, aux_texture_path in auxiliary_meshes:
+            self.scene.add_mesh(aux_mesh_path, aux_texture_path)
 
         self.device_instancer = DeviceInstancer(
             self.scene,
@@ -82,7 +81,6 @@ class Instancer:
             shadow_samples=shadow_samples,
             shadow_cull_budget=shadow_cull_budget,
             shadow_tri_cull_budget=shadow_tri_cull_budget,
-            seed=seed,
             deterministic_offset=deterministic_offset,
             matmul_precision=matmul_precision,
         )

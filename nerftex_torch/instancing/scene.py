@@ -3,7 +3,8 @@ baked textures, ready to move to the device once per scene.
 
 The port's own copy of nerftex_tpu/instancing/scene.py (texture and light
 parameter slots, tangent frames, anchor placement by closest-point queries
-with rotation jitter, the per-instance UV Jacobian bake, transform export)
+with rotation jitter, the per-instance UV Jacobian bake, auxiliary meshes,
+transform export)
 and of nerftex_tpu/tools/gen_assets.py ``vertex_normals``.  Numpy only: it
 runs once per scene, never in the render loop, and its tables equal the
 JAX package's on the same inputs.
@@ -206,6 +207,7 @@ class Scene:
         self.origins = []
 
         self.base_mesh: SceneMesh = None
+        self.aux_meshes = []
 
     # -- instance management (AddInstance, instancer.cpp:124-141) --------
 
@@ -355,6 +357,16 @@ class Scene:
             for r in range(2):
                 rhs = np.array([uv1[r] - uv0[r], uv2[r] - uv0[r], 0.0])
                 self.uv_jacobian[i, r] = A_inv @ rhs
+
+    # -- aux meshes (AddMesh, instancer.cpp:393-417) ----------------------
+
+    def add_mesh(self, mesh_path, texture_path=""):
+        """An auxiliary mesh: it terminates rays and casts shadows like the
+        base mesh, and its terminator is shaded (DeviceInstancer
+        ``_shade_terminator``) with its albedo texture, if any."""
+        ply = read_ply(mesh_path)
+        textures = load_texture_channels(texture_path) if texture_path else []
+        self.aux_meshes.append(SceneMesh(ply.V, ply.F, ply.N, ply.UV, textures))
 
     def export_transformations(self, file_path):
         """Dump forward transforms as JSON (instancer.cpp:1040-1061)."""

@@ -1,10 +1,13 @@
-"""Ray-march proxy: slab-test AABB intersection on the host.
+"""Ray-march proxy: slab-test AABB intersection.
 
-Host twin of nerftex_tpu/ops/proxy.py ``AABB.intersect_np``: misses give
-t = [inf, inf].  Used to build ray batches (see ops/rays.py).
+Counterpart of nerftex_tpu/ops/proxy.py ``AABB``: ``intersect`` is the
+host twin (numpy, used to build ray batches, see ops/rays.py) and calling
+the box runs the same slab test on tensors where they lie (the serving
+path's device rays).  Misses give t = [inf, inf].
 """
 
 import numpy as np
+import torch
 
 
 class AABB:
@@ -26,3 +29,16 @@ class AABB:
         t_1 = np.maximum(t_a, t_b).min(-1)
         hit = t_0 < t_1
         return np.stack([np.where(hit, t_0, np.inf), np.where(hit, t_1, np.inf)], -1)
+
+    def __call__(self, rays_o: torch.Tensor, rays_d: torch.Tensor) -> torch.Tensor:
+        """The slab test on float32 tensors [N, 3] on their device -> t [N, 2]."""
+        b_0 = torch.as_tensor(self.b_0, device=rays_o.device)
+        b_1 = torch.as_tensor(self.b_1, device=rays_o.device)
+        inv_d = 1.0 / rays_d
+        t_a = (b_0 - rays_o) * inv_d
+        t_b = (b_1 - rays_o) * inv_d
+        t_0 = torch.minimum(t_a, t_b).amax(-1)
+        t_1 = torch.maximum(t_a, t_b).amin(-1)
+        hit = t_0 < t_1
+        return torch.stack([torch.where(hit, t_0, float("inf")),
+                            torch.where(hit, t_1, float("inf"))], -1)

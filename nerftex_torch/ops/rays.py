@@ -1,12 +1,15 @@
-"""Camera and ray math on the host (pinhole model, look-at).
+"""Camera and ray math (pinhole model, look-at).
 
 Host twins of nerftex_tpu/data/ray_sampler.py ``rays_from_camera_np`` and
 nerftex_tpu/data/dataset.py ``look_at_np``, plus ``frame_rays``, which
 builds the ray batch of a full frame the way scripts/bench_render.py's
-``ray_data`` does.
+``ray_data`` does; ``rays_from_camera_device`` is the device version
+(nerftex_tpu/ops/rays.py ``rays_from_camera``) that the serving path runs
+on the card.
 """
 
 import numpy as np
+import torch
 
 from nerftex_torch.ops.proxy import AABB
 
@@ -44,6 +47,22 @@ def rays_from_camera(image_plane_loc, height, width, focal, c2w):
     cone_scale = np.cos(np.arctan(r_xy)) / np.linalg.norm(dirs, axis=-1) / focal
     return (rays_o.astype(np.float32), rays_d.astype(np.float32),
             cone_scale[:, None].astype(np.float32))
+
+
+def rays_from_camera_device(image_plane_loc: torch.Tensor, height, width, focal, c2w):
+    """``rays_from_camera`` in float32 on the device of ``image_plane_loc``
+    ([N, 2] row, col): (rays_o, rays_d unnormalized, cone_scale [N, 1])."""
+    loc = image_plane_loc.float()
+    c2w = torch.as_tensor(np.asarray(c2w, np.float32), device=loc.device)
+    focal = float(np.float32(focal))
+    dirs = torch.stack([(loc[:, 1] + 0.5 - 0.5 * width) / focal,
+                        -(loc[:, 0] + 0.5 - 0.5 * height) / focal,
+                        -torch.ones_like(loc[:, 0])], -1)
+    rays_d = torch.sum(dirs[:, None, :] * c2w[:3, :3], -1)
+    rays_o = c2w[:3, -1].expand(rays_d.shape)
+    r_xy = torch.linalg.norm(dirs[:, :2], dim=-1)
+    cone_scale = torch.cos(torch.arctan(r_xy)) / torch.linalg.norm(dirs, dim=-1) / focal
+    return rays_o, rays_d, cone_scale[:, None]
 
 
 def frame_rays(h, w, eye, angle, parameters, proxy_b0=(-1.5, -1.5, -1.5),

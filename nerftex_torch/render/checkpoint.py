@@ -1,15 +1,146 @@
-"""Weight transplant from the JAX package's parameter pytrees.
+"""Checkpoints in the JAX package's format, and the weight transplant.
 
-A JAX ParamNerf keeps its parameters as a pytree of numpy arrays (as
-nerftex_tpu/render/checkpoint.py saves them): dense layers are
-``{"w": [in, out], "b": [out]}`` under the keys ``trunk``, ``param_geo``,
-``param_app`` and ``color_layers`` (lists) and ``alpha``, ``bottleneck``,
-``pre_color`` and ``color``.  A flat mapping with ``/``-joined keys
+``CheckpointManager`` is the counterpart of
+nerftex_tpu/render/checkpoint.py: one pickle of a numpy pytree per step
+under ``<dir>/ckpt-<step>.pkl``, the newest ``max_to_keep`` kept plus one
+every ``keep_every_n_hours`` (tf.train.CheckpointManager's retention), and
+restore-latest.  It reads the JAX package's files, whose ``extra`` may hold
+optax state: the restore imports only the globals that numpy arrays and
+builtin containers pickle to and stands a plain tuple in for any other, so
+it needs neither jax nor optax.
+
+A JAX ParamNerf keeps its parameters as a pytree of numpy arrays: dense
+layers are ``{"w": [in, out], "b": [out]}`` under the keys ``trunk``,
+``param_geo``, ``param_app`` and ``color_layers`` (lists) and ``alpha``,
+``bottleneck``, ``pre_color`` and ``color``; ``load_jax_params`` copies
+one into the port's module.  A flat mapping with ``/``-joined keys
 (``"trunk/0/w"``, as ``flatten_params`` writes) is accepted too.
 """
 
+import os
+import pickle
+import re
+import time
+
 import numpy as np
 import torch
+
+# Builtins a checkpoint may name: containers and scalars, nothing callable
+# beyond their constructors.
+_SAFE_BUILTINS = {"dict", "list", "tuple", "set", "frozenset", "int", "float", "complex", "bool",
+                  "str", "bytes", "bytearray", "slice", "range", "object"}
+# The other globals that pickles of numpy arrays, dtypes and scalars name
+# (numpy 1.x spells the private modules numpy.core, numpy 2 numpy._core),
+# and those of the protocols' own containers and byte strings.
+_SAFE_GLOBALS = {("numpy", "ndarray"), ("numpy", "dtype"),
+                 ("collections", "OrderedDict"), ("copyreg", "_reconstructor"),
+                 ("_codecs", "encode")} | {
+    (f"numpy.{core}.{mod}", name) for core in ("core", "_core")
+    for mod, name in (("multiarray", "_reconstruct"), ("multiarray", "scalar"),
+                      ("numeric", "_frombuffer"))}
+
+
+class Opaque(tuple):
+    """Stands in for a class the restore does not import (an optax state
+    namedtuple, say): a tuple of its constructor arguments, with any
+    pickled attributes in ``__dict__``."""
+
+    module = name = ""
+
+    def __new__(cls, *args, **kwargs):
+        return tuple.__new__(cls, args)
+
+
+class _Unpickler(pickle.Unpickler):
+    """Imports only the globals above.  Any other global, class or function,
+    becomes an Opaque stand-in whose call only records its arguments, so
+    loading a file runs no code that the file names."""
+
+    def find_class(self, module, name):
+        if (module == "builtins" and name in _SAFE_BUILTINS) or (module, name) in _SAFE_GLOBALS:
+            return super().find_class(module, name)
+        return type(name, (Opaque,), {"module": module, "name": name})
+
+
+def _to_numpy(tree):
+    """Every leaf of a pytree (dicts, lists, tuples) as a numpy array;
+    None stays None."""
+    if isinstance(tree, dict):
+        return {k: _to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_to_numpy(v) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_numpy(v) for v in tree)
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    return np.asarray(tree)
+
+
+class CheckpointManager:
+    def __init__(self, directory: str, max_to_keep: int = 3, keep_every_n_hours: float = 12):
+        self.directory = directory
+        self.max_to_keep = max_to_keep
+        self.keep_every_n_seconds = keep_every_n_hours * 3600
+        os.makedirs(directory, exist_ok=True)
+        self._save_times = {}
+        self._preserved = set()  # steps kept permanently (hourly policy)
+        self._last_preserved = None
+
+    def _path(self, step: int) -> str:
+        return os.path.join(self.directory, f"ckpt-{step}.pkl")
+
+    def checkpoints(self):
+        out = []
+        for name in os.listdir(self.directory):
+            m = re.fullmatch(r"ckpt-(\d+)\.pkl", name)
+            if m:
+                out.append(int(m.group(1)))
+        return sorted(out)
+
+    @property
+    def latest_checkpoint(self):
+        steps = self.checkpoints()
+        return self._path(steps[-1]) if steps else None
+
+    def save(self, state: dict, step: int) -> str:
+        path = self._path(step)
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as f:
+            pickle.dump(_to_numpy(state), f, protocol=pickle.HIGHEST_PROTOCOL)
+        os.replace(tmp, path)
+        self._save_times[step] = time.time()
+        self._sweep(step)
+        return path
+
+    def _sweep(self, new_step: int) -> None:
+        """The newest max_to_keep stay; an older checkpoint about to be
+        deleted is instead kept for good if keep_every_n_hours have passed
+        since the last one kept (the clock starts at the first save)."""
+        now = time.time()
+        if self._last_preserved is None:
+            self._last_preserved = self._save_times.get(new_step, now)
+        active = [s for s in self.checkpoints() if s not in self._preserved]
+        while len(active) > self.max_to_keep:
+            victim = active.pop(0)
+            t = self._save_times.get(victim, now)
+            if t - self._last_preserved >= self.keep_every_n_seconds:
+                self._preserved.add(victim)
+                self._last_preserved = t
+                continue
+            try:
+                os.remove(self._path(victim))
+            except OSError:
+                pass
+
+    def restore_latest(self):
+        path = self.latest_checkpoint
+        if path is None:
+            return None
+        with open(path, "rb") as f:
+            return _Unpickler(f).load()
+
 
 _LISTS = ("trunk", "param_geo", "param_app", "color_layers")
 _SINGLE = ("alpha", "bottleneck", "pre_color", "color")
@@ -28,11 +159,31 @@ def flatten_params(tree: dict) -> dict:
     return flat
 
 
+def unflatten_params(flat: dict) -> dict:
+    """The nested parameter pytree (the JAX package's checkpoint layout) of
+    a flat ``"trunk/0/w"`` mapping; the inverse of flatten_params."""
+    tree = {}
+    for name, value in flat.items():
+        parts = name.split("/")
+        if parts[0] in _LISTS:
+            layers = tree.setdefault(parts[0], [])
+            i = int(parts[1])
+            layers.extend({} for _ in range(i + 1 - len(layers)))
+            layers[i][parts[2]] = np.asarray(value)
+        else:
+            tree.setdefault(parts[0], {})[parts[1]] = np.asarray(value)
+    return tree
+
+
 @torch.no_grad()
 def load_jax_params(model, tree) -> None:
     """Copy a JAX ParamNerf parameter tree into ``model`` (a
     nerftex_torch ParamNerf), transposing each ``w`` to nn.Linear's
     [out, in].  Shapes must match exactly; nothing is re-initialised."""
+    if not isinstance(tree, dict):
+        raise ValueError(f"expected a parameter tree (dict), got {type(tree).__name__} of shape "
+                         f"{getattr(tree, 'shape', None)}: a flat parameter vector (a JAX model "
+                         f"trained with flat_params=True) cannot be loaded; save its pytree")
     flat = tree if any("/" in k for k in tree) else flatten_params(tree)
     targets = {}
     for key in _LISTS:

@@ -43,10 +43,10 @@ class InstanceRenderer(Renderer):
         self.sorted_blocks = sorted_blocks
 
     def render_rays(self, rays_o, rays_d, t, parameters, cone_scale, composite_bkgd,
-                    bkgd_color, u_offset=None, key=None) -> dict:
+                    bkgd_color, key) -> dict:
         dev_inst = self.instancer.device_instancer
         # The instancer's key, as the JAX renderer splits it off.
-        k_inst = None if key is None else jax_rng.split(key)[0]
+        k_inst = jax_rng.split(key)[0]
         if self.sorted_blocks:
             def shade_block(inst_block, extra_block):
                 return self._shade(inst_block)
@@ -60,11 +60,11 @@ class InstanceRenderer(Renderer):
 
             (color_map, alpha_map), inst = dev_inst.render_grid_sorted(
                 rays_o, rays_d, parameters, self.n_samples, self.step_size, shade_block,
-                extra=(cone_scale,), empty_block=empty_block, u_offset=u_offset, key=k_inst,
+                extra=(cone_scale,), empty_block=empty_block, key=k_inst,
             )
         else:
             inst = dev_inst.get_model_input(rays_o, rays_d, parameters, self.n_samples,
-                                            self.step_size, u_offset=u_offset, key=k_inst)
+                                            self.step_size, key=k_inst)
             color_map, alpha_map = self._shade(inst)
 
         # Rays culled by the proxy (t = inf) contribute nothing; instancer

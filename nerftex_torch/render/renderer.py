@@ -1,7 +1,9 @@
 """Renderer base: the chunked batch loop (counterpart of
 nerftex_tpu/render/renderer.py ``Renderer.__call__`` and ``chunked_apply``).
 Given a key (utils.jax_rng), the chunk that starts at ray i renders under
-fold_in(key, i), as the JAX package's loop does.
+fold_in(key, i), as the JAX package's loop does; a call without one draws
+utils.rng.stream_key(STREAM_PERTURB, n) for its n-th keyless call, as the
+JAX package's Renderer does, so the same seed renders the same frames.
 
 Inference only in this slice: the stratified training renderer, remat and
 importance sampling come with the training slice.
@@ -9,7 +11,7 @@ importance sampling come with the training slice.
 
 import torch
 
-from nerftex_torch.utils import jax_rng
+from nerftex_torch.utils import jax_rng, rng
 from nerftex_torch.utils.util import resolve_device
 
 
@@ -48,25 +50,28 @@ class Renderer:
         self.render_chunk = render_chunk
         self.net_chunk = net_chunk
         self.map_exr = map_exr
+        self._call_counter = 0
 
     def render_rays(self, rays_o, rays_d, t, parameters, cone_scale, composite_bkgd,
-                    bkgd_color, u_offset=None, key=None) -> dict:
+                    bkgd_color, key) -> dict:
         raise NotImplementedError
 
     @torch.inference_mode()
     def __call__(self, rays_o, rays_d, t, parameters, cone_scale, composite_bkgd: bool = False,
-                 bkgd_color=(1, 1, 1.0), training: bool = False, u_offset=None, key=None,
-                 **kwargs) -> dict:
+                 bkgd_color=(1, 1, 1.0), training: bool = False, key=None, **kwargs) -> dict:
         """Render a [B, R] ray grid in chunks of render_chunk rays.
 
         rays_o/rays_d [B,R,3], t [B,R,2] (inf on proxy miss), parameters
-        [B,P], cone_scale [B,R,1]; optional u_offset [B,R] per-ray
-        stratified offsets in [0, 1); optional key, a jax_rng key whose
-        draws are the JAX package's for the same key.  Returns
+        [B,P], cone_scale [B,R,1]; key, a jax_rng key whose draws are the
+        JAX package's for the same key (default: this renderer's next
+        STREAM_PERTURB key).  Returns
         {"color_pred": [B,R,3], "alpha_pred": [B,R]} as tensors on the
         renderer's device."""
         if training:
             raise NotImplementedError("training renders come with the training slice")
+        if key is None:
+            key = rng.stream_key(rng.STREAM_PERTURB, self._call_counter)
+            self._call_counter += 1
 
         def f32(x):
             return torch.as_tensor(x, dtype=torch.float32, device=self.device)
@@ -82,14 +87,12 @@ class Renderer:
             "parameters": parameters.repeat_interleave(r, 0),
             "cone_scale": cone_scale.reshape(n, -1),
         }
-        if u_offset is not None:
-            flat["u_offset"] = f32(u_offset).reshape(n)
 
         chunk = min(self.render_chunk, n)
         n_pad = -(-n // chunk) * chunk
         if n_pad > n:
-            fill = {"t": float("inf"), "u_offset": 0.5}
-            flat = {k: torch.cat([v, v.new_full((n_pad - n,) + v.shape[1:], fill.get(k, 0.0))])
+            flat = {k: torch.cat([v, v.new_full((n_pad - n,) + v.shape[1:],
+                                                float("inf") if k == "t" else 0.0)])
                     for k, v in flat.items()}
 
         outs = []
@@ -97,8 +100,7 @@ class Renderer:
             c = {k: v[i:i + chunk] for k, v in flat.items()}
             outs.append(self.render_rays(
                 c["rays_o"], c["rays_d"], c["t"], c["parameters"], c["cone_scale"],
-                composite_bkgd, bkgd_color, u_offset=c.get("u_offset"),
-                key=None if key is None else jax_rng.fold_in(key, i),
+                composite_bkgd, bkgd_color, jax_rng.fold_in(key, i),
             ))
 
         out = {}

@@ -14,7 +14,9 @@ path makes:
                       mantissa of a float in [1, 2), minus 1
 
 A key is an int64 tensor [2] holding two uint32 words (on the CPU; keys
-are tiny).  ``uniform`` draws on the device it is given.  All uint32
+are tiny).  ``uniform`` draws on the device it is given.  ``block_keys``
+and ``uniform_rows`` derive and draw for many keys at once (one threefry
+over all of them), as the render path does for its ray blocks.  All uint32
 arithmetic runs in int64 with a 32-bit mask, because PyTorch's uint32
 support is partial; every add and rotation is masked back to 32 bits.
 """
@@ -29,9 +31,10 @@ def _rotl(x, r):
     return ((x << r) | (x >> (32 - r))) & _MASK
 
 
-def threefry2x32(k0: int, k1: int, x0: torch.Tensor, x1: torch.Tensor):
+def threefry2x32(k0, k1, x0: torch.Tensor, x1: torch.Tensor):
     """Threefry-2x32 (20 rounds) of the counter pairs (x0, x1), int64
-    tensors of uint32 values, under the key words k0, k1 (Python ints)."""
+    tensors of uint32 values, under the key words k0, k1 (Python ints, or
+    int64 tensors that broadcast against the counters)."""
     ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
     x0 = (x0 + ks[0]) & _MASK
     x1 = (x1 + ks[1]) & _MASK
@@ -64,6 +67,23 @@ def fold_in(key, data: int) -> torch.Tensor:
     return torch.cat([y0, y1])
 
 
+def block_keys(key, n: int) -> torch.Tensor:
+    """[n, 2] keys, row b = split(fold_in(key, b))[0]: the key that the JAX
+    render path draws ray block b's numbers from."""
+    k0, k1 = _words(key)
+    zeros = torch.zeros(n, dtype=torch.int64)
+    y0, y1 = threefry2x32(k0, k1, zeros, torch.arange(n, dtype=torch.int64))
+    return torch.stack(threefry2x32(y0, y1, zeros, zeros), -1)
+
+
+def uniform_rows(keys: torch.Tensor, width: int, device="cpu") -> torch.Tensor:
+    """[n, width] float32: row r is ``uniform(keys[r], (width,))``."""
+    keys = keys.to(device)
+    counters = torch.arange(int(width), dtype=torch.int64, device=device)
+    y0, y1 = threefry2x32(keys[:, :1], keys[:, 1:], torch.zeros_like(counters), counters)
+    return _unit_float(y0 ^ y1)
+
+
 def split(key, num: int = 2) -> torch.Tensor:
     """``jax.random.split`` (partitionable): [num, 2] keys."""
     k0, k1 = _words(key)
@@ -80,10 +100,16 @@ def bits_at(key, counters: torch.Tensor) -> torch.Tensor:
     return y0 ^ y1
 
 
+def _unit_float(bits: torch.Tensor) -> torch.Tensor:
+    """Float32 in [0, 1) from 32 random bits: the top 23 as the mantissa of
+    a float in [1, 2), minus 1."""
+    mant = ((bits >> 9) | 0x3F800000).to(torch.int32)
+    return mant.view(torch.float32) - 1.0
+
+
 def uniform_at(key, counters: torch.Tensor) -> torch.Tensor:
     """Float32 uniforms in [0, 1) at flat positions ``counters``."""
-    mant = ((bits_at(key, counters) >> 9) | 0x3F800000).to(torch.int32)
-    return mant.view(torch.float32) - 1.0
+    return _unit_float(bits_at(key, counters))
 
 
 def uniform(key, shape, device="cpu", full_width: int = None) -> torch.Tensor:

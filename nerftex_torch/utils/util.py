@@ -20,7 +20,15 @@ REMAP = {
     "network.layer.FourierFeatures": "nerftex_torch.models.encodings.FourierFeatures",
     "network.renderer.InstanceRenderer": "nerftex_torch.render.instance_renderer.InstanceRenderer",
     "instancer.instancer.Instancer": "nerftex_torch.instancing.instancer.Instancer",
+    "network.proxy.AABB": "nerftex_torch.ops.proxy.AABB",
+    # GenerateData's default pose distribution names data.dist.
+    "data.dist.Hemisphere": "nerftex_torch.data.distribution.Hemisphere",
 }
+REMAP.update({f"data.sampler.{name}": f"nerftex_torch.data.sampler.{name}"
+              for name in ("Sampler", "Independent", "Constant", "Grid", "Stratified", "Concat")})
+REMAP.update({f"data.distribution.{name}": f"nerftex_torch.data.distribution.{name}"
+              for name in ("Distribution", "Sphere", "Hemisphere", "AABB", "Constant", "Range",
+                           "Concat")})
 
 
 def get_attr_from_module(module_name: str, attr_name: str) -> Any:

@@ -1,27 +1,29 @@
-"""Write tests/torch_bench_inputs.npz and tests/torch_plush_inputs.npz: the
-JAX side of the bench frame and of the plush frame for the PyTorch port.
+"""Write tests/torch_bench_inputs.npz, tests/torch_plush_inputs.npz and
+tests/torch_grass_inputs.npz: the JAX side of the bench, plush and grass
+frames for the PyTorch port.
 
-A bench frame (bench.py) depends on two things the port cannot make itself:
-the carpet ParamNerf's initial weights (JAX's PRNG, as
-scripts/bench_render.build initialises them) and the per-ray stratified
-offsets that the timed render's key(1) draws.  This tool computes both with
-the JAX package and stores them:
+Each frame depends on a ParamNerf's initial weights, which only JAX's PRNG
+makes; the port draws every random number of a render itself
+(nerftex_torch.utils.jax_rng reproduces JAX's draws for the same key).  The
+bench file holds the carpet ParamNerf's weights as
+scripts/bench_render.build initialises them:
 
   param/<layer>/<w|b>  the ParamNerf parameter tree, "/"-joined keys
                        (nerftex_torch.render.checkpoint.load_jax_params)
-  u_offset             [262144] float32 per-ray offsets of the 512x512 frame
 
-The plush frame (configs/config_plush_render.py, as scripts/bench_scene.py
-renders it for tests/golden_scene_plush.npz) needs the plush ParamNerf's
-initial weights and its camera; the port draws the frame's random numbers
-itself (nerftex_torch.utils.jax_rng), so no offsets are stored:
+The plush and grass files (configs/config_<scene>_render.py, as
+scripts/bench_scene.py renders them for tests/golden_scene_<scene>.npz)
+hold the scene's ParamNerf weights and its camera:
 
-  param/<layer>/<w|b>  the plush ParamNerf parameter tree
+  param/<layer>/<w|b>  the ParamNerf parameter tree
   eye, target          float64 [3] camera position and look-at point
   angle                float64 field of view (GenerateData's focal is
                        width / tan(angle / 2) / 2, a Python float)
   parameters           float32 [P] the frame's parameter vector
   height, width        the frame size
+
+``jax_u_offsets`` computes the per-ray offsets a JAX render draws, for
+tests that hold the port's draws against them.
 
 Run from the repo root:  JAX_PLATFORMS=cpu python scripts/make_torch_bench_inputs.py
 """
@@ -33,17 +35,12 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT = os.path.join(ROOT, "tests", "torch_bench_inputs.npz")
-PLUSH_OUT = os.path.join(ROOT, "tests", "torch_plush_inputs.npz")
-
-# bench.py's frame: 512x512 rays in one render chunk, ray_block 1024.
-BENCH_RAYS = 512 * 512
-BENCH_RENDER_CHUNK = 262144
-BENCH_RAY_BLOCK = 1024
+SCENE_OUT = os.path.join(ROOT, "tests", "torch_{}_inputs.npz")
 
 
 def jax_u_offsets(key, n_rays: int, render_chunk: int, ray_block: int) -> np.ndarray:
-    """The per-ray u_off that an InstanceRenderer(sorted_blocks=True) call
-    with ``key`` draws: Renderer.__call__ folds the chunk offset into the
+    """The per-ray offsets that a JAX InstanceRenderer(sorted_blocks=True)
+    call with ``key`` draws: Renderer.__call__ folds the chunk offset into the
     key, render_rays splits off k_inst, and render_grid_sorted draws
     uniform((block,)) from split(fold_in(k_inst, block_idx))[0] for each
     ray block of the chunk (device.py _per_ray)."""
@@ -90,11 +87,11 @@ def bench_params() -> dict:
     return _flat_params(model)
 
 
-def plush_inputs() -> dict:
-    """The plush ParamNerf's parameters as scripts/bench_scene.py plush
-    initialises them (config seed 0, init counter 0, bf16, after the test
-    dataset), and the camera and parameter vector of that dataset's first
-    item."""
+def scene_inputs(scene: str) -> dict:
+    """The ParamNerf parameters of configs/config_<scene>_render.py as
+    scripts/bench_scene.py initialises them (config seed, init counter 0,
+    bf16, after the test dataset), and the camera and parameter vector of
+    that dataset's first item."""
     import importlib
 
     sys.path.insert(0, ROOT)
@@ -102,7 +99,7 @@ def plush_inputs() -> dict:
     from nerftex_tpu.utils import rng, util
     from nerftex_tpu.utils.util import EasyDict
 
-    cfg = EasyDict(importlib.import_module("configs.config_plush_render").config)
+    cfg = EasyDict(importlib.import_module(f"configs.config_{scene}_render").config)
     rng.set_seed(cfg.seed)
     np.random.seed(cfg.seed)
     mlp_mod._INIT_COUNTER[0] = 0
@@ -124,19 +121,24 @@ def plush_inputs() -> dict:
     return out
 
 
-def main():
-    import jax
+def plush_inputs() -> dict:
+    return scene_inputs("plush")
 
+
+def grass_inputs() -> dict:
+    return scene_inputs("grass")
+
+
+def main():
     arrays = {f"param/{k}": v for k, v in bench_params().items()}
-    arrays["u_offset"] = jax_u_offsets(jax.random.key(1), BENCH_RAYS, BENCH_RENDER_CHUNK,
-                                       BENCH_RAY_BLOCK)
     np.savez_compressed(OUT, **arrays)
-    print(f"wrote {OUT}: {len(arrays) - 1} parameter arrays, "
-          f"{arrays['u_offset'].shape[0]} offsets")
-    plush = plush_inputs()
-    np.savez_compressed(PLUSH_OUT, **plush)
-    print(f"wrote {PLUSH_OUT}: {sum(k.startswith('param/') for k in plush)} parameter arrays, "
-          f"camera at {plush['eye'].tolist()}")
+    print(f"wrote {OUT}: {len(arrays)} parameter arrays")
+    for scene, make in (("plush", plush_inputs), ("grass", grass_inputs)):
+        inputs = make()
+        np.savez_compressed(SCENE_OUT.format(scene), **inputs)
+        print(f"wrote {SCENE_OUT.format(scene)}: "
+              f"{sum(k.startswith('param/') for k in inputs)} parameter arrays, "
+              f"camera at {inputs['eye'].tolist()}")
 
 
 if __name__ == "__main__":

@@ -1,8 +1,8 @@
 """Where the time of one frame goes in the PyTorch port (CUDA card).
 
 Builds the bench frame's renderer (``--scene bench``, the 512x512 carpet
-frame) or the plush frame's (``--scene plush``, 800x800) exactly as
-chip_smoke.py does, renders the frame twice to warm up, then profiles one
+frame), the plush frame's (``--scene plush``, 800x800) or the grass
+frame's (``--scene grass``, 512x512) exactly as chip_smoke.py does, renders the frame twice to warm up, then profiles one
 render with torch.profiler and prints: the wall time, the summed device
 time of all kernels, the device idle share (1 - busy / wall), the number
 of kernel launches, the kernels ranked by device time, and the port's own
@@ -14,7 +14,7 @@ fetch) and the rest (sort, MLP, composite).
 
 Run from the repo root on a machine with a CUDA card:
 
-    python3 scripts/profile_torch_frame.py [--scene bench|plush] [--top 25] [--root DIR]
+    python3 scripts/profile_torch_frame.py [--scene bench|plush|grass] [--top 25] [--root DIR]
 
 ``--root`` is a checkout of this repo (default: this one) whose
 nerftex_torch and chip_smoke.py are profiled, for before/after runs.
@@ -37,7 +37,7 @@ PORT_KERNELS = ("tex_fetch_kernel", "mlp_fused_kernel", "mlp_wgmma_kernel", "mlp
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--scene", choices=("bench", "plush"), default="bench")
+    ap.add_argument("--scene", choices=("bench", "plush", "grass"), default="bench")
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--root", default=ROOT)
     args = ap.parse_args()
@@ -61,12 +61,15 @@ def main():
         r_cfg = chip_smoke.renderer_config("bfloat16")
         data = frame_rays(512, 512, np.array([0.47, -0.65, 0.6]) * 6.0, 0.55,
                           [1, 1, 1, 0.1, 0, 0, 1.0])
-        kw = {"u_offset": inputs["u_offset"][None]}
-    else:
-        data, params, _, _ = chip_smoke.plush_data()
+    elif args.scene == "plush":
+        data, params, _, _ = chip_smoke.scene_data("plush")
         model = instantiate(chip_smoke.plush_model_config(), device="cuda")
         r_cfg = chip_smoke.plush_renderer_config()
-        kw = {"key": jax_rng.key(1)}
+    else:
+        data, params, _, _ = chip_smoke.scene_data("grass")
+        model = instantiate(chip_smoke.grass_model_config(), device="cuda")
+        r_cfg = chip_smoke.grass_renderer_config()
+    kw = {"key": jax_rng.key(1)}
     load_jax_params(model, params)
     renderer = instantiate(dict(r_cfg, model=model, device="cuda"))
     for _ in range(2):

@@ -7,13 +7,17 @@ For the checkout at ``--root`` (default: this one), times on the CUDA card:
                 checkerboard.png) at 1,048,576 and 327,680 (one bench ray
                 block) uniform uv samples, beside grid_sample;
   mlp_fused     bf16 with the bench weights at 262,144 and 32,768 (the
-                bench net_chunk) samples and the plush weights at 65,536
-                (its net_chunk), beside the same layer chain as bf16 cuBLAS
-                calls, with the max and mean |kernel - plain|;
+                bench net_chunk) samples, the plush weights at 65,536 (its
+                net_chunk) and the grass weights at 32,768 (its net_chunk),
+                beside the same layer chain as bf16 cuBLAS calls, and the
+                f32 variant (fma_f32) with the bench weights at 262,144
+                beside the chain as f32 cuBLAS calls (TF32 off), with the
+                max and mean |kernel - plain|;
   selk_resolve  every method at each frame's check shape
                 (chip_smoke.SELK_SHAPE) and at the render-layout inputs of
                 each hit tier (chip_smoke.SELK_RENDER_SHAPES); then each
-                frame is rendered once with every selk_resolve call's
+                frame (bench, plush, and grass where the checkout renders
+                it) is rendered once with every selk_resolve call's
                 inputs captured (chip_smoke.selk_capture), and each
                 captured launch is timed: the frame's launch histogram (Rb,
                 S, K, method, launches, window slots, valid slots, device
@@ -112,15 +116,21 @@ def main():
                        "library_ms": cs.time_ms(library, iters=50)}
         result["tex_fetch"][texture] = rows
 
-    nets = {"bench": (cs.model_config("float32"), "torch_bench_inputs.npz"),
-            "plush": (cs.plush_model_config(), "torch_plush_inputs.npz")}
-    for frame, (cfg, npz) in nets.items():
+    nets = {"bench": (cs.model_config("float32"), "torch_bench_inputs.npz",
+                      cs.MLP_SAMPLES["bench"]),
+            "plush": (cs.plush_model_config(), "torch_plush_inputs.npz",
+                      cs.MLP_SAMPLES["plush"]),
+            "grass": (cs.grass_model_config(), "torch_grass_inputs.npz", (32768,)),
+            "bench_f32": (cs.model_config("float32", compute_dtype="float32"),
+                          "torch_bench_inputs.npz", (262144,))}
+    for frame, (cfg, npz, sizes) in nets.items():
         model = instantiate(cfg, device="cuda")
         load_jax_params(model, cs.npz_params(npz))
         packed = model.packed()
-        chain = cs.cublas_chain(packed)
+        dtype = torch.float32 if frame == "bench_f32" else torch.bfloat16
+        chain = cs.cublas_chain(packed, dtype)
         rows = {}
-        for n in cs.MLP_SAMPLES[frame]:
+        for n in sizes:
             rs = np.random.RandomState(1)
             pos = torch.tensor(rs.uniform(-1, 1, (n, 3)).astype(np.float32), device=dev)
             dirs = torch.nn.functional.normalize(
@@ -131,8 +141,7 @@ def main():
                 pos_map, dir_map = model.feature_maps(pos, dirs, prms)
             err = (fused.mlp_fused(pos_map, dir_map, packed)
                    - fused.mlp_fused_plain(pos_map, dir_map, packed)).abs()
-            pos_b = torch.nn.functional.pad(pos_map, (0, packed.pos_pad - packed.pos_dim)).bfloat16()
-            dir_b = torch.nn.functional.pad(dir_map, (0, packed.dir_pad - packed.dir_dim)).bfloat16()
+            pos_b, dir_b = cs.cublas_inputs(packed, pos_map, dir_map, dtype)
             dt = cs.device_ms(lambda: fused.mlp_fused(pos_map, dir_map, packed), iters=20)
             rows[n] = {"max_abs_err": float(err.max()), "mean_abs_err": float(err.mean()),
                        "device_ms": dt, "tflops": 2 * packed.macs * n / dt / 1e9,
@@ -177,18 +186,17 @@ def frame_renderer(cs, frame):
     from nerftex_torch.utils.util import instantiate
 
     if frame == "bench":
-        inputs = np.load(os.path.join(ROOT, "tests", "torch_bench_inputs.npz"))
         model = instantiate(cs.model_config("bfloat16"), device="cuda")
         load_jax_params(model, cs.npz_params("torch_bench_inputs.npz"))
         r_cfg = cs.renderer_config("bfloat16")
         kw = dict(frame_rays(512, 512, np.array([0.47, -0.65, 0.6]) * 6.0, 0.55,
-                             [1, 1, 1, 0.1, 0, 0, 1.0]), u_offset=inputs["u_offset"][None])
+                             [1, 1, 1, 0.1, 0, 0, 1.0]), key=jax_rng.key(1))
         n_rays = 512 * 512
     else:
-        data, params, h, w = cs.plush_data()
-        model = instantiate(cs.plush_model_config(), device="cuda")
+        data, params, h, w = cs.scene_data(frame)
+        model = instantiate(getattr(cs, f"{frame}_model_config")(), device="cuda")
         load_jax_params(model, params)
-        r_cfg = cs.plush_renderer_config()
+        r_cfg = getattr(cs, f"{frame}_renderer_config")()
         kw = dict(data, key=jax_rng.key(1))
         n_rays = h * w
     return instantiate(dict(r_cfg, model=model, device="cuda")), kw, n_rays
@@ -236,8 +244,12 @@ def time_selk(cs, selk):
                                          tuple(selk.METHODS))
     run("general", general_inputs(cs, 1000, 300, 37), tuple(selk.METHODS), timed=False)
 
-    for frame in ("bench", "plush"):
-        calls, render_s, n_rays = capture_frame(cs, frame)
+    for frame in ("bench", "plush", "grass"):
+        try:
+            calls, render_s, n_rays = capture_frame(cs, frame)
+        except NotImplementedError as e:  # a checkout older than the grass frame
+            out["frames"][frame] = {"skipped": str(e)}
+            continue
         works = torch.stack([c["work"] for c in calls]).tolist()
         hist, total, bound = {}, 0.0, 0.0
         for i, (call, work) in enumerate(zip(calls, works)):

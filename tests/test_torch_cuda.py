@@ -310,3 +310,50 @@ def test_selk_kernel_layouts_match_plain(cuda, method, layout):
         edge = (args[-1][..., None] - cum).abs().min(-1).values
         assert (edge[~same] <= 1e-5).all()
     torch.testing.assert_close(p[same], ref_p[same], rtol=1e-5, atol=1e-7)
+
+
+def test_render_session_serves_grass_on_the_card(cuda, tmp_path):
+    """RenderSession(config_grass_render, operating_point="grass") on the
+    card at 64x64, from a checkpoint of the full-width grass weights in the
+    JAX package's layout: two requests run the wgmma MLP and the overlap
+    pick (no texture fetch), and the first equals a direct render of its
+    rays under stream_key(STREAM_PERTURB, 0) within 1e-6."""
+    import importlib
+    import os
+
+    from nerftex_torch.kernels import selk_resolve as selk
+    from nerftex_torch.render.checkpoint import CheckpointManager, unflatten_params
+    from nerftex_torch.render.serve import RenderSession, straight_rgba
+    from nerftex_torch.utils import rng
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = dict(importlib.import_module("configs.config_grass_render").config,
+               target_path=str(tmp_path))
+    cfg["renderer_config"] = dict(cfg["renderer_config"])
+    inst = cfg["renderer_config"]["instancer_config"] = dict(
+        cfg["renderer_config"]["instancer_config"])
+    for k in ("mesh_path", "patch_origins_path"):
+        inst[k] = os.path.join(root, inst[k])
+    npz = np.load(os.path.join(root, "tests", "torch_grass_inputs.npz"))
+    params = {k[len("param/"):]: npz[k] for k in npz.files if k.startswith("param/")}
+    CheckpointManager(str(tmp_path / "checkpoints")).save(
+        {"models": {"model": unflatten_params(params)}}, 1)
+    session = RenderSession(cfg, height=64, width=64, operating_point="grass")
+    assert session.device.type == "cuda" and session.restored_from.endswith("ckpt-1.pkl")
+    counts = (fused.mlp_fused.variant_launches["wgmma_bf16"], selk.selk_resolve.launches,
+              tex_gather.sample_channel.launches)
+    first = session.render([0.30614675, -0.73910363, 0.6])
+    second = session.render([0.0, -0.7, 0.7])
+    assert fused.mlp_fused.variant_launches["wgmma_bf16"] > counts[0]
+    assert selk.selk_resolve.launches > counts[1]
+    assert tex_gather.sample_channel.launches == counts[2]
+    for img in (first, second):
+        assert img.shape == (64, 64, 4) and np.isfinite(img).all()
+        assert img[..., 3].max() > 0.5
+    rays_o, rays_d, t, cone = session.device_rays(session.pose([0.30614675, -0.73910363, 0.6]))
+    out = session.renderer(rays_o=rays_o[None], rays_d=rays_d[None], t=t[None],
+                           parameters=session.default_parameters[None], cone_scale=cone[None],
+                           key=rng.stream_key(rng.STREAM_PERTURB, 0))
+    direct = straight_rgba(out["color_pred"].cpu().numpy(), out["alpha_pred"].cpu().numpy(),
+                           64, 64)
+    assert np.abs(direct - first).max() <= 1e-6

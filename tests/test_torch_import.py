@@ -1,7 +1,8 @@
 """nerftex_torch stands alone: no file of the package, nor chip_smoke.py,
-imports jax or nerftex_tpu; the package imports with both blocked; and an
-entry point given no device raises when CUDA is absent instead of running
-on the CPU."""
+imports jax, optax, nerftex_tpu or the config shims that resolve to it; the
+package (the serving modules included) imports with all of them blocked;
+and an entry point given no device raises when CUDA is absent instead of
+running on the CPU."""
 
 import ast
 import os
@@ -12,7 +13,7 @@ import pytest
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "nerftex_tpu", "network", "instancer", "util")
+FORBIDDEN = ("jax", "jaxlib", "optax", "nerftex_tpu", "network", "instancer", "util", "data")
 
 
 def _port_files():
@@ -46,6 +47,10 @@ def test_package_imports_with_jax_blocked():
         os.path.relpath(p, ROOT)[:-3].replace(os.sep, ".").removesuffix(".__init__")
         for p in _port_files() if p.startswith(os.path.join(ROOT, "nerftex_torch"))
     )
+    for m in ("nerftex_torch.utils.rng", "nerftex_torch.data.sampler",
+              "nerftex_torch.data.distribution", "nerftex_torch.operating_points",
+              "nerftex_torch.render.serve", "nerftex_torch.render.checkpoint"):
+        assert m in modules, m
     code = (
         "import sys\n"
         f"for name in {FORBIDDEN!r}:\n"

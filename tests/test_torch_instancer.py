@@ -18,6 +18,7 @@ from nerftex_tpu.instancing.device import DeviceInstancer as JaxDeviceInstancer
 from nerftex_tpu.instancing.scene import Scene as JaxScene
 from nerftex_torch.instancing.instancer import Instancer
 from nerftex_torch.ops.rays import frame_rays
+from nerftex_torch.utils import jax_rng
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCENE_KW = dict(
@@ -104,7 +105,7 @@ def _near_ties(td, o, d, t, inst_a, inst_b):
 def test_model_input_matches_jax(setup):
     jd, td, (o, d, p) = setup
     jo = jd.get_model_input(o, d, p, N_SAMPLES, STEP, key=jax.random.key(0))
-    to = td.get_model_input(o, d, p, N_SAMPLES, STEP)
+    to = td.get_model_input(o, d, p, N_SAMPLES, STEP, key=jax_rng.key(0))
     np.testing.assert_array_equal(to["hit"].numpy(), np.asarray(jo["hit"]))
     valid = to["dists"].numpy() > 0
     assert valid.sum() > 5000
@@ -133,11 +134,11 @@ def test_model_input_matches_jax(setup):
 def test_culls_are_exact(setup):
     """The fan culls are speed tiers: the same tables with them off."""
     _, td, (o, d, p) = setup
-    culled = td.get_model_input(o, d, p, N_SAMPLES, STEP)
+    culled = td.get_model_input(o, d, p, N_SAMPLES, STEP, key=jax_rng.key(0))
     budgets = (td.cull_budget, td.tri_cull_budget)
     td.cull_budget = td.tri_cull_budget = 0
     try:
-        full = td.get_model_input(o, d, p, N_SAMPLES, STEP)
+        full = td.get_model_input(o, d, p, N_SAMPLES, STEP, key=jax_rng.key(0))
     finally:
         td.cull_budget, td.tri_cull_budget = budgets
     for k, v in culled.items():
@@ -173,8 +174,8 @@ def test_sorted_blocks_equal_dense_grid(setup):
         return tuple(zeros) + (ray["hit"],)
 
     outs, aux = td.render_grid_sorted(o, d, p, N_SAMPLES, STEP, shade_block,
-                                      empty_block=empty_block)
-    dense = td.get_model_input(o, d, p, N_SAMPLES, STEP)
+                                      key=jax_rng.key(0), empty_block=empty_block)
+    dense = td.get_model_input(o, d, p, N_SAMPLES, STEP, key=jax_rng.key(0))
     valid = dense["dists"] > 0
     for k, got in zip(keys + ("hit",), outs):
         want = dense[k]
@@ -204,9 +205,9 @@ def test_pallas_selk_is_ignored(setup, monkeypatch, pallas_selk):
     inst = Instancer(mesh_path=os.path.join(ROOT, "meshes", "cloth_mesh.ply"), patch_scale=0.09,
                      patch_origins_path=os.path.join(ROOT, "meshes", "cloth_anchor_points.ply"),
                      device="cpu", pallas_selk=pallas_selk, **SCENE_KW, **DEV_KW)
-    got = inst.device_instancer.get_model_input(o, d, p, N_SAMPLES, STEP)
+    got = inst.device_instancer.get_model_input(o, d, p, N_SAMPLES, STEP, key=jax_rng.key(0))
     assert calls and set(calls) == {"nearest"}
-    want = td.get_model_input(o, d, p, N_SAMPLES, STEP)
+    want = td.get_model_input(o, d, p, N_SAMPLES, STEP, key=jax_rng.key(0))
     for k, v in got.items():
         assert torch.equal(v, want[k]), k
 

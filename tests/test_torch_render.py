@@ -1,7 +1,7 @@
 """A small frame through nerftex_torch's config-built InstanceRenderer
 against the JAX package's sorted InstanceRenderer: the bench view at 24x24
 rays, the carpet scene, a narrow ParamNerf with the same weights, once with
-deterministic offsets and once with the offsets JAX draws injected."""
+deterministic offsets and once with the offsets JAX draws for the same key."""
 
 import os
 
@@ -14,9 +14,8 @@ from nerftex_tpu.utils import rng
 from nerftex_tpu.utils import util as jax_util
 from nerftex_torch.render.checkpoint import load_jax_params
 from nerftex_torch.ops.rays import frame_rays
+from nerftex_torch.utils import jax_rng
 from nerftex_torch.utils.util import instantiate
-
-from scripts.make_torch_bench_inputs import jax_u_offsets
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -102,11 +101,10 @@ def test_frame_matches_jax_deterministic_offsets(frame):
 
 
 def test_frame_matches_jax_with_injected_offsets(frame):
+    """The port draws JAX's per-ray offsets from the same key."""
     data, jm, tm = frame
-    key = jax.random.key(1)
-    want = _jax_render(data, jm, False, key)
-    u = jax_u_offsets(key, H * W, RENDER_CHUNK, RAY_BLOCK)
-    _compare(_torch_render(data, tm, False, u_offset=u[None]), want)
+    want = _jax_render(data, jm, False, jax.random.key(1))
+    _compare(_torch_render(data, tm, False, key=jax_rng.key(1)), want)
 
 
 def test_sorted_frame_equals_dense_frame(frame):
@@ -145,22 +143,19 @@ def test_carpet_render_config_instantiates():
 
 def test_unported_options_raise():
     cfg = _renderer_cfg(True)
-    point_light = cfg["instancer_config"]["textures"][:-1] + ["point"]
-    for key, value in (("textures", point_light),
-                       ("auxiliary_meshes", [(cfg["instancer_config"]["mesh_path"], "")])):
-        bad = dict(cfg, instancer_config=dict(cfg["instancer_config"], **{key: value}))
-        with pytest.raises(NotImplementedError):
-            instantiate(dict(bad, device="cpu"))
     with pytest.raises(NotImplementedError):
         instantiate(dict(cfg, sample_budget_per_ray=160, device="cpu"))
 
 
 def test_bench_rays_match_tpu_golden():
-    """Two ray blocks of the bench frame through the full-width bf16 port
-    (bench weights and JAX-drawn offsets from tests/torch_bench_inputs.npz)
-    against the TPU-rendered golden frame, at bench.py's 55 dB floor.  The
-    golden's slab-test and Fourier-lift matmuls took bf16 operands on the
-    TPU, so the port renders with matmul_precision="bfloat16"."""
+    """Two ray blocks of the bench frame (128 and 150 of the 512x512 frame's
+    one render chunk) through the full-width bf16 port with the bench
+    weights (tests/torch_bench_inputs.npz) and the golden's key(1) against
+    the TPU-rendered golden frame, at bench.py's 55 dB floor.  The golden's
+    slab-test and Fourier-lift matmuls took bf16 operands on the TPU, so the
+    port renders with matmul_precision="bfloat16".  Blocks draw their
+    offsets by block index, so the batch keeps each of the two blocks at its
+    frame index and fills the other 149 with rays that miss the scene."""
     inputs = np.load(os.path.join(ROOT, "tests", "torch_bench_inputs.npz"))
     params = {k[len("param/"):]: inputs[k] for k in inputs.files if k.startswith("param/")}
 
@@ -179,9 +174,17 @@ def test_bench_rays_match_tpu_golden():
     data = frame_rays(512, 512, np.array([0.47, -0.65, 0.6]) * 6.0, 0.55,
                       [1, 1, 1, 0.1, 0, 0, 1.0])
     sel = np.concatenate([np.arange(128 * 1024, 129 * 1024), np.arange(150 * 1024, 151 * 1024)])
-    sub = {k: (v if k == "parameters" else v[:, sel]) for k, v in data.items()}
-    out = renderer(**sub, u_offset=inputs["u_offset"][sel][None])
-    color, alpha = out["color_pred"][0].numpy(), out["alpha_pred"][0].numpy()
+    n = 151 * 1024
+    sub = {"parameters": data["parameters"],
+           "rays_o": np.broadcast_to(np.float32([0, 0, 50.0]), (1, n, 3)).copy(),
+           "rays_d": np.broadcast_to(np.float32([0, 0, 1.0]), (1, n, 3)).copy(),
+           "t": np.full((1, n, 2), np.inf, np.float32),
+           "cone_scale": np.zeros((1, n, 1), np.float32)}
+    for k in ("rays_o", "rays_d", "t", "cone_scale"):
+        sub[k][:, sel] = data[k][:, sel]
+    out = renderer(**sub, key=jax_rng.key(1))
+    color, alpha = out["color_pred"][0, sel].numpy(), out["alpha_pred"][0, sel].numpy()
+    assert not out["alpha_pred"][0, np.setdiff1d(np.arange(n), sel)].any()
     golden = np.load(os.path.join(ROOT, "tests", "golden_bench_frame.npz"))
     err = np.concatenate([color - golden["color"][sel].astype(np.float32),
                           (alpha - golden["alpha"][sel].astype(np.float32))[:, None]], -1)

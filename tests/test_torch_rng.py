@@ -60,8 +60,10 @@ def test_uniform_leading_columns_of_a_wider_draw():
 def test_key_path_reproduces_bench_offsets():
     """The offsets the port draws from key(1) for the 512x512 bench frame
     (one render chunk of 262144 rays, ray blocks of 1024) are the ones JAX
-    drew, stored in tests/torch_bench_inputs.npz."""
-    want = np.load(os.path.join(ROOT, "tests", "torch_bench_inputs.npz"))["u_offset"]
+    draws (scripts/make_torch_bench_inputs.py jax_u_offsets)."""
+    from scripts.make_torch_bench_inputs import jax_u_offsets
+
+    want = jax_u_offsets(jax.random.key(1), 512 * 512, 262144, 1024)
     inst = Instancer(b_0=[-1, -1, -1], b_1=[1, 1, 1], instance_sampling_method="nearest",
                      transformations=[np.eye(4)], ray_block=1024, device="cpu")
     # Renderer.__call__ folds in the chunk's first ray, InstanceRenderer
@@ -69,5 +71,5 @@ def test_key_path_reproduces_bench_offsets():
     k_inst = jax_rng.split(jax_rng.fold_in(jax_rng.key(1), 0))[0]
     n = want.shape[0]
     rays = torch.zeros(n, 3)
-    got = inst.device_instancer._prepare(rays, rays, torch.zeros(n, 1), None, k_inst)[3]
+    got = inst.device_instancer._prepare(rays, rays, torch.zeros(n, 1), k_inst)[3]
     np.testing.assert_array_equal(got.numpy().view(np.int32), want.view(np.int32))

@@ -152,8 +152,9 @@ def test_sorted_hit_tiers_equal_the_dense_grid(setup):
         return tuple(out)
 
     # A coarser grid than plush's keeps the dense [Rb, S, K] planes small.
-    sorted_out, _ = td.render_grid_sorted(o, d, p, 320, 4 * STEP, shade_block)
-    dense = td.get_model_input(o, d, p, 320, 4 * STEP)
+    sorted_out, _ = td.render_grid_sorted(o, d, p, 320, 4 * STEP, shade_block,
+                                          key=jax_rng.key(3))
+    dense = td.get_model_input(o, d, p, 320, 4 * STEP, key=jax_rng.key(3))
     valid = dense["dists"] > 0
     for k, got in zip(keys, sorted_out):
         m = valid if dense[k].dim() == 2 else valid[..., None]

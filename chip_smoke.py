@@ -10,8 +10,8 @@ Phases (any failure raises and exits non-zero):
      source, started together);
   3. each kernel against its plain PyTorch version on the card at each
      frame's shapes and inputs (the bench frame's and the plush frame's
-     texture channel, ParamNerf weights and overlap-pick shapes), with
-     times (kernel, plain, library call) and the bound.  ``ms`` is event
+     texture channel, ParamNerf weights in bf16 and f32 and overlap-pick
+     shapes), with times (kernel, plain, library call) and the bound.  ``ms`` is event
      time over back-to-back calls (host dispatch included); ``device_ms``
      is the same calls captured in a CUDA graph and replayed, the card's
      own time per call;
@@ -21,7 +21,14 @@ Phases (any failure raises and exits non-zero):
      against tests/golden_bench_frame.npz at bench.py's 55 dB floor, with
      every kernel's launch count from that render (and which variant of
      tex_fetch and mlp_fused ran), then timed (best of 3);
-  5. the plush frame (configs/config_plush_render.py at 800x800 with the
+  5. the f32 bench frame: the same frame with an f32 ParamNerf (the
+     configs' default dtype), every mlp_fused launch on the wgmma_tf32x3
+     variant (asserted), held within F32_FRAME_MAX_DIFF of the same render
+     with mlp_fused routed to its plain version (mlp_wrap); golden PSNR
+     for information (the golden holds a bf16 MLP); timed (best of 3); the
+     frame's MLP launches, as captured, replayed from one CUDA graph beside
+     the cuBLAS f32 chain on the same inputs, with the summed bound;
+  6. the plush frame (configs/config_plush_render.py at 800x800 with the
      plush operating point: shadow rays, nearest_blend picks through the
      selk_resolve kernel) rendered through the config-built port with the
      transplanted plush weights (tests/torch_plush_inputs.npz) and JAX's
@@ -29,7 +36,7 @@ Phases (any failure raises and exits non-zero):
      against tests/golden_scene_plush.npz at scripts/bench_scene.py's
      50 dB floor on the same 10x box downsample, with every kernel's launch
      count and variant from that render, then timed (best of 2);
-  6. the grass frame (configs/config_grass_render.py at 512x512 with the
+  7. the grass frame (configs/config_grass_render.py at 512x512 with the
      port's grass operating point: a point light, shadow rays, nearest
      picks, no texture channel) rendered through the config-built port with
      the transplanted grass weights (tests/torch_grass_inputs.npz) and
@@ -39,20 +46,22 @@ Phases (any failure raises and exits non-zero):
      mlp_fused on the frame's first net_chunk of samples and selk_resolve
      on every launch of the frame, as captured, each against its plain
      version;
-  7. serving: RenderSession(config_grass_render, operating_point="grass")
+  8. serving: RenderSession(config_grass_render, operating_point="grass")
      on the card, restored from a checkpoint of the grass weights in the
      JAX package's pickle layout, answers four requests (the golden's pose
      and parameters, two other poses, the light moved); the first response
      must equal a direct render of its rays under
-     rng.stream_key(STREAM_PERTURB, 0); latency per request and rays/s.
+     rng.stream_key(STREAM_PERTURB, 0); latency per request and rays/s;
+     then the first request's rays through a session with bf16 dots under
+     key(1), its golden PSNR beside the grass frame's.
 The first render of each frame runs with its selk_resolve calls captured
 (selk_capture); the frame's launch histogram (launches by Rb, S, K and
 method, with the window and valid slots of their inputs) is printed on a
 line of its own, and it and the frame's summed bound go into the frame's
 selk_resolve row (the grass row sums its times over the frame's launches).
 The last three lines of stdout are the card, the kernels JSON (one row per
-kernel and frame, and the kernels a path did not launch) and the device
-JSON.
+kernel and frame, the f32 MLP in its own frame, bench_f32, and the kernels
+a path did not launch) and the device JSON.
 """
 
 import contextlib
@@ -78,9 +87,13 @@ SERVE_REQUESTS = ((GRASS_POSE, None), ([0.0, -0.7, 0.7], None), ([0.6, -0.45, 0.
 TEX_SAMPLES = (1 << 20, 1024 * 320)   # 1M uv samples; one bench ray block (1024 x 320)
 MLP_SAMPLES = {"bench": (262144,      # one render chunk's worth of samples
                          32768),      # the bench renderer's net_chunk (one launch)
-               "plush": (65536,)}     # the plush renderer's net_chunk
-# Variants the frames must run (byte-valued textures, bf16 weights).
+               "plush": (65536,),     # the plush renderer's net_chunk
+               "grass": (32768,)}     # the grass renderer's net_chunk
+# Variants the frames must run (byte-valued textures; bf16 weights, f32 in
+# the f32 bench frame).
 FRAME_VARIANTS = {"tex_fetch": "byte_quad", "mlp_fused": "wgmma_bf16"}
+F32_FRAME_VARIANTS = {"tex_fetch": "byte_quad", "mlp_fused": "wgmma_tf32x3"}
+F32_FRAME_MAX_DIFF = 1e-3             # f32 bench frame, kernel vs plain MLP, color and alpha
 # Tolerances, kernel vs plain version on the same card:
 #  tex_fetch: both variants round every lerp operation separately (no fma)
 #    and give the byte texels b / 255 correctly rounded, so they agree to
@@ -113,6 +126,8 @@ SELK_OPS_PER_STEP = 4                 # per binary-search step: midpoint, load, 
 H100_BYTES_PER_S = 3.35e12            # HBM3, SXM data sheet
 H100_BF16_FLOPS = 989e12              # dense tensor-core bf16
 H100_F32_FLOPS = 67e12                # f32 outside the tensor cores
+H100_TF32_FLOPS = 495e12              # dense tensor-core TF32
+TF32X3_PRODUCTS = 3                   # wgmma_tf32x3: a_lo w_hi + a_hi w_lo + a_hi w_hi
 
 
 def log(msg):
@@ -613,16 +628,15 @@ def selk_capture(keep_inputs=False):
 
 
 @contextlib.contextmanager
-def mlp_capture():
-    """While active, keep a copy of the inputs of the first mlp_fused call
-    of the render path (the maps and packed weights ParamNerf.infer passes)
-    in the dict it yields, under "args"."""
+def mlp_wrap(call):
+    """While active, every mlp_fused call of the render path (the one
+    ParamNerf.infer makes) goes to call(kernel module, pos_map, dir_map,
+    packed) instead."""
     import nerftex_torch.models.mlp as mlp
 
     real = mlp.fused
-    first = {}
 
-    class Capture:
+    class Proxy:
         """The kernel module as ParamNerf.infer sees it, but for mlp_fused."""
 
         def __getattr__(self, name):
@@ -630,15 +644,29 @@ def mlp_capture():
 
         @staticmethod
         def mlp_fused(pos_map, dir_map, packed):
-            if not first:
-                first["args"] = (pos_map.clone(), dir_map.clone(), packed)
-            return real.mlp_fused(pos_map, dir_map, packed)
+            return call(real, pos_map, dir_map, packed)
 
-    mlp.fused = Capture()
+    mlp.fused = Proxy()
     try:
-        yield first
+        yield
     finally:
         mlp.fused = real
+
+
+@contextlib.contextmanager
+def mlp_capture(every=False):
+    """While active, keep a copy of the inputs (pos_map, dir_map, packed
+    weights) of the render path's first mlp_fused call, or of every call
+    with ``every``, in the list it yields."""
+    calls = []
+
+    def call(real, pos_map, dir_map, packed):
+        if every or not calls:
+            calls.append((pos_map.clone(), dir_map.clone(), packed))
+        return real.mlp_fused(pos_map, dir_map, packed)
+
+    with mlp_wrap(call):
+        yield calls
 
 
 def check_selk_frame(selk, calls, frame, blend):
@@ -748,13 +776,33 @@ def cublas_inputs(packed, pos_map, dir_map, dtype=torch.bfloat16):
             pad(dir_map, (0, packed.dir_pad - packed.dir_dim)).to(dtype))
 
 
+def mlp_bounds(packed, n_samples, dtype_name):
+    """(bound ms, what bounds it, the bounds by operations) of one
+    mlp_fused call on n_samples: bytes (maps, weights and biases read once,
+    [N, 4] written) over the memory rate, and operations over the peak of
+    the variant's type.  bf16: 2 x macs at the bf16 tensor rate.  f32:
+    wgmma_tf32x3 runs TF32X3_PRODUCTS TF32 products per multiply-add, its
+    bound; the same f32 work on the FMA pipes would take 2 x macs at the f32
+    rate (bound_fma_f32_ms)."""
+    elt = 2 if dtype_name == "bfloat16" else 4
+    nbytes = (n_samples * (packed.pos_pad + packed.dir_pad) * elt
+              + packed.weights.numel() * elt + packed.biases.numel() * 4 + n_samples * 16)
+    flops = 2 * packed.macs * n_samples
+    if dtype_name == "bfloat16":
+        ops = {"bound_ops_ms": flops / H100_BF16_FLOPS * 1e3}
+    else:
+        ops = {"bound_tf32x3_ms": TF32X3_PRODUCTS * flops / H100_TF32_FLOPS * 1e3,
+               "bound_fma_f32_ms": flops / H100_F32_FLOPS * 1e3}
+    t_ops = next(iter(ops.values()))
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    return max(t_bytes, t_ops), "operations" if t_ops > t_bytes else "bytes", ops
+
+
 def mlp_row(fused, packed, pos_map, dir_map, dtype_name, label):
     """The fused MLP against its plain version on the feature maps
     (pos_map, dir_map), with times of the kernel, the plain version and the
-    cuBLAS layer chain in the same dtype, and the bound."""
+    cuBLAS layer chain in the same dtype, and the bound (mlp_bounds)."""
     n_samples = pos_map.shape[0]
-    elt = 2 if dtype_name == "bfloat16" else 4
-    peak = H100_BF16_FLOPS if dtype_name == "bfloat16" else H100_F32_FLOPS
     with torch.no_grad():
         got = fused.mlp_fused(pos_map, dir_map, packed)
         ref = fused.mlp_fused_plain(pos_map, dir_map, packed)
@@ -771,8 +819,7 @@ def mlp_row(fused, packed, pos_map, dir_map, dtype_name, label):
     if not err <= tol:
         raise AssertionError(f"mlp_fused {dtype_name} ({label}) disagrees with its plain version: "
                              f"{err}")
-    nbytes = (n_samples * (packed.pos_pad + packed.dir_pad) * elt
-              + packed.weights.numel() * elt + packed.biases.numel() * 4 + n_samples * 16)
+    bound_ms, bound_by, op_bounds = mlp_bounds(packed, n_samples, dtype_name)
     flops = 2 * packed.macs * n_samples
     dtype = torch.bfloat16 if dtype_name == "bfloat16" else torch.float32
     run = cublas_chain(packed, dtype)
@@ -782,8 +829,7 @@ def mlp_row(fused, packed, pos_map, dir_map, dtype_name, label):
         "ms": time_ms(lambda: fused.mlp_fused(pos_map, dir_map, packed)),
         "device_ms": device_ms(lambda: fused.mlp_fused(pos_map, dir_map, packed), iters=20),
         "plain_ms": time_ms(lambda: fused.mlp_fused_plain(pos_map, dir_map, packed)),
-        "bound_ms": max(nbytes / H100_BYTES_PER_S, flops / peak) * 1e3,
-        "bound_by": "operations" if flops / peak > nbytes / H100_BYTES_PER_S else "bytes",
+        "bound_ms": bound_ms, "bound_by": bound_by, **op_bounds,
         "library_ms": None,
         "macs_per_sample": packed.macs,
         "cublas_layers_ms": time_ms(lambda: run(pos_c, dir_c)),
@@ -793,8 +839,9 @@ def mlp_row(fused, packed, pos_map, dir_map, dtype_name, label):
     log(f"mlp_fused {dtype_name} ({label}): N={n_samples} kernel device {row['device_ms']:.4f} ms "
         f"({row['tflops']:.1f} TFLOP/s, {row['bound_ms'] / row['device_ms']:.3f} of the bound), "
         f"dispatch {row['ms']:.4f} ms, plain {row['plain_ms']:.3f} ms, bound "
-        f"{row['bound_ms']:.4f} ms, cuBLAS {dtype_name} layers device "
-        f"{row['cublas_layers_device_ms']:.4f} ms (dispatch {row['cublas_layers_ms']:.4f})")
+        f"{row['bound_ms']:.4f} ms ({', '.join(f'{k} {v:.4f}' for k, v in op_bounds.items())}), "
+        f"cuBLAS {dtype_name} layers device {row['cublas_layers_device_ms']:.4f} ms (dispatch "
+        f"{row['cublas_layers_ms']:.4f})")
     return row
 
 
@@ -827,21 +874,36 @@ def check_mlp(fused, model, dtype_name, sizes):
     return mlp_kernel_row(fused, packed, shapes)
 
 
-def serve_grass(params, h, w, reset_counts, read_counts, check_counts, card):
+def bf16_dots(config):
+    """A render config with the TPU goldens' bf16-operand dots:
+    matmul_precision="bfloat16" in the three Fourier embeddings and the
+    instancer (as grass_model_config and grass_renderer_config set them)."""
+    model = dict(config["model_config"])
+    for k in ("pos_embedding", "dir_embedding", "param_embedding"):
+        model[k] = dict(model[k], matmul_precision="bfloat16")
+    renderer = dict(config["renderer_config"])
+    renderer["instancer_config"] = dict(renderer["instancer_config"], matmul_precision="bfloat16")
+    return dict(config, model_config=model, renderer_config=renderer)
+
+
+def serve_grass(params, h, w, reset_counts, read_counts, check_counts, card, frame_psnr_db):
     """Serve SERVE_REQUESTS through RenderSession(config_grass_render,
     operating_point="grass") on the card from a checkpoint of the grass
     weights in the JAX package's pickle layout, written to a temporary
     target_path.  The first response must equal (SERVE_MAX_DIFF) a direct
     render of the session's rays for that request under
     rng.stream_key(STREAM_PERTURB, 0), after the same alpha division.
-    Returns the latencies and PSNR, and the kernels' launch counts over the
-    four requests."""
+    Then a second session, with the golden's bf16 dots (bf16_dots), renders
+    the first request's rays under key(1), the grass frame's draws: its
+    PSNR against the golden beside the grass frame's (frame_psnr_db) tells
+    the session's path from its dots and draws.  Returns the latencies and
+    PSNRs, and the kernels' launch counts over the four requests."""
     import tempfile
 
     from configs.config_grass_render import config
     from nerftex_torch.render.checkpoint import CheckpointManager, unflatten_params
     from nerftex_torch.render.serve import RenderSession, straight_rgba
-    from nerftex_torch.utils import rng
+    from nerftex_torch.utils import jax_rng, rng
 
     with tempfile.TemporaryDirectory(dir=ROOT, prefix="_serve_") as target:
         CheckpointManager(os.path.join(target, "checkpoints")).save(
@@ -886,9 +948,23 @@ def serve_grass(params, h, w, reset_counts, read_counts, check_counts, card):
             f"session's own draws) on {card}")
         del session, out
         torch.cuda.empty_cache()
+
+        session = RenderSession(bf16_dots(dict(config, target_path=target)),
+                                operating_point="grass", device="cuda")
+        rays_o, rays_d, t, cone = session.device_rays(session.pose(SERVE_REQUESTS[0][0]))
+        out = session.renderer(rays_o=rays_o[None], rays_d=rays_d[None], t=t[None],
+                               parameters=session.default_parameters[None],
+                               cone_scale=cone[None], key=jax_rng.key(1))
+        psnr_key1 = scene_golden_psnr("grass", out["color_pred"][0].cpu().numpy(),
+                                      out["alpha_pred"][0].cpu().numpy(), h, w)
+        log(f"serving: the first request through a session with bf16 dots under key(1): "
+            f"{psnr_key1:.2f} dB against the grass golden (the grass frame: "
+            f"{frame_psnr_db:.2f} dB)")
+        del session, out
+        torch.cuda.empty_cache()
     return ({"latency_ms": latencies, "rays_per_s": [h * w / ms * 1e3 for ms in latencies],
              "session_build_s": build_s, "first_vs_direct_max_diff": diff,
-             "first_golden_psnr_db": psnr}, launches)
+             "first_golden_psnr_db": psnr, "bf16_key1_golden_psnr_db": psnr_key1}, launches)
 
 
 def main():
@@ -930,16 +1006,22 @@ def main():
     for name in ("bfloat16", "float32"):
         probe = instantiate(model_config("float32", compute_dtype=name), device="cuda")
         load_jax_params(probe, params)
-        sizes = MLP_SAMPLES["bench"] if name == "bfloat16" else MLP_SAMPLES["bench"][:1]
-        mlp[name] = check_mlp(fused, probe, name, sizes)
-    # The main path runs the bf16 variant; the f32 one rides along in its row.
-    rows["bench"]["mlp_fused"] = dict(mlp["bfloat16"], float32_variant={
-        k: mlp["float32"][k] for k in ("variant", "samples", "max_abs_err", "ms", "device_ms",
-                                       "plain_ms", "bound_ms", "bound_by", "cublas_layers_ms",
-                                       "cublas_layers_device_ms")})
-    probe = instantiate(plush_model_config(), device="cuda")
-    load_jax_params(probe, npz_params("torch_plush_inputs.npz"))
-    rows["plush"]["mlp_fused"] = check_mlp(fused, probe, "bfloat16", MLP_SAMPLES["plush"])
+        mlp[name] = check_mlp(fused, probe, name, MLP_SAMPLES["bench"])
+    rows["bench"]["mlp_fused"] = mlp["bfloat16"]
+    # The f32 variant (wgmma_tf32x3) has its own row, the f32 bench frame's;
+    # the plush and grass topologies' weights ride along in it.
+    rows["bench_f32"] = {"mlp_fused": dict(mlp["float32"], topologies={})}
+    for scene, model_cfg in (("plush", plush_model_config()), ("grass", grass_model_config())):
+        for name in ("bfloat16", "float32"):
+            if (scene, name) == ("grass", "bfloat16"):
+                continue  # held on the grass frame's own first net_chunk below
+            probe = instantiate(dict(model_cfg, compute_dtype=name), device="cuda")
+            load_jax_params(probe, npz_params(f"torch_{scene}_inputs.npz"))
+            row = check_mlp(fused, probe, name, MLP_SAMPLES[scene])
+            if name == "bfloat16":
+                rows[scene]["mlp_fused"] = row
+            else:
+                rows["bench_f32"]["mlp_fused"]["topologies"][scene] = row
     del probe
     for frame in ("bench", "plush"):
         rows[frame]["selk_resolve"] = check_selk(selk, frame)
@@ -955,26 +1037,27 @@ def main():
 
     def read_counts():
         return ({name: fn.launches for name, fn in counters.items()},
-                {name: dict(counters[name].variant_launches) for name in FRAME_VARIANTS})
+                {name: dict(fn.variant_launches) for name, fn in counters.items()
+                 if hasattr(fn, "variant_launches")})
 
-    def check_counts(frame, launches, variants, idle=()):
+    def check_counts(frame, launches, variants, idle=(), want=FRAME_VARIANTS):
         for name, n in launches.items():
             if name in idle and n:
                 raise AssertionError(f"the {frame} frame launched {name} {n} times, not 0")
             if name not in idle and n <= 0:
                 raise AssertionError(f"the {frame} frame did not launch {name}")
-        for name, want in FRAME_VARIANTS.items():
-            if name not in idle and variants[name][want] != launches[name]:
+        for name, variant in want.items():
+            if name not in idle and variants[name][variant] != launches[name]:
                 raise AssertionError(f"the {frame} frame ran {name} variants {variants[name]}, "
-                                     f"not {want} alone")
+                                     f"not {variant} alone")
 
     # -- the bench frame -------------------------------------------------------
     t_phase = time.perf_counter()
     data = frame_rays(512, 512, np.array([0.47, -0.65, 0.6]) * 6.0, 0.55,
                       [1, 1, 1, 0.1, 0, 0, 1.0])
 
-    def build_renderer(precision):
-        model = instantiate(model_config(precision), device="cuda")
+    def build_renderer(precision, compute_dtype="bfloat16"):
+        model = instantiate(model_config(precision, compute_dtype), device="cuda")
         load_jax_params(model, params)
         return instantiate(dict(renderer_config(precision), model=model, device="cuda"))
 
@@ -1016,6 +1099,68 @@ def main():
     del renderer, out, f32_out
     carpet = {"rays_per_s": rays_per_s, "best_ms": best * 1e3, "golden_psnr_db": psnr}
     log(f"phase bench frame: {time.perf_counter() - t_phase:.1f} s")
+
+    # -- the f32 bench frame --------------------------------------------------------
+    t_phase = time.perf_counter()
+    renderer = build_renderer("bfloat16", compute_dtype="float32")
+    reset_counts()
+    t0 = time.perf_counter()
+    with mlp_capture(every=True) as mlp_calls:
+        out = renderer(**data, key=jax_rng.key(1))
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    f32_launches, f32_variants = read_counts()
+    log(f"f32 bench frame (first render {first_s:.2f} s): launches {f32_launches}, variants "
+        f"{f32_variants}; mlp_fused launches {f32_launches['mlp_fused']}, all "
+        f"{F32_FRAME_VARIANTS['mlp_fused']}")
+    check_counts("f32 bench", f32_launches, f32_variants, want=F32_FRAME_VARIANTS)
+    if len(mlp_calls) != f32_launches["mlp_fused"]:
+        raise AssertionError(f"f32 bench frame: {len(mlp_calls)} mlp_fused calls captured, "
+                             f"{f32_launches['mlp_fused']} launched")
+    f32_psnr = golden_psnr(out)
+    with mlp_wrap(lambda real, *args: real.mlp_fused_plain(*args)):
+        plain = renderer(**data, key=jax_rng.key(1))
+    f32_diff = max(float((out[k] - plain[k]).abs().max()) for k in ("color_pred", "alpha_pred"))
+    log(f"f32 bench frame: max |kernel - plain MLP| over color and alpha {f32_diff:.3g} (limit "
+        f"{F32_FRAME_MAX_DIFF}); golden {f32_psnr:.2f} dB (information only: the golden holds a "
+        f"bf16 MLP)")
+    if not f32_diff <= F32_FRAME_MAX_DIFF:
+        raise AssertionError(f"the f32 bench frame through the kernel differs from the plain "
+                             f"MLP's by {f32_diff}")
+    del plain
+    f32_best = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        renderer(**data, key=jax_rng.key(1))
+        torch.cuda.synchronize()
+        f32_best = min(f32_best, time.perf_counter() - t0)
+    # The frame's MLP: its launches, as captured, replayed from one graph,
+    # beside the cuBLAS f32 chain on the same inputs (padding included on
+    # both sides) and the summed bound.
+    packed = mlp_calls[0][2]
+    chain = cublas_chain(packed, torch.float32)
+    f32_frame = {
+        "rays_per_s": 512 * 512 / f32_best, "best_ms": f32_best * 1e3, "golden_psnr_db": f32_psnr,
+        "plain_max_abs_diff": f32_diff, "mlp_launches": len(mlp_calls),
+        "mlp_samples": sum(c[0].shape[0] for c in mlp_calls),
+        "mlp_device_ms": device_ms(lambda: [fused.mlp_fused(*c) for c in mlp_calls], iters=1),
+        "cublas_device_ms": device_ms(lambda: [chain(*cublas_inputs(
+            c[2], c[0], c[1], torch.float32)) for c in mlp_calls], iters=1),
+        "mlp_bound_ms": sum(mlp_bounds(c[2], c[0].shape[0], "float32")[0] for c in mlp_calls),
+    }
+    log(f"f32 bench frame: best of 3 warm renders {f32_best * 1e3:.1f} ms -> "
+        f"{f32_frame['rays_per_s']:.1f} rays/s; MLP over the frame's {len(mlp_calls)} launches "
+        f"({f32_frame['mlp_samples']} samples): kernel device {f32_frame['mlp_device_ms']:.3f} ms, "
+        f"cuBLAS f32 chain {f32_frame['cublas_device_ms']:.3f} ms, bound "
+        f"{f32_frame['mlp_bound_ms']:.3f} ms on {card}")
+    rows["bench_f32"]["mlp_fused"].update(
+        frame_device_ms=f32_frame["mlp_device_ms"], frame_cublas_device_ms=f32_frame[
+            "cublas_device_ms"], frame_bound_ms=f32_frame["mlp_bound_ms"],
+        frame_samples=f32_frame["mlp_samples"])
+    mlp_calls.clear()  # the capture's closure may outlive the list's name
+    del renderer, out, mlp_calls, chain
+    torch.cuda.empty_cache()
+    log(f"phase f32 bench frame: {time.perf_counter() - t_phase:.1f} s")
 
     # -- the plush frame ----------------------------------------------------------
     t_phase = time.perf_counter()
@@ -1066,7 +1211,7 @@ def main():
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
-    with selk_capture(keep_inputs=True) as selk_calls, mlp_capture() as mlp_call:
+    with selk_capture(keep_inputs=True) as selk_calls, mlp_capture() as mlp_calls:
         out = renderer(**g_data, key=jax_rng.key(1))
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
@@ -1092,8 +1237,8 @@ def main():
     # The kernels at the grass frame's own inputs: the MLP on its first
     # net_chunk of samples, the overlap pick on every launch of the frame.
     rows["grass"] = {
-        "mlp_fused": mlp_kernel_row(fused, mlp_call["args"][2], [mlp_row(
-            fused, mlp_call["args"][2], *mlp_call["args"][:2], "bfloat16",
+        "mlp_fused": mlp_kernel_row(fused, mlp_calls[0][2], [mlp_row(
+            fused, mlp_calls[0][2], *mlp_calls[0][:2], "bfloat16",
             "the grass frame's first net_chunk")]),
         "selk_resolve": dict(check_selk_frame(selk, selk_calls, "grass",
                                               renderer.instancer.device_instancer.ds
@@ -1101,7 +1246,7 @@ def main():
                              **selk_frame_record(selk_calls, grass_launches["selk_resolve"],
                                                  "grass")),
     }
-    del selk_calls, mlp_call
+    del selk_calls, mlp_calls
     grass = {"rays_per_s": h * w / g_best, "best_ms": g_best * 1e3, "golden_psnr_db": g_psnr,
              "peak_gib": g_peak, "first_render_s": first_s}
     del renderer, model, out
@@ -1111,15 +1256,17 @@ def main():
     # -- serving: RenderSession at the grass operating point -----------------------
     t_phase = time.perf_counter()
     serve, serve_launches = serve_grass(g_params, h, w, reset_counts, read_counts, check_counts,
-                                        card)
+                                        card, g_psnr)
     rows["grass"]["mlp_fused"]["serve_launches"] = serve_launches["mlp_fused"]
     rows["grass"]["selk_resolve"]["serve_launches"] = serve_launches["selk_resolve"]
     log(f"phase serving: {time.perf_counter() - t_phase:.1f} s")
 
-    launches = {"bench": carpet_launches, "plush": plush_launches, "grass": grass_launches}
+    launches = {"bench": carpet_launches, "bench_f32": f32_launches, "plush": plush_launches,
+                "grass": grass_launches}
     kernels = [dict(row, frame=frame, launches=launches[frame][name])
-               for frame in ("bench", "plush", "grass") for name, row in rows[frame].items()]
-    log(json.dumps({"frames": {"bench": carpet, "plush": plush, "grass": grass},
+               for frame in launches for name, row in rows[frame].items()]
+    log(json.dumps({"frames": {"bench": carpet, "bench_f32": f32_frame, "plush": plush,
+                               "grass": grass},
                     "serving": serve, "card": card, "seconds": time.perf_counter() - t_start}))
     log(card)
     why = "configs/config_grass_render.py has no texture channel (textures ['', 'point'])"

@@ -12,7 +12,8 @@
 // What bounds it on the H100: operations.  One sample costs about 1.4 MFLOP
 // (699k multiply-adds) against 352 B of bf16 input and 16 B of output, far
 // above the ~295 FLOP/B ridge, so the floor is the tensor-core rate
-// (989 TFLOP/s bf16 dense; 67 TFLOP/s for the f32 FMA variant).
+// (989 TFLOP/s bf16 dense; the f32 variant runs three TF32 products per
+// multiply-add at 495 TFLOP/s, against 67 TFLOP/s for f32 FMA).
 //
 // bf16 variant (every frame runs it): a warp-specialised wgmma kernel.
 //   * One persistent CTA per SM walks 128-sample tiles.  Two consumer
@@ -39,8 +40,25 @@
 //     next layer's A fragment (wgmma with A from registers), since the
 //     accumulator's n8 blocks 2k and 2k+1 are exactly k16 step k's A
 //     registers.  Heads write f32(bf16(y)) to the [N, 4] output.
-// f32 variant: plain FMA, one output column per thread, TILE_M = 64 rows per
-// block, every activation in shared memory (no frame runs it).
+// f32 variant (wgmma_tf32x3; the configs' default dtype): the same skeleton,
+// each product split into three TF32 wgmmas with f32 accumulation,
+// a_lo w_hi + a_hi w_lo + a_hi w_hi (x_hi = tf32(x), x_lo = tf32(x - x_hi);
+// a_lo w_lo, ~2^-22 relative, is dropped), which keeps f32 accuracy.
+//   * Weights: pack() splits every layer once into hi and lo and lays each
+//     k8 block out as hi [2][n_pad][4] then lo [2][n_pad][4] (TF32 core
+//     matrices, 8 rows x 4 values; TF32 takes B K-major only), so a 16-deep
+//     slab of both is one contiguous 32 KB bulk copy at N = 256; three
+//     stages.  Within each block of 8 K rows pack() orders the rows
+//     0 2 4 6 1 3 5 7, so the A fragment's K indices l%4 and l%4 + 4 are
+//     the adjacent columns 2(l%4), 2(l%4) + 1: one float2 per row from the
+//     maps and exactly the accumulator's column pair from a hidden layer.
+//   * Activations: a 64 x 256 f32 activation (128 registers) does not fit
+//     beside the 128 accumulators, so each thread keeps its fragment of the
+//     hidden activation in its own shared-memory slots (64 KB per
+//     warpgroup, one float4 per k8 step, conflict-free) and splits it into
+//     hi and lo as it loads it; no barrier, since a thread reads back only
+//     what it wrote.  The pos and dir maps (read by at most three layers)
+//     come straight from global memory, one slab ahead.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -410,10 +428,12 @@ struct Ring {
   bool holding;
 };
 
-// Waits for the next slab and returns its shared address.
+// Waits for the next slab of a ring of NS stages and returns its shared
+// address.
+template <int NS = STAGES>
 __device__ __forceinline__ uint32_t slab_begin(Ring& r) {
-  const uint32_t stage = r.it % STAGES;
-  mbar_wait(r.bars + 8 * stage, (r.it / STAGES) & 1);
+  const uint32_t stage = r.it % NS;
+  mbar_wait(r.bars + 8 * stage, (r.it / NS) & 1);
   wgmma_fence();
   return r.stages + stage * STAGE_BYTES;
 }
@@ -634,11 +654,12 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
   }
 }
 
-// The kernel keeps one hidden activation, in registers: every layer reads
-// at most one pos/dir segment, first, and the latest hidden output at its
-// full width, last.  Returns the last layer that reads pos or dir, or -1 if
-// the table does not fit.
-static int check_bf16_table(const LayerTable& tab) {
+// Both kernels keep one hidden activation (bf16: in registers, f32: in each
+// thread's shared-memory slots): every layer reads at most one pos/dir
+// segment, first, and the latest hidden output at its full width, last.
+// Returns the last layer that reads pos or dir, or -1 if the table does not
+// fit.
+static int check_table(const LayerTable& tab) {
   int cur = -1, cur_width = 0, last_in = -1;
   for (int i = 0; i < tab.n_layers; ++i) {
     const LayerDesc& L = tab.l[i];
@@ -671,7 +692,7 @@ static int launch_bf16(const LayerTable& tab, const void* pos, const void* dir, 
   p.dir_pad = dir_pad;
   p.n = n;
   p.n_tiles = (n + TILE_ROWS - 1) / TILE_ROWS;
-  p.last_in = check_bf16_table(tab);
+  p.last_in = check_table(tab);
   if (p.last_in < 0 || (reinterpret_cast<uintptr_t>(w) & 15)) return (int)cudaErrorInvalidValue;
   p.n_bias = 0;
   for (int i = 0; i < tab.n_layers; ++i)
@@ -700,103 +721,412 @@ static int launch_bf16(const LayerTable& tab, const void* pos, const void* dir, 
 }
 
 // ---------------------------------------------------------------------------
-// f32: plain FMA
+// f32: 3xTF32 wgmma
 // ---------------------------------------------------------------------------
 
-#define TILE_M 64
-#define NTHREADS 256
-#define LD_PAD 8
+#define T_STAGES 3
+#define T_SLAB_K 16                                // K rows per slab
+#define T_STEPS (T_SLAB_K / 8)                     // k8 steps per slab
+#define T_STAGE_BYTES (T_SLAB_K * MAX_W * 4 * 2)   // 32 KB: hi and lo of one slab at N = 256
+#define T_HID_BYTES (MAX_W / 8 * WG_THREADS * 16)  // 64 KB: one warpgroup's hidden activation
+#define T_OFF_STAGE (CONSUMERS * T_HID_BYTES)
+#define T_OFF_BAR (T_OFF_STAGE + T_STAGES * T_STAGE_BYTES)
+#define T_SMEM (T_OFF_BAR + 2 * T_STAGES * 8)
+static_assert(T_STAGE_BYTES == STAGE_BYTES, "slab_begin steps by STAGE_BYTES");
+static_assert(T_SMEM <= SMEM_LIMIT, "3xTF32 kernel's shared memory");
 
-// f32: thread t owns output column t for all TILE_M rows.
-__device__ void layer_f32(const LayerDesc& L, float* const* buf, const int* ld, const float* W,
-                          const float* B, float* out, int row0, int n) {
-  const int t = threadIdx.x;
-  if (t >= L.n_pad) return;
-  const float* w = W + L.w_off;
-  float acc[TILE_M];
-#pragma unroll
-  for (int r = 0; r < TILE_M; ++r) acc[r] = 0.f;
+struct TfParams {
+  LayerTable tab;
+  const float* pos;
+  const float* dir;
+  const float* w;  // the tf32 hi/lo image (PackedMLP.tf32_slabs)
+  const float* b;
+  float* out;
+  int pos_pad, dir_pad, n, n_tiles;
+};
 
-  int kbase = 0;
-  for (int s = 0; s < 2; ++s) {
-    const int src = s == 0 ? L.src0 : L.src1;
-    if (src < 0) break;
-    const int kseg = s == 0 ? L.k0 : L.k1;
-    const float* a_base = buf[src];
-    const int lda = ld[src];
-    for (int k = 0; k < kseg; k += 4) {
-      const long long wr = (long long)(kbase + k) * L.n_pad + t;
-      const float w0 = w[wr], w1 = w[wr + L.n_pad], w2 = w[wr + 2 * L.n_pad],
-                  w3 = w[wr + 3 * L.n_pad];
+// D[64 x N] (+)= A[64 x 8] B[8 x N] in tf32 with A from registers: a[0..3]
+// hold rows l/4, l/4 + 8, l/4, l/4 + 8 of the warp's 16 at K indices l%4,
+// l%4, l%4 + 4, l%4 + 4 (the m64k8 tf32 fragment).  TF32 takes both
+// operands K-major, so there is no transpose flag.
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[128], const uint32_t (&a)[4], uint64_t db,
+                                           int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<16>(float (&d)[128], const uint32_t (&a)[4],
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<32>(float (&d)[128], const uint32_t (&a)[4],
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<64>(float (&d)[128], const uint32_t (&a)[4],
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<128>(float (&d)[128], const uint32_t (&a)[4],
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<256>(float (&d)[128], const uint32_t (&a)[4],
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// x = hi + lo + O(2^-22 |x|): hi is x rounded to tf32 (to nearest, ties away
+// from zero, as cvt.rna.tf32.f32), lo the rounded remainder (x - hi is
+// exact).  Integer arithmetic on the bits, so pack() in Python splits the
+// weights by the same rule, bit for bit.
+__device__ __forceinline__ uint32_t tf32_rna(uint32_t bits) { return (bits + 0x1000u) & 0xffffe000u; }
+
+__device__ __forceinline__ void split_tf32(const float4& x, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  const float v[4] = {x.x, x.y, x.z, x.w};
 #pragma unroll
-      for (int r = 0; r < TILE_M; ++r) {
-        const float4 a = *reinterpret_cast<const float4*>(a_base + r * lda + k);
-        acc[r] = fmaf(a.x, w0, acc[r]);
-        acc[r] = fmaf(a.y, w1, acc[r]);
-        acc[r] = fmaf(a.z, w2, acc[r]);
-        acc[r] = fmaf(a.w, w3, acc[r]);
-      }
-    }
-    kbase += kseg;
+  for (int e = 0; e < 4; ++e) {
+    hi[e] = tf32_rna(__float_as_uint(v[e]));
+    lo[e] = tf32_rna(__float_as_uint(v[e] - __uint_as_float(hi[e])));
   }
-  const float bias = B[L.b_off + t];
+}
+
+// Pins a register's definition before the next asm statement (wgmma.fence).
+__device__ __forceinline__ void fence_reg(uint32_t (&r)[4]) {
 #pragma unroll
-  for (int r = 0; r < TILE_M; ++r) {
-    float y = acc[r] + bias;
-    if (L.relu) y = fmaxf(y, 0.f);
-    if (L.dst >= 0) {
-      buf[L.dst][r * ld[L.dst] + t] = y;
-    } else if (t < L.n_out && row0 + r < n) {
-      out[(long long)(row0 + r) * 4 + L.out_col + t] = y;
+  for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[e])::"memory");
+}
+
+// One slab (two k8 steps) of a layer: x[s] is step s's A fragment in f32,
+// b the slab's stage, where k8 block s holds the hi core matrices (two, lbo
+// apart) and then the lo ones.  Three products per step, the small ones
+// first; the layer's first product starts the accumulator.  The slab's six
+// wgmmas retire before it returns (its stage is released at once), and the
+// other consumer warpgroup keeps the tensor cores busy meanwhile: leaving
+// them in flight while the next slab's fragments are split, as the bf16
+// kernel does, makes ptxas serialise every wgmma (C7512), which is slower
+// (scripts/probe_mlp_tf32.py, "pipelined").
+template <int N>
+__device__ __forceinline__ void tf32_slab(float (&acc)[128], const float4 (&x)[T_STEPS],
+                                          uint32_t lbo, Ring& ring, int lane, int& k) {
+  uint32_t hi[T_STEPS][4], lo[T_STEPS][4];
+#pragma unroll
+  for (int s = 0; s < T_STEPS; ++s) {
+    split_tf32(x[s], hi[s], lo[s]);
+    fence_reg(hi[s]);
+    fence_reg(lo[s]);
+  }
+  const uint32_t b = slab_begin<T_STAGES>(ring);
+  fence_acc<N>(acc);
+#pragma unroll
+  for (int s = 0; s < T_STEPS; ++s, ++k) {
+    const uint32_t b_hi = b + s * 4 * lbo, b_lo = b_hi + 2 * lbo;
+    wgmma_tf32<N>(acc, lo[s], desc(b_hi, lbo, 8 * CORE_BYTES), k > 0);
+    wgmma_tf32<N>(acc, hi[s], desc(b_lo, lbo, 8 * CORE_BYTES), 1);
+    wgmma_tf32<N>(acc, hi[s], desc(b_hi, lbo, 8 * CORE_BYTES), 1);
+  }
+  wgmma_commit();
+  fence_acc<N>(acc);
+  wgmma_wait<0>();
+  fence_acc<N>(acc);
+  if (lane == 0) mbar_arrive(ring.bars + 8 * (T_STAGES + ring.it % T_STAGES));
+  ++ring.it;
+}
+
+// A fragments of one slab of a pos/dir map, straight from global memory:
+// rows g0 and g1 (the thread's two), columns col + 8s + 2(l%4) and + 1,
+// which pack() made K indices l%4 and l%4 + 4 of step s.
+__device__ __forceinline__ void load_map(float4 (&x)[T_STEPS], const float* g0, const float* g1,
+                                         int col) {
+#pragma unroll
+  for (int s = 0; s < T_STEPS; ++s) {
+    const float2 a = __ldg(reinterpret_cast<const float2*>(g0 + col + 8 * s));
+    const float2 c = __ldg(reinterpret_cast<const float2*>(g1 + col + 8 * s));
+    x[s] = make_float4(a.x, c.x, a.y, c.y);
+  }
+}
+
+__device__ __forceinline__ float4 ld_shared4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ void st_shared4(uint32_t addr, float a, float b, float c, float d) {
+  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "f"(a), "f"(b), "f"(c),
+               "f"(d)
+               : "memory");
+}
+
+// The K loop of one layer for one consumer warpgroup: a pos/dir segment
+// from global memory (the next slab's fragments loaded while this one
+// multiplies), then the hidden segment from the thread's own slots in
+// shared memory (s_hid: step s at s_hid + s * WG_THREADS * 16).
+template <int N>
+__device__ __forceinline__ void tf32_layer(float (&acc)[128], const LayerDesc& L, const TfParams& p,
+                                           uint32_t s_hid, int r0, int r1, Ring& ring, int lane) {
+  const uint32_t lbo = L.n_pad * CORE_BYTES;
+  const int c = 2 * (lane % 4);
+  int k = 0;
+  float4 x[T_STEPS];
+  for (int seg = 0; seg < 2; ++seg) {
+    const int src = seg == 0 ? L.src0 : L.src1;
+    if (src < 0) break;
+    const int slabs = (seg == 0 ? L.k0 : L.k1) / T_SLAB_K;
+    if (src == BUF_POS || src == BUF_DIR) {
+      const int width = src == BUF_POS ? p.pos_pad : p.dir_pad;
+      const float* map = src == BUF_POS ? p.pos : p.dir;
+      const float* g0 = map + (long long)r0 * width + c;
+      const float* g1 = map + (long long)r1 * width + c;
+      float4 next[T_STEPS];
+      load_map(next, g0, g1, 0);
+      for (int q = 0; q < slabs; ++q) {
+#pragma unroll
+        for (int s = 0; s < T_STEPS; ++s) x[s] = next[s];
+        if (q + 1 < slabs) load_map(next, g0, g1, (q + 1) * T_SLAB_K);
+        tf32_slab<N>(acc, x, lbo, ring, lane, k);
+      }
+    } else {
+      for (int q = 0; q < slabs; ++q) {
+#pragma unroll
+        for (int s = 0; s < T_STEPS; ++s)
+          x[s] = ld_shared4(s_hid + (T_STEPS * q + s) * WG_THREADS * 16);
+        tf32_slab<N>(acc, x, lbo, ring, lane, k);
+      }
     }
   }
 }
 
-__global__ void __launch_bounds__(NTHREADS)
-    mlp_f32_kernel(LayerTable tab, const float* __restrict__ pos, const float* __restrict__ dir,
-                   int pos_pad, int dir_pad, const float* __restrict__ W,
-                   const float* __restrict__ B, float* __restrict__ out, int n) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  int ld[4] = {pos_pad + LD_PAD, dir_pad + LD_PAD, MAX_W + LD_PAD, MAX_W + LD_PAD};
-  float* buf[4];
-  buf[0] = reinterpret_cast<float*>(smem_raw);
-  buf[1] = buf[0] + TILE_M * ld[0];
-  buf[2] = buf[1] + TILE_M * ld[1];
-  buf[3] = buf[2] + TILE_M * ld[2];
-
-  const int row0 = blockIdx.x * TILE_M;
-  for (int i = threadIdx.x; i < TILE_M * pos_pad; i += NTHREADS) {
-    const int r = i / pos_pad, c = i - r * pos_pad;
-    buf[BUF_POS][r * ld[0] + c] = row0 + r < n ? pos[(long long)(row0 + r) * pos_pad + c] : 0.f;
+// Bias and ReLU of the accumulator fragment (rows r, r + 8 of the thread,
+// columns 8j + 2(l%4) and + 1).  A hidden layer's output goes to the
+// thread's own shared-memory slots, one float4 per k8 step in A-fragment
+// order, so the next layer reads back exactly what this thread wrote (no
+// barrier); a head writes f32 to its output columns.
+template <int N>
+__device__ __forceinline__ void tf32_epilogue(const float (&acc)[128], const LayerDesc& L,
+                                              const TfParams& p, uint32_t s_hid, int lane, int r) {
+  const int c = 2 * (lane % 4);
+  const float* b = p.b + L.b_off;
+  if (L.dst >= 0) {
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+      if (8 * j < L.n_pad) {
+        const float2 bj = __ldg(reinterpret_cast<const float2*>(b + 8 * j + c));
+        float v0 = acc[4 * j] + bj.x, v1 = acc[4 * j + 1] + bj.y;
+        float v2 = acc[4 * j + 2] + bj.x, v3 = acc[4 * j + 3] + bj.y;
+        if (L.relu) {
+          v0 = fmaxf(v0, 0.f);
+          v1 = fmaxf(v1, 0.f);
+          v2 = fmaxf(v2, 0.f);
+          v3 = fmaxf(v3, 0.f);
+        }
+        st_shared4(s_hid + j * WG_THREADS * 16, v0, v2, v1, v3);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * j + c + (e & 1);
+        const int row = r + 8 * (e >> 1);
+        if (col < L.n_out && row < p.n) {
+          float y = acc[4 * j + e] + __ldg(b + col);
+          if (L.relu) y = fmaxf(y, 0.f);
+          p.out[(long long)row * 4 + L.out_col + col] = y;
+        }
+      }
+    }
   }
-  for (int i = threadIdx.x; i < TILE_M * dir_pad; i += NTHREADS) {
-    const int r = i / dir_pad, c = i - r * dir_pad;
-    buf[BUF_DIR][r * ld[1] + c] = row0 + r < n ? dir[(long long)(row0 + r) * dir_pad + c] : 0.f;
+}
+
+__global__ void __launch_bounds__(WS_THREADS, 1)
+    mlp_tf32_kernel(const __grid_constant__ TfParams p) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const int tid = threadIdx.x;
+  const int wg = tid / WG_THREADS, t = tid % WG_THREADS;
+  const int warp = t / 32, lane = t % 32;
+  const uint32_t base = smem_addr(smem);
+  const uint32_t bars = base + T_OFF_BAR;  // full[T_STAGES], then empty[T_STAGES]
+  if (tid == 0) {
+    for (int s = 0; s < T_STAGES; ++s) {
+      mbar_init(bars + 8 * s, 1);
+      mbar_init(bars + 8 * (T_STAGES + s), CONSUMERS * 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  for (int li = 0; li < tab.n_layers; ++li) {
-    const LayerDesc L = tab.l[li];
-    layer_f32(L, buf, ld, W, B, out, row0, n);
-    __syncthreads();
+  if (wg == CONSUMERS) {
+    // Producer: one thread streams every tile's layers in 16-deep slabs of
+    // hi and lo weights, in the consumers' order.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (t == 0) {
+      uint32_t it = 0;
+      for (int tile = blockIdx.x; tile < p.n_tiles; tile += gridDim.x) {
+        for (int li = 0; li < p.tab.n_layers; ++li) {
+          const LayerDesc& L = p.tab.l[li];
+          const int k = L.k0 + (L.src1 >= 0 ? L.k1 : 0);
+          for (int k0 = 0; k0 < k; k0 += T_SLAB_K, ++it) {
+            const uint32_t stage = it % T_STAGES;
+            mbar_wait(bars + 8 * (T_STAGES + stage), ((it / T_STAGES) & 1) ^ 1);
+            const uint32_t bytes = T_SLAB_K * L.n_pad * 8;
+            mbar_expect_tx(bars + 8 * stage, bytes);
+            bulk_copy(base + T_OFF_STAGE + stage * T_STAGE_BYTES,
+                      p.w + 2 * (L.w_off + (long long)k0 * L.n_pad), bytes, bars + 8 * stage);
+          }
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const uint32_t s_hid = base + wg * T_HID_BYTES + t * 16;
+    float acc[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+    Ring ring = {base + T_OFF_STAGE, bars, 0u, 0u, false};
+    for (int tile = blockIdx.x; tile < p.n_tiles; tile += gridDim.x) {
+      const int r = tile * TILE_ROWS + wg * 64 + warp * 16 + lane / 4;
+      const int r0 = min(r, p.n - 1), r1 = min(r + 8, p.n - 1);
+      for (int li = 0; li < p.tab.n_layers; ++li) {
+        const LayerDesc L = p.tab.l[li];
+        const int n_inst = L.n_pad <= 16 ? 16 : L.n_pad <= 32 ? 32 : L.n_pad <= 64 ? 64
+                                              : L.n_pad <= 128 ? 128 : 256;
+        switch (n_inst) {
+          case 16:
+            tf32_layer<16>(acc, L, p, s_hid, r0, r1, ring, lane);
+            tf32_epilogue<16>(acc, L, p, s_hid, lane, r);
+            break;
+          case 32:
+            tf32_layer<32>(acc, L, p, s_hid, r0, r1, ring, lane);
+            tf32_epilogue<32>(acc, L, p, s_hid, lane, r);
+            break;
+          case 64:
+            tf32_layer<64>(acc, L, p, s_hid, r0, r1, ring, lane);
+            tf32_epilogue<64>(acc, L, p, s_hid, lane, r);
+            break;
+          case 128:
+            tf32_layer<128>(acc, L, p, s_hid, r0, r1, ring, lane);
+            tf32_epilogue<128>(acc, L, p, s_hid, lane, r);
+            break;
+          default:
+            tf32_layer<256>(acc, L, p, s_hid, r0, r1, ring, lane);
+            tf32_epilogue<256>(acc, L, p, s_hid, lane, r);
+            break;
+        }
+      }
+    }
   }
 }
 
-static int launch_f32(const LayerTable& tab, const void* pos, const void* dir, int pos_pad,
-                      int dir_pad, const void* w, const void* b, void* out, int n,
-                      cudaStream_t stream) {
-  const size_t smem = (size_t)TILE_M * (pos_pad + dir_pad + 2 * MAX_W + 4 * LD_PAD) * sizeof(float);
-  static size_t smem_set = 0;
-  if (smem > smem_set) {
-    cudaError_t err = cudaFuncSetAttribute(mlp_f32_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+static int launch_tf32(const LayerTable& tab, const void* pos, const void* dir, int pos_pad,
+                       int dir_pad, const void* w, const void* b, void* out, int n,
+                       cudaStream_t stream) {
+  TfParams p;
+  p.tab = tab;
+  p.pos = static_cast<const float*>(pos);
+  p.dir = static_cast<const float*>(dir);
+  p.w = static_cast<const float*>(w);
+  p.b = static_cast<const float*>(b);
+  p.out = static_cast<float*>(out);
+  p.pos_pad = pos_pad;
+  p.dir_pad = dir_pad;
+  p.n = n;
+  p.n_tiles = (n + TILE_ROWS - 1) / TILE_ROWS;
+  if (check_table(tab) < 0 || (reinterpret_cast<uintptr_t>(w) & 15) ||
+      (reinterpret_cast<uintptr_t>(pos) & 7) || (reinterpret_cast<uintptr_t>(dir) & 7) ||
+      (reinterpret_cast<uintptr_t>(b) & 7))
+    return (int)cudaErrorInvalidValue;
+  static int sms = 0, smem_set = 0;
+  if (!smem_set) {
+    cudaError_t err =
+        cudaFuncSetAttribute(mlp_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T_SMEM);
     if (err != cudaSuccess) return (int)err;
-    smem_set = smem;
+    smem_set = 1;
   }
-  const int grid = (n + TILE_M - 1) / TILE_M;
-  mlp_f32_kernel<<<grid, NTHREADS, smem, stream>>>(
-      tab, static_cast<const float*>(pos), static_cast<const float*>(dir), pos_pad, dir_pad,
-      static_cast<const float*>(w), static_cast<const float*>(b), static_cast<float*>(out), n);
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  const int grid = std::min(p.n_tiles, sms);
+  mlp_tf32_kernel<<<grid, WS_THREADS, T_SMEM, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -804,8 +1134,8 @@ extern "C" {
 
 // table: n_layers rows of DESC_FIELDS int64 values in LayerDesc order.
 // is_bf16 selects the variant: pos/dir bf16 and w the [K/8][n_pad][8] slab
-// image (wgmma), or pos/dir/w f32 with w row-major [K_pad, n_pad] (FMA);
-// b and out are f32.  Returns cudaGetLastError() of the launch (0 on
+// image (wgmma_bf16), or pos/dir f32 and w the tf32 hi/lo image
+// (wgmma_tf32x3); b and out are f32.  Returns cudaGetLastError() of the launch (0 on
 // success).
 int nt_mlp_fused(int is_bf16, const void* pos, const void* dir, int pos_pad, int dir_pad,
                  const void* w, const void* b, const long long* table, int n_layers, void* out,
@@ -833,7 +1163,7 @@ int nt_mlp_fused(int is_bf16, const void* pos, const void* dir, int pos_pad, int
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_bf16 ? launch_bf16(tab, pos, dir, pos_pad, dir_pad, w, b, out, n, s)
-                 : launch_f32(tab, pos, dir, pos_pad, dir_pad, w, b, out, n, s);
+                 : launch_tf32(tab, pos, dir, pos_pad, dir_pad, w, b, out, n, s);
 }
 
 const char* nt_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

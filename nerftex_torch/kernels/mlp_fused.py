@@ -6,8 +6,10 @@ zero-padded weights; ``mlp_fused(pos_map, dir_map, packed)`` runs the chain
 on a CPU tensor with ``mlp_fused_plain`` and on a CUDA tensor with
 ``csrc/mlp_fused.cu``, whose variant follows ``packed.dtype``:
 
-  wgmma_bf16  bf16 operands, warp-specialised wgmma over ``packed.slabs``;
-  fma_f32     f32 operands, plain FMA over ``packed.weights``.
+  wgmma_bf16    bf16 operands, warp-specialised wgmma over ``packed.slabs``;
+  wgmma_tf32x3  f32 operands, the same skeleton with every product split
+                into three TF32 wgmmas (a_lo w_hi + a_hi w_lo + a_hi w_hi)
+                over ``packed.tf32_slabs``, which keeps f32 accuracy.
 
 Both compute each layer with f32 accumulation over ``packed.dtype``
 operands and round every layer's output to that dtype.
@@ -24,7 +26,11 @@ from nerftex_torch.kernels import build
 BUF_POS, BUF_DIR, BUF_HA, BUF_HB, OUT = 0, 1, 2, 3, -1
 MAX_WIDTH = 256
 MAX_LAYERS = 32
-VARIANTS = {torch.bfloat16: "wgmma_bf16", torch.float32: "fma_f32"}
+VARIANTS = {torch.bfloat16: "wgmma_bf16", torch.float32: "wgmma_tf32x3"}
+# The order of the 8 K rows of each block in the tf32 image: K index m of a
+# wgmma step reads weight row TF32_ROW_ORDER[m], so a thread's A-fragment
+# indices l%4 and l%4 + 4 are the adjacent activation columns 2(l%4), +1.
+TF32_ROW_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -46,12 +52,38 @@ class PackedMLP:
     # [K_pad / 8][n_pad][8] (wgmma's K-major core matrices, no swizzle), so
     # every 64-deep K slab is one contiguous block for the kernel's bulk copy.
     slabs: Optional[torch.Tensor] = None
+    # f32 only: each layer's weights split into tf32 hi and lo (tf32_split)
+    # at twice its offset, every block of 8 K rows (in TF32_ROW_ORDER) laid
+    # out as hi [2][n_pad][4] then lo [2][n_pad][4] (TF32 core matrices), so
+    # every 16-deep K slab of both is one contiguous block.
+    tf32_slabs: Optional[torch.Tensor] = None
 
 
 def slab_image(w: torch.Tensor) -> torch.Tensor:
     """[K_pad, n_pad] -> the flat [K_pad / 8][n_pad][8] core-matrix image."""
     k, n = w.shape
     return w.reshape(k // 8, 8, n).permute(0, 2, 1).reshape(-1)
+
+
+def tf32_split(x: torch.Tensor):
+    """(hi, lo) with float32 x = hi + lo to about 2^-22 relative: hi is x
+    rounded to tf32 (to nearest, ties away from zero, as cvt.rna.tf32.f32;
+    the low 13 bits zero), lo the remainder rounded likewise, by the
+    integer rule the kernel applies to its activations."""
+    def rna(v):
+        return ((v.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
+def tf32_image(w: torch.Tensor) -> torch.Tensor:
+    """[K_pad, n_pad] float32 -> the flat [K_pad / 8][hi, lo][2][n_pad][4]
+    image of its tf32 split, rows of each 8-block in TF32_ROW_ORDER."""
+    k, n = w.shape
+    blocks = [x.reshape(k // 8, 8, n)[:, list(TF32_ROW_ORDER)].reshape(k // 8, 2, 4, n)
+              .permute(0, 1, 3, 2) for x in tf32_split(w.float().contiguous())]
+    return torch.stack(blocks, 1).reshape(-1)
 
 
 def pack(layers, pos_dim: int, dir_dim: int, dtype: torch.dtype) -> PackedMLP:
@@ -68,7 +100,7 @@ def pack(layers, pos_dim: int, dir_dim: int, dtype: torch.dtype) -> PackedMLP:
     real = {BUF_POS: pos_dim, BUF_DIR: dir_dim}
     padded = {BUF_POS: pos_pad, BUF_DIR: dir_pad}
     device = layers[0][0].device
-    w_parts, s_parts, b_parts, table = [], [], [], []
+    w_parts, s_parts, t_parts, b_parts, table = [], [], [], [], []
     w_off = b_off = macs = 0
     for weight, bias, segments, dst, relu, out_col in layers:
         n_out, k_real = weight.shape
@@ -92,7 +124,10 @@ def pack(layers, pos_dim: int, dir_dim: int, dtype: torch.dtype) -> PackedMLP:
         b = torch.zeros(n_pad, dtype=torch.float32, device=device)
         b[:n_out] = bias.float()
         w_parts.append(w.reshape(-1))
-        s_parts.append(slab_image(w))
+        if dtype == torch.bfloat16:
+            s_parts.append(slab_image(w))
+        else:
+            t_parts.append(tf32_image(w))
         b_parts.append(b.to(dtype).float())
         seg = list(zip(segments, k_pads)) + [(-1, 0)] * (2 - len(segments))
         table.append([w_off, b_off, seg[0][0], seg[0][1], seg[1][0], seg[1][1],
@@ -108,7 +143,8 @@ def pack(layers, pos_dim: int, dir_dim: int, dtype: torch.dtype) -> PackedMLP:
         biases=torch.cat(b_parts).contiguous(),
         table=np.ascontiguousarray(table, np.int64),
         pos_dim=pos_dim, dir_dim=dir_dim, pos_pad=pos_pad, dir_pad=dir_pad, macs=macs,
-        slabs=torch.cat(s_parts).to(dtype).contiguous() if dtype == torch.bfloat16 else None,
+        slabs=torch.cat(s_parts).to(dtype).contiguous() if s_parts else None,
+        tf32_slabs=torch.cat(t_parts).contiguous() if t_parts else None,
     )
 
 
@@ -156,6 +192,10 @@ def mlp_fused(pos_map: torch.Tensor, dir_map: torch.Tensor, packed: PackedMLP) -
                          f"got {tuple(pos_map.shape)} and {tuple(dir_map.shape)}")
     if packed.dtype not in VARIANTS:
         raise TypeError(f"unsupported operand dtype {packed.dtype}")
+    variant = VARIANTS[packed.dtype]
+    weights = packed.slabs if variant == "wgmma_bf16" else packed.tf32_slabs
+    if weights is None or weights.device != dev:
+        raise ValueError(f"{variant} needs its weight image on {dev} (pack() makes it)")
     if n >= 2**31:
         raise ValueError(f"{n} samples in one call; split them (chunked_apply)")
     out = torch.empty(n, 4, dtype=torch.float32, device=dev)
@@ -163,8 +203,6 @@ def mlp_fused(pos_map: torch.Tensor, dir_map: torch.Tensor, packed: PackedMLP) -
         return out
     pos = _pad_cast(pos_map, packed.pos_pad, packed.dtype)
     dirs = _pad_cast(dir_map, packed.dir_pad, packed.dtype)
-    variant = VARIANTS[packed.dtype]
-    weights = packed.slabs if variant == "wgmma_bf16" else packed.weights
     rc = build.entry("mlp_fused")(
         int(variant == "wgmma_bf16"), pos.data_ptr(), dirs.data_ptr(), packed.pos_pad,
         packed.dir_pad, weights.data_ptr(), packed.biases.data_ptr(), packed.table.ctypes.data,

@@ -2,7 +2,9 @@
 
 Builds the bench frame's renderer (``--scene bench``, the 512x512 carpet
 frame), the plush frame's (``--scene plush``, 800x800) or the grass
-frame's (``--scene grass``, 512x512) exactly as chip_smoke.py does, renders the frame twice to warm up, then profiles one
+frame's (``--scene grass``, 512x512) exactly as chip_smoke.py does, or the
+bench frame with an f32 ParamNerf (``--scene bench_f32``, chip_smoke.py's
+f32 bench frame), renders the frame twice to warm up, then profiles one
 render with torch.profiler and prints: the wall time, the summed device
 time of all kernels, the device idle share (1 - busy / wall), the number
 of kernel launches, the kernels ranked by device time, and the port's own
@@ -14,7 +16,7 @@ fetch) and the rest (sort, MLP, composite).
 
 Run from the repo root on a machine with a CUDA card:
 
-    python3 scripts/profile_torch_frame.py [--scene bench|plush|grass] [--top 25] [--root DIR]
+    python3 scripts/profile_torch_frame.py [--scene bench|bench_f32|plush|grass] [--top 25] [--root DIR]
 
 ``--root`` is a checkout of this repo (default: this one) whose
 nerftex_torch and chip_smoke.py are profiled, for before/after runs.
@@ -32,12 +34,12 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # Kernel names of nerftex_torch/kernels/csrc, old and new (matched anywhere
 # in the profiler's name, which may be demangled or not).
 PORT_KERNELS = ("tex_fetch_kernel", "mlp_fused_kernel", "mlp_wgmma_kernel", "mlp_f32_kernel",
-                "selk_resolve_kernel")
+                "mlp_tf32_kernel", "selk_resolve_kernel")
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--scene", choices=("bench", "plush", "grass"), default="bench")
+    ap.add_argument("--scene", choices=("bench", "bench_f32", "plush", "grass"), default="bench")
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--root", default=ROOT)
     args = ap.parse_args()
@@ -54,10 +56,11 @@ def main():
     from nerftex_torch.utils.util import instantiate
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    if args.scene == "bench":
+    if args.scene in ("bench", "bench_f32"):
         inputs = np.load(os.path.join(root, "tests", "torch_bench_inputs.npz"))
         params = {k[len("param/"):]: inputs[k] for k in inputs.files if k.startswith("param/")}
-        model = instantiate(chip_smoke.model_config("bfloat16"), device="cuda")
+        dtype = "float32" if args.scene == "bench_f32" else "bfloat16"
+        model = instantiate(chip_smoke.model_config("bfloat16", compute_dtype=dtype), device="cuda")
         r_cfg = chip_smoke.renderer_config("bfloat16")
         data = frame_rays(512, 512, np.array([0.47, -0.65, 0.6]) * 6.0, 0.55,
                           [1, 1, 1, 0.1, 0, 0, 1.0])

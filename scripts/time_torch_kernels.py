@@ -10,9 +10,10 @@ For the checkout at ``--root`` (default: this one), times on the CUDA card:
                 bench net_chunk) samples, the plush weights at 65,536 (its
                 net_chunk) and the grass weights at 32,768 (its net_chunk),
                 beside the same layer chain as bf16 cuBLAS calls, and the
-                f32 variant (fma_f32) with the bench weights at 262,144
-                beside the chain as f32 cuBLAS calls (TF32 off), with the
-                max and mean |kernel - plain|;
+                f32 variant (bench_f32: the checkout's own, wgmma_tf32x3 or
+                the older fma_f32) with the bench weights at 262,144 and
+                32,768 beside the chain as f32 cuBLAS calls (TF32 off),
+                with the max and mean |kernel - plain|;
   selk_resolve  every method at each frame's check shape
                 (chip_smoke.SELK_SHAPE) and at the render-layout inputs of
                 each hit tier (chip_smoke.SELK_RENDER_SHAPES); then each
@@ -42,8 +43,11 @@ two checkouts' kernels.
 
 Run from the repo root on a machine with a CUDA card:
 
-    python3 scripts/time_torch_kernels.py [--root DIR] [--save-selk FILE]
+    python3 scripts/time_torch_kernels.py [--root DIR] [--save-selk FILE] [--only mlp_fused]
     python3 scripts/time_torch_kernels.py --compare-selk A.npz B.npz
+
+``--only`` times the named kernels alone (tex_fetch, mlp_fused,
+selk_resolve; default all three).
 
 Alternate the checkouts over several processes (A, B, B, A) in one call.
 """
@@ -60,6 +64,7 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+KERNELS = ["tex_fetch", "mlp_fused", "selk_resolve"]
 
 
 def main():
@@ -67,6 +72,7 @@ def main():
     ap.add_argument("--root", default=ROOT)
     ap.add_argument("--save-selk", metavar="FILE")
     ap.add_argument("--compare-selk", nargs=2, metavar=("A", "B"))
+    ap.add_argument("--only", nargs="+", choices=KERNELS, default=KERNELS)
     args = ap.parse_args()
     if args.compare_selk:
         print(json.dumps(compare_selk(*args.compare_selk)), flush=True)
@@ -88,7 +94,7 @@ def main():
     result = {"root": os.path.relpath(root, ROOT), "card": cs.card_line(), "tex_fetch": {},
               "mlp_fused": {}, "selk_resolve": {}}
 
-    for texture in ("smooth_checkerboard.png", "checkerboard.png"):
+    for texture in ("smooth_checkerboard.png", "checkerboard.png") if "tex_fetch" in args.only else ():
         tex = torch.tensor(load_texture_channels(os.path.join(ROOT, "meshes", texture))[0],
                            device=dev).contiguous()
         quads = tex_gather.byte_quads(tex) if hasattr(tex_gather, "byte_quads") else None
@@ -122,8 +128,8 @@ def main():
                       cs.MLP_SAMPLES["plush"]),
             "grass": (cs.grass_model_config(), "torch_grass_inputs.npz", (32768,)),
             "bench_f32": (cs.model_config("float32", compute_dtype="float32"),
-                          "torch_bench_inputs.npz", (262144,))}
-    for frame, (cfg, npz, sizes) in nets.items():
+                          "torch_bench_inputs.npz", (262144, 32768))}
+    for frame, (cfg, npz, sizes) in nets.items() if "mlp_fused" in args.only else ():
         model = instantiate(cfg, device="cuda")
         load_jax_params(model, cs.npz_params(npz))
         packed = model.packed()
@@ -143,16 +149,18 @@ def main():
                    - fused.mlp_fused_plain(pos_map, dir_map, packed)).abs()
             pos_b, dir_b = cs.cublas_inputs(packed, pos_map, dir_map, dtype)
             dt = cs.device_ms(lambda: fused.mlp_fused(pos_map, dir_map, packed), iters=20)
-            rows[n] = {"max_abs_err": float(err.max()), "mean_abs_err": float(err.mean()),
+            rows[n] = {"variant": fused.VARIANTS[packed.dtype],
+                       "max_abs_err": float(err.max()), "mean_abs_err": float(err.mean()),
                        "device_ms": dt, "tflops": 2 * packed.macs * n / dt / 1e9,
                        "ms": cs.time_ms(lambda: fused.mlp_fused(pos_map, dir_map, packed)),
                        "cublas_layers_device_ms": cs.device_ms(lambda: chain(pos_b, dir_b),
                                                                iters=20)}
         result["mlp_fused"][frame] = rows
 
-    result["selk_resolve"], digests = time_selk(cs, selk)
-    if args.save_selk:
-        np.savez(args.save_selk, **digests)
+    if "selk_resolve" in args.only:
+        result["selk_resolve"], digests = time_selk(cs, selk)
+        if args.save_selk:
+            np.savez(args.save_selk, **digests)
     print(json.dumps(result), flush=True)
 
 

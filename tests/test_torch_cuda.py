@@ -132,6 +132,74 @@ def test_mlp_wgmma_matches_plain(cuda, topology, n):
     assert float(err.max()) <= 5e-2 * scale
 
 
+@pytest.mark.parametrize("n", [1, 127, 1000, 32768 + 37])
+@pytest.mark.parametrize("topology", sorted(TOPOLOGIES))
+def test_mlp_tf32x3_matches_plain(cuda, topology, n):
+    """The f32 variant (3xTF32 wgmma) with random nonzero biases, on tile
+    counts below, at and above one tile per SM and ragged last tiles, at
+    chip_smoke.py's f32 tolerance against the plain version (cuBLAS in
+    f32, TF32 off)."""
+    def ff(bands):
+        return {"module": "network.model.FourierFeatures", "n_freq_bands": bands}
+
+    model = instantiate(dict({"module": "network.model.ParamNerf", "pos_embedding": ff(10),
+                              "dir_embedding": ff(4), "param_embedding": ff(4)},
+                             **TOPOLOGIES[topology]), device=cuda)
+    rs = np.random.RandomState(8)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.Linear):
+                m.bias.copy_(torch.tensor(rs.uniform(-0.2, 0.2, m.bias.shape).astype(np.float32)))
+    pos = torch.tensor(rs.uniform(-1, 1, (n, 3)).astype(np.float32), device=cuda)
+    dirs = torch.nn.functional.normalize(
+        torch.tensor(rs.normal(size=(n, 3)).astype(np.float32), device=cuda), dim=-1)
+    prm = torch.tensor(rs.uniform(0, 1, (n, model.n_geo + model.n_app)).astype(np.float32),
+                       device=cuda)
+    pos_map, dir_map = model.feature_maps(pos, dirs, prm)
+    packed = model.packed()
+    before = dict(fused.mlp_fused.variant_launches)
+    got = fused.mlp_fused(pos_map, dir_map, packed)
+    assert fused.mlp_fused.variant_launches == dict(
+        before, wgmma_tf32x3=before["wgmma_tf32x3"] + 1)
+    ref = fused.mlp_fused_plain(pos_map, dir_map, packed)
+    torch.cuda.synchronize()
+    err = (got - ref).abs()
+    scale = max(1.0, float(ref.abs().max()))
+    print(f"{topology} N={n}: max |kernel - plain| {float(err.max()):.3g}, "
+          f"mean {float(err.mean()):.3g}, max |plain| {scale:.3g}")
+    assert torch.isfinite(got).all()
+    assert float(err.max()) <= 1e-4 * scale
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mlp_fused_refuses_bad_inputs(cuda, dtype):
+    """Maps of another dtype, width or device than the packed weights, or
+    weights of an unsupported dtype, raise before any launch."""
+    ff = {"module": "network.model.FourierFeatures", "n_freq_bands": 2}
+    model = instantiate({"module": "network.model.ParamNerf", "pos_embedding": ff,
+                         "dir_embedding": ff, "param_embedding": ff, "n_parameters": [1, 2],
+                         "depth": 2, "width": 64, "skips": [0], "compute_dtype": dtype},
+                        device=cuda)
+    packed = model.packed()
+    pos = torch.rand(10, packed.pos_dim, device=cuda)
+    dirs = torch.rand(10, packed.dir_dim, device=cuda)
+    launches = fused.mlp_fused.launches
+    with pytest.raises(TypeError):
+        fused.mlp_fused(pos.double(), dirs, packed)
+    with pytest.raises(TypeError):
+        fused.mlp_fused(pos.half(), dirs.half(), packed)
+    with pytest.raises(ValueError):
+        fused.mlp_fused(pos[:, 1:], dirs, packed)
+    with pytest.raises(ValueError):
+        fused.mlp_fused(pos, dirs[:5], packed)
+    with pytest.raises(ValueError):
+        fused.mlp_fused(pos, dirs.cpu(), packed)
+    with pytest.raises(TypeError):
+        fused.mlp_fused(pos, dirs, fused.PackedMLP(**dict(vars(packed), dtype=torch.float16)))
+    assert fused.mlp_fused.launches == launches
+    assert fused.mlp_fused(pos, dirs, packed).shape == (10, 4)
+
+
 def selk_inputs(rs, rb, s, k, device="cpu"):
     """Random overlap-resolution inputs (tests/test_selk_kernel.py's recipe
     in numpy): valid slots at random, one all-invalid ray, one ray whose

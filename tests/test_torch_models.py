@@ -172,6 +172,123 @@ def test_fused_slab_image_unpacks_to_each_layer(topology):
     assert tm.packed().slabs is None
 
 
+# The frames' ParamNerf topologies (bench: chip_smoke.model_config; plush and
+# grass: configs/config_{plush,grass}_render.py, the same widths).
+TOPOLOGIES = {"bench": {"n_parameters": [1, 6]},
+              "plush": {"n_parameters": [1, 4], "param_depth": 0, "color_depth": 1}}
+MLP_F32_TOL = 1e-4    # x max(1, max|reference|), chip_smoke.py's f32 MLP tolerance
+
+
+def _tf32(x):
+    """float32 -> tf32 by masking: round to nearest at the 13th bit, ties
+    away from zero, then clear the 13 low bits."""
+    bits = np.asarray(x, np.float32).view(np.int32).astype(np.int64)
+    return ((bits + 0x1000) & ~0x1FFF).astype(np.uint32).view(np.float32)
+
+
+def _unpack_tf32(packed, w_off, k, n_pad):
+    """(hi, lo) [K_pad, n_pad] of one layer read back from the tf32 image:
+    [K/8][hi, lo][2][n_pad][4], each block's rows in TF32_ROW_ORDER."""
+    image = packed.tf32_slabs[2 * w_off:2 * (w_off + k * n_pad)].view(k // 8, 2, 2, n_pad, 4)
+    out = []
+    for half in range(2):
+        rows = torch.empty(k // 8, 8, n_pad)
+        rows[:, list(fused.TF32_ROW_ORDER)] = image[:, half].permute(0, 1, 3, 2).reshape(
+            k // 8, 8, n_pad)
+        out.append(rows.reshape(k, n_pad))
+    return out
+
+
+@pytest.mark.parametrize("topology", sorted(TOPOLOGIES))
+def test_fused_tf32_image_unpacks_to_each_layer(topology):
+    """The wgmma_tf32x3 variant's hi/lo image of every layer, read back,
+    holds tf32 values (13 low bits clear) whose sum is the layer's packed
+    f32 weights to 2^-21 relative, hi being the weights rounded to tf32;
+    every 16-deep K slab of both starts at 2 * (w_off + 16 * n_pad)."""
+    tm = instantiate(_cfg(depth=2, skips=[0], **TOPOLOGIES[topology]), device="cpu")
+    packed = tm.packed()
+    assert packed.slabs is None and packed.tf32_slabs.dtype == torch.float32
+    assert packed.tf32_slabs.numel() == 2 * packed.weights.numel()
+    assert (packed.tf32_slabs.view(torch.int32) & 0x1FFF == 0).all()
+    for w_off, _, s0, k0, s1, k1, n_pad, *_ in packed.table.tolist():
+        k = k0 + (k1 if s1 >= 0 else 0)
+        w = packed.weights[w_off:w_off + k * n_pad].view(k, n_pad)
+        hi, lo = _unpack_tf32(packed, w_off, k, n_pad)
+        assert torch.equal(hi, torch.tensor(_tf32(w.numpy())))
+        assert torch.equal(lo, torch.tensor(_tf32((w - hi).numpy())))
+        assert ((hi + lo - w).abs() <= 2.0**-21 * w.abs()).all()
+        for k_slab in range(0, k, 16):
+            slab = packed.tf32_slabs[2 * (w_off + k_slab * n_pad):2 * (w_off + (k_slab + 16) * n_pad)]
+            rows = torch.empty(2, 8, n_pad)
+            rows[:, list(fused.TF32_ROW_ORDER)] = slab.view(2, 2, 2, n_pad, 4)[:, 0].permute(
+                0, 1, 3, 2).reshape(2, 8, n_pad)
+            assert torch.equal(rows.reshape(16, n_pad), hi[k_slab:k_slab + 16])
+
+
+def _tf32x3_chain(packed, pos_map, dir_map, products=3):
+    """The wgmma_tf32x3 kernel's arithmetic on the CPU: per k8 step, the A
+    operand is the activation at columns 8s + TF32_ROW_ORDER[m] and B the
+    tf32 image read at the kernel's descriptor addresses (core matrices of
+    8 rows x 16 bytes, lbo = 16 n_pad bytes along K, 128 bytes per 8 rows
+    along N, lo 2 lbo after hi); the activation is split by masking, and
+    each step adds a_lo w_hi + a_hi w_lo + a_hi w_hi to an f32 sum
+    (``products=1``: a_hi w_hi alone, single-pass TF32)."""
+    image = packed.tf32_slabs.numpy()
+    bufs = {fused.BUF_POS: np.zeros((len(pos_map), packed.pos_pad), np.float32),
+            fused.BUF_DIR: np.zeros((len(dir_map), packed.dir_pad), np.float32)}
+    bufs[fused.BUF_POS][:, :packed.pos_dim] = pos_map
+    bufs[fused.BUF_DIR][:, :packed.dir_dim] = dir_map
+    out = np.zeros((len(pos_map), 4), np.float32)
+    order = np.array(fused.TF32_ROW_ORDER)
+    m = np.arange(8)[:, None]
+    for w_off, b_off, s0, k0, s1, k1, n_pad, dst, n_out, col, relu in packed.table.tolist():
+        x = np.concatenate([bufs[s0], bufs[s1]], 1) if s1 >= 0 else bufs[s0]
+        n = np.arange(n_pad)[None, :]
+        lbo = 16 * n_pad
+        core = (m // 4) * lbo + (n // 8) * 128 + (n % 8) * 16 + (m % 4) * 4   # bytes in a block
+        acc = np.zeros((len(x), n_pad), np.float32)
+        for s in range(x.shape[1] // 8):
+            block = 8 * w_off + 64 * n_pad * s                                 # image is 2x, f32
+            b_hi = image[(block + core) // 4]
+            b_lo = image[(block + 2 * lbo + core) // 4]
+            a = x[:, 8 * s + order]
+            a_hi = _tf32(a)
+            a_lo = _tf32(a - a_hi)
+            acc += a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi if products == 3 else a_hi @ b_hi
+        y = acc + packed.biases[b_off:b_off + n_pad].numpy()
+        if relu:
+            y = np.maximum(y, 0)
+        if dst == fused.OUT:
+            out[:, col:col + n_out] = y[:, :n_out]
+        else:
+            bufs[dst] = y
+    return out
+
+
+@pytest.mark.parametrize("topology", sorted(TOPOLOGIES))
+def test_tf32x3_rehearsal_matches_pallas_interpret(topology):
+    """The 3xTF32 arithmetic and operand layout of the f32 kernel, emulated
+    on the CPU at the full 8x256 width, against the Pallas kernel in
+    interpret mode at chip_smoke.py's f32 tolerance; single-pass TF32 on
+    the same image misses it."""
+    jm, tm = _pair(**TOPOLOGIES[topology])
+    n_prm = sum(TOPOLOGIES[topology]["n_parameters"])
+    pos, dirs, prm = _inputs(200, n_prm=n_prm, seed=11)
+    pallas = make_fused_apply(jm.static_topology, interpret=True, tile=128)
+    c_j, d_j = (np.asarray(v) for v in pallas(jm.params, pos, dirs, prm))
+    ref = np.concatenate([c_j, d_j], -1)
+    pos_map, dir_map = tm.feature_maps(torch.tensor(pos), torch.tensor(dirs), torch.tensor(prm))
+    packed = tm.packed()
+    got = _tf32x3_chain(packed, pos_map.numpy(), dir_map.numpy())
+    tol = MLP_F32_TOL * max(1.0, float(np.abs(ref).max()))
+    err = float(np.abs(got - ref).max())
+    single = float(np.abs(_tf32x3_chain(packed, pos_map.numpy(), dir_map.numpy(), products=1)
+                          - ref).max())
+    print(f"{topology}: max |3xTF32 - Pallas| {err:.3g}, single pass {single:.3g}, tol {tol:.3g}")
+    assert err <= tol
+    assert single > tol
+
+
 def test_load_jax_params_checks_keys_and_shapes(small_f32):
     jm, tm = small_f32
     flat = flatten_params(jax.tree.map(np.asarray, jm.params))

@@ -106,6 +106,40 @@ def test_render_session_serves_the_jax_frames(sessions):
     assert port_session._frame == 2 and port_session.renderer._call_counter == 2
 
 
+def test_session_rays_are_the_grass_golden_frame_rays(tmp_path):
+    """The session's rays for the grass golden's pose (the config's radius
+    and angle at 512x512) are those of the frame tests/golden_scene_grass.npz
+    was rendered from (GenerateData's camera, tests/torch_grass_inputs.npz):
+    origins equal, directions within 2.4e-7 (the session's float64 focal
+    against the dataset's float32 one), proxy t within 4e-6 where the ray
+    enters the box, the same rays missing it, and the same parameters.  So
+    a served request differs from the golden frame only in its dots and
+    draws (chip_smoke.py's serving phase renders it with both)."""
+    import math
+
+    from nerftex_torch.ops.rays import frame_rays
+
+    inp = np.load(os.path.join(ROOT, "tests", "torch_grass_inputs.npz"))
+    cfg = importlib.import_module("configs.config_grass_render").config
+    proxy = cfg["test_dataset_config"]["proxy_config"]
+    h, w, angle = int(inp["height"]), int(inp["width"]), float(inp["angle"])
+    want = frame_rays(h, w, inp["eye"], angle, inp["parameters"], proxy["b_0"], proxy["b_1"],
+                      focal=w / math.tan(angle / 2) / 2)
+    session = RenderSession(dict(cfg, target_path=str(tmp_path)), operating_point="grass",
+                            device="cpu")
+    assert (session.height, session.width, session.angle) == (h, w, angle)
+    np.testing.assert_array_equal(session.default_parameters, want["parameters"][0])
+    rays_o, rays_d, t, cone = (x.numpy() for x in session.device_rays(session.pose(POSES[0])))
+    np.testing.assert_array_equal(rays_o, want["rays_o"][0])
+    np.testing.assert_allclose(rays_d, want["rays_d"][0], rtol=0, atol=2.4e-7)
+    np.testing.assert_allclose(cone, want["cone_scale"][0], rtol=1e-6)
+    hit = np.isfinite(want["t"][0])
+    np.testing.assert_array_equal(np.isfinite(t), hit)
+    assert hit.any() and not hit.all()
+    np.testing.assert_allclose(t[hit], want["t"][0][hit], rtol=0, atol=4e-6)
+    np.testing.assert_array_equal(t[~hit], want["t"][0][~hit])
+
+
 def test_operating_points_equal_the_jax_module():
     assert operating_points.OPERATING_POINTS == jax_points.OPERATING_POINTS
     assert operating_points.ALIASES == jax_points.ALIASES

@@ -53,15 +53,38 @@ Phases (any failure raises and exits non-zero):
      must equal a direct render of its rays under
      rng.stream_key(STREAM_PERTURB, 0); latency per request and rays/s;
      then the first request's rays through a session with bf16 dots under
-     key(1), its golden PSNR beside the grass frame's.
+     key(1), its golden PSNR beside the grass frame's;
+  9. the carpet and carpet10k frames (configs/config_carpet_render.py and
+     configs/config_carpet10k_render.py, 900 and 10,000 patches on the
+     cloth mesh, at 512x512 with the carpet operating point and their
+     goldens' flags, the golden's bf16 dots, the bench weights, which both
+     configs initialise), each on its config dataset's first item as the
+     port's data layer builds it and JAX's draws for key(1), checked
+     against tests/golden_scene_<scene>.npz at the 50 dB floor on the 8x
+     box downsample, timed (best of 2) with its peak device memory; every
+     kernel against its plain version at the frame's inputs (tex_fetch's
+     first launch, mlp_fused's first net_chunk, every selk_resolve launch);
+  10. the render mode: nerftex_torch.main on
+     configs/config_grass_filtered_render.py at its own settings (512x512,
+     f32, render_chunk 16384, blur_idx 0, five frames) with target_path a
+     temporary directory holding a JAX-layout checkpoint of the
+     grass_filtered weights (tests/torch_grass_filtered_inputs.npz): the
+     five PNGs written, every mlp_fused launch wgmma_tf32x3 and no
+     tex_fetch, the first PNG within one u8 level of a direct render of the
+     dataset's first item under rng.stream_key(STREAM_PERTURB, 0), that
+     render within 1e-3 of the same render through the plain MLP, and the
+     kernels against their plain versions on that render's inputs
+     (mlp_fused at the pos 81 / dir 54 maps).
 The first render of each frame runs with its selk_resolve calls captured
 (selk_capture); the frame's launch histogram (launches by Rb, S, K and
 method, with the window and valid slots of their inputs) is printed on a
 line of its own, and it and the frame's summed bound go into the frame's
-selk_resolve row (the grass row sums its times over the frame's launches).
+selk_resolve row (the grass, carpet, carpet10k and grass_filtered rows
+time all the frame's launches together).
 The last three lines of stdout are the card, the kernels JSON (one row per
-kernel and frame, the f32 MLP in its own frame, bench_f32, and the kernels
-a path did not launch) and the device JSON.
+kernel and frame, the f32 MLP in its own frame, bench_f32, grass_filtered's
+launches those of nerftex_torch.main's five frames, and the kernels a path
+did not launch) and the device JSON.
 """
 
 import contextlib
@@ -78,6 +101,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_PSNR_DB = 55.0                 # bench.py's floor
 PLUSH_GOLDEN_PSNR_DB = 50.0           # scripts/bench_scene.py's floor
 GRASS_GOLDEN_PSNR_DB = 50.0           # the same
+CARPET_GOLDEN_PSNR_DB = 50.0          # the same, carpet and carpet10k
+MAIN_U8_MAX_DIFF = 1                  # nerftex_torch.main's first PNG vs the direct render, u8 levels
+MAIN_PLAIN_MAX_DIFF = 1e-3            # grass_filtered, kernel vs plain MLP (as the f32 bench frame)
+MAIN_FRAMES = 5                       # configs/config_grass_filtered_render.py's dataset_size
 SERVE_MAX_DIFF = 1e-6                 # a request vs the direct render of its rays and key
 # Serving requests at the grass operating point: the golden's pose and
 # parameters, two other poses, and the light moved to the other side.
@@ -291,7 +318,7 @@ def npz_params(name):
 
 # Each scene frame's golden's box-downsampling factor
 # (scripts/bench_scene.py _downsample_factor).
-DOWNSAMPLE = {"plush": 10, "grass": 8}
+DOWNSAMPLE = {"plush": 10, "grass": 8, "carpet": 8, "carpet10k": 8}
 
 
 def proxy_box(scene):
@@ -359,62 +386,77 @@ def golden_psnr(out):
     return 10 * np.log10(1.0 / max(float(np.mean(err * err)), 1e-12))
 
 
-def check_tex(tex_gather, channel, texture):
-    """Both variants of the texture fetch on one channel of ``texture``
-    against the plain version, bit for bit, at uv samples that reach past
-    the borders, at each of TEX_SAMPLES; times of the byte_quad variant the
-    frames run, the f32 variant and grid_sample."""
-    dev = torch.device("cuda")
-    tex = torch.tensor(channel, device=dev).contiguous()
-    quads = tex_gather.byte_quads(tex)
-    if quads is None:
-        raise AssertionError(f"{texture} is not byte valued")
+def tex_shape_row(tex_gather, tex, quads, uv, label):
+    """Both variants of the texture fetch of channel ``tex`` (its byte
+    quads ``quads``) at ``uv`` against the plain version, bit for bit;
+    times of the byte_quad variant the frames run, the f32 variant and
+    grid_sample, and the bound."""
     w, h = tex.shape
     image = tex.T.reshape(1, 1, h, w)
-    shapes = []
-    for n in TEX_SAMPLES:
-        rs = np.random.RandomState(0)
-        uv = torch.tensor(rs.uniform(-0.05, 1.05, (n, 2)).astype(np.float32), device=dev)
-        ref = tex_gather.sample_channel_plain(tex, uv)
-        err = 0.0
-        for variant, q, plain in (("byte_quad", quads, tex_gather.fetch_quads_plain(quads, w, h, uv)),
-                                  ("f32", None, ref)):
-            got = tex_gather.sample_channel(tex, uv, q)
-            torch.cuda.synchronize()
-            if not (torch.equal(got, ref) and torch.equal(got, plain)):
-                raise AssertionError(f"tex_fetch {variant} on {texture} disagrees with its plain "
-                                     f"version: max {float((got - ref).abs().max())}")
-            err = max(err, float((got - plain).abs().max()))
-        grid = (uv * 2 - 1).reshape(1, 1, -1, 2)
+    n = uv.shape[0]
+    ref = tex_gather.sample_channel_plain(tex, uv)
+    err = 0.0
+    for variant, q, plain in (("byte_quad", quads, tex_gather.fetch_quads_plain(quads, w, h, uv)),
+                              ("f32", None, ref)):
+        got = tex_gather.sample_channel(tex, uv, q)
+        torch.cuda.synchronize()
+        if not (torch.equal(got, ref) and torch.equal(got, plain)):
+            raise AssertionError(f"tex_fetch {variant} on {label} disagrees with its plain "
+                                 f"version: max {float((got - ref).abs().max())}")
+        err = max(err, float((got - plain).abs().max()))
+    grid = (uv * 2 - 1).reshape(1, 1, -1, 2)
 
-        def library():
-            return torch.nn.functional.grid_sample(image, grid, mode="bilinear",
-                                                   padding_mode="border", align_corners=True)
+    def library():
+        return torch.nn.functional.grid_sample(image, grid, mode="bilinear",
+                                               padding_mode="border", align_corners=True)
 
-        lib_err = float((library().reshape(-1) - ref).abs().max())
-        nbytes = n * (8 + 4) + quads.numel()
-        shapes.append({
-            "samples": n, "max_abs_err": err,
-            "ms": time_ms(lambda: tex_gather.sample_channel(tex, uv, quads), iters=50),
-            "device_ms": device_ms(lambda: tex_gather.sample_channel(tex, uv, quads)),
-            "f32_variant_device_ms": device_ms(lambda: tex_gather.sample_channel(tex, uv)),
-            "plain_ms": time_ms(lambda: tex_gather.fetch_quads_plain(quads, w, h, uv), iters=50),
-            "bound_ms": max(nbytes / H100_BYTES_PER_S, n * 20 / H100_F32_FLOPS) * 1e3,
-            "bound_by": "bytes",
-            "library_ms": time_ms(library, iters=50),
-            "library_device_ms": device_ms(library),
-            "library_max_abs_err": lib_err,
-        })
-        log(f"tex_fetch ({texture}, {n} samples): byte_quad and f32 bit-equal to plain; "
-            f"byte_quad device {shapes[-1]['device_ms']:.4f} ms (dispatch "
-            f"{shapes[-1]['ms']:.4f}), f32 device {shapes[-1]['f32_variant_device_ms']:.4f} ms, "
-            f"grid_sample device {shapes[-1]['library_device_ms']:.4f} ms (dispatch "
-            f"{shapes[-1]['library_ms']:.4f}), bound {shapes[-1]['bound_ms']:.4f} ms")
+    lib_err = float((library().reshape(-1) - ref).abs().max())
+    nbytes = n * (8 + 4) + quads.numel()
+    row = {
+        "samples": n, "max_abs_err": err,
+        "ms": time_ms(lambda: tex_gather.sample_channel(tex, uv, quads), iters=50),
+        "device_ms": device_ms(lambda: tex_gather.sample_channel(tex, uv, quads)),
+        "f32_variant_device_ms": device_ms(lambda: tex_gather.sample_channel(tex, uv)),
+        "plain_ms": time_ms(lambda: tex_gather.fetch_quads_plain(quads, w, h, uv), iters=50),
+        "bound_ms": max(nbytes / H100_BYTES_PER_S, n * 20 / H100_F32_FLOPS) * 1e3,
+        "bound_by": "bytes",
+        "library_ms": time_ms(library, iters=50),
+        "library_device_ms": device_ms(library),
+        "library_max_abs_err": lib_err,
+    }
+    log(f"tex_fetch ({label}, {n} samples): byte_quad and f32 bit-equal to plain; "
+        f"byte_quad device {row['device_ms']:.4f} ms (dispatch {row['ms']:.4f}), f32 device "
+        f"{row['f32_variant_device_ms']:.4f} ms, grid_sample device "
+        f"{row['library_device_ms']:.4f} ms (dispatch {row['library_ms']:.4f}), bound "
+        f"{row['bound_ms']:.4f} ms")
+    return row
+
+
+def tex_kernel_row(shapes, texture):
+    """The kernels-line row of tex_fetch: the first of ``shapes`` (rows of
+    tex_shape_row), the others riding along."""
     return dict(shapes[0], name="tex_fetch", route="cuda", variant="byte_quad",
                 source="nerftex_torch/kernels/csrc/tex_fetch.cu",
                 replaces="nerftex_tpu/kernels/tex_gather.py:121",
                 library="torch.nn.functional.grid_sample (bilinear, border, align_corners)",
                 texture=texture, shapes=shapes[1:])
+
+
+def check_tex(tex_gather, channel, texture):
+    """The texture fetch on one channel of ``texture`` against the plain
+    version (tex_shape_row) at uv samples that reach past the borders, at
+    each of TEX_SAMPLES."""
+    dev = torch.device("cuda")
+    tex = torch.tensor(channel, device=dev).contiguous()
+    quads = tex_gather.byte_quads(tex)
+    if quads is None:
+        raise AssertionError(f"{texture} is not byte valued")
+    shapes = []
+    for n in TEX_SAMPLES:
+        rs = np.random.RandomState(0)
+        uv = torch.tensor(rs.uniform(-0.05, 1.05, (n, 2)).astype(np.float32), device=dev)
+        shapes.append(tex_shape_row(tex_gather, tex, quads, uv, texture))
+    return tex_kernel_row(shapes, texture)
 
 
 def selk_tensors(tk0, tk1, kvalid, sel_a, sel_b, t_pt, u_sel):
@@ -669,33 +711,55 @@ def mlp_capture(every=False):
         yield calls
 
 
-def check_selk_frame(selk, calls, frame, blend):
+@contextlib.contextmanager
+def tex_capture():
+    """While active, keep the inputs (channel, uv cloned as [N, 2], byte
+    quads) of the render path's first tex_fetch call (the one
+    nerftex_torch.instancing.device makes) in the list it yields."""
+    import nerftex_torch.instancing.device as device
+
+    real = device.sample_channel
+    calls = []
+
+    def capture(tex, uv, quads=None):
+        if not calls:
+            calls.append((tex, uv.reshape(-1, 2).clone(), quads))
+        return real(tex, uv, quads)
+
+    device.sample_channel = capture
+    try:
+        yield calls
+    finally:
+        device.sample_channel = real
+
+
+def check_selk_frame(selk, calls, frame):
     """The selk_resolve kernel against its plain version on every launch of
     a frame, as captured (selk_capture with inputs kept): picks and n_active
-    as compare_selk requires; the frame's summed kernel times (event and
-    graph-replayed), plain time (one synchronised call each) and bound,
-    bound by what bounds the launches that hold most of it."""
-    total = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    as compare_selk requires; the frame's launches timed together (event
+    time, and replayed from one CUDA graph), the plain version's, and the
+    summed bound, bound by what bounds the launches that hold most of it."""
     bound_by = {"bytes": 0.0, "operations": 0.0}
-    mism, p_err = 0, 0.0
+    mism, p_err, bound = 0, 0.0, 0.0
     works = torch.stack([c["work"] for c in calls]).tolist()
     for call, work in zip(calls, works):
         args, kw = call["args"]
         stats = compare_selk(selk, args, kw["method"], kw["blend_range"])
         mism += stats["mismatches"]
         p_err = max(p_err, stats["max_abs_err"])
-        total["ms"] += time_ms(lambda: selk.selk_resolve(*args, **kw), iters=10, warmup=2)
-        total["device_ms"] += device_ms(lambda: selk.selk_resolve(*args, **kw), iters=10)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        selk.selk_resolve_plain(*args, **kw)
-        torch.cuda.synchronize()
-        total["plain_ms"] += (time.perf_counter() - t0) * 1e3
         bound_ms, by = selk_bound(*call["key"], work)
-        total["bound_ms"] += bound_ms
+        bound += bound_ms
         bound_by[by] += bound_ms
+
+    def run(fn):
+        return lambda: [fn(*c["args"][0], **c["args"][1]) for c in calls]
+
+    total = {"ms": time_ms(run(selk.selk_resolve), iters=1, warmup=1),
+             "device_ms": device_ms(run(selk.selk_resolve), iters=1),
+             "plain_ms": time_ms(run(selk.selk_resolve_plain), iters=1, warmup=0),
+             "bound_ms": bound}
     log(f"selk_resolve on the {frame} frame's {len(calls)} launches: {mism} picks differ, max "
-        f"|p - plain| {p_err:.3g}; summed kernel device {total['device_ms']:.4f} ms (dispatch "
+        f"|p - plain| {p_err:.3g}; frame kernel device {total['device_ms']:.4f} ms (dispatch "
         f"{total['ms']:.4f}), plain {total['plain_ms']:.2f} ms, bound {total['bound_ms']:.4f} ms")
     return dict(total, name="selk_resolve", route="cuda", per="frame",
                 source="nerftex_torch/kernels/csrc/selk_resolve.cu",
@@ -886,6 +950,234 @@ def bf16_dots(config):
     return dict(config, model_config=model, renderer_config=renderer)
 
 
+def carpet_configs(scene):
+    """configs/config_<scene>_render.py's ParamNerf and renderer at the
+    carpet operating point (nerftex_torch.operating_points: block 1024,
+    max_hits 48, step cap 320, culls 448/384, bf16) and its golden's flags
+    (scripts/ab_round3e.sh:35-36 for carpet, scripts/ab.py's carpet10k
+    preset: the whole frame in one render chunk), with the golden's bf16
+    dots (bf16_dots)."""
+    import importlib
+
+    from nerftex_torch.operating_points import resolve
+
+    config = bf16_dots(importlib.import_module(f"configs.config_{scene}_render").config)
+    op = resolve(scene)
+    model = dict(config["model_config"], compute_dtype=op["compute_dtype"])
+    renderer = dict(config["renderer_config"], **op["renderer"], render_chunk=512 * 512)
+    renderer["instancer_config"] = dict(renderer["instancer_config"], **op["instancer"])
+    return model, renderer
+
+
+def config_item(scene, index=0):
+    """Item ``index`` of configs/config_<scene>_render.py's test dataset,
+    built by the port's data layer (Dataset over GenerateData, Full
+    pixels, Proxy rays) after the config's seed, as scripts/bench_scene.py
+    takes its frame; with the frame's height and width."""
+    import importlib
+
+    from nerftex_torch.utils import rng
+    from nerftex_torch.utils.util import instantiate
+
+    config = importlib.import_module(f"configs.config_{scene}_render").config
+    rng.set_seed(config["seed"])
+    ds = instantiate(config["test_dataset_config"])
+    return list(ds.take(index + 1))[index], ds.height, ds.width
+
+
+def carpet_frame(scene, params, counts, card):
+    """The 512x512 frame of configs/config_<scene>_render.py (carpet or
+    carpet10k) at the carpet operating point and its golden's flags
+    (carpet_configs), on the config dataset's first item (config_item),
+    with the bench weights (the configs initialise them) and JAX's draws
+    for key(1); gated at CARPET_GOLDEN_PSNR_DB against
+    tests/golden_scene_<scene>.npz on the 8x box downsample, timed (best
+    of 2), with its peak device memory.  Each kernel against its plain
+    version at the frame's inputs: tex_fetch on its first launch, mlp_fused
+    on its first net_chunk, selk_resolve on every launch.  Returns the
+    frame's numbers, its kernels' rows and its launch counts."""
+    from nerftex_torch.kernels import mlp_fused as fused, selk_resolve as selk, tex_gather
+    from nerftex_torch.render.checkpoint import load_jax_params
+    from nerftex_torch.utils import jax_rng
+    from nerftex_torch.utils.util import instantiate
+
+    reset_counts, read_counts, check_counts = counts
+    data, h, w = config_item(scene)
+    model_cfg, renderer_cfg = carpet_configs(scene)
+    model = instantiate(model_cfg, device="cuda")
+    load_jax_params(model, params)
+    t0 = time.perf_counter()
+    renderer = instantiate(dict(renderer_cfg, model=model, device="cuda"))
+    build_s = time.perf_counter() - t0
+    n_instances = renderer.instancer.n_instances()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    with selk_capture(keep_inputs=True) as selk_calls, mlp_capture() as mlp_calls, \
+            tex_capture() as tex_calls:
+        out = renderer(**data, key=jax_rng.key(1))
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches, variants = read_counts()
+    log(f"{scene} frame ({n_instances} instances, scene build {build_s:.2f} s, first render "
+        f"{first_s:.2f} s): launches {launches}, variants {variants}")
+    check_counts(scene, launches, variants)
+    psnr = frame_psnr(scene, out, h, w)
+    log(f"{scene} golden check: {psnr:.2f} dB (floor {CARPET_GOLDEN_PSNR_DB}, 8x downsample)")
+    if not psnr >= CARPET_GOLDEN_PSNR_DB:
+        raise AssertionError(f"{scene} frame diverged from golden: {psnr:.2f} dB")
+    best = float("inf")
+    for _ in range(2):
+        t0 = time.perf_counter()
+        renderer(**data, key=jax_rng.key(1))
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"{scene} frame: best of 2 warm renders {best * 1e3:.1f} ms -> {h * w / best:.1f} rays/s, "
+        f"peak device memory {peak:.2f} GiB on {card}")
+    tex, uv, quads = tex_calls[0]
+    packed = mlp_calls[0][2]
+    rows = {
+        "tex_fetch": tex_kernel_row([tex_shape_row(tex_gather, tex, quads, uv,
+                                                   f"the {scene} frame's first launch")],
+                                    "smooth_checkerboard.png"),
+        "mlp_fused": mlp_kernel_row(fused, packed, [mlp_row(
+            fused, packed, *mlp_calls[0][:2], "bfloat16", f"the {scene} frame's first net_chunk")]),
+        "selk_resolve": dict(check_selk_frame(selk, selk_calls, scene),
+                             **selk_frame_record(selk_calls, launches["selk_resolve"], scene)),
+    }
+    frame = {"rays_per_s": h * w / best, "best_ms": best * 1e3, "golden_psnr_db": psnr,
+             "peak_gib": peak, "first_render_s": first_s, "instances": n_instances}
+    selk_calls.clear()
+    mlp_calls.clear()
+    tex_calls.clear()
+    del renderer, model, out
+    torch.cuda.empty_cache()
+    return frame, rows, launches
+
+
+def main_render_mode(params, counts, card):
+    """``python -m nerftex_torch.main configs/config_grass_filtered_render.py``
+    at the config's own settings (512x512, f32 ParamNerf, render_chunk
+    16384, n_samples 1024, blur_idx 0, MAIN_FRAMES frames), in process,
+    with target_path a temporary directory whose checkpoints/ holds the
+    grass_filtered weights in the JAX package's pickle layout (a config
+    module there imports the shipped one and sets it).  Checks: the PNGs
+    written; every mlp_fused launch wgmma_tf32x3, no tex_fetch; the first
+    PNG within MAIN_U8_MAX_DIFF u8 levels of a direct InstanceRenderer
+    render of the dataset's first item under stream_key(STREAM_PERTURB, 0);
+    that render within MAIN_PLAIN_MAX_DIFF of the same render with
+    mlp_fused routed to its plain version; mlp_fused (pos map 81, dir map
+    54) on the direct render's first net_chunk and selk_resolve on each of
+    its launches against their plain versions.  Returns the numbers, the
+    kernels' rows and main's launch counts."""
+    import importlib
+    import tempfile
+
+    from nerftex_torch import main as port_main
+    from nerftex_torch.kernels import mlp_fused as fused, selk_resolve as selk
+    from nerftex_torch.render.checkpoint import (CheckpointManager, load_jax_params,
+                                                 unflatten_params)
+    from nerftex_torch.render.serve import straight_rgba
+    from nerftex_torch.utils import rng
+    from nerftex_torch.utils.image import decode_png_u8, encode_png
+    from nerftex_torch.utils.util import instantiate
+
+    reset_counts, read_counts, check_counts = counts
+    config = importlib.import_module("configs.config_grass_filtered_render").config
+    loader = config["test_dataset_config"]["data_loader_config"]
+    h, w = loader["height"], loader["width"]
+    if loader["dataset_size"] != MAIN_FRAMES:
+        raise AssertionError(f"the config renders {loader['dataset_size']} frames")
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix="_main_") as target:
+        CheckpointManager(os.path.join(target, "checkpoints")).save(
+            {"models": {"model": unflatten_params(params)}, "extra": {"step": 1}}, 1)
+        cfg_path = os.path.join(os.path.basename(target), "grass_filtered_render.py")
+        with open(os.path.join(ROOT, cfg_path), "w") as f:
+            f.write("from configs.config_grass_filtered_render import config as _config\n\n"
+                    f"config = dict(_config, target_path={target!r})\n")
+        reset_counts()
+        t0 = time.perf_counter()
+        port_main.main([cfg_path])
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t0
+        launches, variants = read_counts()
+        log(f"nerftex_torch.main {cfg_path} ({MAIN_FRAMES} frames at {h}x{w}): {main_s:.2f} s -> "
+            f"{MAIN_FRAMES * h * w / main_s:.1f} rays/s; launches {launches}, variants {variants}")
+        check_counts("grass_filtered (main)", launches, variants, idle=("tex_fetch",),
+                     want=F32_FRAME_VARIANTS)
+        media = os.path.join(target, "media", "test")
+        names = sorted(os.listdir(media))
+        if names != [f"{i}.png" for i in range(MAIN_FRAMES)]:
+            raise AssertionError(f"nerftex_torch.main wrote {names}")
+        images = []
+        for name in names:
+            with open(os.path.join(media, name), "rb") as f:
+                images.append(decode_png_u8(f.read()).astype(np.int32))
+            if images[-1].shape != (h, w, 4):
+                raise AssertionError(f"{name} is {images[-1].shape}, not {h}x{w} RGBA")
+        if all(img[..., 3].max() == 0 for img in images):
+            raise AssertionError("every image nerftex_torch.main wrote is empty")
+
+        # The direct render of the dataset's first item with the same key.
+        rng.set_seed(config["seed"])
+        data = list(instantiate(config["test_dataset_config"]).take(1))[0]
+        model = instantiate(config["model_config"], device="cuda")
+        load_jax_params(model, params)
+        renderer = instantiate(dict(config["renderer_config"], model=model, device="cuda"))
+        key = rng.stream_key(rng.STREAM_PERTURB, 0)
+        reset_counts()
+        t0 = time.perf_counter()
+        with selk_capture(keep_inputs=True) as selk_calls, mlp_capture() as mlp_calls:
+            out = renderer(**data, key=key)
+        torch.cuda.synchronize()
+        direct_s = time.perf_counter() - t0
+        direct_launches, direct_variants = read_counts()
+        check_counts("grass_filtered (direct)", direct_launches, direct_variants,
+                     idle=("tex_fetch",), want=F32_FRAME_VARIANTS)
+        color, alpha = out["color_pred"][0].cpu().numpy(), out["alpha_pred"][0].cpu().numpy()
+        direct = decode_png_u8(encode_png(straight_rgba(color, alpha, h, w))).astype(np.int32)
+        u8_diff = int(np.abs(direct - images[0]).max())
+        u8_share = float(np.mean(direct != images[0]))
+        with mlp_wrap(lambda real, *args: real.mlp_fused_plain(*args)):
+            plain = renderer(**data, key=key)
+        plain_diff = max(float((out[k] - plain[k]).abs().max()) for k in ("color_pred",
+                                                                            "alpha_pred"))
+        log(f"grass_filtered: first PNG vs the direct render under stream_key(STREAM_PERTURB, 0): "
+            f"max {u8_diff} u8 levels (limit {MAIN_U8_MAX_DIFF}), {u8_share:.2e} of values differ; "
+            f"direct render {direct_s:.2f} s (launches {direct_launches}), max |kernel - plain "
+            f"MLP| {plain_diff:.3g} (limit {MAIN_PLAIN_MAX_DIFF}), alpha mean "
+            f"{float(alpha.mean()):.4f}")
+        if not u8_diff <= MAIN_U8_MAX_DIFF:
+            raise AssertionError(f"nerftex_torch.main's first image differs from the direct "
+                                 f"render by {u8_diff} u8 levels")
+        if not plain_diff <= MAIN_PLAIN_MAX_DIFF:
+            raise AssertionError(f"the grass_filtered frame through the kernel differs from the "
+                                 f"plain MLP's by {plain_diff}")
+        packed = mlp_calls[0][2]
+        if (packed.pos_dim, packed.dir_dim) != (81, 54):
+            raise AssertionError(f"grass_filtered maps {packed.pos_dim}/{packed.dir_dim} wide")
+        rows = {
+            "mlp_fused": mlp_kernel_row(fused, packed, [mlp_row(
+                fused, packed, *mlp_calls[0][:2], "float32",
+                "the grass_filtered frame's first net_chunk")]),
+            "selk_resolve": dict(check_selk_frame(selk, selk_calls, "grass_filtered"),
+                                 **selk_frame_record(selk_calls, direct_launches["selk_resolve"],
+                                                     "grass_filtered")),
+        }
+        for row in rows.values():
+            row["direct_render_launches"] = direct_launches[row["name"]]
+        selk_calls.clear()
+        mlp_calls.clear()
+        del renderer, model, out, plain
+        torch.cuda.empty_cache()
+    return ({"frames": MAIN_FRAMES, "main_s": main_s, "rays_per_s": MAIN_FRAMES * h * w / main_s,
+             "direct_render_s": direct_s, "first_vs_direct_max_u8": u8_diff,
+             "first_vs_direct_share": u8_share, "plain_max_abs_diff": plain_diff},
+            rows, launches)
+
+
 def serve_grass(params, h, w, reset_counts, read_counts, check_counts, card, frame_psnr_db):
     """Serve SERVE_REQUESTS through RenderSession(config_grass_render,
     operating_point="grass") on the card from a checkpoint of the grass
@@ -1071,12 +1363,12 @@ def main():
         out = renderer(**data, key=jax_rng.key(1))
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    carpet_launches, carpet_variants = read_counts()
-    log(f"bench frame (first render {first_s:.2f} s): launches {carpet_launches}, variants "
-        f"{carpet_variants}")
-    check_counts("bench", carpet_launches, carpet_variants)
+    bench_launches, bench_variants = read_counts()
+    log(f"bench frame (first render {first_s:.2f} s): launches {bench_launches}, variants "
+        f"{bench_variants}")
+    check_counts("bench", bench_launches, bench_variants)
     rows["bench"]["selk_resolve"].update(
-        selk_frame_record(selk_calls, carpet_launches["selk_resolve"], "bench"))
+        selk_frame_record(selk_calls, bench_launches["selk_resolve"], "bench"))
     psnr = golden_psnr(out)
     log(f"golden check: {psnr:.2f} dB (floor {GOLDEN_PSNR_DB})")
     if not psnr >= GOLDEN_PSNR_DB:
@@ -1097,7 +1389,7 @@ def main():
     f32_out = build_renderer("float32")(**data, key=jax_rng.key(1))
     log(f"golden check with float32 matmul operands: {golden_psnr(f32_out):.2f} dB (not gated)")
     del renderer, out, f32_out
-    carpet = {"rays_per_s": rays_per_s, "best_ms": best * 1e3, "golden_psnr_db": psnr}
+    bench = {"rays_per_s": rays_per_s, "best_ms": best * 1e3, "golden_psnr_db": psnr}
     log(f"phase bench frame: {time.perf_counter() - t_phase:.1f} s")
 
     # -- the f32 bench frame --------------------------------------------------------
@@ -1240,9 +1532,7 @@ def main():
         "mlp_fused": mlp_kernel_row(fused, mlp_calls[0][2], [mlp_row(
             fused, mlp_calls[0][2], *mlp_calls[0][:2], "bfloat16",
             "the grass frame's first net_chunk")]),
-        "selk_resolve": dict(check_selk_frame(selk, selk_calls, "grass",
-                                              renderer.instancer.device_instancer.ds
-                                              .nearest_blend_range),
+        "selk_resolve": dict(check_selk_frame(selk, selk_calls, "grass"),
                              **selk_frame_record(selk_calls, grass_launches["selk_resolve"],
                                                  "grass")),
     }
@@ -1253,6 +1543,16 @@ def main():
     torch.cuda.empty_cache()
     log(f"phase grass frame: {time.perf_counter() - t_phase:.1f} s")
 
+    # -- the carpet and carpet10k frames ------------------------------------------------
+    counts = (reset_counts, read_counts, check_counts)
+    frames = {"bench": bench, "bench_f32": f32_frame, "plush": plush, "grass": grass}
+    launches = {"bench": bench_launches, "bench_f32": f32_launches, "plush": plush_launches,
+                "grass": grass_launches}
+    for scene in ("carpet", "carpet10k"):
+        t_phase = time.perf_counter()
+        frames[scene], rows[scene], launches[scene] = carpet_frame(scene, params, counts, card)
+        log(f"phase {scene} frame: {time.perf_counter() - t_phase:.1f} s")
+
     # -- serving: RenderSession at the grass operating point -----------------------
     t_phase = time.perf_counter()
     serve, serve_launches = serve_grass(g_params, h, w, reset_counts, read_counts, check_counts,
@@ -1261,20 +1561,27 @@ def main():
     rows["grass"]["selk_resolve"]["serve_launches"] = serve_launches["selk_resolve"]
     log(f"phase serving: {time.perf_counter() - t_phase:.1f} s")
 
-    launches = {"bench": carpet_launches, "bench_f32": f32_launches, "plush": plush_launches,
-                "grass": grass_launches}
+    # -- the render mode: nerftex_torch.main on grass_filtered ----------------------------
+    t_phase = time.perf_counter()
+    frames["grass_filtered"], rows["grass_filtered"], launches["grass_filtered"] = (
+        main_render_mode(npz_params("torch_grass_filtered_inputs.npz"), counts, card))
+    log(f"phase render mode (nerftex_torch.main): {time.perf_counter() - t_phase:.1f} s")
+
     kernels = [dict(row, frame=frame, launches=launches[frame][name])
                for frame in launches for name, row in rows[frame].items()]
-    log(json.dumps({"frames": {"bench": carpet, "bench_f32": f32_frame, "plush": plush,
-                               "grass": grass},
-                    "serving": serve, "card": card, "seconds": time.perf_counter() - t_start}))
+    log(json.dumps({"frames": frames, "serving": serve, "card": card,
+                    "seconds": time.perf_counter() - t_start}))
     log(card)
     why = "configs/config_grass_render.py has no texture channel (textures ['', 'point'])"
     log(json.dumps({"kernels": kernels, "not_launched": [
         {"frame": "grass", "name": "tex_fetch", "launches": grass_launches["tex_fetch"],
          "why": why},
         {"frame": "grass serving", "name": "tex_fetch", "launches": serve_launches["tex_fetch"],
-         "why": why}]}))
+         "why": why},
+        {"frame": "grass_filtered", "name": "tex_fetch",
+         "launches": launches["grass_filtered"]["tex_fetch"],
+         "why": "configs/config_grass_filtered_render.py has no texture channel (textures "
+                "['', '', 'light'])"}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -11,7 +11,12 @@ from nerftex_torch.utils.util import instantiate
 
 
 class InstanceRenderer(Renderer):
-    """Eval-only renderer marching rays through instanced patch volumes."""
+    """Eval-only renderer marching rays through instanced patch volumes.
+    With ``blur_idx`` the parameter slot of that index is scaled per sample
+    by cone_scale * t / patch_scale, the ray's footprint at the sample in
+    patch units (the filtered configs' blur conditioning)."""
+
+    supports_blur = True
 
     def __init__(
         self,
@@ -49,7 +54,8 @@ class InstanceRenderer(Renderer):
         k_inst = jax_rng.split(key)[0]
         if self.sorted_blocks:
             def shade_block(inst_block, extra_block):
-                return self._shade(inst_block)
+                (cone_block,) = extra_block
+                return self._shade(inst_block, cone_block)
 
             def empty_block(ray_block, extra_block):
                 # Zero marching steps: every sample alpha is exactly 0 (the
@@ -65,7 +71,7 @@ class InstanceRenderer(Renderer):
         else:
             inst = dev_inst.get_model_input(rays_o, rays_d, parameters, self.n_samples,
                                             self.step_size, key=k_inst)
-            color_map, alpha_map = self._shade(inst)
+            color_map, alpha_map = self._shade(inst, cone_scale)
 
         # Rays culled by the proxy (t = inf) contribute nothing; instancer
         # misses already have zero weights.
@@ -106,8 +112,20 @@ class InstanceRenderer(Renderer):
         density[mask] = d[:, 0]
         return color, density
 
-    def _shade(self, inst):
-        color, density = self._eval_mlp(inst["pts"], inst["rays_d"], inst["parameters"],
+    def _model_parameters(self, inst, cone_scale):
+        """The per-sample parameters [R,S,P], the blur slot scaled by
+        cone_scale [R,1] * t [R,S] / patch_scale in the JAX package's
+        order of operations (_model_inputs), before the Fourier lift."""
+        prms = inst["parameters"]
+        if self.blur_idx is None:
+            return prms
+        blur_scale = cone_scale[:, None, :] * inst["t"][:, :, None] / self.patch_scale
+        b = self.blur_idx
+        return torch.cat([prms[..., :b], prms[..., b, None] * blur_scale, prms[..., b + 1:]], -1)
+
+    def _shade(self, inst, cone_scale):
+        color, density = self._eval_mlp(inst["pts"], inst["rays_d"],
+                                        self._model_parameters(inst, cone_scale),
                                         inst["dists"] > 0)
         if self.density_reweighting:
             density = density * inst["alpha_weight"]

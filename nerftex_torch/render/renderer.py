@@ -6,7 +6,8 @@ utils.rng.stream_key(STREAM_PERTURB, n) for its n-th keyless call, as the
 JAX package's Renderer does, so the same seed renders the same frames.
 
 Inference only in this slice: the stratified training renderer, remat and
-importance sampling come with the training slice.
+importance sampling come with the training slice, and so does the plain
+renderer's ``blur_idx``; ``InstanceRenderer`` scales its blur slot.
 """
 
 import torch
@@ -28,6 +29,9 @@ def chunked_apply(fn, inputs, net_chunk: int):
 class Renderer:
     """Chunked ray-batch loop; subclasses implement ``render_rays``."""
 
+    # Whether the subclass applies blur_idx (the per-sample blur slot).
+    supports_blur = False
+
     def __init__(
         self,
         model=None,
@@ -42,14 +46,16 @@ class Renderer:
     ) -> None:
         if raw_noise_std:
             raise NotImplementedError("raw_noise_std > 0 comes with the training slice")
-        if blur_idx is not None:
-            raise NotImplementedError("blur_idx comes with the mip/filtered slice")
+        if blur_idx is not None and not self.supports_blur:
+            raise NotImplementedError(f"blur_idx on {type(self).__name__} comes with the "
+                                      f"training slice")
         self.device = resolve_device(device)
         self.model = None if model is None else model.to(self.device)
         self.n_samples = n_samples
         self.render_chunk = render_chunk
         self.net_chunk = net_chunk
         self.map_exr = map_exr
+        self.blur_idx = blur_idx
         self._call_counter = 0
 
     def render_rays(self, rays_o, rays_d, t, parameters, cone_scale, composite_bkgd,

@@ -17,7 +17,6 @@ the config's seed, so a session serves the JAX package's frames.
 """
 
 import importlib
-import io
 import json
 import os
 import sys
@@ -29,6 +28,7 @@ from nerftex_torch import operating_points
 from nerftex_torch.ops.rays import look_at, rays_from_camera_device
 from nerftex_torch.render.checkpoint import CheckpointManager, load_jax_params
 from nerftex_torch.utils import rng
+from nerftex_torch.utils.image import encode_png
 from nerftex_torch.utils.util import EasyDict, instantiate, resolve_device
 
 
@@ -156,19 +156,6 @@ class RenderSession:
 # ---------------------------------------------------------------------------
 # HTTP front end (stdlib only)
 # ---------------------------------------------------------------------------
-
-
-def encode_png(img: np.ndarray) -> bytes:
-    """float32 [H, W, C] in [0, 1] -> PNG bytes."""
-    from PIL import Image
-
-    arr = np.clip(np.asarray(img) * 255.0 + 0.5, 0, 255).astype(np.uint8)
-    mode = {1: "L", 3: "RGB", 4: "RGBA"}[arr.shape[-1]]
-    if arr.shape[-1] == 1:
-        arr = arr[..., 0]
-    buf = io.BytesIO()
-    Image.fromarray(arr, mode).save(buf, format="PNG")
-    return buf.getvalue()
 
 
 def make_handler(session: RenderSession):

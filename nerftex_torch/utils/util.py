@@ -3,11 +3,16 @@
 Configs are nested ``{'module': 'pkg.mod.Attr', **kwargs}`` dicts written
 against the reference's module paths (``network.model.ParamNerf``, ...).
 Those paths resolve to nerftex_tpu through the repo's shim packages, so
-this runtime first maps them to the port's classes through ``REMAP``;
-any other path is imported as written.
+this runtime maps them to the port's classes through ``REMAP``.  A path
+under a reference namespace (``network.``, ``data.``, ``instancer.``,
+``util.``) that ``REMAP`` does not hold raises ``UnportedPathError``
+rather than reach the JAX package through a shim; any other path is
+imported as written.
 """
 
 import importlib
+import math
+import subprocess
 from typing import Any
 
 import torch
@@ -23,7 +28,15 @@ REMAP = {
     "network.proxy.AABB": "nerftex_torch.ops.proxy.AABB",
     # GenerateData's default pose distribution names data.dist.
     "data.dist.Hemisphere": "nerftex_torch.data.distribution.Hemisphere",
+    "network.render.Render": "nerftex_torch.render.render.Render",
+    "network.logger.Logger": "nerftex_torch.render.logger.Logger",
 }
+REMAP.update({f"network.dataset.{name}": f"nerftex_torch.data.dataset.{name}"
+              for name in ("Dataset", "GenerateData", "FileFolder", "TFRecord")})
+REMAP.update({f"network.pixel_sampler.{name}": f"nerftex_torch.data.pixel_sampler.{name}"
+              for name in ("Full", "Independent", "Proxy")})
+REMAP.update({f"network.ray_sampler.{name}": f"nerftex_torch.data.ray_sampler.{name}"
+              for name in ("Frustum", "Proxy")})
 REMAP.update({f"data.sampler.{name}": f"nerftex_torch.data.sampler.{name}"
               for name in ("Sampler", "Independent", "Constant", "Grid", "Stratified", "Concat")})
 REMAP.update({f"data.distribution.{name}": f"nerftex_torch.data.distribution.{name}"
@@ -36,9 +49,22 @@ def get_attr_from_module(module_name: str, attr_name: str) -> Any:
     return getattr(module, attr_name)
 
 
+# The shim packages' namespaces: their paths resolve into nerftex_tpu.
+REFERENCE_NAMESPACES = ("network", "data", "instancer", "util")
+
+
+class UnportedPathError(NotImplementedError):
+    """A reference module path that the port does not map (REMAP)."""
+
+
 def get_attr_from_path(path: str) -> Any:
     """Resolve a dotted ``pkg.mod.Attr`` path (after ``REMAP``)."""
-    path = REMAP.get(path, path)
+    if path in REMAP:
+        path = REMAP[path]
+    elif path.split(".")[0] in REFERENCE_NAMESPACES:
+        raise UnportedPathError(
+            f"{path!r} is a reference module path that nerftex_torch does not port yet "
+            f"(nerftex_torch.utils.util.REMAP has no entry for it)")
     module_name, _, attr_name = path.rpartition(".")
     return get_attr_from_module(module_name, attr_name)
 
@@ -89,3 +115,22 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device available; pass device='cpu' to run on the CPU"
         )
     return torch.device("cuda")
+
+
+def format_name(prefix: str, idx: int, max_idx: int, suffix: str) -> str:
+    """Zero-pad ``idx`` wide enough to fit ``max_idx``."""
+    n_chars = max(1, math.ceil(math.log10(max_idx + 1)))
+    return prefix + ("{:0" + str(n_chars) + "d}").format(idx) + suffix
+
+
+def get_git_hash() -> str:
+    """The short hash of the checkout's HEAD, or "unknown"."""
+    try:
+        return (
+            subprocess.check_output(["git", "rev-parse", "--short", "HEAD"],
+                                    stderr=subprocess.DEVNULL)
+            .strip()
+            .decode("utf-8")
+        )
+    except (OSError, subprocess.CalledProcessError):
+        return "unknown"

@@ -1,6 +1,7 @@
-"""Write tests/torch_bench_inputs.npz, tests/torch_plush_inputs.npz and
-tests/torch_grass_inputs.npz: the JAX side of the bench, plush and grass
-frames for the PyTorch port.
+"""Write tests/torch_bench_inputs.npz, tests/torch_plush_inputs.npz,
+tests/torch_grass_inputs.npz and tests/torch_grass_filtered_inputs.npz:
+the JAX side of the bench, plush, grass and grass_filtered frames for the
+PyTorch port.
 
 Each frame depends on a ParamNerf's initial weights, which only JAX's PRNG
 makes; the port draws every random number of a render itself
@@ -11,8 +12,8 @@ scripts/bench_render.build initialises them:
   param/<layer>/<w|b>  the ParamNerf parameter tree, "/"-joined keys
                        (nerftex_torch.render.checkpoint.load_jax_params)
 
-The plush and grass files (configs/config_<scene>_render.py, as
-scripts/bench_scene.py renders them for tests/golden_scene_<scene>.npz)
+The plush, grass and grass_filtered files (configs/config_<scene>_render.py,
+as scripts/bench_scene.py renders them for tests/golden_scene_<scene>.npz)
 hold the scene's ParamNerf weights and its camera:
 
   param/<layer>/<w|b>  the ParamNerf parameter tree
@@ -21,6 +22,12 @@ hold the scene's ParamNerf weights and its camera:
                        width / tan(angle / 2) / 2, a Python float)
   parameters           float32 [P] the frame's parameter vector
   height, width        the frame size
+
+The carpet and carpet10k configs initialise the bench file's weights
+(``scene_inputs("carpet")`` and ``scene_inputs("carpet10k")`` equal
+``bench_params()``: the same seed, init counter and ParamNerf), so their
+frames load tests/torch_bench_inputs.npz and no file of their own is
+written; ``main`` checks that they still agree.
 
 ``jax_u_offsets`` computes the per-ray offsets a JAX render draws, for
 tests that hold the port's draws against them.
@@ -111,10 +118,14 @@ def scene_inputs(scene: str) -> dict:
     out = {f"param/{k}": v for k, v in _flat_params(model).items()}
 
     # GenerateData places the camera at pose_dist() * radius, looking at the
-    # origin; the first record is the frame bench_scene.py renders.
+    # origin; the first record is the frame bench_scene.py renders.  A
+    # radius that is itself a distribution: the first record's camera.
     loader = cfg.test_dataset_config.data_loader_config
-    eye = np.asarray(util.instantiate(loader.pose_dist_config)(), np.float64) * loader.radius
     record = ds.source[0]
+    if isinstance(loader.radius, dict):
+        eye = np.asarray(record["pose"][:3, 3], np.float64)
+    else:
+        eye = np.asarray(util.instantiate(loader.pose_dist_config)(), np.float64) * loader.radius
     out.update(eye=eye, target=np.zeros(3), angle=np.float64(loader.angle),
                parameters=np.asarray(record["parameters"], np.float32).reshape(-1),
                height=np.int64(ds.height), width=np.int64(ds.width))
@@ -133,7 +144,12 @@ def main():
     arrays = {f"param/{k}": v for k, v in bench_params().items()}
     np.savez_compressed(OUT, **arrays)
     print(f"wrote {OUT}: {len(arrays)} parameter arrays")
-    for scene, make in (("plush", plush_inputs), ("grass", grass_inputs)):
+    for scene in ("carpet", "carpet10k"):
+        inputs = scene_inputs(scene)
+        if not all(np.array_equal(inputs[k], arrays[k]) for k in arrays):
+            raise AssertionError(f"{scene}'s weights differ from the bench weights")
+    for scene, make in (("plush", plush_inputs), ("grass", grass_inputs),
+                        ("grass_filtered", lambda: scene_inputs("grass_filtered"))):
         inputs = make()
         np.savez_compressed(SCENE_OUT.format(scene), **inputs)
         print(f"wrote {SCENE_OUT.format(scene)}: "

@@ -2,9 +2,13 @@
 
 Builds the bench frame's renderer (``--scene bench``, the 512x512 carpet
 frame), the plush frame's (``--scene plush``, 800x800) or the grass
-frame's (``--scene grass``, 512x512) exactly as chip_smoke.py does, or the
-bench frame with an f32 ParamNerf (``--scene bench_f32``, chip_smoke.py's
-f32 bench frame), renders the frame twice to warm up, then profiles one
+frame's (``--scene grass``, 512x512), the carpet and carpet10k frames'
+(``--scene carpet|carpet10k``, 512x512, 900 and 10,000 patches) exactly as
+chip_smoke.py does, the bench frame with an f32 ParamNerf (``--scene
+bench_f32``, chip_smoke.py's f32 bench frame), or the first frame that
+``nerftex_torch.main configs/config_grass_filtered_render.py`` renders
+(``--scene grass_filtered``: the config's own f32 renderer, blur_idx 0,
+render_chunk 16384, the committed grass_filtered weights), renders the frame twice to warm up, then profiles one
 render with torch.profiler and prints: the wall time, the summed device
 time of all kernels, the device idle share (1 - busy / wall), the number
 of kernel launches, the kernels ranked by device time, and the port's own
@@ -16,7 +20,8 @@ fetch) and the rest (sort, MLP, composite).
 
 Run from the repo root on a machine with a CUDA card:
 
-    python3 scripts/profile_torch_frame.py [--scene bench|bench_f32|plush|grass] [--top 25] [--root DIR]
+    python3 scripts/profile_torch_frame.py [--scene bench|bench_f32|plush|grass|carpet|carpet10k|grass_filtered] \
+        [--top 25] [--root DIR]
 
 ``--root`` is a checkout of this repo (default: this one) whose
 nerftex_torch and chip_smoke.py are profiled, for before/after runs.
@@ -39,7 +44,8 @@ PORT_KERNELS = ("tex_fetch_kernel", "mlp_fused_kernel", "mlp_wgmma_kernel", "mlp
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--scene", choices=("bench", "bench_f32", "plush", "grass"), default="bench")
+    ap.add_argument("--scene", choices=("bench", "bench_f32", "plush", "grass", "carpet",
+                                        "carpet10k", "grass_filtered"), default="bench")
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--root", default=ROOT)
     args = ap.parse_args()
@@ -68,10 +74,22 @@ def main():
         data, params, _, _ = chip_smoke.scene_data("plush")
         model = instantiate(chip_smoke.plush_model_config(), device="cuda")
         r_cfg = chip_smoke.plush_renderer_config()
-    else:
+    elif args.scene == "grass":
         data, params, _, _ = chip_smoke.scene_data("grass")
         model = instantiate(chip_smoke.grass_model_config(), device="cuda")
         r_cfg = chip_smoke.grass_renderer_config()
+    elif args.scene in ("carpet", "carpet10k"):
+        data, _, _ = chip_smoke.config_item(args.scene)
+        params = chip_smoke.npz_params("torch_bench_inputs.npz")
+        m_cfg, r_cfg = chip_smoke.carpet_configs(args.scene)
+        model = instantiate(m_cfg, device="cuda")
+    else:
+        from configs.config_grass_filtered_render import config
+
+        data, _, _ = chip_smoke.config_item("grass_filtered")
+        params = chip_smoke.npz_params("torch_grass_filtered_inputs.npz")
+        model = instantiate(config["model_config"], device="cuda")
+        r_cfg = config["renderer_config"]
     kw = {"key": jax_rng.key(1)}
     load_jax_params(model, params)
     renderer = instantiate(dict(r_cfg, model=model, device="cuda"))

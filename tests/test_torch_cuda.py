@@ -90,10 +90,13 @@ def test_mlp_fused_kernel_matches_plain(cuda, dtype, tol):
     assert float((got - ref).abs().max()) <= tol * scale
 
 
-# The two frames' ParamNerf topologies at full width and depth (bench:
-# chip_smoke.model_config, plush: configs/config_plush_render.py).
+# The frames' ParamNerf topologies at full width and depth (bench:
+# chip_smoke.model_config, plush: configs/config_plush_render.py,
+# grass_filtered: configs/config_grass_filtered_render.py, pos map 81 and
+# dir map 54 wide).
 TOPOLOGIES = {"bench": {"n_parameters": [1, 6]},
-              "plush": {"n_parameters": [1, 4], "param_depth": 0, "color_depth": 1}}
+              "plush": {"n_parameters": [1, 4], "param_depth": 0, "color_depth": 1},
+              "grass_filtered": {"n_parameters": [2, 3]}}
 
 
 @pytest.mark.parametrize("n", [1, 127, 1000, 32768 + 37])
@@ -425,3 +428,45 @@ def test_render_session_serves_grass_on_the_card(cuda, tmp_path):
     direct = straight_rgba(out["color_pred"].cpu().numpy(), out["alpha_pred"].cpu().numpy(),
                            64, 64)
     assert np.abs(direct - first).max() <= 1e-6
+
+
+def test_blur_sorted_frame_equals_dense_frame_on_the_card(cuda):
+    """configs/config_grass_filtered_render.py (blur_idx 0, f32 ParamNerf
+    with the committed grass_filtered weights) at 32x32 on the dataset's
+    last item: the sorted path, which hands each block its rays'
+    cone_scale, and the dense path scale the blur slot alike, through the
+    f32 MLP kernel (wgmma_tf32x3); without blur_idx the frame differs."""
+    import copy
+    import importlib
+    import os
+
+    from nerftex_torch.render.checkpoint import load_jax_params
+    from nerftex_torch.utils import jax_rng, rng
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = copy.deepcopy(importlib.import_module("configs.config_grass_filtered_render").config)
+    cfg["test_dataset_config"]["data_loader_config"].update(height=32, width=32)
+    rng.set_seed(cfg["seed"])
+    data = list(instantiate(cfg["test_dataset_config"]))[-1]
+    npz = np.load(os.path.join(root, "tests", "torch_grass_filtered_inputs.npz"))
+    model = instantiate(dict(cfg["model_config"], n_parameters=[2, 3]), device=cuda)
+    load_jax_params(model, {k[len("param/"):]: npz[k] for k in npz.files
+                            if k.startswith("param/")})
+    inst = cfg["renderer_config"]["instancer_config"]
+    for k in ("mesh_path", "patch_origins_path"):
+        inst[k] = os.path.join(root, inst[k])
+
+    def render(**kw):
+        r = instantiate(dict(cfg["renderer_config"], model=model, device=cuda, **kw))
+        out = r(**data, key=jax_rng.key(1))
+        return out["color_pred"].cpu().numpy(), out["alpha_pred"].cpu().numpy()
+
+    before = fused.mlp_fused.variant_launches["wgmma_tf32x3"]
+    c_s, a_s = render()
+    assert fused.mlp_fused.variant_launches["wgmma_tf32x3"] > before
+    c_d, a_d = render(sorted_blocks=False)
+    assert a_s.max() > 0.5
+    np.testing.assert_allclose(c_s, c_d, rtol=0, atol=5e-7)
+    np.testing.assert_allclose(a_s, a_d, rtol=0, atol=5e-7)
+    _, a_n = render(blur_idx=None)
+    assert np.abs(a_n - a_s).max() > 1e-2

@@ -1,8 +1,10 @@
 """nerftex_torch stands alone: no file of the package, nor chip_smoke.py,
 imports jax, optax, nerftex_tpu or the config shims that resolve to it; the
 package (the serving modules included) imports with all of them blocked;
-and an entry point given no device raises when CUDA is absent instead of
-running on the CPU."""
+every render config the port supports resolves inside the port, and an
+unported reference path raises instead of reaching the JAX package; and an
+entry point given no device raises when CUDA is absent instead of running
+on the CPU."""
 
 import ast
 import os
@@ -49,7 +51,12 @@ def test_package_imports_with_jax_blocked():
     )
     for m in ("nerftex_torch.utils.rng", "nerftex_torch.data.sampler",
               "nerftex_torch.data.distribution", "nerftex_torch.operating_points",
-              "nerftex_torch.render.serve", "nerftex_torch.render.checkpoint"):
+              "nerftex_torch.render.serve", "nerftex_torch.render.checkpoint",
+              "nerftex_torch.main", "nerftex_torch.render.render", "nerftex_torch.render.logger",
+              "nerftex_torch.data.dataset", "nerftex_torch.data.tfrecord",
+              "nerftex_torch.data.pixel_sampler", "nerftex_torch.data.ray_sampler",
+              "nerftex_torch.utils.image", "nerftex_torch.utils.exr",
+              "nerftex_torch.ops.interpolate"):
         assert m in modules, m
     code = (
         "import sys\n"
@@ -91,3 +98,108 @@ def test_kernel_wrappers_refuse_foreign_devices():
     uv = torch.zeros(4, 2, device="meta")
     with pytest.raises(ValueError):
         tex_gather.sample_channel(torch.zeros(2, 2, device="meta"), uv)
+
+
+SUPPORTED_RENDER_CONFIGS = (
+    "config_carpet_render", "config_carpet10k_render", "config_grass_render",
+    "config_grass_filtered_render", "config_plush_render", "demo_carpet_render",
+    "demo_grass_render", "demo_grass_filtered_render", "demo_plush_render",
+    "full_carpet_render",
+)
+
+
+def _resolve_in_subprocess(configs, body):
+    """Run ``body`` in a fresh interpreter after collecting every "module"
+    path of each config in ``configs`` into ``paths`` ({config: [path]});
+    returns its stdout.  The body ends by printing the jax and nerftex_tpu
+    modules it finds in sys.modules."""
+    code = (
+        "import importlib, sys\n"
+        "from nerftex_torch.utils import util\n"
+        "def walk(node, out):\n"
+        "    if isinstance(node, dict):\n"
+        "        if isinstance(node.get('module'), str):\n"
+        "            out.append(node['module'])\n"
+        "        for v in node.values():\n"
+        "            walk(v, out)\n"
+        "    elif isinstance(node, (list, tuple)):\n"
+        "        for v in node:\n"
+        "            walk(v, out)\n"
+        "    return out\n"
+        f"paths = {{c: walk(importlib.import_module('configs.' + c).config, []) "
+        f"for c in {tuple(configs)!r}}}\n"
+        + body +
+        "print('loaded', sorted(m for m in sys.modules\n"
+        "                       if m.split('.')[0] in ('jax', 'nerftex_tpu', 'optax')))\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return proc.stdout
+
+
+def test_supported_render_configs_resolve_inside_the_port():
+    """Every module path of every render config the port supports names a
+    nerftex_torch object, and resolving them all imports no jax and no
+    nerftex_tpu module."""
+    out = _resolve_in_subprocess(SUPPORTED_RENDER_CONFIGS, (
+        "for c, ps in paths.items():\n"
+        "    assert len(ps) >= 10, (c, ps)\n"
+        "    for p in ps:\n"
+        "        obj = util.get_attr_from_path(p)\n"
+        "        print(c, p, obj.__module__)\n"
+    ))
+    lines = out.splitlines()
+    assert lines[-1] == "loaded []", lines[-1]
+    resolved = [line.split() for line in lines[:-1]]
+    assert {c for c, _, _ in resolved} == set(SUPPORTED_RENDER_CONFIGS)
+    assert {p for _, p, _ in resolved} >= {
+        "network.render.Render", "network.logger.Logger", "network.dataset.Dataset",
+        "network.dataset.GenerateData", "network.pixel_sampler.Full",
+        "network.ray_sampler.Proxy", "network.renderer.InstanceRenderer"}
+    outside = [r for r in resolved if not r[2].startswith("nerftex_torch.")]
+    assert not outside, outside
+
+
+@pytest.mark.parametrize("config,path", [
+    ("demo_grass_mip_render", "network.renderer.MipInstanceRenderer"),
+    ("demo_grass_mip_render", "network.model.IntegratedPositionalEncoding"),
+    ("config_grass_filtered_train", "network.train.Train"),
+    ("config_carpet_train", "network.loss.AlphaLoss"),
+])
+def test_unported_paths_raise_and_import_no_jax(config, path):
+    """A mip or train config's unported path raises UnportedPathError (a
+    NotImplementedError) that names it, instead of reaching nerftex_tpu
+    through a shim; nothing of jax or nerftex_tpu is imported."""
+    out = _resolve_in_subprocess((config,), (
+        f"assert {path!r} in paths[{config!r}], paths\n"
+        "try:\n"
+        f"    util.get_attr_from_path({path!r})\n"
+        "except util.UnportedPathError as e:\n"
+        "    assert isinstance(e, NotImplementedError)\n"
+        "    print('raised', e)\n"
+    ))
+    lines = out.splitlines()
+    assert lines[0].startswith("raised") and repr(path) in lines[0], lines
+    assert lines[-1] == "loaded []", lines[-1]
+
+
+def test_main_refuses_a_train_config_without_jax():
+    code = (
+        "import sys\n"
+        "from nerftex_torch import main\n"
+        "try:\n"
+        "    main.main(['configs/config_carpet_train.py', '--device', 'cpu'])\n"
+        "except NotImplementedError as e:\n"
+        "    print('raised', e)\n"
+        "print('loaded', sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'nerftex_tpu')))\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lines = proc.stdout.splitlines()
+    assert lines[0].startswith("raised") and "training slice" in lines[0], lines
+    assert lines[-1] == "loaded []", lines

@@ -1,0 +1,274 @@
+"""The render mode of nerftex_torch against the JAX package's: a small
+grass_filtered frame (blur_idx 0, the blur slot scaled per sample by the
+ray's footprint) matches JAX's InstanceRenderer(blur_idx=0) with the same
+key and weights; the port's main on the grass_filtered render config, cut
+to 16x16 and a narrow ParamNerf, restored from one checkpoint that the
+JAX package's CheckpointManager wrote, writes the file names and images
+that the JAX package's Render writes; the eval Logger's PNG and EXR
+images, with and without its filtered downsample, are the JAX Logger's;
+main refuses a train config."""
+
+import contextlib
+import copy
+import importlib
+import io
+import os
+import re
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import nerftex_tpu.models.mlp as jax_mlp
+from nerftex_tpu.render.checkpoint import CheckpointManager as JaxCheckpointManager
+from nerftex_tpu.utils import rng as jax_rng_streams
+from nerftex_tpu.utils import util as jax_util
+from nerftex_torch import main as port_main
+from nerftex_torch.render.checkpoint import load_jax_params
+from nerftex_torch.utils import jax_rng, rng
+from nerftex_torch.utils.image import decode_png_u8
+from nerftex_torch.utils.util import instantiate
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+H = W = 24
+RENDER_SIZE = 16
+
+
+def _config(name="grass_filtered", size=None):
+    """configs/config_<name>_render.py with absolute mesh paths, a depth-3,
+    width-64 ParamNerf and, given a size, frames of size x size."""
+    cfg = copy.deepcopy(importlib.import_module(f"configs.config_{name}_render").config)
+    inst = cfg["renderer_config"]["instancer_config"]
+    for k in ("mesh_path", "patch_origins_path"):
+        inst[k] = os.path.join(ROOT, inst[k])
+    inst["textures"] = [os.path.join(ROOT, t) if t.endswith(".png") else t
+                        for t in inst["textures"]]
+    cfg["model_config"].update({"depth": 3, "width": 64, "skips": [1]})
+    if size:
+        cfg["test_dataset_config"]["data_loader_config"].update(height=size, width=size)
+    return cfg
+
+
+def _renderer_cfg(sorted_blocks=True):
+    """The grass_filtered renderer (blur_idx 0, n_samples 1024, step 0.001)
+    with 64-ray blocks and max_hits 32."""
+    cfg = _config()["renderer_config"]
+    inst = dict(cfg["instancer_config"], ray_block=64, max_hits=32)
+    return dict(cfg, instancer_config=inst, render_chunk=4096, net_chunk=8192,
+                sorted_blocks=sorted_blocks)
+
+
+@pytest.fixture(scope="module")
+def frame():
+    """The grass_filtered test dataset's last item (radius 5) at 24x24, a
+    narrow ParamNerf's weights in both packages, and JAX's frame with
+    key(1)."""
+    cfg = _config(size=H)
+    jax_rng_streams.set_seed(0)
+    data = list(jax_util.instantiate(jax_util.EasyDict(cfg["test_dataset_config"])))[-1]
+    model_cfg = dict(cfg["model_config"], n_parameters=[2, 3])
+    jax_mlp._INIT_COUNTER[0] = 0
+    jm = jax_util.instantiate(jax_util.EasyDict(model_cfg))["model"]
+    tm = instantiate(model_cfg, device="cpu")
+    load_jax_params(tm, jax.tree.map(np.asarray, jm.params))
+    jr = jax_util.instantiate(jax_util.EasyDict(dict(_renderer_cfg(), model=jm)))
+    assert jr.blur_idx == 0
+    out = jr(**data, training=False, key=jax.random.key(1))
+    return data, tm, (np.asarray(out["color_pred"]), np.asarray(out["alpha_pred"]))
+
+
+def _port_render(data, tm, sorted_blocks=True):
+    renderer = instantiate(dict(_renderer_cfg(sorted_blocks), model=tm, device="cpu"))
+    assert renderer.blur_idx == 0
+    out = renderer(**data, key=jax_rng.key(1))
+    return out["color_pred"].numpy(), out["alpha_pred"].numpy()
+
+
+def test_grass_filtered_frame_matches_jax_with_the_same_key(frame):
+    data, tm, (c_j, a_j) = frame
+    c_t, a_t = _port_render(data, tm)
+    assert c_t.shape == c_j.shape == (1, H * W, 3) and a_t.shape == a_j.shape == (1, H * W)
+    assert a_j.max() > 0.5 and (a_j > 0.1).mean() > 0.1
+    # tests/test_torch_render.py's float32 gates (Fourier top band x 2^9,
+    # nearest knife edges).  Measured here: 111.6 dB, max error 5.0e-5.
+    err = np.maximum(np.abs(c_t - c_j).max(-1), np.abs(a_t - a_j))
+    mse = np.mean(np.concatenate([c_t - c_j, (a_t - a_j)[..., None]], -1) ** 2)
+    assert 10 * np.log10(1 / mse) >= 60
+    assert np.mean(err > 1e-3) <= 0.02
+    assert err.max() <= 3e-2
+
+
+def test_plain_renderer_refuses_blur_idx():
+    """The plain Renderer's blur (a training renderer) is not ported."""
+    from nerftex_torch.render.renderer import Renderer
+
+    with pytest.raises(NotImplementedError, match="training slice"):
+        Renderer(blur_idx=0, device="cpu")
+
+
+def test_blur_scaling_changes_the_frame(frame):
+    """blur_idx is applied: the same frame without it differs."""
+    data, tm, (c_j, a_j) = frame
+    renderer = instantiate(dict(_renderer_cfg(), blur_idx=None, model=tm, device="cpu"))
+    out = renderer(**data, key=jax_rng.key(1))
+    assert np.abs(out["alpha_pred"].numpy() - a_j).max() > 1e-2
+
+
+def test_blur_sorted_frame_equals_dense_frame(frame):
+    """The sorted path's per-block cone_scale and the dense path's whole
+    chunk scale the blur slot alike."""
+    data, tm, _ = frame
+    c_s, a_s = _port_render(data, tm)
+    c_d, a_d = _port_render(data, tm, sorted_blocks=False)
+    # Same per-sample inputs and MLP rows; only the composite's reduction
+    # length differs (tests/test_torch_render.py).
+    np.testing.assert_allclose(c_s, c_d, rtol=0, atol=5e-7)
+    np.testing.assert_allclose(a_s, a_d, rtol=0, atol=5e-7)
+
+
+@pytest.fixture(scope="module")
+def renders(tmp_path_factory):
+    """The JAX package's Render and the port's main on the grass_filtered
+    render config at 16x16 (five frames, radius 20 down to 5), each
+    restoring one checkpoint written by the JAX package's
+    CheckpointManager."""
+    from nerftex_tpu.render.render import Render as JaxRender
+
+    root = tmp_path_factory.mktemp("render")
+    ckpt_dir = str(root / "source")
+    cfg = _config(size=RENDER_SIZE)
+    jax_rng_streams.set_seed(3)
+    jax_mlp._INIT_COUNTER[0] = 0
+    params = jax_util.instantiate(jax_util.EasyDict(dict(cfg["model_config"],
+                                                         n_parameters=[2, 3])))["model"].params
+    JaxCheckpointManager(os.path.join(ckpt_dir, "checkpoints")).save(
+        {"models": {"model": params}, "extra": {"step": 7}}, 7)
+
+    jax_target = str(root / "jax")
+    jax_rng_streams.set_seed(cfg["seed"])
+    jax_log = io.StringIO()
+    with contextlib.redirect_stdout(jax_log):
+        JaxRender(**{k: v for k, v in dict(cfg, target_path=jax_target,
+                                           source_path=ckpt_dir).items() if k != "module"})
+
+    # The port's CLI on the same config, written out as a config module.
+    port_target = str(root / "port")
+    module = "_torch_main_grass_filtered_cfg"
+    with open(root / f"{module}.py", "w") as f:
+        f.write(f"config = {dict(cfg, target_path=port_target, source_path=ckpt_dir)!r}\n")
+    cwd = os.getcwd()
+    os.chdir(root)
+    port_log = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(port_log):
+            port_main.main([f"{module}.py", "--device", "cpu"])
+    finally:
+        os.chdir(cwd)
+        sys.modules.pop(module, None)
+        if str(root) in sys.path:
+            sys.path.remove(str(root))
+    return jax_target, port_target, jax_log.getvalue(), port_log.getvalue()
+
+
+def test_render_writes_the_jax_file_names(renders):
+    jax_target, port_target, _, _ = renders
+    names = sorted(os.listdir(os.path.join(jax_target, "media", "test")))
+    assert names == [f"{i}.png" for i in range(5)]
+    assert sorted(os.listdir(os.path.join(port_target, "media", "test"))) == names
+    with open(os.path.join(port_target, "config_render.py")) as f:
+        assert "# GIT COMMIT HASH: " in f.read().splitlines()[-1]
+
+
+@pytest.mark.parametrize("index", range(5))
+def test_render_writes_the_jax_images(renders, index):
+    """Every image, in the JAX draw order (the renderer's n-th keyless call
+    renders under stream_key(STREAM_PERTURB, n)): the decoded PNGs within
+    one u8 level, and the alpha channel drawn at all."""
+    jax_target, port_target, _, _ = renders
+
+    def read(target):
+        with open(os.path.join(target, "media", "test", f"{index}.png"), "rb") as f:
+            return decode_png_u8(f.read()).astype(np.int32)
+
+    want, got = read(jax_target), read(port_target)
+    assert want.shape == got.shape == (RENDER_SIZE, RENDER_SIZE, 4)
+    assert want[..., 3].max() > 100
+    # A one-level difference is an f32 difference that crosses a rounding
+    # boundary of the u8 encoding.  Measured here: images 0-3 equal, image 4
+    # one level apart in 1 of its 1024 channel values.
+    assert np.abs(want - got).max() <= 1
+    assert np.mean(want != got) <= 0.05
+
+
+def test_render_reports_the_jax_overflows(renders):
+    """The config's own caps (max_hits 64, step cap 512 below n_samples
+    1024) drop intervals and samples; each frame's warnings name the
+    counts the JAX package's name, in the same order, and the port's
+    restore line names the checkpoint."""
+    _, _, jax_log, port_log = renders
+
+    def drops(log):
+        return re.findall(r"WARNING: (hit|sample) capacity exceeded, dropped (\d+) ", log)
+
+    assert drops(port_log) == drops(jax_log)
+    assert len(drops(jax_log)) >= 5
+    assert "Restored model from " in port_log and "ckpt-7.pkl" in port_log
+
+
+class _Frames:
+    """A two-item test dataset of 8x12 frames for the Logger."""
+
+    height, width, composite_bkgd, bkgd_color = 8, 12, False, (1, 1, 1.0)
+
+    def cardinality(self):
+        return 2
+
+    def __iter__(self):
+        return iter([{"index": 0}, {"index": 1}])
+
+
+@pytest.mark.parametrize("write_exr,factor", [(False, 1), (False, 2), (True, 1), (True, 2)])
+def test_logger_writes_the_jax_images(tmp_path, write_exr, factor):
+    """The eval Logger's image path on fixed renderer outputs: premultiplied
+    color and alpha to straight alpha (PNG) or kept as is (EXR), after the
+    optional filtered downsample; the same files as the JAX Logger's."""
+    from nerftex_tpu.render.logger import Logger as JaxLogger
+    from nerftex_torch.render.logger import Logger
+    from nerftex_torch.utils.exr import read_exr
+
+    rs = np.random.RandomState(factor)
+    alpha = rs.uniform(0, 1, (2, 1, 96)).astype(np.float32)
+    color = (rs.uniform(0, 1, (2, 1, 96, 3)) * alpha[..., None]).astype(np.float32)
+
+    def renderer(to_tensor):
+        def render(index, **kwargs):
+            return {"color_pred": to_tensor(color[index]), "alpha_pred": to_tensor(alpha[index])}
+        return render
+
+    kw = dict(checkpoint_variables={}, dataset=_Frames(), is_training=False,
+              write_exr=write_exr, downsampling_factor=factor)
+    JaxLogger(str(tmp_path / "jax"), renderer=renderer(np.asarray), **kw)
+    Logger(str(tmp_path / "port"), renderer=renderer(torch.from_numpy), **kw)
+    suffix = ".exr" if write_exr else ".png"
+    for i in range(2):
+        paths = [tmp_path / side / "media" / "test" / f"{i}{suffix}" for side in ("jax", "port")]
+        if write_exr:
+            want, got = (read_exr(str(p)) for p in paths)
+            assert want.shape == (8 // factor, 12 // factor, 4)
+            # filtered_downsample: the same products summed in another
+            # order (tests/test_torch_data.py).
+            np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+        else:
+            want, got = (decode_png_u8(p.read_bytes()).astype(np.int32) for p in paths)
+            assert want.shape == (8 // factor, 12 // factor, 4)
+            assert np.abs(got - want).max() <= (0 if factor == 1 else 1)
+
+
+def test_main_refuses_a_train_config(monkeypatch):
+    """Before it seeds or makes the target directory."""
+    monkeypatch.chdir(ROOT)
+    monkeypatch.setattr(rng, "set_seed", lambda seed: pytest.fail("seeded a train config"))
+    with pytest.raises(NotImplementedError, match="training slice"):
+        port_main.main(["configs/config_grass_filtered_train.py", "--device", "cpu"])

@@ -74,7 +74,28 @@ Phases (any failure raises and exits non-zero):
      dataset's first item under rng.stream_key(STREAM_PERTURB, 0), that
      render within 1e-3 of the same render through the plain MLP, and the
      kernels against their plain versions on that render's inputs
-     (mlp_fused at the pos 81 / dir 54 maps).
+     (mlp_fused at the pos 81 / dir 54 maps);
+  11. training: configs/config_carpet_train.py's model, renderer, loss
+     and Adam at full width (the JAX init of tests/torch_train_inputs.npz,
+     IEEE f32 matmuls) over the fixture's three JAX batches and keys, step
+     0's loss and gradient (against JAX's, and against JAX's with float64
+     dots) and the losses of steps 1 and 2 against JAX's;
+     then nerftex_torch.main on a config module that deep-copies the
+     shipped carpet train config with a synthetic TFRecord
+     (nerftex_torch.tools.synth, 32 x 64x64, seed 0), TRAIN_STEPS steps,
+     a checkpoint every TRAIN_CHECKPOINT_EVERY and the validation renders
+     at the last step: 30 scalars whose last five average under 0.9x the
+     first five, the three checkpoints, two validation PNGs, every
+     mlp_fused launch wgmma_tf32x3, the last checkpoint restored bit for
+     bit, the first PNG re-rendered from it within one u8 level and within
+     1e-3 of the plain MLP's render; steps/s (validation renders and saves
+     excluded), peak device memory and the validation renders' summed
+     mlp_fused device time; then config_grass_filtered_train.py
+     (raw_noise_std 0.1, blur_idx 0) for GRASS_FILTERED_TRAIN_STEPS steps
+     on its own synthetic TFRecord: finite losses, and its validation
+     render checked as the carpet one (restore, PNG, every launch
+     wgmma_tf32x3, within 1e-3 of the plain MLP, the kernel against its
+     plain version at the render's pos 81 / dir 54 maps: its own row).
 The first render of each frame runs with its selk_resolve calls captured
 (selk_capture); the frame's launch histogram (launches by Rb, S, K and
 method, with the window and valid slots of their inputs) is printed on a
@@ -83,8 +104,10 @@ selk_resolve row (the grass, carpet, carpet10k and grass_filtered rows
 time all the frame's launches together).
 The last three lines of stdout are the card, the kernels JSON (one row per
 kernel and frame, the f32 MLP in its own frame, bench_f32, grass_filtered's
-launches those of nerftex_torch.main's five frames, and the kernels a path
-did not launch) and the device JSON.
+launches those of nerftex_torch.main's five frames, carpet_train's and
+grass_filtered_train's those of their runs of nerftex_torch.main, all in the
+validation renders, and the kernels a path did not launch) and the
+device JSON.
 """
 
 import contextlib
@@ -150,6 +173,26 @@ SELK_P_RTOL = 1e-4
 SELK_OPS_PER_SLOT = 15                # per (sample, slot of its stabbing window)
 SELK_OPS_PER_STEP = 4                 # per binary-search step: midpoint, load, compare, select
 
+# The training phase (configs/config_carpet_train.py and
+# configs/config_grass_filtered_train.py through nerftex_torch.main).
+TRAIN_STEP_LOSS_RTOL = 1e-5           # step 0's loss vs tests/torch_train_inputs.npz (JAX)
+# Step 0's gradient, x the leaf's max |g|, against JAX's and against JAX's
+# with float64 dots (both in tests/torch_train_inputs.npz).  Each leaf is
+# a sum over 262,144 samples through up to 8 layers.  Float64 dots move
+# JAX's own gradient by at most 5.2e-5 (trunk/0/w; the fixture script
+# prints each leaf), yet the port reads about as far from the float64-dot
+# gradient as from JAX's f32 one (2.9e-4 on trunk/1/w): the spread is in
+# the float32 work before the dots (sample positions and encodings, which
+# XLA fuses and rounds in other orders), not in the sums, and 1e-4 would
+# hold the port to less than that.  Past the first two trunk layers every
+# leaf reads under 7.5e-5 from the float64-dot gradient.
+TRAIN_GRAD_TOL = 5e-4
+TRAIN_LATER_LOSS_RTOL = 1e-4          # steps 1 and 2, after Adam updates
+TRAIN_STEPS = 300                     # the user's command: n_iters, i_img
+TRAIN_CHECKPOINT_EVERY = 100
+TRAIN_PLAIN_MAX_DIFF = 1e-3           # a validation render, kernel vs plain MLP
+TRAIN_SYNTH = dict(n_images=32, size=64, seed=0)
+GRASS_FILTERED_TRAIN_STEPS = 20
 H100_BYTES_PER_S = 3.35e12            # HBM3, SXM data sheet
 H100_BF16_FLOPS = 989e12              # dense tensor-core bf16
 H100_F32_FLOPS = 67e12                # f32 outside the tensor cores
@@ -1259,6 +1302,365 @@ def serve_grass(params, h, w, reset_counts, read_counts, check_counts, card, fra
              "first_golden_psnr_db": psnr, "bf16_key1_golden_psnr_db": psnr_key1}, launches)
 
 
+def train_fixture_step(card):
+    """configs/config_carpet_train.py's model at full width (the JAX init in
+    tests/torch_train_inputs.npz), renderer, loss and Adam schedule on the
+    card, over the fixture's three JAX batches under
+    fold_in(stream_key(STREAM_PERTURB), s): step 0's loss and every leaf's
+    gradient, and the losses of steps 1 and 2 (after the Adam updates),
+    against the JAX package's on the CPU."""
+    import importlib
+
+    from nerftex_torch.render.checkpoint import as_jax_tree, flatten_params, load_jax_params
+    from nerftex_torch.render.train import make_optimizer, make_train_step
+    from nerftex_torch.utils import jax_rng, rng
+    from nerftex_torch.utils.util import instantiate
+
+    config = importlib.import_module("configs.config_carpet_train").config
+    inputs = np.load(os.path.join(ROOT, "tests", "torch_train_inputs.npz"))
+    want_losses = inputs["loss"]
+    rng.set_seed(config["seed"])
+    model = instantiate(dict(config["model_config"], n_parameters=[1, 6]), device="cuda")
+    load_jax_params(model, npz_params("torch_train_inputs.npz"))
+    renderer = instantiate(dict(config["renderer_config"], model=model, device="cuda"))
+    optimizer = make_optimizer(model.parameters(), config["lrate"], config["lrate_decay"])
+    step = make_train_step(renderer, instantiate(config["loss_config"]), optimizer, False,
+                           [1, 1, 1.0])
+    base = rng.stream_key(rng.STREAM_PERTURB)
+    torch.cuda.reset_peak_memory_stats()
+    losses, grad_err, grad64_err = [], {}, {}
+    for s in range(len(want_losses)):
+        batch = {k[len(f"batch{s}/"):]: torch.tensor(inputs[k], device="cuda")
+                 for k in inputs.files if k.startswith(f"batch{s}/")}
+        losses.append(float(step(batch, jax_rng.fold_in(base, s))))
+        if s == 0:
+            # The gradients of step 0 stay in .grad until the next step.
+            grads = flatten_params(as_jax_tree(model, lambda p: p.grad.cpu().numpy()))
+            for leaf, g in grads.items():
+                for errs, name in ((grad_err, "grad"), (grad64_err, "grad64")):
+                    want = inputs[f"{name}/{leaf}"]
+                    errs[leaf] = float(np.abs(g - want).max() / np.abs(want).max())
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rel = [abs(a - float(b)) / abs(float(b)) for a, b in zip(losses, want_losses)]
+    worst_leaf = max(grad_err, key=grad_err.get)
+    worst64 = max(grad64_err, key=grad64_err.get)
+    log(f"training step at full width vs JAX ({len(losses)} steps, 4 x 256 rays x 256 samples): "
+        f"losses {losses} vs JAX {[float(v) for v in want_losses]}, relative {rel} (limits "
+        f"{TRAIN_STEP_LOSS_RTOL}, then {TRAIN_LATER_LOSS_RTOL}); step-0 gradient worst leaf "
+        f"{worst_leaf} {grad_err[worst_leaf]:.3g} of its max |g| from JAX's, {worst64} "
+        f"{grad64_err[worst64]:.3g} from JAX's with float64 dots (limit {TRAIN_GRAD_TOL}); "
+        f"per leaf from the float64 dots' {json.dumps(grad64_err)}; peak device memory "
+        f"{peak:.2f} GiB on {card}")
+    if not rel[0] <= TRAIN_STEP_LOSS_RTOL:
+        raise AssertionError(f"step 0's loss differs from JAX's by {rel[0]} relative")
+    if not max(rel[1:]) <= TRAIN_LATER_LOSS_RTOL:
+        raise AssertionError(f"the losses after Adam updates differ from JAX's by {rel[1:]}")
+    if not grad_err[worst_leaf] <= TRAIN_GRAD_TOL:
+        raise AssertionError(f"step 0's gradient of {worst_leaf} differs from JAX's by "
+                             f"{grad_err[worst_leaf]} of its max |g|")
+    if not grad64_err[worst64] <= TRAIN_GRAD_TOL:
+        raise AssertionError(f"step 0's gradient of {worst64} differs from JAX's with float64 "
+                             f"dots by {grad64_err[worst64]} of its max |g|")
+    del model, renderer, optimizer, step
+    torch.cuda.empty_cache()
+    return {"losses": losses, "jax_losses": [float(v) for v in want_losses], "loss_rel": rel,
+            "grad_rel_worst": grad_err[worst_leaf], "grad_rel_worst_leaf": worst_leaf,
+            "grad64_rel_worst": grad64_err[worst64], "grad64_rel_worst_leaf": worst64,
+            "peak_gib": peak}
+
+
+def write_train_config(directory, name, stock, tfr, overrides, logger):
+    """A config module ``<name>.py`` in ``directory`` (under the repo, so
+    main imports it by its relative path) that deep-copies the shipped
+    configs/<stock>.py and sets the TFRecord, the target path and
+    ``overrides`` (top level) and ``logger`` (logger_config); returns
+    (path to pass to main, target_path)."""
+    target = os.path.join(directory, name + "_logs")
+    with open(os.path.join(directory, name + ".py"), "w") as f:
+        f.write("import copy\n\n"
+                f"from configs.{stock} import config as _stock\n\n"
+                "config = copy.deepcopy(_stock)\n"
+                f"config.update(target_path={target!r}, **{overrides!r})\n"
+                f"config['train_dataset_config']['data_loader_config']['tfr_path'] = {tfr!r}\n"
+                f"config['logger_config'].update({logger!r})\n")
+    return os.path.join(os.path.relpath(directory, ROOT), name + ".py"), target
+
+
+@contextlib.contextmanager
+def logger_timing(sync_steps):
+    """While active, the training Logger's calls of the steps in
+    ``sync_steps`` record the time after a device sync (the other steps
+    run as they do without it), and its checkpoint saves and validation
+    renders their durations, in the dict it yields."""
+    from nerftex_torch.render import logger as logger_mod
+
+    cls = logger_mod.Logger
+    real = {name: getattr(cls, name) for name in ("__call__", "save_checkpoint",
+                                                   "render_images")}
+    record = {"steps": {}, "save_checkpoint": [], "render_images": []}
+
+    def timed(name):
+        def wrapper(self, *args, **kwargs):
+            t0 = time.perf_counter()
+            out = real[name](self, *args, **kwargs)
+            torch.cuda.synchronize()
+            record[name].append(time.perf_counter() - t0)
+            return out
+        return wrapper
+
+    def call(self, loss):
+        out = real["__call__"](self, loss)
+        if self.step in sync_steps:
+            torch.cuda.synchronize()
+            record["steps"][self.step] = time.perf_counter()
+        return out
+
+    cls.__call__, cls.save_checkpoint, cls.render_images = (call, timed("save_checkpoint"),
+                                                            timed("render_images"))
+    try:
+        yield record
+    finally:
+        for name, fn in real.items():
+            setattr(cls, name, fn)
+
+
+def steps_per_s(record, first, last, n_saves_inside):
+    """Training steps per second between the logger calls of steps
+    ``first`` and ``last`` (each timed after a device sync), without the
+    checkpoint saves made between them."""
+    saves = sum(record["save_checkpoint"][:n_saves_inside])
+    return (last - first) / (record["steps"][last] - record["steps"][first] - saves)
+
+
+@contextlib.contextmanager
+def mlp_event_timing():
+    """While active, every mlp_fused call of the render path is bracketed
+    by CUDA events; the list it yields gets each launch's (start, end)."""
+    events = []
+
+    def call(real, pos_map, dir_map, packed):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real.mlp_fused(pos_map, dir_map, packed)
+        end.record()
+        events.append((start, end))
+        return out
+
+    with mlp_wrap(call):
+        yield events
+
+
+def check_validation_render(frame, config, target, n_steps, counts):
+    """A train config's validation render, once nerftex_torch.main has
+    trained it for ``n_steps`` into ``target``: the last checkpoint restores
+    bit for bit into a fresh model, which renders the first validation
+    image again (the Logger's first keyless render draws
+    stream_key(STREAM_PERTURB, 0)) through the kernel (every launch
+    wgmma_tf32x3), within MAIN_U8_MAX_DIFF of the PNG main wrote and within
+    TRAIN_PLAIN_MAX_DIFF of the same render through the plain MLP; the
+    kernel against its plain version at that render's first net_chunk; the
+    validation renders' mlp_fused launches timed by events.  Returns
+    (numbers, {"mlp_fused": kernels-line row})."""
+    from nerftex_torch.kernels import mlp_fused as fused
+    from nerftex_torch.render.checkpoint import (CheckpointManager, export_jax_params,
+                                                 flatten_params, load_jax_params)
+    from nerftex_torch.render.serve import straight_rgba
+    from nerftex_torch.utils import rng
+    from nerftex_torch.utils.image import decode_png_u8, encode_png
+    from nerftex_torch.utils.util import instantiate
+
+    reset_counts, read_counts, check_counts = counts
+    saved = CheckpointManager(os.path.join(target, "checkpoints")).restore_latest()
+    rng.set_seed(config["seed"])
+    model = instantiate(dict(config["model_config"]), device="cuda")
+    load_jax_params(model, saved["models"]["model"])
+    restored = flatten_params(export_jax_params(model))
+    stored = flatten_params(saved["models"]["model"])
+    if set(restored) != set(stored) or any(not np.array_equal(restored[k], stored[k])
+                                           for k in stored):
+        raise AssertionError(f"{frame}: the last checkpoint does not restore bit for bit")
+    renderer = instantiate(dict(config["renderer_config"], model=model, device="cuda"))
+    items = list(instantiate(config["val_dataset_config"]))
+    val = instantiate(config["val_dataset_config"])
+    key = rng.stream_key(rng.STREAM_PERTURB, 0)
+    reset_counts()
+    with mlp_capture() as mlp_calls:
+        out = renderer(**items[0], training=False, key=key)
+    torch.cuda.synchronize()
+    direct_launches, direct_variants = read_counts()
+    check_counts(f"{frame} (direct)", direct_launches, direct_variants,
+                 idle=("tex_fetch", "selk_resolve"), want=F32_FRAME_VARIANTS)
+    with mlp_wrap(lambda real, *args: real.mlp_fused_plain(*args)):
+        plain = renderer(**items[0], training=False, key=key)
+    plain_diff = max(float((out[k] - plain[k]).abs().max()) for k in ("color_pred",
+                                                                        "alpha_pred"))
+    h, w = val.height, val.width
+    color, alpha = out["color_pred"][0].cpu().numpy(), out["alpha_pred"][0].cpu().numpy()
+    direct = decode_png_u8(encode_png(straight_rgba(color, alpha, h, w))).astype(np.int32)
+    with open(os.path.join(target, "media", "validation", str(n_steps), "0.png"), "rb") as f:
+        written = decode_png_u8(f.read()).astype(np.int32)
+    u8_diff = int(np.abs(direct - written).max())
+    # The validation renders' MLP launches, each timed by events.
+    with mlp_event_timing() as events:
+        for item in items:
+            renderer(**item, training=False)
+    torch.cuda.synchronize()
+    val_mlp_ms = sum(a.elapsed_time(b) for a, b in events)
+    log(f"{frame} validation render: restored checkpoint bit-equal; max |kernel - plain MLP| "
+        f"{plain_diff:.3g} (limit {TRAIN_PLAIN_MAX_DIFF}); the first PNG vs the direct render "
+        f"{u8_diff} u8 levels; alpha mean {float(alpha.mean()):.4f}; mlp_fused over all "
+        f"{len(items)} validation renders ({len(events)} launches) {val_mlp_ms:.2f} ms of device "
+        f"time")
+    if not plain_diff <= TRAIN_PLAIN_MAX_DIFF:
+        raise AssertionError(f"{frame}: the validation render through the kernel differs from "
+                             f"the plain MLP's by {plain_diff}")
+    if not u8_diff <= MAIN_U8_MAX_DIFF:
+        raise AssertionError(f"{frame}: the first validation PNG differs from the restored "
+                             f"model's render by {u8_diff} u8 levels")
+    pos_map, dir_map, packed = mlp_calls[0]
+    row = mlp_kernel_row(fused, packed, [mlp_row(
+        fused, packed, pos_map, dir_map, "float32",
+        f"the {frame} validation render's first net_chunk")])
+    row.update(validation_launches=len(events), validation_device_ms=val_mlp_ms,
+               validation_bound_ms=len(events) * mlp_bounds(packed, pos_map.shape[0],
+                                                            "float32")[0])
+    numbers = {"plain_max_abs_diff": plain_diff, "first_png_vs_direct_u8": u8_diff,
+               "validation_mlp_device_ms": val_mlp_ms, "validation_mlp_launches": len(events)}
+    del model, renderer, out, plain, mlp_calls
+    torch.cuda.empty_cache()
+    return numbers, {"mlp_fused": row}
+
+
+def main_training(counts, card):
+    """The training phase (see the module docstring): the full-width step
+    against JAX, then ``nerftex_torch.main`` on the carpet train config for
+    TRAIN_STEPS steps and on the grass_filtered train config for
+    GRASS_FILTERED_TRAIN_STEPS steps, each on a synthetic TFRecord written
+    by nerftex_torch.tools.synth.  Returns (numbers, kernel rows, main's
+    launch counts) per config."""
+    import importlib
+    import tempfile
+
+    from nerftex_torch import main as port_main
+    from nerftex_torch.models import mlp
+    from nerftex_torch.tools.synth import make_synthetic_tfrecord
+
+    reset_counts, read_counts, check_counts = counts
+    numbers, rows, launches = {}, {}, {}
+    t0 = time.perf_counter()
+    numbers["carpet_train_step_vs_jax"] = train_fixture_step(card)
+    log(f"training: full-width step vs JAX {time.perf_counter() - t0:.1f} s")
+
+    os.environ["NERFTEX_NO_TENSORBOARD"] = "1"
+    config = importlib.import_module("configs.config_carpet_train").config
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix="_train_") as work:
+        # -- the user's command on the carpet train config ----------------------
+        t0 = time.perf_counter()
+        proxy = config["train_dataset_config"]["proxy_config"]
+        tfr = make_synthetic_tfrecord(os.path.join(work, "carpet.tfr"), **TRAIN_SYNTH,
+                                      n_parameters=tuple(config["model_config"]["n_parameters"]),
+                                      b_0=tuple(proxy["b_0"]), b_1=tuple(proxy["b_1"]))
+        synth_s = time.perf_counter() - t0
+        cfg_path, target = write_train_config(
+            work, "carpet_train", "config_carpet_train", tfr, {"n_iters": TRAIN_STEPS},
+            {"i_img": TRAIN_STEPS, "i_checkpoint": TRAIN_CHECKPOINT_EVERY})
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        # The models built so far in this process advanced the init counter;
+        # a user's fresh process starts it at 0 (the JAX factories' keys).
+        mlp._INIT_COUNTER[0] = 0
+        t0 = time.perf_counter()
+        with logger_timing((10, TRAIN_STEPS - 10)) as record:
+            port_main.main([cfg_path])
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        carpet_launches, variants = read_counts()
+        rate = steps_per_s(record, 10, TRAIN_STEPS - 10,
+                           TRAIN_STEPS // TRAIN_CHECKPOINT_EVERY - 1)
+        log(f"nerftex_torch.main {cfg_path} ({TRAIN_STEPS} steps, synthetic TFRecord of "
+            f"{TRAIN_SYNTH['n_images']} x {TRAIN_SYNTH['size']}^2 written in {synth_s:.1f} s): "
+            f"{main_s:.1f} s; {rate:.2f} steps/s over steps 10-{TRAIN_STEPS - 10} (validation "
+            f"renders and saves excluded); validation renders {record['render_images']} s, saves "
+            f"{record['save_checkpoint']} s; peak device memory {peak:.2f} GiB; launches "
+            f"{carpet_launches}, variants {variants} on {card}")
+        # The only kernel of training is the validation renders' MLP.
+        check_counts("carpet_train (main)", carpet_launches, variants,
+                     idle=("tex_fetch", "selk_resolve"), want=F32_FRAME_VARIANTS)
+        if not carpet_launches["mlp_fused"] > 1:
+            raise AssertionError(f"the validation renders launched mlp_fused "
+                                 f"{carpet_launches['mlp_fused']} times")
+        with open(os.path.join(target, "scalars.jsonl")) as f:
+            scalars = [json.loads(line) for line in f]
+        losses = [r["Loss"] for r in scalars]
+        n_summaries = TRAIN_STEPS // 10
+        if len(losses) != n_summaries or not np.isfinite(losses).all():
+            raise AssertionError(f"{len(losses)} scalars, not {n_summaries}: {losses}")
+        first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+        log(f"carpet_train losses (every 10th step): {losses}; mean of the last five {last5:.5f} "
+            f"vs the first five {first5:.5f}")
+        if not last5 < 0.9 * first5:
+            raise AssertionError(f"the loss did not fall: {first5} -> {last5}")
+        ckpts = sorted(os.listdir(os.path.join(target, "checkpoints")))
+        want_ckpts = sorted(f"ckpt-{s}.pkl" for s in range(
+            TRAIN_CHECKPOINT_EVERY, TRAIN_STEPS + 1, TRAIN_CHECKPOINT_EVERY))
+        if ckpts != want_ckpts:
+            raise AssertionError(f"checkpoints {ckpts}, not {want_ckpts}")
+        media = os.path.join(target, "media", "validation", str(TRAIN_STEPS))
+        names = sorted(os.listdir(media))
+        if names != ["0.png", "1.png"]:
+            raise AssertionError(f"validation images {names}")
+
+        val, rows["carpet_train"] = check_validation_render(
+            "carpet_train", config, target, TRAIN_STEPS, counts)
+        launches["carpet_train"] = carpet_launches
+        numbers["carpet_train"] = {
+            "steps": TRAIN_STEPS, "steps_per_s": rate, "main_s": main_s, "peak_gib": peak,
+            "loss_first5": first5, "loss_last5": last5, "checkpoints": ckpts,
+            "validation_render_s": record["render_images"],
+            "checkpoint_save_s": record["save_checkpoint"], **val}
+
+        # -- grass_filtered: raw_noise_std and blur_idx ------------------------------
+        gf = importlib.import_module("configs.config_grass_filtered_train").config
+        proxy = gf["train_dataset_config"]["proxy_config"]
+        tfr = make_synthetic_tfrecord(os.path.join(work, "grass_filtered.tfr"), **TRAIN_SYNTH,
+                                      n_parameters=tuple(gf["model_config"]["n_parameters"]),
+                                      b_0=tuple(proxy["b_0"]), b_1=tuple(proxy["b_1"]))
+        n = GRASS_FILTERED_TRAIN_STEPS
+        cfg_path, target = write_train_config(
+            work, "grass_filtered_train", "config_grass_filtered_train", tfr, {"n_iters": n},
+            {"i_summary": 1, "i_img": n, "i_checkpoint": n})
+        reset_counts()
+        mlp._INIT_COUNTER[0] = 0
+        t0 = time.perf_counter()
+        with logger_timing((2, n - 1)) as record:
+            port_main.main([cfg_path])
+        torch.cuda.synchronize()
+        gf_s = time.perf_counter() - t0
+        gf_launches, gf_variants = read_counts()
+        with open(os.path.join(target, "scalars.jsonl")) as f:
+            gf_losses = [json.loads(line)["Loss"] for line in f]
+        gf_rate = steps_per_s(record, 2, n - 1, 0)
+        log(f"nerftex_torch.main {cfg_path} (raw_noise_std 0.1, blur_idx 0; {n} steps): "
+            f"{gf_s:.1f} s, {gf_rate:.2f} steps/s; losses {gf_losses}; launches {gf_launches}, "
+            f"variants {gf_variants}")
+        if len(gf_losses) != n or not np.isfinite(gf_losses).all():
+            raise AssertionError(f"grass_filtered_train losses {gf_losses}")
+        check_counts("grass_filtered_train (main)", gf_launches, gf_variants,
+                     idle=("tex_fetch", "selk_resolve"), want=F32_FRAME_VARIANTS)
+        if not gf_launches["mlp_fused"] > 1:
+            raise AssertionError(f"the validation renders launched mlp_fused "
+                                 f"{gf_launches['mlp_fused']} times")
+        val, rows["grass_filtered_train"] = check_validation_render(
+            "grass_filtered_train", gf, target, n, counts)
+        launches["grass_filtered_train"] = gf_launches
+        numbers["grass_filtered_train"] = {"steps": n, "steps_per_s": gf_rate, "main_s": gf_s,
+                                           "losses": gf_losses, **val}
+    return numbers, rows, launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this test needs a CUDA card",
@@ -1567,6 +1969,14 @@ def main():
         main_render_mode(npz_params("torch_grass_filtered_inputs.npz"), counts, card))
     log(f"phase render mode (nerftex_torch.main): {time.perf_counter() - t_phase:.1f} s")
 
+    # -- training: the full-width step against JAX, then nerftex_torch.main -----
+    t_phase = time.perf_counter()
+    train, train_rows, train_launches = main_training(counts, card)
+    frames.update(train)
+    rows.update(train_rows)
+    launches.update(train_launches)
+    log(f"phase training: {time.perf_counter() - t_phase:.1f} s")
+
     kernels = [dict(row, frame=frame, launches=launches[frame][name])
                for frame in launches for name, row in rows[frame].items()]
     log(json.dumps({"frames": frames, "serving": serve, "card": card,
@@ -1581,7 +1991,11 @@ def main():
         {"frame": "grass_filtered", "name": "tex_fetch",
          "launches": launches["grass_filtered"]["tex_fetch"],
          "why": "configs/config_grass_filtered_render.py has no texture channel (textures "
-                "['', '', 'light'])"}]}))
+                "['', '', 'light'])"}] + [
+        {"frame": frame, "name": name, "launches": train_launches[frame][name],
+         "why": "training has no instancer: its validation renders run the plain Renderer"}
+        for frame in ("carpet_train", "grass_filtered_train")
+        for name in ("tex_fetch", "selk_resolve")]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -245,8 +245,8 @@ def Dataset(
     device_resident=True (the JAX package's device-resident training
     sampler) is not ported yet and raises."""
     if device_resident:
-        raise NotImplementedError(
-            "device_resident=True (DeviceResidentSampler) comes with the training slice")
+        raise NotImplementedError("device_resident=True (DeviceResidentSampler) comes with the "
+                                  "device-resident training slice (ROADMAP Queue 1)")
     source, height, width, focal, composite_bkgd, bkgd_color = util.instantiate(
         data_loader_config
     )

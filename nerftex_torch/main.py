@@ -1,15 +1,18 @@
-"""CLI entry point of the port: load a render config module and run its
-driver on the card (counterpart of the repo's main.py).
+"""CLI entry point of the port: load a config module and run the function it
+names on the card (counterpart of the repo's main.py).
 
+    python -m nerftex_torch.main configs/config_carpet_train.py
     python -m nerftex_torch.main configs/config_grass_filtered_render.py
     python -m nerftex_torch.main configs/config_carpet_render.py --device cpu
 
 It seeds the host and device streams from the config's seed, makes
-``target_path``, copies the config there (``config_render.py``) with the
-checkout's git hash appended, and instantiates the config (``Render``:
-restore ``<target_path>/checkpoints``, render the test dataset into
-``<target_path>/media/test``).  Training configs come with the training
-slice.  The kernels' nvcc builds are cached by kernels/build.py.
+``target_path``, copies the config there (``config_train.py`` when the
+config's module path names train, else ``config_render.py``) with the checkout's
+git hash appended, and instantiates the config: ``Train`` trains and
+writes scalars, validation images and checkpoints under ``target_path``;
+``Render`` restores ``<target_path>/checkpoints`` and renders the test
+dataset into ``<target_path>/media/test``.  The kernels' nvcc builds are
+cached by kernels/build.py.
 """
 
 import argparse
@@ -26,7 +29,7 @@ def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description="Run the pipeline described by a config file.")
     parser.add_argument("config", help="Path to config file.")
     parser.add_argument("--device", default=None,
-                        help="torch device to render on (default: cuda; 'cpu' for the CPU)")
+                        help="torch device to run on (default: cuda; 'cpu' for the CPU)")
     args = parser.parse_args(argv)
 
     if os.getcwd() not in sys.path:
@@ -34,9 +37,6 @@ def main(argv=None) -> None:
     config_path = args.config[:-3] if args.config.endswith(".py") else args.config
     config_module = config_path.replace("/", ".")
     config = EasyDict(importlib.import_module(config_module).config)
-    if config.module == "network.train.Train":
-        raise NotImplementedError(f"{config.module} (a train config) comes with the training "
-                                  f"slice of nerftex_torch")
 
     # Forward the full config (minus the logger's own) to the logger for
     # experiment bookkeeping, as the repo's main.py does.
@@ -48,7 +48,8 @@ def main(argv=None) -> None:
     rng.set_seed(config.get("seed"))
 
     os.makedirs(config.target_path, exist_ok=config.get("override", False))
-    config_copy_path = os.path.join(config.target_path, "config_render.py")
+    infix = "train" if "train" in config.module else "render"
+    config_copy_path = os.path.join(config.target_path, "config_" + infix + ".py")
     try:
         shutil.copy(config_path + ".py", config_copy_path)
     except shutil.SameFileError:

@@ -1,12 +1,19 @@
 """Conditioned NeRF MLP (counterpart of nerftex_tpu/models/mlp.py ParamNerf).
 
-``ParamNerf.forward`` is the plain path: the JAX ``apply`` written with
-PyTorch ops, including its compute-dtype rounding (``_dense``/``_dense_cat``:
-every partial product and the bias add round to ``compute_dtype``).
-``ParamNerf.infer`` is the inference path of the renderer: encodings and
+``ParamNerf.forward`` is the plain path, the one training differentiates:
+the JAX ``apply`` written with PyTorch ops, including its compute-dtype
+rounding (``_dense``/``_dense_cat``: every partial product and the bias add
+round to ``compute_dtype``).  It is ``chain(*encode(...))``, so a
+checkpoint can keep the encodings and recompute the dense chain.
+``ParamNerf.infer`` is the inference path of the renderers: encodings and
 parameter MLPs in float32, then the dense chain through
 ``kernels.mlp_fused`` (the CUDA kernel on a CUDA tensor, its plain version
 on the CPU).
+
+Weights are initialised as the JAX factories initialise them: the n-th
+model built in a process draws from ``fold_in(base_key, 1000 + n)`` under
+utils.rng's seed, so the same seed and order give the JAX package's
+weights (``_INIT_COUNTER`` mirrors the JAX package's counter of that name).
 """
 
 from typing import Union
@@ -15,9 +22,24 @@ import torch
 from torch import nn
 
 from nerftex_torch.kernels import mlp_fused as fused
-from nerftex_torch.utils.util import instantiate, resolve_device
+from nerftex_torch.utils import jax_rng, rng
+from nerftex_torch.utils.util import EasyDict, instantiate, resolve_device
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+# Models built so far in this process: the next one's init key index.
+_INIT_COUNTER = [0]
+
+
+def _next_init_key():
+    key = jax_rng.fold_in(rng.base_key(), 1000 + _INIT_COUNTER[0])
+    _INIT_COUNTER[0] += 1
+    return key
+
+
+def model_dict(models) -> dict:
+    """{name: model} of a model factory's result (a model, or CoarseFine's dict)."""
+    return models if isinstance(models, dict) else {models.name: models}
 
 
 def _dense(layer: nn.Linear, x: torch.Tensor, dtype) -> torch.Tensor:
@@ -42,8 +64,7 @@ def _dense_cat(layer: nn.Linear, xs, dtype) -> torch.Tensor:
 class ParamNerf(nn.Module):
     """NeRF MLP conditioned on geometry/appearance parameters.  Constructor
     arguments follow the JAX factory (``models/mlp.py:201``); weights are
-    glorot-uniform from a seed-0 ``torch.Generator`` and are normally
-    replaced by ``render.checkpoint.load_jax_params``."""
+    the JAX factory's glorot-uniform draws (see the module docstring)."""
 
     def __init__(
         self,
@@ -83,14 +104,15 @@ class ParamNerf(nn.Module):
         self.param_fm = instantiate(param_embedding)
 
         device = resolve_device(device)
-        generator = torch.Generator().manual_seed(0)
+        # One key per dense layer, drawn in the JAX factory's layer order.
+        keys = iter(jax_rng.split(_next_init_key(), depth + 2 * param_depth + color_depth + 8))
 
         def dense(fan_in, fan_out):
             layer = nn.Linear(fan_in, fan_out, device=device)
             limit = (6.0 / (fan_in + fan_out)) ** 0.5
             with torch.no_grad():
-                w = (torch.rand(fan_out, fan_in, generator=generator) * 2 - 1) * limit
-                layer.weight.copy_(w)
+                w = jax_rng.uniform_range(next(keys), (fan_in, fan_out), -limit, limit)
+                layer.weight.copy_(w.T)
                 layer.bias.zero_()
             return layer
 
@@ -127,24 +149,43 @@ class ParamNerf(nn.Module):
         self.color = dense(width // 2, 3)
         self._packed = {}
 
+    def summary(self) -> None:
+        print(f"Model '{self.name}': {sum(p.numel() for p in self.parameters()):,} parameters")
+
     # -- plain path -------------------------------------------------------
 
-    def _param_part(self, layers, prms, dtype):
-        g = self.param_fm(prms).to(dtype)
+    @staticmethod
+    def _param_part(layers, g, dtype):
+        """The parameter MLP on a parameter encoding ``g``."""
+        g = g.to(dtype)
         for layer in layers:
             g = torch.relu(_dense(layer, g, dtype))
         return g
 
+    def encode(self, pos, dirs, prms):
+        """The Fourier encodings in ``compute_dtype``: (pos, dirs, geometry
+        parameters, appearance parameters), the last two None when the model
+        has no such parameters."""
+        cdt = self.compute_dtype
+        geo = self.param_fm(prms[:, : self.n_geo]).to(cdt) if self.n_geo > 0 else None
+        app = self.param_fm(prms[:, self.n_geo:]).to(cdt) if self.n_app > 0 else None
+        return self.pos_fm(pos).to(cdt), self.dir_fm(dirs).to(cdt), geo, app
+
     def forward(self, pos, dirs, prms):
         """(color logits [N, 3], density [N, 1]), float32, computed in
         ``compute_dtype`` as the JAX ``apply``."""
+        return self.chain(*self.encode(pos, dirs, prms))
+
+    def chain(self, pos_enc, dir_enc, geo_enc, app_enc):
+        """``forward`` from the encodings on: the parameter MLPs and the
+        dense chain."""
         cdt = self.compute_dtype
-        pos_parts = [self.pos_fm(pos).to(cdt)]
-        dir_parts = [self.dir_fm(dirs).to(cdt)]
-        if self.n_geo > 0:
-            pos_parts.append(self._param_part(self.param_geo, prms[:, : self.n_geo], cdt))
-        if self.n_app > 0:
-            dir_parts.append(self._param_part(self.param_app, prms[:, self.n_geo:], cdt))
+        pos_parts = [pos_enc]
+        dir_parts = [dir_enc]
+        if geo_enc is not None:
+            pos_parts.append(self._param_part(self.param_geo, geo_enc, cdt))
+        if app_enc is not None:
+            dir_parts.append(self._param_part(self.param_app, app_enc, cdt))
         parts = list(pos_parts)
         for i, layer in enumerate(self.trunk):
             h = torch.relu(_dense_cat(layer, parts, cdt))
@@ -168,9 +209,11 @@ class ParamNerf(nn.Module):
         pos_map = [self.pos_fm(pos)]
         dir_map = [self.dir_fm(dirs)]
         if self.n_geo > 0:
-            pos_map.append(self._param_part(self.param_geo, prms[:, : self.n_geo], torch.float32))
+            pos_map.append(self._param_part(self.param_geo, self.param_fm(prms[:, : self.n_geo]),
+                                            torch.float32))
         if self.n_app > 0:
-            dir_map.append(self._param_part(self.param_app, prms[:, self.n_geo:], torch.float32))
+            dir_map.append(self._param_part(self.param_app, self.param_fm(prms[:, self.n_geo:]),
+                                            torch.float32))
         return torch.cat(pos_map, -1), torch.cat(dir_map, -1)
 
     def fused_layers(self):
@@ -197,7 +240,8 @@ class ParamNerf(nn.Module):
 
     def packed(self) -> fused.PackedMLP:
         """The fused kernel's weight layout, rebuilt whenever the compute
-        dtype or a parameter changes (keyed by storage and in-place version)."""
+        dtype or a parameter changes (keyed by storage and in-place version:
+        an optimizer step bumps every parameter's version)."""
         key = (self.compute_dtype,) + tuple((p.data_ptr(), p._version) for p in self.parameters())
         if self._packed.get("key") != key:
             with torch.no_grad():
@@ -224,3 +268,16 @@ class Nerf(ParamNerf):
         super().__init__(pos_embedding, dir_embedding, None, [0, 0], depth=depth, width=width,
                          skips=skips, color_depth=0, name=name, compute_dtype=compute_dtype,
                          device=device)
+
+
+def CoarseFine(model_config: dict, device=None, **kwargs) -> dict:
+    """Two models from one config (counterpart of the JAX ``CoarseFine``):
+    {name: coarse, name + "_fine": fine}.  ``kwargs`` fill keys the config
+    lacks (n_parameters, as ``Train`` sets it)."""
+    model_config = EasyDict(model_config)
+    for key, value in kwargs.items():
+        model_config.setdefault(key, value)
+    coarse = model_dict(instantiate(model_config, device=device))
+    model_config["name"] = next(iter(coarse)) + "_fine"
+    fine = model_dict(instantiate(model_config, device=device))
+    return dict(coarse, **fine)

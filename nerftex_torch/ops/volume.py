@@ -1,6 +1,26 @@
-"""Volume-rendering primitives (counterpart of nerftex_tpu/ops/volume.py)."""
+"""Volume-rendering primitives (counterpart of nerftex_tpu/ops/volume.py):
+stratified sampling, alpha compositing, inverse-CDF importance sampling.
+Random draws come from utils.jax_rng keys, so they are the JAX package's
+for the same key."""
 
 import torch
+
+from nerftex_torch.utils import jax_rng
+
+
+def stratified_z_vals(t: torch.Tensor, n_samples: int, perturb: bool, key=None) -> torch.Tensor:
+    """Evenly spaced samples in [t0, t1] per ray, with perturb jittered
+    uniformly within their bins by ``uniform(key, [R, n_samples])``.  t
+    [R, 2] (misses sanitized by the caller) -> z_vals [R, n_samples]."""
+    t_vals = torch.linspace(0.0, 1.0, n_samples, dtype=torch.float32, device=t.device)
+    z_vals = t[:, None, 0] * (1 - t_vals) + t[:, None, 1] * t_vals
+    if perturb:
+        mids = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
+        upper = torch.cat([mids, z_vals[..., -1:]], -1)
+        lower = torch.cat([z_vals[..., :1], mids], -1)
+        z_rand = jax_rng.uniform(key, z_vals.shape, device=t.device)
+        z_vals = lower + (upper - lower) * z_rand
+    return z_vals
 
 
 def map_color(color_logits: torch.Tensor, map_exr: bool) -> torch.Tensor:
@@ -13,6 +33,66 @@ def map_color(color_logits: torch.Tensor, map_exr: bool) -> torch.Tensor:
 def exclusive_cumprod(x: torch.Tensor) -> torch.Tensor:
     """cumprod shifted right with a leading 1 (tf exclusive=True)."""
     return torch.cat([torch.ones_like(x[..., :1]), torch.cumprod(x[..., :-1], -1)], -1)
+
+
+def composite(color_logits, density_logits, z_vals, rays_d, composite_bkgd: bool = False,
+              bkgd_color=(1.0, 1.0, 1.0), raw_noise_std: float = 0.0, noise_key=None,
+              map_exr: bool = False, repeat_last_dist: bool = True):
+    """Alpha-composite per-sample model outputs along rays.
+
+    color_logits [R,S,3], density_logits [R,S], z_vals [R,S] (or S + 1 fence
+    posts without repeat_last_dist), rays_d [R,3].  The last step repeats
+    the one before it; density noise is ``normal(noise_key, [R,S]) *
+    raw_noise_std``.  Returns (color [R,3], alpha [R], weights [R,S],
+    depth [R])."""
+    dists = z_vals[..., 1:] - z_vals[..., :-1]
+    if repeat_last_dist:
+        dists = torch.cat([dists, dists[..., -1:]], -1)
+        z_mid = z_vals
+    else:
+        z_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
+    dists = dists * torch.linalg.norm(rays_d[..., None, :], dim=-1)
+    color_map = map_color(color_logits, map_exr)
+    if raw_noise_std > 0:
+        noise = jax_rng.normal(noise_key, density_logits.shape, density_logits.device)
+        density_logits = density_logits + noise * raw_noise_std
+    alpha = 1.0 - torch.exp(-torch.relu(density_logits) * dists)
+    weights = alpha * exclusive_cumprod(1.0 - alpha + 1e-10)
+    color_out = torch.sum(weights[..., None] * color_map, -2)
+    depth_out = torch.sum(weights * z_mid, -1)
+    alpha_out = torch.sum(weights, -1)
+    if composite_bkgd:
+        bkgd = torch.as_tensor(bkgd_color, dtype=torch.float32, device=color_out.device)
+        color_out = color_out + (1.0 - alpha_out[..., None]) * bkgd
+    return color_out, alpha_out, weights, depth_out
+
+
+def sample_pdf(bins: torch.Tensor, weights: torch.Tensor, n_samples: int, det: bool = False,
+               key=None) -> torch.Tensor:
+    """Inverse-CDF samples of the piecewise-constant pdf ``weights`` [R,B-1]
+    over ``bins`` [R,B] -> [R, n_samples]: evenly spaced quantiles with
+    ``det``, else ``uniform(key, [R, n_samples])``."""
+    weights = weights + 1e-5
+    pdf = weights / torch.sum(weights, -1, keepdim=True)
+    cdf = torch.cumsum(pdf, -1)
+    cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], -1)
+    shape = cdf.shape[:-1] + (n_samples,)
+    if det:
+        u = torch.linspace(0.0, 1.0, n_samples, dtype=torch.float32, device=cdf.device)
+        u = u.expand(shape).contiguous()
+    else:
+        u = jax_rng.uniform(key, shape, device=cdf.device)
+    inds = torch.searchsorted(cdf.contiguous(), u, right=True)
+    below = torch.clamp(inds - 1, min=0)
+    above = torch.clamp(inds, max=cdf.shape[-1] - 1)
+    cdf_below = torch.gather(cdf, -1, below)
+    cdf_above = torch.gather(cdf, -1, above)
+    bins_below = torch.gather(bins, -1, below)
+    bins_above = torch.gather(bins, -1, above)
+    denom = cdf_above - cdf_below
+    denom = torch.where(denom < 1e-5, torch.ones_like(denom), denom)
+    frac = (u - cdf_below) / denom
+    return bins_below + frac * (bins_above - bins_below)
 
 
 def mean_distance(mu, hw):

@@ -13,8 +13,18 @@ A JAX ParamNerf keeps its parameters as a pytree of numpy arrays: dense
 layers are ``{"w": [in, out], "b": [out]}`` under the keys ``trunk``,
 ``param_geo``, ``param_app`` and ``color_layers`` (lists) and ``alpha``,
 ``bottleneck``, ``pre_color`` and ``color``; ``load_jax_params`` copies
-one into the port's module.  A flat mapping with ``/``-joined keys
-(``"trunk/0/w"``, as ``flatten_params`` writes) is accepted too.
+one into the port's module, and ``export_jax_params`` writes one, so a
+port-trained model restores in either package.  A flat mapping with
+``/``-joined keys (``"trunk/0/w"``, as ``flatten_params`` writes) is
+accepted too.
+
+Adam's state travels in the same layout.  ``load_jax_opt_state`` reads a
+JAX train checkpoint's optax state (``extra["opt_state"]``, restored as
+Opaque tuples holding ``ScaleByAdamState(count, mu, nu)``) into a torch
+Adam.  The port saves its own Adam state as ``adam_state_tree`` gives it,
+under ``extra["torch_adam"]`` and never under ``extra["opt_state"]``, so
+the JAX package never reads it as optax state; ``load_adam_state`` reads
+either back.
 """
 
 import os
@@ -175,22 +185,112 @@ def unflatten_params(flat: dict) -> dict:
     return tree
 
 
+def _layers(model) -> dict:
+    """{"trunk/0": nn.Linear, ..., "alpha": nn.Linear, ...} of a ParamNerf."""
+    layers = {}
+    for key in _LISTS:
+        for i, layer in enumerate(getattr(model, key)):
+            layers[f"{key}/{i}"] = layer
+    for key in _SINGLE:
+        layers[key] = getattr(model, key)
+    return layers
+
+
+def as_jax_tree(model, arrays) -> dict:
+    """The JAX parameter tree of ``model`` holding ``arrays(tensor)`` for
+    each weight (transposed to [in, out]) and bias; every list key is
+    present, empty or not, as the JAX factory's tree has it."""
+    tree = {key: [] for key in _LISTS}
+    for key, layer in _layers(model).items():
+        leaf = {"w": arrays(layer.weight).T.copy(), "b": arrays(layer.bias).copy()}
+        if "/" in key:
+            tree[key.split("/")[0]].append(leaf)
+        else:
+            tree[key] = leaf
+    return tree
+
+
+def export_jax_params(model) -> dict:
+    """``model``'s parameters as the JAX ParamNerf tree (numpy float32)."""
+    return as_jax_tree(model, lambda p: p.detach().cpu().numpy())
+
+
+def adam_state_tree(optimizer, models: dict) -> dict:
+    """A torch Adam's state over ``models``' parameters as {"count",
+    "mu": {name: tree}, "nu": {name: tree}}, optax's names and layout;
+    zero moments before the first step."""
+    def moment(name):
+        def arrays(p):
+            st = optimizer.state.get(p, {})
+            return (st[name] if name in st else torch.zeros_like(p)).detach().cpu().numpy()
+        return arrays
+
+    first = next(iter(next(iter(models.values())).parameters()))
+    count = int(optimizer.state.get(first, {}).get("step", 0))
+    return {"count": np.int32(count),
+            "mu": {k: as_jax_tree(m, moment("exp_avg")) for k, m in models.items()},
+            "nu": {k: as_jax_tree(m, moment("exp_avg_sq")) for k, m in models.items()}}
+
+
+@torch.no_grad()
+def load_adam_state(optimizer, models: dict, count, mu: dict, nu: dict) -> None:
+    """Set a torch Adam's state over ``models``' parameters: ``count``
+    updates done, first and second moments from the parameter trees
+    ``mu[name]`` and ``nu[name]`` (the JAX layout)."""
+    for name, model in models.items():
+        mu_flat, nu_flat = _flat(mu[name]), _flat(nu[name])
+        for key, layer in _layers(model).items():
+            for leaf, p in (("w", layer.weight), ("b", layer.bias)):
+                m = torch.tensor(np.asarray(mu_flat[f"{key}/{leaf}"], np.float32))
+                v = torch.tensor(np.asarray(nu_flat[f"{key}/{leaf}"], np.float32))
+                if leaf == "w":
+                    m, v = m.T, v.T
+                if m.shape != p.shape or v.shape != p.shape:
+                    raise ValueError(f"{name} {key}/{leaf}: moments {tuple(m.shape)}, "
+                                     f"parameter {tuple(p.shape)}")
+                optimizer.state[p] = {
+                    "step": torch.tensor(float(np.asarray(count)), dtype=torch.float32),
+                    "exp_avg": m.to(p.device).contiguous(),
+                    "exp_avg_sq": v.to(p.device).contiguous(),
+                }
+
+
+def load_jax_opt_state(optimizer, models: dict, opt_state) -> None:
+    """Read the optax Adam state of a JAX train checkpoint (its
+    ``extra["opt_state"]`` as CheckpointManager restores it: Opaque tuples,
+    one of them ``ScaleByAdamState(count, mu, nu)``) into a torch Adam."""
+    def find(node):
+        if isinstance(node, Opaque) and node.name == "ScaleByAdamState":
+            return node
+        if isinstance(node, tuple):
+            for child in node:
+                found = find(child)
+                if found is not None:
+                    return found
+        return None
+
+    adam = find(opt_state)
+    if adam is None:
+        raise ValueError("no ScaleByAdamState in the optimizer state")
+    count, mu, nu = adam
+    load_adam_state(optimizer, models, count, mu, nu)
+
+
+def _flat(tree: dict) -> dict:
+    if not isinstance(tree, dict):
+        raise ValueError(f"expected a parameter tree (dict), got {type(tree).__name__} of shape "
+                         f"{getattr(tree, 'shape', None)}: a flat parameter vector (a JAX model "
+                         f"trained with flat_params=True) cannot be loaded; save its pytree")
+    return tree if any("/" in k for k in tree) else flatten_params(tree)
+
+
 @torch.no_grad()
 def load_jax_params(model, tree) -> None:
     """Copy a JAX ParamNerf parameter tree into ``model`` (a
     nerftex_torch ParamNerf), transposing each ``w`` to nn.Linear's
     [out, in].  Shapes must match exactly; nothing is re-initialised."""
-    if not isinstance(tree, dict):
-        raise ValueError(f"expected a parameter tree (dict), got {type(tree).__name__} of shape "
-                         f"{getattr(tree, 'shape', None)}: a flat parameter vector (a JAX model "
-                         f"trained with flat_params=True) cannot be loaded; save its pytree")
-    flat = tree if any("/" in k for k in tree) else flatten_params(tree)
-    targets = {}
-    for key in _LISTS:
-        for i, layer in enumerate(getattr(model, key)):
-            targets[f"{key}/{i}"] = layer
-    for key in _SINGLE:
-        targets[key] = getattr(model, key)
+    flat = _flat(tree)
+    targets = _layers(model)
     expected = {f"{k}/{n}" for k in targets for n in ("w", "b")}
     if set(flat) != expected:
         raise KeyError(f"parameter keys differ: missing {sorted(expected - set(flat))}, "

@@ -16,8 +16,6 @@ class InstanceRenderer(Renderer):
     by cone_scale * t / patch_scale, the ray's footprint at the sample in
     patch units (the filtered configs' blur conditioning)."""
 
-    supports_blur = True
-
     def __init__(
         self,
         instancer_config=None,
@@ -30,6 +28,9 @@ class InstanceRenderer(Renderer):
         **kwargs,
     ) -> None:
         super().__init__(**kwargs)
+        if self.raw_noise_std:
+            raise NotImplementedError("raw_noise_std > 0 on InstanceRenderer is not ported (no "
+                                      "shipped render config sets it; ROADMAP Queue 1)")
         if false_color:
             raise NotImplementedError("false_color comes with the compact-path slice")
         if sample_budget_per_ray > 0:
@@ -48,7 +49,9 @@ class InstanceRenderer(Renderer):
         self.sorted_blocks = sorted_blocks
 
     def render_rays(self, rays_o, rays_d, t, parameters, cone_scale, composite_bkgd,
-                    bkgd_color, key) -> dict:
+                    bkgd_color, key, training: bool = False) -> dict:
+        if training:
+            raise ValueError("network.renderer.InstanceRenderer can only be used for evaluation")
         dev_inst = self.instancer.device_instancer
         # The instancer's key, as the JAX renderer splits it off.
         k_inst = jax_rng.split(key)[0]

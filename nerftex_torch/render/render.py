@@ -2,6 +2,7 @@
 test dataset, model and renderer, then the Logger in eval mode, which
 restores the checkpoint and renders every dataset item to a file."""
 
+from nerftex_torch.models.mlp import model_dict
 from nerftex_torch.utils import util
 from nerftex_torch.utils.util import EasyDict, resolve_device
 
@@ -23,8 +24,7 @@ def Render(
 
     model_config = EasyDict(model_config)
     model_config.setdefault("n_parameters", test_dataset.n_parameters)
-    model = util.instantiate(model_config, device=device)
-    models = {model.name: model}
+    models = model_dict(util.instantiate(model_config, device=device))
 
     renderer_config = EasyDict(renderer_config)
     renderer_config.update(models)

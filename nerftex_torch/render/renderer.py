@@ -1,66 +1,204 @@
-"""Renderer base: the chunked batch loop (counterpart of
-nerftex_tpu/render/renderer.py ``Renderer.__call__`` and ``chunked_apply``).
-Given a key (utils.jax_rng), the chunk that starts at ray i renders under
-fold_in(key, i), as the JAX package's loop does; a call without one draws
-utils.rng.stream_key(STREAM_PERTURB, n) for its n-th keyless call, as the
-JAX package's Renderer does, so the same seed renders the same frames.
+"""Stratified-sampling volume renderer and the chunked batch loop
+(counterpart of nerftex_tpu/render/renderer.py ``Renderer`` and
+``chunked_apply``).
 
-Inference only in this slice: the stratified training renderer, remat and
-importance sampling come with the training slice, and so does the plain
-renderer's ``blur_idx``; ``InstanceRenderer`` scales its blur slot.
+``Renderer.apply`` is the differentiable whole-batch render the training
+step runs: the models' plain ``forward`` on autograd, as the JAX step
+differentiates ``ParamNerf.apply``.  ``Renderer.__call__`` is the eval loop
+under ``torch.inference_mode``: the chunk that starts at ray i renders
+under fold_in(key, i), as the JAX package's loop does, and the models run
+``infer`` (the fused MLP kernel on a CUDA tensor).  A call without a key
+draws utils.rng.stream_key(STREAM_PERTURB, n) for its n-th keyless call,
+as the JAX package's Renderer does, so the same seed renders the same
+frames.  Each ray splits its key into the jitter, coarse noise, fine noise
+and importance keys in JAX's order; every draw is the JAX package's
+(utils.jax_rng).  ``InstanceRenderer`` overrides ``render_rays``.
 """
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from nerftex_torch.ops import volume
 from nerftex_torch.utils import jax_rng, rng
 from nerftex_torch.utils.util import resolve_device
 
+# The knobs of the JAX package's device-resident training path, ported with it.
+DEFERRED = "the device-resident training slice (ROADMAP Queue 1)"
 
-def chunked_apply(fn, inputs, net_chunk: int):
+
+def chunked_apply(fn, inputs, net_chunk: int, remat: "bool | str" = False):
     """fn(*inputs) over the leading axis in pieces of at most net_chunk rows;
-    the outputs (a tuple) are concatenated back."""
+    the outputs (a tuple) are concatenated back.
+
+    remat (training): True runs each piece under torch.utils.checkpoint,
+    so the backward recomputes its activations instead of keeping them;
+    "save_encodings" keeps ``fn.encode``'s output of each piece and
+    recomputes only ``fn.chain`` (``fn`` is then the model).  Both give the
+    gradients of remat=False."""
+    if isinstance(remat, str) and remat != "save_encodings":
+        raise ValueError(f"remat={remat!r}: the only string policy is 'save_encodings' "
+                         f"(bool for plain on/off)")
+    if remat == "save_encodings":
+        def body(*xs):
+            return checkpoint(fn.chain, *fn.encode(*xs), use_reentrant=False)
+    elif remat:
+        def body(*xs):
+            return checkpoint(fn, *xs, use_reentrant=False)
+    else:
+        body = fn
     n = inputs[0].shape[0]
     if n <= net_chunk:
-        return fn(*inputs)
-    outs = [fn(*(x[i:i + net_chunk] for x in inputs)) for i in range(0, n, net_chunk)]
+        return body(*inputs)
+    outs = [body(*(x[i:i + net_chunk] for x in inputs)) for i in range(0, n, net_chunk)]
     return tuple(torch.cat(parts) for parts in zip(*outs))
 
 
 class Renderer:
-    """Chunked ray-batch loop; subclasses implement ``render_rays``."""
-
-    # Whether the subclass applies blur_idx (the per-sample blur slot).
-    supports_blur = False
+    """Stratified-sampling volume renderer; defaults are the reference's."""
 
     def __init__(
         self,
         model=None,
+        model_fine=None,
         n_samples: int = 64,
+        n_importance: int = 0,
+        perturb: bool = True,
+        raw_noise_std: float = 0,
         render_chunk: int = 32768,
         net_chunk: int = 65536,
-        raw_noise_std: float = 0,
+        downsampling_factor: int = 1,
         blur_idx: int = None,
         map_exr: bool = False,
+        remat_net_chunks=False,
+        net_chunk_unroll: int = 1,
+        cast_params_once: bool = False,
         device=None,
         **kwargs,
     ) -> None:
-        if raw_noise_std:
-            raise NotImplementedError("raw_noise_std > 0 comes with the training slice")
-        if blur_idx is not None and not self.supports_blur:
-            raise NotImplementedError(f"blur_idx on {type(self).__name__} comes with the "
-                                      f"training slice")
+        if int(net_chunk_unroll) > 1:
+            raise NotImplementedError(f"net_chunk_unroll > 1 comes with {DEFERRED}")
+        if cast_params_once:
+            raise NotImplementedError(f"cast_params_once comes with {DEFERRED}")
         self.device = resolve_device(device)
         self.model = None if model is None else model.to(self.device)
+        self.model_fine = None if model_fine is None else model_fine.to(self.device)
         self.n_samples = n_samples
+        self.n_importance = n_importance
+        self.perturb = perturb
+        self.raw_noise_std = raw_noise_std
         self.render_chunk = render_chunk
         self.net_chunk = net_chunk
-        self.map_exr = map_exr
+        self.downsampling_factor = downsampling_factor
         self.blur_idx = blur_idx
+        self.map_exr = map_exr
+        self.remat_net_chunks = remat_net_chunks
         self._call_counter = 0
 
+    # -- the per-ray render ----------------------------------------------------
+
     def render_rays(self, rays_o, rays_d, t, parameters, cone_scale, composite_bkgd,
-                    bkgd_color, key) -> dict:
-        raise NotImplementedError
+                    bkgd_color, key, training: bool = False, differentiable: bool = False) -> dict:
+        """March a flat chunk of rays [R, ...] under ``key``.  The models run
+        ``forward`` (autograd) when ``differentiable``, else ``infer``;
+        ``training`` turns on the stratified jitter (with ``perturb``)."""
+        k_perturb, k_noise, k_noise2, k_imp = jax_rng.split(key, 4)
+        miss = torch.isinf(t[:, 0])
+        t_safe = torch.where(miss[:, None], torch.zeros_like(t), t)
+        rays_d_n = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+
+        z_vals = volume.stratified_z_vals(t_safe, self.n_samples, self.perturb and training,
+                                          k_perturb)
+        pts = rays_o[..., None, :] + rays_d[..., None, :] * z_vals[..., :, None]
+        color, density = self._evaluate_model(self.model, pts, rays_d_n, parameters, cone_scale,
+                                              z_vals, differentiable)
+        color_map, alpha_map, weights, _ = volume.composite(
+            color, density, z_vals, rays_d, raw_noise_std=self.raw_noise_std, noise_key=k_noise,
+            map_exr=self.map_exr)
+        out = {"color_pred": color_map, "alpha_pred": alpha_map}
+
+        if self.n_importance > 0:
+            z_vals_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
+            # det=self.perturb is the reference's own (inverted) sense.
+            z_samples = volume.sample_pdf(z_vals_mid, weights[..., 1:-1], self.n_importance,
+                                          det=self.perturb, key=k_imp).detach()
+            z_all = torch.sort(torch.cat([z_vals, z_samples], -1), -1).values
+            pts = rays_o[..., None, :] + rays_d[..., None, :] * z_all[..., :, None]
+            fine = self.model if self.model_fine is None else self.model_fine
+            color_i, density_i = self._evaluate_model(fine, pts, rays_d_n, parameters, cone_scale,
+                                                      z_all, differentiable)
+            color_map_i, alpha_map_i, _, _ = volume.composite(
+                color_i, density_i, z_all, rays_d, raw_noise_std=self.raw_noise_std,
+                noise_key=k_noise2, map_exr=self.map_exr)
+            out = {"color_pred": color_map_i, "alpha_pred": alpha_map_i,
+                   "color_pred_coarse": color_map, "alpha_pred_coarse": alpha_map}
+
+        # Missed rays contribute nothing; with composite_bkgd they show the
+        # background color.
+        valid = (~miss).float()
+        for name in list(out):
+            v = out[name]
+            v = v * (valid[:, None] if v.ndim == 2 else valid)
+            if composite_bkgd and "color" in name:
+                alpha = torch.where(miss, torch.zeros_like(valid), out[name.replace("color",
+                                                                                    "alpha")])
+                bkgd = torch.as_tensor(bkgd_color, dtype=torch.float32, device=v.device)
+                v = v + (1.0 - alpha)[:, None] * bkgd
+            out[name] = v
+        return out
+
+    def _evaluate_model(self, model, pos, dirs, parameters, cone_scale, z_vals, differentiable):
+        """The MLP on the flattened [R*S] samples in net_chunk pieces.  With
+        blur_idx, that parameter is scaled by the cone footprint
+        cone_scale * z of each sample."""
+        r, s = pos.shape[0], pos.shape[1]
+        pos_flat = pos.reshape(r * s, pos.shape[-1])
+        dirs_flat = dirs.repeat_interleave(s, 0)
+        params_flat = parameters.repeat_interleave(s, 0)
+        if self.blur_idx is not None:
+            blur_scale = (cone_scale[..., None, :] * z_vals[..., :, None]).reshape(r * s, 1)
+            b = self.blur_idx
+            params_flat = torch.cat([params_flat[:, :b], params_flat[:, b, None] * blur_scale,
+                                     params_flat[:, b + 1:]], -1)
+        if differentiable:
+            color, density = chunked_apply(model, (pos_flat, dirs_flat, params_flat),
+                                           self.net_chunk, remat=self.remat_net_chunks)
+        else:
+            color, density = chunked_apply(model.infer, (pos_flat, dirs_flat, params_flat),
+                                           self.net_chunk)
+        return color.reshape(r, s, 3), density.reshape(r, s)
+
+    # -- whole-batch entry points ----------------------------------------------
+
+    def _flatten_batch(self, data: dict) -> dict:
+        """[B, R, ...] ray data (numpy or tensors) as flat float32 [B*R, ...]
+        tensors on the renderer's device; parameters [B, P] repeat per ray."""
+        def f32(x):
+            return torch.as_tensor(x, dtype=torch.float32, device=self.device)
+
+        rays_o = f32(data["rays_o"])
+        b, r = rays_o.shape[0], rays_o.shape[1]
+        n = b * r
+        parameters = f32(data["parameters"])
+        return {
+            "rays_o": rays_o.reshape(n, -1),
+            "rays_d": f32(data["rays_d"]).reshape(n, -1),
+            "t": f32(data["t"]).reshape(n, -1),
+            "parameters": parameters.reshape(b, parameters.shape[-1]).repeat_interleave(r, 0),
+            "cone_scale": f32(data["cone_scale"]).reshape(n, -1),
+        }
+
+    def apply(self, data: dict, key, composite_bkgd: bool = False, bkgd_color=(1, 1, 1.0),
+              training: bool = True) -> dict:
+        """Differentiable render of a whole batch (the training step's):
+        data {rays_o [B,R,3], rays_d, t [B,R,2], parameters [B,P],
+        cone_scale [B,R,1]} -> {name: [B,R,...]}, through the models'
+        ``forward``."""
+        b, r = data["rays_o"].shape[0], data["rays_o"].shape[1]
+        flat = self._flatten_batch(data)
+        out = self.render_rays(flat["rays_o"], flat["rays_d"], flat["t"], flat["parameters"],
+                               flat["cone_scale"], composite_bkgd, bkgd_color, key,
+                               training=training, differentiable=True)
+        return {k: v.reshape((b, r) + v.shape[1:]) for k, v in out.items()}
 
     @torch.inference_mode()
     def __call__(self, rays_o, rays_d, t, parameters, cone_scale, composite_bkgd: bool = False,
@@ -71,29 +209,16 @@ class Renderer:
         [B,P], cone_scale [B,R,1]; key, a jax_rng key whose draws are the
         JAX package's for the same key (default: this renderer's next
         STREAM_PERTURB key).  Returns
-        {"color_pred": [B,R,3], "alpha_pred": [B,R]} as tensors on the
+        {"color_pred": [B,R,3], "alpha_pred": [B,R], ...} as tensors on the
         renderer's device."""
-        if training:
-            raise NotImplementedError("training renders come with the training slice")
         if key is None:
             key = rng.stream_key(rng.STREAM_PERTURB, self._call_counter)
             self._call_counter += 1
-
-        def f32(x):
-            return torch.as_tensor(x, dtype=torch.float32, device=self.device)
-
-        rays_o, rays_d, t, cone_scale = f32(rays_o), f32(rays_d), f32(t), f32(cone_scale)
+        data = {"rays_o": rays_o, "rays_d": rays_d, "t": t, "parameters": parameters,
+                "cone_scale": cone_scale}
         b, r = rays_o.shape[0], rays_o.shape[1]
+        flat = self._flatten_batch(data)
         n = b * r
-        parameters = f32(parameters).reshape(b, -1)
-        flat = {
-            "rays_o": rays_o.reshape(n, 3),
-            "rays_d": rays_d.reshape(n, 3),
-            "t": t.reshape(n, 2),
-            "parameters": parameters.repeat_interleave(r, 0),
-            "cone_scale": cone_scale.reshape(n, -1),
-        }
-
         chunk = min(self.render_chunk, n)
         n_pad = -(-n // chunk) * chunk
         if n_pad > n:
@@ -106,7 +231,7 @@ class Renderer:
             c = {k: v[i:i + chunk] for k, v in flat.items()}
             outs.append(self.render_rays(
                 c["rays_o"], c["rays_d"], c["t"], c["parameters"], c["cone_scale"],
-                composite_bkgd, bkgd_color, jax_rng.fold_in(key, i),
+                composite_bkgd, bkgd_color, jax_rng.fold_in(key, i), training=training,
             ))
 
         out = {}

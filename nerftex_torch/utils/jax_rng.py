@@ -12,6 +12,11 @@ path makes:
   uniform(key, shape) bits1 ^ bits2 of threefry(key, the flat iota over
                       shape as (hi, lo) words), the top 23 bits as the
                       mantissa of a float in [1, 2), minus 1
+  uniform_range       uniform(key, shape, minval=, maxval=): u * (max - min)
+                      + min as one fused multiply-add, as XLA's CPU backend
+                      contracts it (the parameter init draws so)
+  normal(key, shape)  sqrt(2) erfinv(u), u uniform on (-1, 1), with XLA's
+                      single-precision erfinv (Giles' polynomial)
 
 A key is an int64 tensor [2] holding two uint32 words (on the CPU; keys
 are tiny).  ``uniform`` draws on the device it is given.  ``block_keys``
@@ -21,6 +26,7 @@ arithmetic runs in int64 with a 32-bit mask, because PyTorch's uint32
 support is partial; every add and rotation is masked back to 32 bits.
 """
 
+import numpy as np
 import torch
 
 _MASK = 0xFFFFFFFF
@@ -132,3 +138,48 @@ def uniform(key, shape, device="cpu", full_width: int = None) -> torch.Tensor:
                     + torch.arange(shape[-1], dtype=torch.int64, device=device)[None, :])
         counters = counters.reshape(shape)
     return uniform_at(key, counters)
+
+
+def _fma32(a: torch.Tensor, b, c) -> torch.Tensor:
+    """float32 a * b + c with one rounding, as a fused multiply-add: the
+    product of two float32 values is exact in float64, so only the sum
+    rounds there before the cast back (the double rounding this risks is
+    rarer than 2^-29 per value)."""
+    return (a.double() * b + c).float()
+
+
+def uniform_range(key, shape, minval: float, maxval: float, device="cpu") -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)`` as the
+    JAX package computes it on the CPU: max(min, u * (max - min) + min),
+    the bounds rounded to float32 first and the scale-and-shift fused."""
+    lo = torch.tensor(minval, dtype=torch.float32)
+    hi = torch.tensor(maxval, dtype=torch.float32)
+    u = uniform(key, shape, device=device)
+    return torch.maximum(_fma32(u, float(hi - lo), float(lo)), lo.to(device))
+
+
+# XLA's ErfInv for float32 (M. Giles, "Approximating the erfinv function"):
+# a polynomial in w - 2.5 for w = -log1p(-x^2) < 5, in sqrt(w) - 3 beyond.
+_ERFINV_SMALL = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06, 0.00021858087,
+                 -0.00125372503, -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_LARGE = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844, 0.00573950773,
+                 -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)
+
+
+def erfinv(x: torch.Tensor) -> torch.Tensor:
+    """float32 erfinv by XLA's polynomial, each step a fused multiply-add.
+    PyTorch's log1p and XLA's differ by an ulp on about 1% of arguments, so
+    this agrees with XLA to a few ulps (torch.erfinv is ~50 ulps away)."""
+    w = -torch.log1p(-x * x)
+    small = w < 5.0
+    ws = torch.where(small, w - 2.5, torch.sqrt(w) - 3.0).double()
+    p = torch.where(small, _ERFINV_SMALL[0], _ERFINV_LARGE[0])
+    for a, b in zip(_ERFINV_SMALL[1:], _ERFINV_LARGE[1:]):
+        p = _fma32(p, ws, torch.where(small, a, b).double())
+    return torch.where(x.abs() == 1, x * float("inf"), p * x)
+
+
+def normal(key, shape, device="cpu") -> torch.Tensor:
+    """``jax.random.normal(key, shape)`` (float32) on ``device``."""
+    lo = float(np.nextafter(np.float32(-1), np.float32(0)))
+    return float(np.float32(np.sqrt(2))) * erfinv(uniform_range(key, shape, lo, 1.0, device))

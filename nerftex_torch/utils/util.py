@@ -21,8 +21,10 @@ import torch
 REMAP = {
     "network.model.ParamNerf": "nerftex_torch.models.mlp.ParamNerf",
     "network.model.Nerf": "nerftex_torch.models.mlp.Nerf",
+    "network.model.CoarseFine": "nerftex_torch.models.mlp.CoarseFine",
     "network.model.FourierFeatures": "nerftex_torch.models.encodings.FourierFeatures",
     "network.layer.FourierFeatures": "nerftex_torch.models.encodings.FourierFeatures",
+    "network.renderer.Renderer": "nerftex_torch.render.renderer.Renderer",
     "network.renderer.InstanceRenderer": "nerftex_torch.render.instance_renderer.InstanceRenderer",
     "instancer.instancer.Instancer": "nerftex_torch.instancing.instancer.Instancer",
     "network.proxy.AABB": "nerftex_torch.ops.proxy.AABB",
@@ -30,7 +32,10 @@ REMAP = {
     "data.dist.Hemisphere": "nerftex_torch.data.distribution.Hemisphere",
     "network.render.Render": "nerftex_torch.render.render.Render",
     "network.logger.Logger": "nerftex_torch.render.logger.Logger",
+    "network.train.Train": "nerftex_torch.render.train.Train",
 }
+REMAP.update({f"network.loss.{name}": f"nerftex_torch.render.loss.{name}"
+              for name in ("NerfLoss", "AlphaLoss", "mse", "smape")})
 REMAP.update({f"network.dataset.{name}": f"nerftex_torch.data.dataset.{name}"
               for name in ("Dataset", "GenerateData", "FileFolder", "TFRecord")})
 REMAP.update({f"network.pixel_sampler.{name}": f"nerftex_torch.data.pixel_sampler.{name}"

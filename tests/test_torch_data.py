@@ -245,7 +245,7 @@ def test_float_pixel_locations_interpolate_the_image(jax_tfrecord, monkeypatch):
 
 def test_device_resident_dataset_raises():
     cfg = importlib.import_module("configs.config_carpet_render").config
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(NotImplementedError, match="device-resident training slice"):
         instantiate(dict(cfg["test_dataset_config"], device_resident=True))
 
 

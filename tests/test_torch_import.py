@@ -1,10 +1,11 @@
 """nerftex_torch stands alone: no file of the package, nor chip_smoke.py,
 imports jax, optax, nerftex_tpu or the config shims that resolve to it; the
-package (the serving modules included) imports with all of them blocked;
-every render config the port supports resolves inside the port, and an
-unported reference path raises instead of reaching the JAX package; and an
-entry point given no device raises when CUDA is absent instead of running
-on the CPU."""
+package (the serving and training modules included) imports with all of
+them blocked; every render and train config the port supports resolves
+inside the port, main trains one with all of them blocked, and an unported
+reference path raises instead of reaching the JAX package; and an entry
+point given no device raises when CUDA is absent instead of running on the
+CPU."""
 
 import ast
 import os
@@ -56,7 +57,8 @@ def test_package_imports_with_jax_blocked():
               "nerftex_torch.data.dataset", "nerftex_torch.data.tfrecord",
               "nerftex_torch.data.pixel_sampler", "nerftex_torch.data.ray_sampler",
               "nerftex_torch.utils.image", "nerftex_torch.utils.exr",
-              "nerftex_torch.ops.interpolate"):
+              "nerftex_torch.ops.interpolate", "nerftex_torch.render.train",
+              "nerftex_torch.render.loss", "nerftex_torch.tools.synth"):
         assert m in modules, m
     code = (
         "import sys\n"
@@ -162,14 +164,41 @@ def test_supported_render_configs_resolve_inside_the_port():
     assert not outside, outside
 
 
+SUPPORTED_TRAIN_CONFIGS = (
+    "config_carpet_train", "config_fur_train", "config_grass_train",
+    "config_grass_filtered_train", "config_plush_train", "demo_carpet_train", "demo_fur_train",
+    "demo_grass_train", "demo_grass_filtered_train", "demo_plush_train", "full_carpet_train",
+)
+
+
+def test_supported_train_configs_resolve_inside_the_port():
+    """Every module path of every train config the port supports names a
+    nerftex_torch object, with no jax and no nerftex_tpu module imported."""
+    out = _resolve_in_subprocess(SUPPORTED_TRAIN_CONFIGS, (
+        "for c, ps in paths.items():\n"
+        "    for p in ps:\n"
+        "        obj = util.get_attr_from_path(p)\n"
+        "        print(c, p, obj.__module__)\n"
+    ))
+    lines = out.splitlines()
+    assert lines[-1] == "loaded []", lines[-1]
+    resolved = [line.split() for line in lines[:-1]]
+    assert {c for c, _, _ in resolved} == set(SUPPORTED_TRAIN_CONFIGS)
+    assert {p for _, p, _ in resolved} >= {
+        "network.train.Train", "network.loss.AlphaLoss", "network.renderer.Renderer",
+        "network.pixel_sampler.Proxy", "network.dataset.TFRecord", "network.logger.Logger"}
+    outside = [r for r in resolved if not r[2].startswith("nerftex_torch.")]
+    assert not outside, outside
+
+
 @pytest.mark.parametrize("config,path", [
     ("demo_grass_mip_render", "network.renderer.MipInstanceRenderer"),
     ("demo_grass_mip_render", "network.model.IntegratedPositionalEncoding"),
-    ("config_grass_filtered_train", "network.train.Train"),
-    ("config_carpet_train", "network.loss.AlphaLoss"),
+    ("demo_grass_mip_train", "network.renderer.MipRenderer"),
+    ("demo_grass_mip_train", "network.model.IntegratedPositionalEncoding"),
 ])
 def test_unported_paths_raise_and_import_no_jax(config, path):
-    """A mip or train config's unported path raises UnportedPathError (a
+    """A mip config's unported path raises UnportedPathError (a
     NotImplementedError) that names it, instead of reaching nerftex_tpu
     through a shim; nothing of jax or nerftex_tpu is imported."""
     out = _resolve_in_subprocess((config,), (
@@ -185,21 +214,60 @@ def test_unported_paths_raise_and_import_no_jax(config, path):
     assert lines[-1] == "loaded []", lines[-1]
 
 
-def test_main_refuses_a_train_config_without_jax():
+def _run_main_in(tmp_path, config_body):
+    """nerftex_torch.main on a config module written to tmp_path (run from
+    there on the CPU, with jax, optax and nerftex_tpu blocked); returns its
+    stdout, which ends with the jax and nerftex_tpu modules loaded."""
+    (tmp_path / "cfg.py").write_text(config_body)
     code = (
         "import sys\n"
+        "for name in ('jax', 'jaxlib', 'optax', 'nerftex_tpu'):\n"
+        "    sys.modules[name] = None\n"
         "from nerftex_torch import main\n"
         "try:\n"
-        "    main.main(['configs/config_carpet_train.py', '--device', 'cpu'])\n"
+        "    main.main(['cfg.py', '--device', 'cpu'])\n"
         "except NotImplementedError as e:\n"
         "    print('raised', e)\n"
         "print('loaded', sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'nerftex_tpu')))\n"
+        "('jax', 'nerftex_tpu', 'optax') and sys.modules[m] is not None))\n"
     )
-    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                          env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
-                          text=True, timeout=300)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
+                          env=dict(os.environ, PYTHONPATH=ROOT, NERFTEX_NO_TENSORBOARD="1"),
+                          capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    lines = proc.stdout.splitlines()
-    assert lines[0].startswith("raised") and "training slice" in lines[0], lines
+    return proc.stdout.splitlines()
+
+
+def test_main_refuses_a_train_config_without_jax(tmp_path):
+    """The device-resident carpet config (steps_per_dispatch 100,
+    device_resident) names the slice that ports it."""
+    lines = _run_main_in(tmp_path, (
+        "import copy\n"
+        "from configs.full_carpet_train_device import config as _config\n"
+        f"config = dict(copy.deepcopy(_config), target_path={str(tmp_path / 'logs')!r})\n"))
+    assert lines[-2].startswith("raised") and "device-resident training slice" in lines[-2], lines
     assert lines[-1] == "loaded []", lines
+
+
+def test_main_trains_a_train_config_without_jax(tmp_path):
+    """configs/config_carpet_train.py, cut to CPU size, trains two steps
+    through main on a synthetic TFRecord with jax, optax and nerftex_tpu
+    blocked."""
+    lines = _run_main_in(tmp_path, (
+        "import copy\n"
+        "from configs.config_carpet_train import config as _config\n"
+        "from nerftex_torch.tools.synth import make_synthetic_tfrecord\n"
+        "config = copy.deepcopy(_config)\n"
+        "tfr = make_synthetic_tfrecord('train.tfr', n_images=4, size=16)\n"
+        "config.update(target_path='logs', n_iters=2)\n"
+        "config['train_dataset_config']['data_loader_config']['tfr_path'] = tfr\n"
+        "config['train_dataset_config']['pixel_sampler_config'].update(n_samples=8, "
+        "downsample_factor=2)\n"
+        "config['val_dataset_config']['data_loader_config'].update(height=8, width=8)\n"
+        "config['model_config'].update(depth=2, width=32, skips=[0])\n"
+        "config['renderer_config']['n_samples'] = 8\n"
+        "config['logger_config'].update(i_summary=1, i_img=2, i_checkpoint=2)\n"))
+    assert lines[-1] == "loaded []", lines
+    assert not any(line.startswith("raised") for line in lines), lines
+    assert len((tmp_path / "logs" / "scalars.jsonl").read_text().splitlines()) == 2
+    assert (tmp_path / "logs" / "checkpoints" / "ckpt-2.pkl").exists()

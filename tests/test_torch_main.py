@@ -5,8 +5,8 @@ key and weights; the port's main on the grass_filtered render config, cut
 to 16x16 and a narrow ParamNerf, restored from one checkpoint that the
 JAX package's CheckpointManager wrote, writes the file names and images
 that the JAX package's Render writes; the eval Logger's PNG and EXR
-images, with and without its filtered downsample, are the JAX Logger's;
-main refuses a train config."""
+images, with and without its filtered downsample, are the JAX Logger's.
+(main's train configs: tests/test_torch_train.py.)"""
 
 import contextlib
 import copy
@@ -27,7 +27,7 @@ from nerftex_tpu.utils import rng as jax_rng_streams
 from nerftex_tpu.utils import util as jax_util
 from nerftex_torch import main as port_main
 from nerftex_torch.render.checkpoint import load_jax_params
-from nerftex_torch.utils import jax_rng, rng
+from nerftex_torch.utils import jax_rng
 from nerftex_torch.utils.image import decode_png_u8
 from nerftex_torch.utils.util import instantiate
 
@@ -98,14 +98,6 @@ def test_grass_filtered_frame_matches_jax_with_the_same_key(frame):
     assert 10 * np.log10(1 / mse) >= 60
     assert np.mean(err > 1e-3) <= 0.02
     assert err.max() <= 3e-2
-
-
-def test_plain_renderer_refuses_blur_idx():
-    """The plain Renderer's blur (a training renderer) is not ported."""
-    from nerftex_torch.render.renderer import Renderer
-
-    with pytest.raises(NotImplementedError, match="training slice"):
-        Renderer(blur_idx=0, device="cpu")
 
 
 def test_blur_scaling_changes_the_frame(frame):
@@ -264,11 +256,3 @@ def test_logger_writes_the_jax_images(tmp_path, write_exr, factor):
             want, got = (decode_png_u8(p.read_bytes()).astype(np.int32) for p in paths)
             assert want.shape == (8 // factor, 12 // factor, 4)
             assert np.abs(got - want).max() <= (0 if factor == 1 else 1)
-
-
-def test_main_refuses_a_train_config(monkeypatch):
-    """Before it seeds or makes the target directory."""
-    monkeypatch.chdir(ROOT)
-    monkeypatch.setattr(rng, "set_seed", lambda seed: pytest.fail("seeded a train config"))
-    with pytest.raises(NotImplementedError, match="training slice"):
-        port_main.main(["configs/config_grass_filtered_train.py", "--device", "cpu"])

@@ -95,7 +95,24 @@ Phases (any failure raises and exits non-zero):
      on its own synthetic TFRecord: finite losses, and its validation
      render checked as the carpet one (restore, PNG, every launch
      wgmma_tf32x3, within 1e-3 of the plain MLP, the kernel against its
-     plain version at the render's pos 81 / dir 54 maps: its own row).
+     plain version at the render's pos 81 / dir 54 maps: its own row);
+  12. device-resident training: configs/full_carpet_train_device.py
+     (device_resident, steps_per_dispatch 100, bf16, save_encodings,
+     net_chunk 16384) through nerftex_torch.main on a TFRecord of
+     DEVICE_TRAIN_RECORDS records cycling DEVICE_TRAIN_VIEWS synthetic
+     512x512 views (rendered in parallel processes): first the sampler on
+     the card against the CPU (16 records, the same keys: img_idx and loc
+     equal, the batch within SAMPLER_TOLS) and DEVICE_TRAIN_GRAPH_STEPS
+     graph-replayed steps against as many eager steps from the same state;
+     then DEVICE_TRAIN_STEPS steps (a checkpoint every
+     DEVICE_TRAIN_CHECKPOINT_EVERY, validation at the last): every step a
+     replay of one captured graph and none eager (render/train.py
+     step_counts), the loss falling, the checkpoints and two PNGs, the
+     bf16 validation render through wgmma_bf16 alone within
+     DEVICE_TRAIN_PLAIN_MAX_DIFF of the plain MLP's and the first PNG
+     within one u8 level of the restored model's render (its own row);
+     steps/s, seconds per dispatch and peak memory, and the host-fed step
+     of the same config beside it, interleaved P C C P.
 The first render of each frame runs with its selk_resolve calls captured
 (selk_capture); the frame's launch histogram (launches by Rb, S, K and
 method, with the window and valid slots of their inputs) is printed on a
@@ -111,6 +128,7 @@ device JSON.
 """
 
 import contextlib
+import copy
 import json
 import os
 import subprocess
@@ -193,6 +211,40 @@ TRAIN_CHECKPOINT_EVERY = 100
 TRAIN_PLAIN_MAX_DIFF = 1e-3           # a validation render, kernel vs plain MLP
 TRAIN_SYNTH = dict(n_images=32, size=64, seed=0)
 GRASS_FILTERED_TRAIN_STEPS = 20
+# The device-resident training phase (configs/full_carpet_train_device.py
+# through nerftex_torch.main): a TFRecord of DEVICE_TRAIN_RECORDS records
+# cycling DEVICE_TRAIN_VIEWS distinct synthetic 512x512 views (the config's
+# dataset scale: a 5.24 GB u8 table on the card).
+DEVICE_TRAIN_VIEWS = 4
+DEVICE_TRAIN_RECORDS = 5000
+DEVICE_TRAIN_STEPS = 600              # n_iters and i_img: 6 dispatches of 100
+DEVICE_TRAIN_CHECKPOINT_EVERY = 300
+DEVICE_TRAIN_RATE_STEPS = (100, 500)  # steps/s between these logger calls
+DEVICE_TRAIN_CHECK_VIEWS = 16         # the sampler and graph checks' dataset
+DEVICE_TRAIN_GRAPH_STEPS = 5
+# The interleaved P C C P comparison: P host-fed steps (its host pipeline
+# decodes every 512x512 PNG it samples: ~5 steps/s), C device-resident
+# steps (one dispatch of 100).
+HOST_FED_COMPARE_STEPS = 30
+DEVICE_COMPARE_STEPS = 100
+# The sampler on the card vs on the CPU (tests/test_device_dataset.py's
+# tolerances): rays, t, cone_scale, and the u8 decode, which the card
+# computes as a reciprocal multiply (the CPU divides).
+SAMPLER_TOLS = {"rays_o": 1e-6, "rays_d": 1e-6, "t": 1e-5, "cone_scale": 1e-7, "color": 4e-7,
+                "alpha": 4e-7, "parameters": 0}
+# Graph replays vs eager steps on the card, from the same state: the
+# backward's index_add (repeat_interleave's gradient) sums with atomics in
+# an order that changes from run to run, so the two may round apart; an
+# Adam update moves an element by about lrate at most, so after K steps two
+# runs part by at most 2 K lrate (5e-3 at the config's 5e-4) where a
+# near-zero gradient's sign differs, and their losses by the rounding.
+GRAPH_LOSS_RTOL = 1e-4
+GRAPH_PARAM_TOL = 2 * DEVICE_TRAIN_GRAPH_STEPS * 5e-4
+# The bf16 validation render through the kernel vs through the plain MLP
+# (mlp_fused_plain): both round every layer's output to bf16 (2^-8
+# relative) at other places, so colors and alphas part by a few bf16 ulps
+# of the [0, 1] outputs; the per-launch check's 0.05 of the output scale.
+DEVICE_TRAIN_PLAIN_MAX_DIFF = 0.05
 H100_BYTES_PER_S = 3.35e12            # HBM3, SXM data sheet
 H100_BF16_FLOPS = 989e12              # dense tensor-core bf16
 H100_F32_FLOPS = 67e12                # f32 outside the tensor cores
@@ -1451,17 +1503,18 @@ def mlp_event_timing():
         yield events
 
 
-def check_validation_render(frame, config, target, n_steps, counts):
+def check_validation_render(frame, config, target, n_steps, counts, dtype_name="float32",
+                            plain_tol=TRAIN_PLAIN_MAX_DIFF):
     """A train config's validation render, once nerftex_torch.main has
     trained it for ``n_steps`` into ``target``: the last checkpoint restores
     bit for bit into a fresh model, which renders the first validation
     image again (the Logger's first keyless render draws
     stream_key(STREAM_PERTURB, 0)) through the kernel (every launch
-    wgmma_tf32x3), within MAIN_U8_MAX_DIFF of the PNG main wrote and within
-    TRAIN_PLAIN_MAX_DIFF of the same render through the plain MLP; the
-    kernel against its plain version at that render's first net_chunk; the
-    validation renders' mlp_fused launches timed by events.  Returns
-    (numbers, {"mlp_fused": kernels-line row})."""
+    wgmma_tf32x3, or wgmma_bf16 for a bf16 model), within MAIN_U8_MAX_DIFF
+    of the PNG main wrote and within ``plain_tol`` of the same render
+    through the plain MLP; the kernel against its plain version at that
+    render's first net_chunk; the validation renders' mlp_fused launches
+    timed by events.  Returns (numbers, {"mlp_fused": kernels-line row})."""
     from nerftex_torch.kernels import mlp_fused as fused
     from nerftex_torch.render.checkpoint import (CheckpointManager, export_jax_params,
                                                  flatten_params, load_jax_params)
@@ -1490,7 +1543,8 @@ def check_validation_render(frame, config, target, n_steps, counts):
     torch.cuda.synchronize()
     direct_launches, direct_variants = read_counts()
     check_counts(f"{frame} (direct)", direct_launches, direct_variants,
-                 idle=("tex_fetch", "selk_resolve"), want=F32_FRAME_VARIANTS)
+                 idle=("tex_fetch", "selk_resolve"),
+                 want=F32_FRAME_VARIANTS if dtype_name == "float32" else FRAME_VARIANTS)
     with mlp_wrap(lambda real, *args: real.mlp_fused_plain(*args)):
         plain = renderer(**items[0], training=False, key=key)
     plain_diff = max(float((out[k] - plain[k]).abs().max()) for k in ("color_pred",
@@ -1508,11 +1562,11 @@ def check_validation_render(frame, config, target, n_steps, counts):
     torch.cuda.synchronize()
     val_mlp_ms = sum(a.elapsed_time(b) for a, b in events)
     log(f"{frame} validation render: restored checkpoint bit-equal; max |kernel - plain MLP| "
-        f"{plain_diff:.3g} (limit {TRAIN_PLAIN_MAX_DIFF}); the first PNG vs the direct render "
+        f"{plain_diff:.3g} (limit {plain_tol}); the first PNG vs the direct render "
         f"{u8_diff} u8 levels; alpha mean {float(alpha.mean()):.4f}; mlp_fused over all "
         f"{len(items)} validation renders ({len(events)} launches) {val_mlp_ms:.2f} ms of device "
         f"time")
-    if not plain_diff <= TRAIN_PLAIN_MAX_DIFF:
+    if not plain_diff <= plain_tol:
         raise AssertionError(f"{frame}: the validation render through the kernel differs from "
                              f"the plain MLP's by {plain_diff}")
     if not u8_diff <= MAIN_U8_MAX_DIFF:
@@ -1520,11 +1574,11 @@ def check_validation_render(frame, config, target, n_steps, counts):
                              f"model's render by {u8_diff} u8 levels")
     pos_map, dir_map, packed = mlp_calls[0]
     row = mlp_kernel_row(fused, packed, [mlp_row(
-        fused, packed, pos_map, dir_map, "float32",
+        fused, packed, pos_map, dir_map, dtype_name,
         f"the {frame} validation render's first net_chunk")])
     row.update(validation_launches=len(events), validation_device_ms=val_mlp_ms,
                validation_bound_ms=len(events) * mlp_bounds(packed, pos_map.shape[0],
-                                                            "float32")[0])
+                                                            dtype_name)[0])
     numbers = {"plain_max_abs_diff": plain_diff, "first_png_vs_direct_u8": u8_diff,
                "validation_mlp_device_ms": val_mlp_ms, "validation_mlp_launches": len(events)}
     del model, renderer, out, plain, mlp_calls
@@ -1659,6 +1713,317 @@ def main_training(counts, card):
         numbers["grass_filtered_train"] = {"steps": n, "steps_per_s": gf_rate, "main_s": gf_s,
                                            "losses": gf_losses, **val}
     return numbers, rows, launches
+
+
+def _synth_view(args):
+    """One 512x512 synthetic view (nerftex_torch.tools.synth, seed ``seed``)
+    written as a one-record TFRecord at ``path``; returns the file's bytes
+    (a framed record).  Runs in a worker process."""
+    path, seed, n_parameters, b_0, b_1 = args
+    from nerftex_torch.tools.synth import make_synthetic_tfrecord
+
+    make_synthetic_tfrecord(path, n_images=1, size=512, seed=seed, n_parameters=n_parameters,
+                            b_0=b_0, b_1=b_1)
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def cycled_tfrecords(work, config, n_views, sizes):
+    """n_views distinct 512x512 synthetic views for the config's proxy box
+    and parameter count, rendered in parallel processes (seeds 0 ..
+    n_views - 1), and for each n in ``sizes`` a TFRecord of n records
+    cycling them (each record keeps its view's pose and parameters).
+    Returns ({n: path}, synth seconds)."""
+    import concurrent.futures
+    import multiprocessing
+
+    proxy = config["train_dataset_config"]["proxy_config"]
+    n_parameters = tuple(config["model_config"]["n_parameters"])
+    jobs = [(os.path.join(work, f"view{v}.tfr"), v, n_parameters, tuple(proxy["b_0"]),
+             tuple(proxy["b_1"])) for v in range(n_views)]
+    t0 = time.perf_counter()
+    with concurrent.futures.ProcessPoolExecutor(
+            n_views, mp_context=multiprocessing.get_context("spawn")) as pool:
+        framed = list(pool.map(_synth_view, jobs))
+    synth_s = time.perf_counter() - t0
+    paths = {}
+    for n in sizes:
+        paths[n] = os.path.join(work, f"cycled{n}.tfr")
+        with open(paths[n], "wb") as f:
+            for i in range(n):
+                f.write(framed[i % n_views])
+    return paths, synth_s
+
+
+def check_device_sampler(config, tfr):
+    """The device-resident sampler built from ``tfr`` on the card and on
+    the CPU: the same keys (made on each side, and one derived on the card
+    from a step tensor as the training step derives it) give equal img_idx
+    and loc and the batch within SAMPLER_TOLS."""
+    from nerftex_torch.utils import jax_rng
+    from nerftex_torch.utils.util import instantiate
+
+    cfg = copy.deepcopy(config["train_dataset_config"])
+    cfg["data_loader_config"]["tfr_path"] = tfr
+    samplers = {dev: instantiate(cfg, device=dev).device_sampler for dev in ("cuda", "cpu")}
+    worst = dict.fromkeys(SAMPLER_TOLS, 0.0)
+    for seed in (0, 1):
+        step = torch.tensor(7 + seed, device="cuda")
+        keys = {"cuda": jax_rng.fold_in(jax_rng.key(seed).cuda(), step),
+                "cpu": jax_rng.fold_in(jax_rng.key(seed), 7 + seed)}
+        out = {dev: samplers[dev].sample(keys[dev], with_aux=True) for dev in samplers}
+        (gb, gaux), (cb, caux) = out["cuda"], out["cpu"]
+        for name in ("img_idx", "loc"):
+            if not torch.equal(gaux[name].cpu(), caux[name]):
+                raise AssertionError(f"device sampler: {name} differs between the card and the "
+                                     f"CPU for key {seed}")
+        for name in SAMPLER_TOLS:
+            worst[name] = max(worst[name], float((gb[name].cpu() - cb[name]).abs().max()))
+    log(f"device sampler on the card vs the CPU ({samplers['cpu'].n_images} views of "
+        f"{samplers['cpu'].height}^2, {cfg['batchsize']} x {samplers['cpu'].n_samples} rays): "
+        f"img_idx and loc equal; max abs diff {worst} (limits {SAMPLER_TOLS})")
+    bad = {k: v for k, v in worst.items() if not v <= SAMPLER_TOLS[k]}
+    if bad:
+        raise AssertionError(f"device sampler: the card and the CPU differ by {bad}")
+    return worst
+
+
+def check_graph_vs_eager(config, tfr):
+    """DEVICE_TRAIN_GRAPH_STEPS graph-replayed steps (FusedStep.run) against
+    as many eager steps of the same step function on the card, from the
+    same state (the config's model, renderer and Adam at full width, JAX
+    init, on ``tfr``'s dataset): losses and parameters."""
+    from nerftex_torch.models import mlp
+    from nerftex_torch.render import train as train_mod
+    from nerftex_torch.utils import rng
+
+    rng.set_seed(config["seed"])
+    mlp._INIT_COUNTER[0] = 0
+    cfg = copy.deepcopy(config)
+    cfg["train_dataset_config"]["data_loader_config"]["tfr_path"] = tfr
+    k = DEVICE_TRAIN_GRAPH_STEPS
+    _, _, _, step = train_mod.build_step(
+        cfg["train_dataset_config"], cfg["model_config"], cfg["loss_config"], cfg["lrate"],
+        cfg["lrate_decay"], cfg["renderer_config"], "cuda", train_mod.TrainState(),
+        flat_params=cfg.get("flat_params", False), steps_per_dispatch=k)
+    step._init_adam_state()
+    tensors = step._state_tensors()
+    start = [t.detach().clone() for t in tensors]
+    step.step.fill_(0)
+    step.slot.zero_()
+    for _ in range(k):
+        step._body()
+    eager_losses = step.losses[:k].cpu()
+    eager = [p.detach().clone() for p in step._params()]
+    with torch.no_grad():
+        for t, v in zip(tensors, start):
+            t.copy_(v)
+    graph_losses = step.run(0, k)
+    loss_rel = float(((graph_losses - eager_losses).abs() / eager_losses.abs()).max())
+    params = [p.detach() for p in step._params()]
+    param_diff = max(float((p - e).abs().max()) for p, e in zip(params, eager))
+    equal = sum(int((p == e).sum()) for p, e in zip(params, eager))
+    total = sum(p.numel() for p in eager)
+    log(f"device-resident step, {k} graph replays vs {k} eager steps from the same state: "
+        f"losses {graph_losses.tolist()} vs {eager_losses.tolist()} (max relative diff "
+        f"{loss_rel:.3g}, limit {GRAPH_LOSS_RTOL}); parameters max abs diff {param_diff:.3g} "
+        f"(limit {GRAPH_PARAM_TOL}), {equal} of {total} bit-equal")
+    if not loss_rel <= GRAPH_LOSS_RTOL:
+        raise AssertionError(f"graph replays' losses differ from the eager steps' by {loss_rel}")
+    if not param_diff <= GRAPH_PARAM_TOL:
+        raise AssertionError(f"graph replays' parameters differ from the eager steps' by "
+                             f"{param_diff}")
+    del step
+    torch.cuda.empty_cache()
+    return {"loss_rel": loss_rel, "param_max_abs_diff": param_diff, "params_bit_equal": equal,
+            "params": total}
+
+
+def compare_host_fed(config, tfr, fused, start, card):
+    """Steps/s of the config host-fed (device_resident off, one step per
+    dispatch, the same bf16 model and renderer, ``tfr``'s records through
+    the prefetch thread; HOST_FED_COMPARE_STEPS steps) against the
+    device-resident ``fused`` step (the one main trained, continuing from
+    ``start``; DEVICE_COMPARE_STEPS steps), interleaved P C C P."""
+    from nerftex_torch.models import mlp
+    from nerftex_torch.render import train as train_mod
+    from nerftex_torch.utils import jax_rng, rng
+
+    rng.set_seed(config["seed"])
+    mlp._INIT_COUNTER[0] = 0
+    cfg = copy.deepcopy(config)
+    cfg["train_dataset_config"]["data_loader_config"]["tfr_path"] = tfr
+    cfg["train_dataset_config"]["device_resident"] = False
+    state = train_mod.TrainState()
+    dataset, _, _, host_step = train_mod.build_step(
+        cfg["train_dataset_config"], cfg["model_config"], cfg["loss_config"], cfg["lrate"],
+        cfg["lrate_decay"], cfg["renderer_config"], "cuda", state)
+    n_host, n_dev = HOST_FED_COMPARE_STEPS, DEVICE_COMPARE_STEPS
+    warm = 5
+    batches = iter(dataset.take(2 * n_host + warm))
+    base = rng.stream_key(rng.STREAM_PERTURB)
+    s = 0
+
+    def host_steps(count):
+        nonlocal s
+        for _ in range(count):
+            data = next(batches)
+            batch = {k: torch.as_tensor(v).to("cuda", non_blocking=True)
+                     for k, v in data.items()}
+            host_step(batch, jax_rng.fold_in(base, s))
+            s += 1
+            state.step = s
+
+    def timed(fn, n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return n / (time.perf_counter() - t0)
+
+    host_steps(warm)
+    rates = {"host_fed": [], "device_resident": []}
+    k = fused.losses.shape[0]
+    for side in ("host_fed", "device_resident", "device_resident", "host_fed"):
+        if side == "host_fed":
+            rates[side].append(timed(lambda: host_steps(n_host), n_host))
+        else:
+            rates[side].append(timed(lambda: [fused.run(start + i, k)
+                                              for i in range(0, n_dev, k)], n_dev))
+            start += n_dev
+    log(f"steps/s interleaved P C C P (P: {n_host} host-fed steps, device_resident off, one "
+        f"step per dispatch; C: {n_dev} steps of the device-resident step main trained, {k} "
+        f"graph replays per dispatch): host-fed {rates['host_fed']}, device-resident "
+        f"{rates['device_resident']} on {card}")
+    return rates
+
+
+def main_device_training(counts, card):
+    """The device-resident training phase (see the module docstring):
+    configs/full_carpet_train_device.py through nerftex_torch.main on a
+    DEVICE_TRAIN_RECORDS-record TFRecord of synthetic 512x512 views, with
+    the sampler, graph-vs-eager, loss, validation and graph-use checks, and
+    the host-fed comparison.  Returns (numbers, kernel rows, main's launch
+    counts)."""
+    import importlib
+    import tempfile
+
+    from nerftex_torch import main as port_main
+    from nerftex_torch.data import device_dataset
+    from nerftex_torch.models import mlp
+    from nerftex_torch.render import train as train_mod
+
+    reset_counts, read_counts, check_counts = counts
+    os.environ["NERFTEX_NO_TENSORBOARD"] = "1"
+    os.environ.pop("NERFTEX_BENCH_ITERS", None)
+    config = importlib.import_module("configs.full_carpet_train_device").config
+    numbers = {}
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix="_train_device_") as work:
+        tfrs, synth_s = cycled_tfrecords(work, config, DEVICE_TRAIN_VIEWS,
+                                         (DEVICE_TRAIN_CHECK_VIEWS, DEVICE_TRAIN_RECORDS))
+        log(f"device-resident training data: {DEVICE_TRAIN_VIEWS} distinct 512x512 synthetic "
+            f"views in {synth_s:.1f} s, cycled into {DEVICE_TRAIN_RECORDS} and "
+            f"{DEVICE_TRAIN_CHECK_VIEWS} records")
+        t0 = time.perf_counter()
+        numbers["sampler_card_vs_cpu"] = check_device_sampler(
+            config, tfrs[DEVICE_TRAIN_CHECK_VIEWS])
+        numbers["graph_vs_eager"] = check_graph_vs_eager(config, tfrs[DEVICE_TRAIN_CHECK_VIEWS])
+        log(f"device-resident checks: {time.perf_counter() - t0:.1f} s")
+
+        # -- the user's command -------------------------------------------------------
+        n = DEVICE_TRAIN_STEPS
+        cfg_path, target = write_train_config(
+            work, "carpet_train_device", "full_carpet_train_device", tfrs[DEVICE_TRAIN_RECORDS],
+            {"n_iters": n}, {"i_img": n, "i_checkpoint": DEVICE_TRAIN_CHECKPOINT_EVERY})
+        # Keep main's FusedStep (for the P C C P comparison) and time its
+        # sampler's host decode of the records.
+        fused_steps, decode_s = [], []
+        real_init = train_mod.FusedStep.__init__
+        real_decode = device_dataset.DeviceResidentSampler._decode_all
+
+        def keep(self, *args, **kwargs):
+            real_init(self, *args, **kwargs)
+            fused_steps.append(self)
+
+        def decode(self, *args, **kwargs):
+            t = time.perf_counter()
+            out = real_decode(self, *args, **kwargs)
+            decode_s.append(time.perf_counter() - t)
+            return out
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        for name in train_mod.step_counts:
+            train_mod.step_counts[name] = 0
+        mlp._INIT_COUNTER[0] = 0
+        train_mod.FusedStep.__init__ = keep
+        device_dataset.DeviceResidentSampler._decode_all = decode
+        t0 = time.perf_counter()
+        try:
+            with logger_timing(DEVICE_TRAIN_RATE_STEPS) as record:
+                port_main.main([cfg_path])
+        finally:
+            train_mod.FusedStep.__init__ = real_init
+            device_dataset.DeviceResidentSampler._decode_all = real_decode
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        launches, variants = read_counts()
+        graph_counts = dict(train_mod.step_counts)
+        first, last = DEVICE_TRAIN_RATE_STEPS
+        rate = steps_per_s(record, first, last, 1)
+        fused = fused_steps[0]
+        table_gb = fused.sampler.images.numel() * fused.sampler.images.element_size() / 1e9
+        log(f"nerftex_torch.main {cfg_path} ({n} steps, {DEVICE_TRAIN_RECORDS} records, u8 "
+            f"table {tuple(fused.sampler.images.shape)} = {table_gb:.2f} GB on the card, its "
+            f"PNGs decoded on the host in {decode_s[0]:.1f} s): "
+            f"{main_s:.1f} s; {rate:.2f} steps/s over steps {first}-{last} (validation renders "
+            f"and saves excluded), {fused.losses.shape[0] / rate:.3f} s per dispatch; validation "
+            f"renders {record['render_images']} s, saves {record['save_checkpoint']} s; peak "
+            f"device memory {peak:.2f} GiB; graph {graph_counts}; launches {launches}, variants "
+            f"{variants} on {card}")
+        if graph_counts["graph_replays"] != n or graph_counts["eager_steps"] != 0 \
+                or graph_counts["captures"] != 1:
+            raise AssertionError(f"the device-resident run took {graph_counts}, not {n} graph "
+                                 f"replays of one capture and no eager step")
+        check_counts("carpet_train_device (main)", launches, variants,
+                     idle=("tex_fetch", "selk_resolve"), want=FRAME_VARIANTS)
+        with open(os.path.join(target, "scalars.jsonl")) as f:
+            losses = [json.loads(line)["Loss"] for line in f]
+        first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+        log(f"carpet_train_device losses (every 10th step): {losses}; mean of the last five "
+            f"{last5:.5f} vs the first five {first5:.5f}")
+        if len(losses) != n // 10 or not np.isfinite(losses).all():
+            raise AssertionError(f"{len(losses)} scalars, not {n // 10}: {losses}")
+        if not last5 < 0.9 * first5:
+            raise AssertionError(f"the loss did not fall: {first5} -> {last5}")
+        ckpts = sorted(os.listdir(os.path.join(target, "checkpoints")))
+        want = sorted(f"ckpt-{s}.pkl" for s in range(DEVICE_TRAIN_CHECKPOINT_EVERY, n + 1,
+                                                     DEVICE_TRAIN_CHECKPOINT_EVERY))
+        if ckpts != want:
+            raise AssertionError(f"checkpoints {ckpts}, not {want}")
+        names = sorted(os.listdir(os.path.join(target, "media", "validation", str(n))))
+        if names != ["0.png", "1.png"]:
+            raise AssertionError(f"validation images {names}")
+
+        numbers["host_vs_device_steps_per_s"] = compare_host_fed(
+            config, tfrs[DEVICE_TRAIN_RECORDS], fused, n, card)
+        del fused, fused_steps
+        torch.cuda.empty_cache()
+        val, rows = check_validation_render("carpet_train_device", config, target, n, counts,
+                                            dtype_name="bfloat16",
+                                            plain_tol=DEVICE_TRAIN_PLAIN_MAX_DIFF)
+        numbers["carpet_train_device"] = {
+            "steps": n, "records": DEVICE_TRAIN_RECORDS, "views": DEVICE_TRAIN_VIEWS,
+            "synth_s": synth_s, "decode_s": decode_s[0], "table_gb": table_gb,
+            "steps_per_s": rate,
+            "s_per_dispatch": config["steps_per_dispatch"] / rate, "main_s": main_s,
+            "peak_gib": peak, "graph": graph_counts, "loss_first5": first5, "loss_last5": last5,
+            "checkpoints": ckpts, "validation_render_s": record["render_images"],
+            "checkpoint_save_s": record["save_checkpoint"], **val}
+    return numbers, {"carpet_train_device": rows}, {"carpet_train_device": launches}
 
 
 def main():
@@ -1977,6 +2342,15 @@ def main():
     launches.update(train_launches)
     log(f"phase training: {time.perf_counter() - t_phase:.1f} s")
 
+    # -- device-resident training: full_carpet_train_device through main --------
+    t_phase = time.perf_counter()
+    train, train_rows, device_launches = main_device_training(counts, card)
+    frames.update(train)
+    rows.update(train_rows)
+    launches.update(device_launches)
+    train_launches.update(device_launches)
+    log(f"phase device-resident training: {time.perf_counter() - t_phase:.1f} s")
+
     kernels = [dict(row, frame=frame, launches=launches[frame][name])
                for frame in launches for name, row in rows[frame].items()]
     log(json.dumps({"frames": frames, "serving": serve, "card": card,
@@ -1994,7 +2368,7 @@ def main():
                 "['', '', 'light'])"}] + [
         {"frame": frame, "name": name, "launches": train_launches[frame][name],
          "why": "training has no instancer: its validation renders run the plain Renderer"}
-        for frame in ("carpet_train", "grass_filtered_train")
+        for frame in ("carpet_train", "grass_filtered_train", "carpet_train_device")
         for name in ("tex_fetch", "selk_resolve")]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

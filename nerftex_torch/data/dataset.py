@@ -18,6 +18,7 @@ from typing import Any, Tuple, Union
 import numpy as np
 
 from nerftex_torch.data import tfrecord as tfr
+from nerftex_torch.data.device_dataset import DeviceResidentSampler
 from nerftex_torch.ops.interpolate import interpolate_img
 from nerftex_torch.ops.rays import look_at
 from nerftex_torch.utils import util
@@ -238,15 +239,14 @@ def Dataset(
     step=None,
     prefetch: int = 2,
     device_resident: bool = False,
+    device=None,
 ) -> RayDataset:
     """Compose loader + pixel sampler + ray sampler + proxy into a batched
     ray dataset.
 
-    device_resident=True (the JAX package's device-resident training
-    sampler) is not ported yet and raises."""
-    if device_resident:
-        raise NotImplementedError("device_resident=True (DeviceResidentSampler) comes with the "
-                                  "device-resident training slice (ROADMAP Queue 1)")
+    device_resident=True also builds ``dataset.device_sampler``, a
+    data.device_dataset.DeviceResidentSampler holding the dataset on
+    ``device`` (CUDA unless given), which the training step samples from."""
     source, height, width, focal, composite_bkgd, bkgd_color = util.instantiate(
         data_loader_config
     )
@@ -298,6 +298,11 @@ def Dataset(
     content = "rays_o" if "rays_o" in first else "color"
     dataset.n_samples = first[content].shape[0]
     dataset.n_parameters = first["parameters"].shape[-1]
+
+    if device_resident:
+        dataset.device_sampler = DeviceResidentSampler(
+            source, pixel_sampler, ray_sampler, batchsize, height, width, focal, composite_bkgd,
+            bkgd_color, device=device)
     return dataset
 
 

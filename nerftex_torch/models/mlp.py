@@ -42,15 +42,19 @@ def model_dict(models) -> dict:
     return models if isinstance(models, dict) else {models.name: models}
 
 
-def _dense(layer: nn.Linear, x: torch.Tensor, dtype) -> torch.Tensor:
-    return _dense_cat(layer, [x], dtype)
+def _dense(layer: nn.Linear, x: torch.Tensor, dtype, weights=None) -> torch.Tensor:
+    return _dense_cat(layer, [x], dtype, weights)
 
 
-def _dense_cat(layer: nn.Linear, xs, dtype) -> torch.Tensor:
+def _dense_cat(layer: nn.Linear, xs, dtype, weights=None) -> torch.Tensor:
     """dense(concat(xs)) as a sum of row-block products in ``dtype``,
-    starting from the bias, as the JAX ``_dense_cat`` does."""
-    w = layer.weight.to(dtype)
-    out = layer.bias.to(dtype)
+    starting from the bias, as the JAX ``_dense_cat`` does.  ``weights``
+    ({layer: (weight, bias)} already in ``dtype``, from
+    ``ParamNerf.cast_weights``) replaces the cast of the layer's own."""
+    if weights is not None:
+        w, out = weights[layer]
+    else:
+        w, out = layer.weight.to(dtype), layer.bias.to(dtype)
     off = 0
     for x in xs:
         d = x.shape[-1]
@@ -155,12 +159,22 @@ class ParamNerf(nn.Module):
     # -- plain path -------------------------------------------------------
 
     @staticmethod
-    def _param_part(layers, g, dtype):
+    def _param_part(layers, g, dtype, weights=None):
         """The parameter MLP on a parameter encoding ``g``."""
         g = g.to(dtype)
         for layer in layers:
-            g = torch.relu(_dense(layer, g, dtype))
+            g = torch.relu(_dense(layer, g, dtype, weights))
         return g
+
+    def cast_weights(self) -> dict:
+        """{layer: (weight, bias)} cast to ``compute_dtype`` (a
+        differentiable cast; the tensors themselves when that is float32),
+        for ``forward(..., weights=)``: a caller that casts once and runs
+        many chunks through them has autograd sum each weight's chunk
+        gradients in ``compute_dtype`` and convert them to float32 once."""
+        cdt = self.compute_dtype
+        return {layer: (layer.weight.to(cdt), layer.bias.to(cdt))
+                for layer in self.modules() if isinstance(layer, nn.Linear)}
 
     def encode(self, pos, dirs, prms):
         """The Fourier encodings in ``compute_dtype``: (pos, dirs, geometry
@@ -171,33 +185,34 @@ class ParamNerf(nn.Module):
         app = self.param_fm(prms[:, self.n_geo:]).to(cdt) if self.n_app > 0 else None
         return self.pos_fm(pos).to(cdt), self.dir_fm(dirs).to(cdt), geo, app
 
-    def forward(self, pos, dirs, prms):
+    def forward(self, pos, dirs, prms, weights=None):
         """(color logits [N, 3], density [N, 1]), float32, computed in
-        ``compute_dtype`` as the JAX ``apply``."""
-        return self.chain(*self.encode(pos, dirs, prms))
+        ``compute_dtype`` as the JAX ``apply``; ``weights`` as
+        ``cast_weights`` gives them, else each layer casts its own."""
+        return self.chain(*self.encode(pos, dirs, prms), weights=weights)
 
-    def chain(self, pos_enc, dir_enc, geo_enc, app_enc):
+    def chain(self, pos_enc, dir_enc, geo_enc, app_enc, weights=None):
         """``forward`` from the encodings on: the parameter MLPs and the
         dense chain."""
         cdt = self.compute_dtype
         pos_parts = [pos_enc]
         dir_parts = [dir_enc]
         if geo_enc is not None:
-            pos_parts.append(self._param_part(self.param_geo, geo_enc, cdt))
+            pos_parts.append(self._param_part(self.param_geo, geo_enc, cdt, weights))
         if app_enc is not None:
-            dir_parts.append(self._param_part(self.param_app, app_enc, cdt))
+            dir_parts.append(self._param_part(self.param_app, app_enc, cdt, weights))
         parts = list(pos_parts)
         for i, layer in enumerate(self.trunk):
-            h = torch.relu(_dense_cat(layer, parts, cdt))
+            h = torch.relu(_dense_cat(layer, parts, cdt, weights))
             parts = pos_parts + [h] if i in self.skips else [h]
-        density = _dense_cat(self.alpha, parts, cdt)
-        h = _dense_cat(self.bottleneck, parts, cdt)
+        density = _dense_cat(self.alpha, parts, cdt, weights)
+        h = _dense_cat(self.bottleneck, parts, cdt, weights)
         parts = dir_parts + [h]
         for layer in self.color_layers:
-            h = torch.relu(_dense_cat(layer, parts, cdt))
+            h = torch.relu(_dense_cat(layer, parts, cdt, weights))
             parts = [h]
-        h = torch.relu(_dense_cat(self.pre_color, parts, cdt))
-        color = _dense(self.color, h, cdt)
+        h = torch.relu(_dense_cat(self.pre_color, parts, cdt, weights))
+        color = _dense(self.color, h, cdt, weights)
         return color.float(), density.float()
 
     # -- fused inference path ---------------------------------------------
@@ -237,6 +252,11 @@ class ParamNerf(nn.Module):
             cur, segs = nxt, [nxt]
         layers.append((self.color.weight, self.color.bias, segs, OUT, False, 0))
         return layers
+
+    def drop_packed(self) -> None:
+        """Forget the packed weights: a caller that changed them where the
+        parameter versions do not see it (a CUDA graph's replay) calls this."""
+        self._packed = {}
 
     def packed(self) -> fused.PackedMLP:
         """The fused kernel's weight layout, rebuilt whenever the compute

@@ -16,6 +16,7 @@ class AABB:
     def __init__(self, b_0, b_1) -> None:
         self.b_0 = np.asarray(b_0, np.float32)
         self.b_1 = np.asarray(b_1, np.float32)
+        self._on_device = {}
 
     def intersect(self, rays_o, rays_d) -> np.ndarray:
         """rays_o/rays_d [N, 3] -> t [N, 2] float32, inf on miss."""
@@ -31,9 +32,13 @@ class AABB:
         return np.stack([np.where(hit, t_0, np.inf), np.where(hit, t_1, np.inf)], -1)
 
     def __call__(self, rays_o: torch.Tensor, rays_d: torch.Tensor) -> torch.Tensor:
-        """The slab test on float32 tensors [N, 3] on their device -> t [N, 2]."""
-        b_0 = torch.as_tensor(self.b_0, device=rays_o.device)
-        b_1 = torch.as_tensor(self.b_1, device=rays_o.device)
+        """The slab test on float32 tensors [..., 3] on their device -> t
+        [..., 2].  The bounds are copied to a device once (a CUDA graph
+        captures no host copy)."""
+        if rays_o.device not in self._on_device:
+            self._on_device[rays_o.device] = (torch.as_tensor(self.b_0, device=rays_o.device),
+                                              torch.as_tensor(self.b_1, device=rays_o.device))
+        b_0, b_1 = self._on_device[rays_o.device]
         inv_d = 1.0 / rays_d
         t_a = (b_0 - rays_o) * inv_d
         t_b = (b_1 - rays_o) * inv_d

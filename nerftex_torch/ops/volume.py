@@ -30,9 +30,29 @@ def map_color(color_logits: torch.Tensor, map_exr: bool) -> torch.Tensor:
     return torch.sigmoid(color_logits)
 
 
+class _CumprodNonzero(torch.autograd.Function):
+    """torch.cumprod over the last axis of a tensor with no zero element,
+    with the gradient torch.cumprod takes for such input (the reversed
+    cumulative sum of grad * output, divided by the input).  torch's own
+    backward first tests the input for zeros and reads the answer back to
+    the host, which a CUDA graph cannot capture."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.cumprod(x, -1)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, out = ctx.saved_tensors
+        return torch.flip(torch.cumsum(torch.flip(out * grad, [-1]), -1), [-1]).div(x)
+
+
 def exclusive_cumprod(x: torch.Tensor) -> torch.Tensor:
-    """cumprod shifted right with a leading 1 (tf exclusive=True)."""
-    return torch.cat([torch.ones_like(x[..., :1]), torch.cumprod(x[..., :-1], -1)], -1)
+    """cumprod shifted right with a leading 1 (tf exclusive=True) of a
+    tensor with no zero element (the transmittances 1 - alpha + 1e-10)."""
+    return torch.cat([torch.ones_like(x[..., :1]), _CumprodNonzero.apply(x[..., :-1])], -1)
 
 
 def composite(color_logits, density_logits, z_vals, rays_d, composite_bkgd: bool = False,

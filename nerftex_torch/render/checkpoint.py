@@ -18,6 +18,13 @@ port-trained model restores in either package.  A flat mapping with
 ``/``-joined keys (``"trunk/0/w"``, as ``flatten_params`` writes) is
 accepted too.
 
+A JAX model trained with ``flat_params`` keeps one vector instead, its
+leaves in ``ravel_pytree``'s order (``jax_flat_layout``); the loaders take
+it too, and a port model with its own flat parameter
+(render/train.py ``apply_flat_param_space``) loads either layout.  The
+port always writes the tree, so a checkpoint restores whichever layout
+the restoring run uses.
+
 Adam's state travels in the same layout.  ``load_jax_opt_state`` reads a
 JAX train checkpoint's optax state (``extra["opt_state"]``, restored as
 Opaque tuples holding ``ScaleByAdamState(count, mu, nu)``) into a torch
@@ -215,44 +222,87 @@ def export_jax_params(model) -> dict:
     return as_jax_tree(model, lambda p: p.detach().cpu().numpy())
 
 
+def jax_flat_layout(model) -> list:
+    """[(key, leaf, layer, offset, shape)] of a ParamNerf's weights and
+    biases in the order JAX's ``ravel_pytree`` flattens its parameter tree:
+    keys sorted, list items in order, each layer's "b" [out] before its
+    "w" [in, out] (row major); ``offset`` is where the leaf starts in the
+    flat vector."""
+    def order(key):
+        top, _, index = key.partition("/")
+        return top, int(index) if index else -1
+
+    layers = _layers(model)
+    layout, offset = [], 0
+    for key in sorted(layers, key=order):
+        layer = layers[key]
+        for leaf, shape in (("b", (layer.out_features,)),
+                            ("w", (layer.in_features, layer.out_features))):
+            layout.append((key, leaf, layer, offset, shape))
+            offset += int(np.prod(shape))
+    return layout
+
+
+def _moment_tree(model, vector) -> dict:
+    """The JAX parameter tree of a flat vector laid out by jax_flat_layout,
+    every list key present as as_jax_tree has them."""
+    tree = {key: [] for key in _LISTS}
+    tree.update(unflatten_params(_flat(vector, model)))
+    return tree
+
+
 def adam_state_tree(optimizer, models: dict) -> dict:
     """A torch Adam's state over ``models``' parameters as {"count",
     "mu": {name: tree}, "nu": {name: tree}}, optax's names and layout;
     zero moments before the first step."""
-    def moment(name):
+    def moment(name, model):
         def arrays(p):
             st = optimizer.state.get(p, {})
             return (st[name] if name in st else torch.zeros_like(p)).detach().cpu().numpy()
-        return arrays
+        if getattr(model, "flat", None) is not None:
+            return _moment_tree(model, arrays(model.flat))
+        return as_jax_tree(model, arrays)
 
     first = next(iter(next(iter(models.values())).parameters()))
     count = int(optimizer.state.get(first, {}).get("step", 0))
     return {"count": np.int32(count),
-            "mu": {k: as_jax_tree(m, moment("exp_avg")) for k, m in models.items()},
-            "nu": {k: as_jax_tree(m, moment("exp_avg_sq")) for k, m in models.items()}}
+            "mu": {k: moment("exp_avg", m) for k, m in models.items()},
+            "nu": {k: moment("exp_avg_sq", m) for k, m in models.items()}}
 
 
 @torch.no_grad()
 def load_adam_state(optimizer, models: dict, count, mu: dict, nu: dict) -> None:
     """Set a torch Adam's state over ``models``' parameters: ``count``
-    updates done, first and second moments from the parameter trees
-    ``mu[name]`` and ``nu[name]`` (the JAX layout)."""
+    updates done, first and second moments from ``mu[name]`` and
+    ``nu[name]`` (parameter trees in the JAX layout, or flat vectors in
+    jax_flat_layout's order), for per-layer parameters or a flat one.  A
+    capturable Adam keeps its count on the parameters' device."""
+    capturable = optimizer.defaults.get("capturable", False)
     for name, model in models.items():
-        mu_flat, nu_flat = _flat(mu[name]), _flat(nu[name])
-        for key, layer in _layers(model).items():
-            for leaf, p in (("w", layer.weight), ("b", layer.bias)):
-                m = torch.tensor(np.asarray(mu_flat[f"{key}/{leaf}"], np.float32))
-                v = torch.tensor(np.asarray(nu_flat[f"{key}/{leaf}"], np.float32))
-                if leaf == "w":
-                    m, v = m.T, v.T
-                if m.shape != p.shape or v.shape != p.shape:
-                    raise ValueError(f"{name} {key}/{leaf}: moments {tuple(m.shape)}, "
-                                     f"parameter {tuple(p.shape)}")
-                optimizer.state[p] = {
-                    "step": torch.tensor(float(np.asarray(count)), dtype=torch.float32),
-                    "exp_avg": m.to(p.device).contiguous(),
-                    "exp_avg_sq": v.to(p.device).contiguous(),
-                }
+        mu_flat, nu_flat = _flat(mu[name], model), _flat(nu[name], model)
+        if getattr(model, "flat", None) is not None:
+            layout = jax_flat_layout(model)
+            targets = [(model.flat, *(torch.tensor(np.concatenate(
+                [np.asarray(flat[f"{key}/{leaf}"], np.float32).reshape(-1)
+                 for key, leaf, _, _, _ in layout])) for flat in (mu_flat, nu_flat)), name)]
+        else:
+            targets = []
+            for key, layer in _layers(model).items():
+                for leaf, p in (("w", layer.weight), ("b", layer.bias)):
+                    m = torch.tensor(np.asarray(mu_flat[f"{key}/{leaf}"], np.float32))
+                    v = torch.tensor(np.asarray(nu_flat[f"{key}/{leaf}"], np.float32))
+                    if leaf == "w":
+                        m, v = m.T, v.T
+                    targets.append((p, m, v, f"{name} {key}/{leaf}"))
+        for p, m, v, what in targets:
+            if m.shape != p.shape or v.shape != p.shape:
+                raise ValueError(f"{what}: moments {tuple(m.shape)}, parameter {tuple(p.shape)}")
+            optimizer.state[p] = {
+                "step": torch.tensor(float(np.asarray(count)), dtype=torch.float32,
+                                     device=p.device if capturable else "cpu"),
+                "exp_avg": m.to(p.device).contiguous(),
+                "exp_avg_sq": v.to(p.device).contiguous(),
+            }
 
 
 def load_jax_opt_state(optimizer, models: dict, opt_state) -> None:
@@ -276,20 +326,33 @@ def load_jax_opt_state(optimizer, models: dict, opt_state) -> None:
     load_adam_state(optimizer, models, count, mu, nu)
 
 
-def _flat(tree: dict) -> dict:
-    if not isinstance(tree, dict):
-        raise ValueError(f"expected a parameter tree (dict), got {type(tree).__name__} of shape "
-                         f"{getattr(tree, 'shape', None)}: a flat parameter vector (a JAX model "
-                         f"trained with flat_params=True) cannot be loaded; save its pytree")
-    return tree if any("/" in k for k in tree) else flatten_params(tree)
+def _flat(tree, model=None) -> dict:
+    """{"trunk/0/w": array, ...} of a parameter tree, of such a flat
+    mapping, or, given the model, of a flat vector in its
+    jax_flat_layout's order."""
+    if isinstance(tree, dict):
+        return tree if any("/" in k for k in tree) else flatten_params(tree)
+    vector = np.asarray(tree)
+    if model is None or vector.ndim != 1:
+        raise ValueError(f"expected a parameter tree (dict) or a flat parameter vector, got "
+                         f"{type(tree).__name__} of shape {vector.shape}")
+    layout = jax_flat_layout(model)
+    key, leaf, _, offset, shape = layout[-1]
+    if vector.size != offset + int(np.prod(shape)):
+        raise ValueError(f"a flat parameter vector of {vector.size} values for a model of "
+                         f"{offset + int(np.prod(shape))} parameters")
+    return {f"{key}/{leaf}": vector[offset:offset + int(np.prod(shape))].reshape(shape)
+            for key, leaf, _, offset, shape in layout}
 
 
 @torch.no_grad()
 def load_jax_params(model, tree) -> None:
-    """Copy a JAX ParamNerf parameter tree into ``model`` (a
-    nerftex_torch ParamNerf), transposing each ``w`` to nn.Linear's
-    [out, in].  Shapes must match exactly; nothing is re-initialised."""
-    flat = _flat(tree)
+    """Copy a JAX ParamNerf's parameters into ``model`` (a nerftex_torch
+    ParamNerf), transposing each ``w`` to nn.Linear's [out, in]: a tree, a
+    flat ``"trunk/0/w"`` mapping, or a flat vector (a JAX model trained
+    with flat_params).  Shapes must match exactly; nothing is
+    re-initialised."""
+    flat = _flat(tree, model)
     targets = _layers(model)
     expected = {f"{k}/{n}" for k in targets for n in ("w", "b")}
     if set(flat) != expected:

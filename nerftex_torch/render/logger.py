@@ -5,7 +5,11 @@ The Logger restores the latest checkpoint under ``<source_path>/checkpoints``
 (the JAX package's pickle layout, through render/checkpoint.py) into the
 models on construction, and in training mode the optimizer and the step
 too: the port's own Adam state (``extra["torch_adam"]``) or, from a JAX
-checkpoint, its optax state (``extra["opt_state"]``).
+checkpoint, its optax state (``extra["opt_state"]``).  Either may hold the
+parameter tree or, from a JAX run with ``flat_params``, flat vectors, and
+either restores into models with or without a flat parameter
+(render/checkpoint.py); the Logger always saves the tree, so
+``flat_params`` can change across a resume.
 
 Training mode, one call per step: scalars to ``<target>/scalars.jsonl``
 every ``i_summary`` steps (and to TensorBoard when

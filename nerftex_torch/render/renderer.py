@@ -22,11 +22,8 @@ from nerftex_torch.ops import volume
 from nerftex_torch.utils import jax_rng, rng
 from nerftex_torch.utils.util import resolve_device
 
-# The knobs of the JAX package's device-resident training path, ported with it.
-DEFERRED = "the device-resident training slice (ROADMAP Queue 1)"
-
-
-def chunked_apply(fn, inputs, net_chunk: int, remat: "bool | str" = False):
+def chunked_apply(fn, inputs, net_chunk: int, remat: "bool | str" = False,
+                  cast_params: bool = False):
     """fn(*inputs) over the leading axis in pieces of at most net_chunk rows;
     the outputs (a tuple) are concatenated back.
 
@@ -34,18 +31,31 @@ def chunked_apply(fn, inputs, net_chunk: int, remat: "bool | str" = False):
     so the backward recomputes its activations instead of keeping them;
     "save_encodings" keeps ``fn.encode``'s output of each piece and
     recomputes only ``fn.chain`` (``fn`` is then the model).  Both give the
-    gradients of remat=False."""
+    gradients of remat=False.  The pieces draw nothing from torch's
+    generators, so the recompute keeps no generator state (restoring one is
+    refused under CUDA graph capture).
+
+    cast_params (training; ``fn`` is then the model) casts the model's
+    float32 weights to its compute dtype once, before the pieces
+    (``ParamNerf.cast_weights``), instead of in every piece: autograd then
+    sums each weight's gradients over the pieces in the compute dtype and
+    converts the sum to float32 once, as the JAX package's
+    ``cast_params`` does.  With a float32 compute dtype the cast is the
+    weights themselves and nothing changes, bit for bit."""
     if isinstance(remat, str) and remat != "save_encodings":
         raise ValueError(f"remat={remat!r}: the only string policy is 'save_encodings' "
                          f"(bool for plain on/off)")
+    kw = {"weights": fn.cast_weights()} if cast_params else {}
     if remat == "save_encodings":
         def body(*xs):
-            return checkpoint(fn.chain, *fn.encode(*xs), use_reentrant=False)
+            return checkpoint(fn.chain, *fn.encode(*xs), use_reentrant=False,
+                              preserve_rng_state=False, **kw)
     elif remat:
         def body(*xs):
-            return checkpoint(fn, *xs, use_reentrant=False)
+            return checkpoint(fn, *xs, use_reentrant=False, preserve_rng_state=False, **kw)
     else:
-        body = fn
+        def body(*xs):
+            return fn(*xs, **kw)
     n = inputs[0].shape[0]
     if n <= net_chunk:
         return body(*inputs)
@@ -75,10 +85,6 @@ class Renderer:
         device=None,
         **kwargs,
     ) -> None:
-        if int(net_chunk_unroll) > 1:
-            raise NotImplementedError(f"net_chunk_unroll > 1 comes with {DEFERRED}")
-        if cast_params_once:
-            raise NotImplementedError(f"cast_params_once comes with {DEFERRED}")
         self.device = resolve_device(device)
         self.model = None if model is None else model.to(self.device)
         self.model_fine = None if model_fine is None else model_fine.to(self.device)
@@ -92,6 +98,12 @@ class Renderer:
         self.blur_idx = blur_idx
         self.map_exr = map_exr
         self.remat_net_chunks = remat_net_chunks
+        # cast_params_once: chunked_apply's cast_params in the training
+        # render.  net_chunk_unroll is the JAX package's chunk-scan unroll
+        # factor: an eager loop over the chunks, and a CUDA graph's replay
+        # of it, has no scan to unroll, so it is accepted and changes
+        # nothing.
+        self.cast_params_once = bool(cast_params_once)
         self._call_counter = 0
 
     # -- the per-ray render ----------------------------------------------------
@@ -161,7 +173,8 @@ class Renderer:
                                      params_flat[:, b + 1:]], -1)
         if differentiable:
             color, density = chunked_apply(model, (pos_flat, dirs_flat, params_flat),
-                                           self.net_chunk, remat=self.remat_net_chunks)
+                                           self.net_chunk, remat=self.remat_net_chunks,
+                                           cast_params=self.cast_params_once)
         else:
             color, density = chunked_apply(model.infer, (pos_flat, dirs_flat, params_flat),
                                            self.net_chunk)

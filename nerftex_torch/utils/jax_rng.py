@@ -18,12 +18,21 @@ path makes:
   normal(key, shape)  sqrt(2) erfinv(u), u uniform on (-1, 1), with XLA's
                       single-precision erfinv (Giles' polynomial)
 
-A key is an int64 tensor [2] holding two uint32 words (on the CPU; keys
-are tiny).  ``uniform`` draws on the device it is given.  ``block_keys``
-and ``uniform_rows`` derive and draw for many keys at once (one threefry
-over all of them), as the render path does for its ray blocks.  All uint32
-arithmetic runs in int64 with a 32-bit mask, because PyTorch's uint32
-support is partial; every add and rotation is masked back to 32 bits.
+  randint(key, shape, minval, maxval)
+                      ``jax.random.randint`` for int32: two 32-bit words
+                      per value from ``split(key)``, reduced into the span
+                      with uint32 wraparound
+
+A key is an int64 tensor [2] holding two uint32 words.  Its words stay
+tensors where the key lies and are never read back to the host, and the
+``data`` of ``fold_in`` may be a 0-d int64 tensor: a key and a step on the
+card derive and draw on the card, so a CUDA graph can capture the draws
+(the training step's).  A key on the CPU draws on the device it is given.
+``block_keys`` and ``uniform_rows`` derive and draw for many keys at once
+(one threefry over all of them), as the render path does for its ray
+blocks.  All uint32 arithmetic runs in int64 with a 32-bit mask, because
+PyTorch's uint32 support is partial; every add and rotation is masked back
+to 32 bits.
 """
 
 import numpy as np
@@ -39,8 +48,8 @@ def _rotl(x, r):
 
 def threefry2x32(k0, k1, x0: torch.Tensor, x1: torch.Tensor):
     """Threefry-2x32 (20 rounds) of the counter pairs (x0, x1), int64
-    tensors of uint32 values, under the key words k0, k1 (Python ints, or
-    int64 tensors that broadcast against the counters)."""
+    tensors of uint32 values, under the key words k0, k1 (int64 tensors
+    that broadcast against the counters)."""
     ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
     x0 = (x0 + ks[0]) & _MASK
     x1 = (x1 + ks[1]) & _MASK
@@ -54,8 +63,11 @@ def threefry2x32(k0, k1, x0: torch.Tensor, x1: torch.Tensor):
 
 
 def _words(key):
-    k0, k1 = (int(v) for v in torch.as_tensor(key).reshape(2).tolist())
-    return k0, k1
+    """The key's two words as 0-d int64 tensors where the key lies."""
+    if not isinstance(key, torch.Tensor):
+        key = torch.as_tensor(np.asarray(key, np.int64))
+    key = key.reshape(2).to(torch.int64)
+    return key[0], key[1]
 
 
 def key(seed: int) -> torch.Tensor:
@@ -65,11 +77,15 @@ def key(seed: int) -> torch.Tensor:
     return torch.tensor([seed >> 32, seed & _MASK], dtype=torch.int64)
 
 
-def fold_in(key, data: int) -> torch.Tensor:
-    """``jax.random.fold_in``: the key hashed with the counters (0, data)."""
+def fold_in(key, data) -> torch.Tensor:
+    """``jax.random.fold_in``: the key hashed with the counters (0, data);
+    ``data`` is an int or a 0-d int64 tensor on the key's device."""
     k0, k1 = _words(key)
-    y0, y1 = threefry2x32(k0, k1, torch.zeros(1, dtype=torch.int64),
-                          torch.tensor([int(data) & _MASK], dtype=torch.int64))
+    if isinstance(data, torch.Tensor):
+        x1 = data.reshape(1).to(torch.int64) & _MASK
+    else:
+        x1 = torch.tensor([int(data) & _MASK], dtype=torch.int64, device=k0.device)
+    y0, y1 = threefry2x32(k0, k1, torch.zeros_like(x1), x1)
     return torch.cat([y0, y1])
 
 
@@ -77,8 +93,8 @@ def block_keys(key, n: int) -> torch.Tensor:
     """[n, 2] keys, row b = split(fold_in(key, b))[0]: the key that the JAX
     render path draws ray block b's numbers from."""
     k0, k1 = _words(key)
-    zeros = torch.zeros(n, dtype=torch.int64)
-    y0, y1 = threefry2x32(k0, k1, zeros, torch.arange(n, dtype=torch.int64))
+    zeros = torch.zeros(n, dtype=torch.int64, device=k0.device)
+    y0, y1 = threefry2x32(k0, k1, zeros, torch.arange(n, dtype=torch.int64, device=k0.device))
     return torch.stack(threefry2x32(y0, y1, zeros, zeros), -1)
 
 
@@ -93,8 +109,8 @@ def uniform_rows(keys: torch.Tensor, width: int, device="cpu") -> torch.Tensor:
 def split(key, num: int = 2) -> torch.Tensor:
     """``jax.random.split`` (partitionable): [num, 2] keys."""
     k0, k1 = _words(key)
-    y0, y1 = threefry2x32(k0, k1, torch.zeros(num, dtype=torch.int64),
-                          torch.arange(num, dtype=torch.int64))
+    counters = torch.arange(num, dtype=torch.int64, device=k0.device)
+    y0, y1 = threefry2x32(k0, k1, torch.zeros_like(counters), counters)
     return torch.stack([y0, y1], -1)
 
 
@@ -140,6 +156,26 @@ def uniform(key, shape, device="cpu", full_width: int = None) -> torch.Tensor:
     return uniform_at(key, counters)
 
 
+def randint(key, shape, minval: int, maxval: int, device="cpu") -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` (int32 values, as
+    an int64 tensor on ``device``): 32 bits from each of ``split(key)``'s
+    two keys, hi % span * ((2^16 % span)^2 % span) + lo % span, reduced
+    mod span, every product and sum with uint32 wraparound; span = maxval -
+    minval, or 1 when that is not positive."""
+    shape = tuple(int(s) for s in shape)
+    n = 1
+    for s in shape:
+        n *= s
+    span = int(maxval) - int(minval)
+    span = span if span > 0 else 1
+    multiplier = ((2**16 % span) ** 2 & _MASK) % span
+    k_hi, k_lo = split(key)
+    counters = torch.arange(n, dtype=torch.int64, device=device)
+    hi, lo = bits_at(k_hi, counters), bits_at(k_lo, counters)
+    offset = ((((hi % span) * multiplier) & _MASK) + lo % span) & _MASK
+    return (int(minval) + offset % span).reshape(shape)
+
+
 def _fma32(a: torch.Tensor, b, c) -> torch.Tensor:
     """float32 a * b + c with one rounding, as a fused multiply-add: the
     product of two float32 values is exact in float64, so only the sum
@@ -152,10 +188,10 @@ def uniform_range(key, shape, minval: float, maxval: float, device="cpu") -> tor
     """``jax.random.uniform(key, shape, float32, minval, maxval)`` as the
     JAX package computes it on the CPU: max(min, u * (max - min) + min),
     the bounds rounded to float32 first and the scale-and-shift fused."""
-    lo = torch.tensor(minval, dtype=torch.float32)
-    hi = torch.tensor(maxval, dtype=torch.float32)
+    lo = float(np.float32(minval))
+    hi = float(np.float32(maxval))
     u = uniform(key, shape, device=device)
-    return torch.maximum(_fma32(u, float(hi - lo), float(lo)), lo.to(device))
+    return torch.clamp_min(_fma32(u, float(np.float32(hi - lo)), lo), lo)
 
 
 # XLA's ErfInv for float32 (M. Giles, "Approximating the erfinv function"):

@@ -18,10 +18,20 @@ Blender swatches, warms up, then:
      the kernels ranked by device time; ``--trace FILE`` also writes the
      Chrome trace.
 
+With ``--device-resident`` it builds configs/full_carpet_train_device.py's
+step instead (bf16, save_encodings remat, net_chunk 16384, the dataset on
+the card, ``steps_per_dispatch`` steps per dispatch, each dispatch the
+replays of one captured CUDA graph) on 32 synthetic 64x64 swatches, and
+reports per dispatch: steps/s, the host's ms launching the replays and
+waiting for the card, and over ``--profile-steps`` dispatches of
+PROFILE_REPLAYS replays each, the device busy time and idle share and the
+kernel launches per step (``--steps`` and ``--profile-steps`` count
+dispatches there).
+
 Run from the repo root on a machine with a CUDA card:
 
     python3 scripts/profile_torch_train.py [--steps 50] [--profile-steps 5] [--top 20] \
-        [--remat false|true|save_encodings] [--trace FILE]
+        [--remat false|true|save_encodings] [--trace FILE] [--device-resident]
 """
 
 import argparse
@@ -35,24 +45,126 @@ import time
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PROFILE_REPLAYS = 10  # graph replays per profiled dispatch (--device-resident)
 
 
-def build(tfr, remat):
-    """(dataset, train step, state) of configs/config_carpet_train.py on the
-    TFRecord ``tfr``, set up by Train's own ``build_step``, with
-    remat_net_chunks set to ``remat``."""
-    from configs.config_carpet_train import config as stock
+def build(tfr, remat, device_resident=False):
+    """(dataset, train step, state) of configs/config_carpet_train.py (with
+    device_resident: configs/full_carpet_train_device.py) on the TFRecord
+    ``tfr``, set up by Train's own ``build_step``, with remat_net_chunks
+    set to ``remat`` (device_resident: the config's own)."""
     from nerftex_torch.render.train import TrainState, build_step
     from nerftex_torch.utils import rng
 
+    if device_resident:
+        from configs.full_carpet_train_device import config as stock
+    else:
+        from configs.config_carpet_train import config as stock
     cfg = copy.deepcopy(stock)
     cfg["train_dataset_config"]["data_loader_config"]["tfr_path"] = tfr
+    if not device_resident:
+        cfg["renderer_config"]["remat_net_chunks"] = remat
     rng.set_seed(cfg["seed"])
     state = TrainState()
     dataset, _, _, step = build_step(
         cfg["train_dataset_config"], cfg["model_config"], cfg["loss_config"], cfg["lrate"],
-        cfg["lrate_decay"], dict(cfg["renderer_config"], remat_net_chunks=remat), "cuda", state)
+        cfg["lrate_decay"], cfg["renderer_config"], "cuda", state,
+        flat_params=cfg.get("flat_params", False),
+        steps_per_dispatch=cfg.get("steps_per_dispatch", 1))
     return dataset, step, state
+
+
+def kernel_table(prof):
+    """(busy us, launches, {name: (calls, us)}) of a profile's CUDA kernels."""
+    kernels = [a for a in prof.key_averages()
+               if a.device_type == torch.autograd.DeviceType.CUDA]
+    return (sum(a.self_device_time_total for a in kernels), sum(a.count for a in kernels),
+            {a.key: (a.count, a.self_device_time_total) for a in kernels})
+
+
+def print_top(by_name, busy_us, per, top, unit):
+    print(f"{'device ms/' + unit:>16} {'share':>6} {'calls/' + unit:>12}  kernel")
+    for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]:
+        print(f"{t / 1e3 / per:16.3f} {t / busy_us:6.3f} {n / per:12.1f}  {name[:100]}")
+
+
+def profile_device_resident(args, card):
+    """The device-resident step, one dispatch of steps_per_dispatch graph
+    replays at a time (see the module docstring)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        from nerftex_torch.tools.synth import make_synthetic_tfrecord
+
+        tfr = make_synthetic_tfrecord(os.path.join(tmp, "train.tfr"), n_images=32, size=64,
+                                      seed=0)
+        _, step, _ = build(tfr, None, device_resident=True)
+    k = step.losses.shape[0]
+    s = 0
+    for _ in range(args.warmup):
+        step.run(s, k)
+        s += k
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def dispatch(times, replays=k):
+        nonlocal s
+        # run()'s body, split: the host's replay launches, then its wait.
+        step.step.fill_(s)
+        step.slot.zero_()
+        t0 = time.perf_counter()
+        for _ in range(replays):
+            step.graph.replay()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        times["launch"] += t1 - t0
+        times["device_wait"] += time.perf_counter() - t1
+        s += replays
+
+    times = dict.fromkeys(("launch", "device_wait"), 0.0)
+    t0 = time.perf_counter()
+    for _ in range(args.steps):
+        dispatch(times)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    prof_times = dict.fromkeys(("launch", "device_wait"), 0.0)
+    # The profiler's post-processing takes minutes for a whole dispatch
+    # (about 7,700 kernels a step): profile PROFILE_REPLAYS replays of each.
+    replays = min(k, PROFILE_REPLAYS)
+    with torch.profiler.profile(activities=acts) as prof:
+        t1 = time.perf_counter()
+        for _ in range(args.profile_steps):
+            dispatch(prof_times, replays)
+        prof_wall = time.perf_counter() - t1
+    busy_us, n_launches, by_name = kernel_table(prof)
+    if args.trace:
+        os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
+        prof.export_chrome_trace(args.trace)
+    n_steps = args.profile_steps * replays
+    summary = {
+        "card": card, "config": "configs/full_carpet_train_device.py", "steps_per_dispatch": k,
+        "steps_per_s": args.steps * k / wall, "s_per_dispatch": wall / args.steps,
+        "host_ms_per_dispatch": {n: v / args.steps * 1e3 for n, v in times.items()},
+        "peak_gib": peak,
+        "profiled": {"dispatches": args.profile_steps, "replays_each": replays,
+                     "steps": n_steps,
+                     "wall_ms_per_step": prof_wall / n_steps * 1e3,
+                     "device_busy_ms_per_step": busy_us / 1e3 / n_steps,
+                     "idle_share": 1 - busy_us / 1e6 / prof_wall,
+                     "launches_per_step": n_launches / n_steps},
+    }
+    print(f"card: {card}  config: configs/full_carpet_train_device.py (4 x 256 rays x 256 "
+          f"samples, bf16, save_encodings, net_chunk 16384, {k} graph replays per dispatch)")
+    print(f"steps/s: {summary['steps_per_s']:.2f}; {summary['s_per_dispatch']:.3f} s per "
+          f"dispatch; host ms per dispatch: " + ", ".join(
+              f"{n} {v:.2f}" for n, v in summary["host_ms_per_dispatch"].items())
+          + f"; peak device memory {peak:.2f} GiB")
+    p = summary["profiled"]
+    print(f"profiled {args.profile_steps} dispatches of {replays} replays ({n_steps} steps): wall "
+          f"{p['wall_ms_per_step']:.2f} ms/step, device busy {p['device_busy_ms_per_step']:.2f} "
+          f"ms/step, idle share {p['idle_share']:.4f}, {p['launches_per_step']:.0f} kernel "
+          f"launches/step")
+    print_top(by_name, busy_us, n_steps, args.top, "step")
+    print(json.dumps(summary))
 
 
 def main():
@@ -63,12 +175,18 @@ def main():
     ap.add_argument("--top", type=int, default=20)
     ap.add_argument("--remat", default="false", choices=("false", "true", "save_encodings"))
     ap.add_argument("--trace", default=None)
+    ap.add_argument("--device-resident", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_torch_train: needs a CUDA card")
     sys.path.insert(0, ROOT)
     os.chdir(ROOT)
     import chip_smoke
+
+    if args.device_resident:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        profile_device_resident(args, chip_smoke.card_line())
+        return
     from nerftex_torch.tools.synth import make_synthetic_tfrecord
     from nerftex_torch.utils import jax_rng, rng
 
@@ -129,11 +247,7 @@ def main():
             loss = one_step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [a for a in prof.key_averages()
-               if a.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(a.self_device_time_total for a in kernels)
-    n_launches = sum(a.count for a in kernels)
-    by_name = {a.key: (a.count, a.self_device_time_total) for a in kernels}
+    busy_us, n_launches, by_name = kernel_table(prof)
     if args.trace:
         os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
         prof.export_chrome_trace(args.trace)
@@ -159,9 +273,7 @@ def main():
     print(f"profiled {n_prof} steps: wall {p['wall_ms_per_step']:.2f} ms/step, device busy "
           f"{p['device_busy_ms_per_step']:.2f} ms/step, idle share {p['idle_share']:.3f}, "
           f"{p['launches_per_step']:.0f} kernel launches/step")
-    print(f"{'device ms/step':>14} {'share':>6} {'calls/step':>10}  kernel")
-    for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:args.top]:
-        print(f"{t / 1e3 / n_prof:14.3f} {t / busy_us:6.3f} {n / n_prof:10.1f}  {name[:100]}")
+    print_top(by_name, busy_us, n_prof, args.top, "step")
     print(json.dumps(summary))
 
 

@@ -244,8 +244,11 @@ def test_float_pixel_locations_interpolate_the_image(jax_tfrecord, monkeypatch):
 
 
 def test_device_resident_dataset_raises():
+    """A render config's dataset (Full pixels) cannot be device-resident:
+    the sampler takes Proxy or Independent pixels only, and says so, as the
+    JAX package's does (tests/test_torch_device_train.py covers the rest)."""
     cfg = importlib.import_module("configs.config_carpet_render").config
-    with pytest.raises(NotImplementedError, match="device-resident training slice"):
+    with pytest.raises(ValueError, match="Proxy/Independent pixel samplers"):
         instantiate(dict(cfg["test_dataset_config"], device_resident=True))
 
 

@@ -58,7 +58,8 @@ def test_package_imports_with_jax_blocked():
               "nerftex_torch.data.pixel_sampler", "nerftex_torch.data.ray_sampler",
               "nerftex_torch.utils.image", "nerftex_torch.utils.exr",
               "nerftex_torch.ops.interpolate", "nerftex_torch.render.train",
-              "nerftex_torch.render.loss", "nerftex_torch.tools.synth"):
+              "nerftex_torch.render.loss", "nerftex_torch.tools.synth",
+              "nerftex_torch.data.device_dataset"):
         assert m in modules, m
     code = (
         "import sys\n"
@@ -168,6 +169,7 @@ SUPPORTED_TRAIN_CONFIGS = (
     "config_carpet_train", "config_fur_train", "config_grass_train",
     "config_grass_filtered_train", "config_plush_train", "demo_carpet_train", "demo_fur_train",
     "demo_grass_train", "demo_grass_filtered_train", "demo_plush_train", "full_carpet_train",
+    "full_carpet_train_device",
 )
 
 
@@ -239,14 +241,29 @@ def _run_main_in(tmp_path, config_body):
 
 
 def test_main_refuses_a_train_config_without_jax(tmp_path):
-    """The device-resident carpet config (steps_per_dispatch 100,
-    device_resident) names the slice that ports it."""
+    """The device-resident carpet config (device_resident, steps_per_dispatch
+    100, bf16, save_encodings, net_chunk 16384), cut to CPU size (4 x 16^2
+    swatches, depth 2, width 32), trains through main with jax, optax and
+    nerftex_tpu blocked; nothing of it raises NotImplementedError now."""
     lines = _run_main_in(tmp_path, (
         "import copy\n"
         "from configs.full_carpet_train_device import config as _config\n"
-        f"config = dict(copy.deepcopy(_config), target_path={str(tmp_path / 'logs')!r})\n"))
-    assert lines[-2].startswith("raised") and "device-resident training slice" in lines[-2], lines
+        "from nerftex_torch.tools.synth import make_synthetic_tfrecord\n"
+        "config = copy.deepcopy(_config)\n"
+        "tfr = make_synthetic_tfrecord('train.tfr', n_images=4, size=16)\n"
+        "config.update(target_path='logs', n_iters=4)\n"
+        "config['train_dataset_config']['data_loader_config']['tfr_path'] = tfr\n"
+        "config['train_dataset_config']['pixel_sampler_config'].update(n_samples=8, "
+        "downsample_factor=2)\n"
+        "config['val_dataset_config']['data_loader_config'].update(height=8, width=8)\n"
+        "config['model_config'].update(depth=2, width=32, skips=[0])\n"
+        "config['renderer_config'].update(n_samples=8, net_chunk=64)\n"
+        "config['logger_config'].update(i_summary=1, i_img=4, i_checkpoint=4)\n"))
     assert lines[-1] == "loaded []", lines
+    assert not any(line.startswith("raised") for line in lines), lines
+    assert len((tmp_path / "logs" / "scalars.jsonl").read_text().splitlines()) == 4
+    assert (tmp_path / "logs" / "checkpoints" / "ckpt-4.pkl").exists()
+    assert (tmp_path / "logs" / "media" / "validation" / "4" / "0.png").exists()
 
 
 def test_main_trains_a_train_config_without_jax(tmp_path):

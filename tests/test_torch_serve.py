@@ -275,11 +275,21 @@ def test_checkpoint_restore_runs_no_code_it_names(tmp_path, fn):
 
 
 def test_flat_parameter_vector_is_refused():
-    """A model trained with flat_params=True saves one 1-D theta; the port,
-    like the JAX session, cannot serve it, and says so."""
+    """A model trained with flat_params=True saves one 1-D theta in
+    ravel_pytree's order.  The port loads one of the model's size (the
+    same weights as its tree) and refuses, saying so, one of another
+    size."""
     model = instantiate(_grass_config("")["model_config"], device="cpu")
     with pytest.raises(ValueError, match="flat parameter vector"):
         ckpt.load_jax_params(model, np.zeros(1000, np.float32))
+    tree = ckpt.export_jax_params(model)
+    theta = np.concatenate([ckpt.flatten_params(tree)[f"{key}/{leaf}"].reshape(-1)
+                            for key, leaf, _, _, _ in ckpt.jax_flat_layout(model)])
+    other = instantiate(_grass_config("")["model_config"], device="cpu")
+    ckpt.load_jax_params(other, theta)
+    got = ckpt.flatten_params(ckpt.export_jax_params(other))
+    for k, v in ckpt.flatten_params(tree).items():
+        np.testing.assert_array_equal(got[k], v, err_msg=k)
 
 
 @pytest.mark.parametrize("seed", [0, 7])

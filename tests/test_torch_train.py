@@ -13,8 +13,8 @@ weights and keys, at small width (depth 3, width 64, Fourier bands 6/2/2,
   resume from a JAX checkpoint, moments included; JAX's Render restoring
   a port-written checkpoint;
 - the port's synthetic TFRecord writer, its ParamNerf init, the packed
-  kernel weights after an optimizer step, the refusals of the deferred
-  knobs, and every shipped config_*_train.py taking a step through main.
+  kernel weights after an optimizer step, the device-resident path's
+  knobs training through Train, and every shipped config_*_train.py taking a step through main.
 
 The JAX references run op by op (jax.disable_jit()).  Adam divides each
 gradient by its own magnitude, so a near-zero gradient element whose sign
@@ -455,11 +455,17 @@ def test_training_forward_after_an_eval_render(tfr):
     ({"device_resident": True}, "train_dataset_config"),
     ({"net_chunk_unroll": 2}, "renderer_config"), ({"cast_params_once": True}, "renderer_config")])
 def test_train_refuses_the_deferred_knobs(tfr, tmp_path, override, where):
-    cfg = _config(tfr, str(tmp_path))
+    """Each knob of the JAX package's device-resident training path, which
+    the port once refused, now trains: two steps through Train on the CPU,
+    logged and checkpointed (the host-fed path takes one step at a time
+    whatever steps_per_dispatch says, as the JAX package's does)."""
+    cfg = _config(tfr, str(tmp_path), n_iters=2)
+    cfg["logger_config"].update(i_checkpoint=2, i_img=2)
     (cfg[where] if where else cfg).update(override)
     _reset()
-    with pytest.raises(NotImplementedError, match="device-resident training slice"):
-        instantiate(cfg, device="cpu")
+    instantiate(cfg, device="cpu")
+    assert [r["step"] for r in _losses(str(tmp_path))] == [1, 2]
+    assert os.listdir(tmp_path / "checkpoints") == ["ckpt-2.pkl"]
 
 
 def test_train_writes_tensorboard_and_a_profiler_trace(tfr, tmp_path, monkeypatch):

@@ -112,7 +112,28 @@ Phases (any failure raises and exits non-zero):
      DEVICE_TRAIN_PLAIN_MAX_DIFF of the plain MLP's and the first PNG
      within one u8 level of the restored model's render (its own row);
      steps/s, seconds per dispatch and peak memory, and the host-fed step
-     of the same config beside it, interleaved P C C P.
+     of the same config beside it, interleaved P C C P;
+  13. the mip paths: configs/demo_grass_mip_train.py's and
+     demo_grass_mip_imp_train.py's full-width steps (the port's init
+     checked against the JAX factory's by per-leaf digest) over the three
+     JAX batches of tests/torch_grass_mip_inputs.npz, at the training
+     phase's limits; then the user's sequence through nerftex_torch.main:
+     demo_grass_mip_train for MIP_TRAIN_STEPS steps on a synthetic
+     TFRecord with the dataset's five parameters (the loss falling under
+     0.9x, the checkpoints, two PNGs, the validation render through the
+     kernel at the pos 69 / dir 54 maps within 1e-3 of the plain MLP's),
+     demo_grass_mip_imp_train for MIP_IMP_TRAIN_STEPS steps (finite
+     losses, the coarse terms in the loss), and demo_grass_mip_render
+     from the directory the first one trained into, checked as the render
+     mode (five 256x256 PNGs, the first against the direct render, the
+     direct render against the plain MLP, every mlp_fused launch
+     wgmma_tf32x3 at the pos 69 / dir 54 maps, no tex_fetch, selk_resolve
+     against its plain version on every launch, each frame dropping the
+     hits and samples the JAX package drops for it: the config's caps do
+     not cover its sweep in either package), the direct render's MLP
+     launches replayed beside the cuBLAS f32 chain; and a 64x64 render of
+     the render config's first camera with the JAX init against the JAX
+     package's render in the fixture, at MIP_GOLDEN_PSNR_DB.
 The first render of each frame runs with its selk_resolve calls captured
 (selk_capture); the frame's launch histogram (launches by Rb, S, K and
 method, with the window and valid slots of their inputs) is printed on a
@@ -122,9 +143,10 @@ time all the frame's launches together).
 The last three lines of stdout are the card, the kernels JSON (one row per
 kernel and frame, the f32 MLP in its own frame, bench_f32, grass_filtered's
 launches those of nerftex_torch.main's five frames, carpet_train's and
-grass_filtered_train's those of their runs of nerftex_torch.main, all in the
-validation renders, and the kernels a path did not launch) and the
-device JSON.
+grass_filtered_train's and grass_mip_train's those of their runs of
+nerftex_torch.main, all in the validation renders, grass_mip's those of
+nerftex_torch.main's five mip frames, and the kernels a path did not
+launch) and the device JSON.
 """
 
 import contextlib
@@ -245,6 +267,17 @@ GRAPH_PARAM_TOL = 2 * DEVICE_TRAIN_GRAPH_STEPS * 5e-4
 # relative) at other places, so colors and alphas part by a few bf16 ulps
 # of the [0, 1] outputs; the per-launch check's 0.05 of the output scale.
 DEVICE_TRAIN_PLAIN_MAX_DIFF = 0.05
+# The mip phase (configs/demo_grass_mip_train.py, demo_grass_mip_imp_train.py
+# and demo_grass_mip_render.py through nerftex_torch.main): the full-width
+# steps against tests/torch_grass_mip_inputs.npz at the training phase's
+# limits, then the user's train-then-render sequence.
+MIP_INPUTS = "torch_grass_mip_inputs.npz"
+MIP_TRAIN_STEPS = 300                 # n_iters and i_img of the user's train command
+MIP_TRAIN_CHECKPOINT_EVERY = 100
+MIP_IMP_TRAIN_STEPS = 20
+MIP_SYNTH_PARAMETERS = (2, 3)         # the dataset's [Blur, Length, LightXYZ]
+MIP_MAPS = (69, 54)                   # pos: IPE 60 + Length 9; dir: 27 + LightXYZ 27
+MIP_GOLDEN_PSNR_DB = 50.0             # the 64x64 full-width frame vs the JAX package's
 H100_BYTES_PER_S = 3.35e12            # HBM3, SXM data sheet
 H100_BF16_FLOPS = 989e12              # dense tensor-core bf16
 H100_F32_FLOPS = 67e12                # f32 outside the tensor cores
@@ -1152,125 +1185,199 @@ def carpet_frame(scene, params, counts, card):
     return frame, rows, launches
 
 
+@contextlib.contextmanager
+def overflow_capture():
+    """While active, the (dropped hits, dropped samples) of every
+    InstanceRenderer call, as its _report_diagnostics reads them, go to the
+    list it yields."""
+    from nerftex_torch.render import instance_renderer
+
+    cls = instance_renderer.InstanceRenderer
+    real = cls._report_diagnostics
+    drops = []
+
+    def report(self, out):
+        drops.append((int(out.get("_overflow_hits", 0)), int(out.get("_overflow_steps", 0))))
+        return real(self, out)
+
+    cls._report_diagnostics = report
+    try:
+        yield drops
+    finally:
+        cls._report_diagnostics = real
+
+
 def main_render_mode(params, counts, card):
     """``python -m nerftex_torch.main configs/config_grass_filtered_render.py``
     at the config's own settings (512x512, f32 ParamNerf, render_chunk
     16384, n_samples 1024, blur_idx 0, MAIN_FRAMES frames), in process,
     with target_path a temporary directory whose checkpoints/ holds the
     grass_filtered weights in the JAX package's pickle layout (a config
-    module there imports the shipped one and sets it).  Checks: the PNGs
-    written; every mlp_fused launch wgmma_tf32x3, no tex_fetch; the first
-    PNG within MAIN_U8_MAX_DIFF u8 levels of a direct InstanceRenderer
-    render of the dataset's first item under stream_key(STREAM_PERTURB, 0);
-    that render within MAIN_PLAIN_MAX_DIFF of the same render with
-    mlp_fused routed to its plain version; mlp_fused (pos map 81, dir map
-    54) on the direct render's first net_chunk and selk_resolve on each of
-    its launches against their plain versions.  Returns the numbers, the
-    kernels' rows and main's launch counts."""
-    import importlib
+    module there imports the shipped one and sets it); checked by
+    check_render_mode with the pos 81 / dir 54 maps."""
     import tempfile
+
+    from nerftex_torch.render.checkpoint import CheckpointManager, unflatten_params
+
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix="_main_") as target:
+        CheckpointManager(os.path.join(target, "checkpoints")).save(
+            {"models": {"model": unflatten_params(params)}, "extra": {"step": 1}}, 1)
+        return check_render_mode("grass_filtered", "config_grass_filtered_render", target, target,
+                                 params, counts, card, (81, 54))
+
+
+def check_render_mode(frame, stock, cfg_dir, target, params, counts, card, maps,
+                      frame_mlp=False, want_drops=None):
+    """``python -m nerftex_torch.main`` on configs/<stock>.py at its own
+    settings, in process, through a config module in ``cfg_dir`` (under the
+    repo) that sets target_path to ``target``, whose checkpoints/ holds
+    the weights (``params`` in the JAX layout, or None: the latest
+    checkpoint there).  Checks: the MAIN_FRAMES PNGs written; every
+    mlp_fused launch wgmma_tf32x3, no tex_fetch; the first PNG within
+    MAIN_U8_MAX_DIFF u8 levels of a direct render of the dataset's first
+    item under stream_key(STREAM_PERTURB, 0); that render within
+    MAIN_PLAIN_MAX_DIFF of the same render with mlp_fused routed to its
+    plain version; the packed maps ``maps`` (pos, dir) wide; mlp_fused on
+    the direct render's first net_chunk and selk_resolve on each of its
+    launches against their plain versions.  ``frame_mlp``: the direct
+    render's MLP launches, as captured, replayed from one graph beside the
+    cuBLAS f32 chain and the summed bound.  ``want_drops``: the (hits,
+    samples) each of main's frames must drop, the JAX package's for the
+    same frames and keys; the direct render drops the first frame's.
+    Returns the numbers, the kernels' rows and main's launch counts."""
+    import importlib
 
     from nerftex_torch import main as port_main
     from nerftex_torch.kernels import mlp_fused as fused, selk_resolve as selk
-    from nerftex_torch.render.checkpoint import (CheckpointManager, load_jax_params,
-                                                 unflatten_params)
+    from nerftex_torch.render.checkpoint import CheckpointManager, load_jax_params
     from nerftex_torch.render.serve import straight_rgba
     from nerftex_torch.utils import rng
     from nerftex_torch.utils.image import decode_png_u8, encode_png
     from nerftex_torch.utils.util import instantiate
 
     reset_counts, read_counts, check_counts = counts
-    config = importlib.import_module("configs.config_grass_filtered_render").config
+    config = importlib.import_module(f"configs.{stock}").config
     loader = config["test_dataset_config"]["data_loader_config"]
     h, w = loader["height"], loader["width"]
     if loader["dataset_size"] != MAIN_FRAMES:
         raise AssertionError(f"the config renders {loader['dataset_size']} frames")
-    with tempfile.TemporaryDirectory(dir=ROOT, prefix="_main_") as target:
-        CheckpointManager(os.path.join(target, "checkpoints")).save(
-            {"models": {"model": unflatten_params(params)}, "extra": {"step": 1}}, 1)
-        cfg_path = os.path.join(os.path.basename(target), "grass_filtered_render.py")
-        with open(os.path.join(ROOT, cfg_path), "w") as f:
-            f.write("from configs.config_grass_filtered_render import config as _config\n\n"
-                    f"config = dict(_config, target_path={target!r})\n")
-        reset_counts()
-        t0 = time.perf_counter()
+    if params is None:
+        params = CheckpointManager(os.path.join(target, "checkpoints")).restore_latest()[
+            "models"]["model"]
+    cfg_path = os.path.join(os.path.relpath(cfg_dir, ROOT), f"{frame}_render.py")
+    with open(os.path.join(ROOT, cfg_path), "w") as f:
+        f.write(f"from configs.{stock} import config as _config\n\n"
+                f"config = dict(_config, target_path={target!r})\n")
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with overflow_capture() as main_drops:
         port_main.main([cfg_path])
-        torch.cuda.synchronize()
-        main_s = time.perf_counter() - t0
-        launches, variants = read_counts()
-        log(f"nerftex_torch.main {cfg_path} ({MAIN_FRAMES} frames at {h}x{w}): {main_s:.2f} s -> "
-            f"{MAIN_FRAMES * h * w / main_s:.1f} rays/s; launches {launches}, variants {variants}")
-        check_counts("grass_filtered (main)", launches, variants, idle=("tex_fetch",),
-                     want=F32_FRAME_VARIANTS)
-        media = os.path.join(target, "media", "test")
-        names = sorted(os.listdir(media))
-        if names != [f"{i}.png" for i in range(MAIN_FRAMES)]:
-            raise AssertionError(f"nerftex_torch.main wrote {names}")
-        images = []
-        for name in names:
-            with open(os.path.join(media, name), "rb") as f:
-                images.append(decode_png_u8(f.read()).astype(np.int32))
-            if images[-1].shape != (h, w, 4):
-                raise AssertionError(f"{name} is {images[-1].shape}, not {h}x{w} RGBA")
-        if all(img[..., 3].max() == 0 for img in images):
-            raise AssertionError("every image nerftex_torch.main wrote is empty")
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches, variants = read_counts()
+    log(f"nerftex_torch.main {cfg_path} ({MAIN_FRAMES} frames at {h}x{w}): {main_s:.2f} s -> "
+        f"{MAIN_FRAMES * h * w / main_s:.1f} rays/s, peak device memory {peak:.2f} GiB; "
+        f"launches {launches}, variants {variants}; dropped (hits, samples) per frame "
+        f"{main_drops} on {card}")
+    check_counts(f"{frame} (main)", launches, variants, idle=("tex_fetch",),
+                 want=F32_FRAME_VARIANTS)
+    media = os.path.join(target, "media", "test")
+    names = sorted(os.listdir(media))
+    if names != [f"{i}.png" for i in range(MAIN_FRAMES)]:
+        raise AssertionError(f"nerftex_torch.main wrote {names}")
+    images = []
+    for name in names:
+        with open(os.path.join(media, name), "rb") as f:
+            images.append(decode_png_u8(f.read()).astype(np.int32))
+        if images[-1].shape != (h, w, 4):
+            raise AssertionError(f"{name} is {images[-1].shape}, not {h}x{w} RGBA")
+    if all(img[..., 3].max() == 0 for img in images):
+        raise AssertionError("every image nerftex_torch.main wrote is empty")
 
-        # The direct render of the dataset's first item with the same key.
-        rng.set_seed(config["seed"])
-        data = list(instantiate(config["test_dataset_config"]).take(1))[0]
-        model = instantiate(config["model_config"], device="cuda")
-        load_jax_params(model, params)
-        renderer = instantiate(dict(config["renderer_config"], model=model, device="cuda"))
-        key = rng.stream_key(rng.STREAM_PERTURB, 0)
-        reset_counts()
-        t0 = time.perf_counter()
-        with selk_capture(keep_inputs=True) as selk_calls, mlp_capture() as mlp_calls:
-            out = renderer(**data, key=key)
-        torch.cuda.synchronize()
-        direct_s = time.perf_counter() - t0
-        direct_launches, direct_variants = read_counts()
-        check_counts("grass_filtered (direct)", direct_launches, direct_variants,
-                     idle=("tex_fetch",), want=F32_FRAME_VARIANTS)
-        color, alpha = out["color_pred"][0].cpu().numpy(), out["alpha_pred"][0].cpu().numpy()
-        direct = decode_png_u8(encode_png(straight_rgba(color, alpha, h, w))).astype(np.int32)
-        u8_diff = int(np.abs(direct - images[0]).max())
-        u8_share = float(np.mean(direct != images[0]))
-        with mlp_wrap(lambda real, *args: real.mlp_fused_plain(*args)):
-            plain = renderer(**data, key=key)
-        plain_diff = max(float((out[k] - plain[k]).abs().max()) for k in ("color_pred",
-                                                                            "alpha_pred"))
-        log(f"grass_filtered: first PNG vs the direct render under stream_key(STREAM_PERTURB, 0): "
-            f"max {u8_diff} u8 levels (limit {MAIN_U8_MAX_DIFF}), {u8_share:.2e} of values differ; "
-            f"direct render {direct_s:.2f} s (launches {direct_launches}), max |kernel - plain "
-            f"MLP| {plain_diff:.3g} (limit {MAIN_PLAIN_MAX_DIFF}), alpha mean "
-            f"{float(alpha.mean()):.4f}")
-        if not u8_diff <= MAIN_U8_MAX_DIFF:
-            raise AssertionError(f"nerftex_torch.main's first image differs from the direct "
-                                 f"render by {u8_diff} u8 levels")
-        if not plain_diff <= MAIN_PLAIN_MAX_DIFF:
-            raise AssertionError(f"the grass_filtered frame through the kernel differs from the "
-                                 f"plain MLP's by {plain_diff}")
-        packed = mlp_calls[0][2]
-        if (packed.pos_dim, packed.dir_dim) != (81, 54):
-            raise AssertionError(f"grass_filtered maps {packed.pos_dim}/{packed.dir_dim} wide")
-        rows = {
-            "mlp_fused": mlp_kernel_row(fused, packed, [mlp_row(
-                fused, packed, *mlp_calls[0][:2], "float32",
-                "the grass_filtered frame's first net_chunk")]),
-            "selk_resolve": dict(check_selk_frame(selk, selk_calls, "grass_filtered"),
-                                 **selk_frame_record(selk_calls, direct_launches["selk_resolve"],
-                                                     "grass_filtered")),
+    # The direct render of the dataset's first item with the same key.
+    rng.set_seed(config["seed"])
+    data = list(instantiate(config["test_dataset_config"]).take(1))[0]
+    model = instantiate(config["model_config"], device="cuda")
+    load_jax_params(model, params)
+    renderer = instantiate(dict(config["renderer_config"], model=model, device="cuda"))
+    key = rng.stream_key(rng.STREAM_PERTURB, 0)
+    reset_counts()
+    t0 = time.perf_counter()
+    with selk_capture(keep_inputs=True) as selk_calls, mlp_capture(every=frame_mlp) as mlp_calls, \
+            overflow_capture() as direct_drops:
+        out = renderer(**data, key=key)
+    torch.cuda.synchronize()
+    direct_s = time.perf_counter() - t0
+    direct_launches, direct_variants = read_counts()
+    check_counts(f"{frame} (direct)", direct_launches, direct_variants,
+                 idle=("tex_fetch",), want=F32_FRAME_VARIANTS)
+    color, alpha = out["color_pred"][0].cpu().numpy(), out["alpha_pred"][0].cpu().numpy()
+    direct = decode_png_u8(encode_png(straight_rgba(color, alpha, h, w))).astype(np.int32)
+    u8_diff = int(np.abs(direct - images[0]).max())
+    u8_share = float(np.mean(direct != images[0]))
+    with mlp_wrap(lambda real, *args: real.mlp_fused_plain(*args)):
+        plain = renderer(**data, key=key)
+    plain_diff = max(float((out[k] - plain[k]).abs().max()) for k in ("color_pred",
+                                                                        "alpha_pred"))
+    log(f"{frame}: first PNG vs the direct render under stream_key(STREAM_PERTURB, 0): "
+        f"max {u8_diff} u8 levels (limit {MAIN_U8_MAX_DIFF}), {u8_share:.2e} of values differ; "
+        f"direct render {direct_s:.2f} s (launches {direct_launches}, dropped (hits, samples) "
+        f"{direct_drops}), max |kernel - plain MLP| {plain_diff:.3g} (limit "
+        f"{MAIN_PLAIN_MAX_DIFF}), alpha mean {float(alpha.mean()):.4f}")
+    if not u8_diff <= MAIN_U8_MAX_DIFF:
+        raise AssertionError(f"nerftex_torch.main's first image differs from the direct "
+                             f"render by {u8_diff} u8 levels")
+    if not plain_diff <= MAIN_PLAIN_MAX_DIFF:
+        raise AssertionError(f"the {frame} frame through the kernel differs from the "
+                             f"plain MLP's by {plain_diff}")
+    if want_drops is not None and (main_drops != want_drops
+                                   or direct_drops != want_drops[:1]):
+        raise AssertionError(f"the {frame} frames dropped (hits, samples) main {main_drops}, "
+                             f"direct {direct_drops}; the JAX package drops {want_drops}")
+    packed = mlp_calls[0][2]
+    if (packed.pos_dim, packed.dir_dim) != maps:
+        raise AssertionError(f"{frame} maps {packed.pos_dim}/{packed.dir_dim} wide, not {maps}")
+    rows = {
+        "mlp_fused": mlp_kernel_row(fused, packed, [mlp_row(
+            fused, packed, *mlp_calls[0][:2], "float32",
+            f"the {frame} frame's first net_chunk")]),
+        "selk_resolve": dict(check_selk_frame(selk, selk_calls, frame),
+                             **selk_frame_record(selk_calls, direct_launches["selk_resolve"],
+                                                 frame)),
+    }
+    numbers = {"frames": MAIN_FRAMES, "main_s": main_s, "rays_per_s": MAIN_FRAMES * h * w / main_s,
+               "peak_gib": peak, "direct_render_s": direct_s, "first_vs_direct_max_u8": u8_diff,
+               "first_vs_direct_share": u8_share, "plain_max_abs_diff": plain_diff,
+               "main_drops": main_drops, "direct_drops": direct_drops}
+    if frame_mlp:
+        if len(mlp_calls) != direct_launches["mlp_fused"]:
+            raise AssertionError(f"{frame}: {len(mlp_calls)} mlp_fused calls captured, "
+                                 f"{direct_launches['mlp_fused']} launched")
+        chain = cublas_chain(packed, torch.float32)
+        totals = {
+            "frame_samples": sum(c[0].shape[0] for c in mlp_calls),
+            "frame_device_ms": device_ms(lambda: [fused.mlp_fused(*c) for c in mlp_calls],
+                                         iters=1),
+            "frame_cublas_device_ms": device_ms(lambda: [chain(*cublas_inputs(
+                c[2], c[0], c[1], torch.float32)) for c in mlp_calls], iters=1),
+            "frame_bound_ms": sum(mlp_bounds(c[2], c[0].shape[0], "float32")[0]
+                                  for c in mlp_calls),
         }
-        for row in rows.values():
-            row["direct_render_launches"] = direct_launches[row["name"]]
-        selk_calls.clear()
-        mlp_calls.clear()
-        del renderer, model, out, plain
-        torch.cuda.empty_cache()
-    return ({"frames": MAIN_FRAMES, "main_s": main_s, "rays_per_s": MAIN_FRAMES * h * w / main_s,
-             "direct_render_s": direct_s, "first_vs_direct_max_u8": u8_diff,
-             "first_vs_direct_share": u8_share, "plain_max_abs_diff": plain_diff},
-            rows, launches)
+        log(f"{frame} direct render's MLP over its {len(mlp_calls)} launches "
+            f"({totals['frame_samples']} samples): kernel device {totals['frame_device_ms']:.3f} "
+            f"ms, cuBLAS f32 chain {totals['frame_cublas_device_ms']:.3f} ms, bound "
+            f"{totals['frame_bound_ms']:.3f} ms on {card}")
+        rows["mlp_fused"].update(totals)
+        del chain
+    for row in rows.values():
+        row["direct_render_launches"] = direct_launches[row["name"]]
+    selk_calls.clear()
+    mlp_calls.clear()
+    del renderer, model, out, plain
+    torch.cuda.empty_cache()
+    return numbers, rows, launches
 
 
 def serve_grass(params, h, w, reset_counts, read_counts, check_counts, card, frame_psnr_db):
@@ -1504,7 +1611,7 @@ def mlp_event_timing():
 
 
 def check_validation_render(frame, config, target, n_steps, counts, dtype_name="float32",
-                            plain_tol=TRAIN_PLAIN_MAX_DIFF):
+                            plain_tol=TRAIN_PLAIN_MAX_DIFF, maps=None):
     """A train config's validation render, once nerftex_torch.main has
     trained it for ``n_steps`` into ``target``: the last checkpoint restores
     bit for bit into a fresh model, which renders the first validation
@@ -1514,7 +1621,8 @@ def check_validation_render(frame, config, target, n_steps, counts, dtype_name="
     of the PNG main wrote and within ``plain_tol`` of the same render
     through the plain MLP; the kernel against its plain version at that
     render's first net_chunk; the validation renders' mlp_fused launches
-    timed by events.  Returns (numbers, {"mlp_fused": kernels-line row})."""
+    timed by events; with ``maps``, the packed (pos, dir) widths.  Returns
+    (numbers, {"mlp_fused": kernels-line row})."""
     from nerftex_torch.kernels import mlp_fused as fused
     from nerftex_torch.render.checkpoint import (CheckpointManager, export_jax_params,
                                                  flatten_params, load_jax_params)
@@ -1573,6 +1681,8 @@ def check_validation_render(frame, config, target, n_steps, counts, dtype_name="
         raise AssertionError(f"{frame}: the first validation PNG differs from the restored "
                              f"model's render by {u8_diff} u8 levels")
     pos_map, dir_map, packed = mlp_calls[0]
+    if maps is not None and (packed.pos_dim, packed.dir_dim) != maps:
+        raise AssertionError(f"{frame} maps {packed.pos_dim}/{packed.dir_dim} wide, not {maps}")
     row = mlp_kernel_row(fused, packed, [mlp_row(
         fused, packed, pos_map, dir_map, dtype_name,
         f"the {frame} validation render's first net_chunk")])
@@ -2026,6 +2136,319 @@ def main_device_training(counts, card):
     return numbers, {"carpet_train_device": rows}, {"carpet_train_device": launches}
 
 
+def leaf_digests(model):
+    """sha256 of each leaf's float32 bytes in the JAX layout, as
+    scripts/make_torch_mip_inputs.py stores them: {"trunk/0/w": bytes}."""
+    import hashlib
+
+    from nerftex_torch.render.checkpoint import export_jax_params, flatten_params
+
+    return {k: hashlib.sha256(np.ascontiguousarray(v, np.float32).tobytes()).digest()
+            for k, v in flatten_params(export_jax_params(model)).items()}
+
+
+def mip_init_model(config, inputs):
+    """The config's ParamNerf on the card as a fresh process initialises it
+    (seed and init counter reset); fails unless every leaf is the JAX
+    factory's (the fixture's digests)."""
+    from nerftex_torch.models import mlp
+    from nerftex_torch.utils import rng
+    from nerftex_torch.utils.util import instantiate
+
+    rng.set_seed(config["seed"])
+    mlp._INIT_COUNTER[0] = 0
+    model = instantiate(config["model_config"], device="cuda")
+    want = {k[len("digest/"):]: inputs[k].tobytes() for k in inputs.files
+            if k.startswith("digest/")}
+    got = leaf_digests(model)
+    if set(got) != set(want) or any(got[k] != want[k] for k in want):
+        raise AssertionError(f"the port's init is not the JAX factory's: leaves "
+                             f"{sorted(k for k in want if got.get(k) != want[k])}")
+    return model
+
+
+def mip_fixture_steps(card):
+    """configs/demo_grass_mip_train.py's and demo_grass_mip_imp_train.py's
+    model (the JAX init, checked by digest), renderer, loss and Adam
+    schedule at full width on the card, over the fixture's three JAX
+    batches under fold_in(stream_key(STREAM_PERTURB), s): step 0's loss and
+    gradient (every leaf; the importance run, the fixture's leaves) and the
+    losses of steps 1 and 2 against the JAX package's, at the training
+    phase's limits."""
+    import importlib
+
+    from nerftex_torch.render.checkpoint import as_jax_tree, flatten_params
+    from nerftex_torch.render.train import make_optimizer, make_train_step
+    from nerftex_torch.utils import jax_rng, rng
+    from nerftex_torch.utils.util import instantiate
+
+    inputs = np.load(os.path.join(ROOT, "tests", MIP_INPUTS))
+    results = {}
+    for name, stock, prefix in (("grass_mip", "demo_grass_mip_train", ""),
+                                ("grass_mip_imp", "demo_grass_mip_imp_train", "imp/")):
+        config = importlib.import_module(f"configs.{stock}").config
+        want_losses = inputs[prefix + "loss"]
+        model = mip_init_model(config, inputs)
+        renderer = instantiate(dict(config["renderer_config"], model=model, device="cuda"))
+        optimizer = make_optimizer(model.parameters(), config["lrate"], config["lrate_decay"])
+        step = make_train_step(renderer, instantiate(config["loss_config"]), optimizer, False,
+                               [1, 1, 1.0])
+        base = rng.stream_key(rng.STREAM_PERTURB)
+        torch.cuda.reset_peak_memory_stats()
+        losses, grad_err = [], {}
+        t0 = time.perf_counter()
+        for s in range(len(want_losses)):
+            batch = {k[len(f"batch{s}/"):]: torch.tensor(inputs[k], device="cuda")
+                     for k in inputs.files if k.startswith(f"batch{s}/")}
+            losses.append(float(step(batch, jax_rng.fold_in(base, s))))
+            if s == 0:
+                grads = flatten_params(as_jax_tree(model, lambda p: p.grad.cpu().numpy()))
+                for leaf in (k[len(prefix + "grad/"):] for k in inputs.files
+                             if k.startswith(prefix + "grad/")):
+                    want = inputs[f"{prefix}grad/{leaf}"]
+                    grad_err[leaf] = float(np.abs(grads[leaf] - want).max() / np.abs(want).max())
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        rel = [abs(a - float(b)) / abs(float(b)) for a, b in zip(losses, want_losses)]
+        worst = max(grad_err, key=grad_err.get)
+        log(f"{name} step at full width vs JAX ({len(losses)} steps, 4 x 256 rays x "
+            f"{config['renderer_config']['n_samples']} segments"
+            f"{', +%d importance posts' % config['renderer_config'].get('n_importance', 0)}): "
+            f"losses {losses} vs JAX {[float(v) for v in want_losses]}, relative {rel} (limits "
+            f"{TRAIN_STEP_LOSS_RTOL}, then {TRAIN_LATER_LOSS_RTOL}); step-0 gradient over "
+            f"{len(grad_err)} leaves, worst {worst} {grad_err[worst]:.3g} of its max |g| (limit "
+            f"{TRAIN_GRAD_TOL}); {seconds:.2f} s, peak device memory {peak:.2f} GiB on {card}")
+        if not rel[0] <= TRAIN_STEP_LOSS_RTOL:
+            raise AssertionError(f"{name}: step 0's loss differs from JAX's by {rel[0]} relative")
+        if not max(rel[1:]) <= TRAIN_LATER_LOSS_RTOL:
+            raise AssertionError(f"{name}: the losses after Adam updates differ from JAX's by "
+                                 f"{rel[1:]}")
+        if not grad_err[worst] <= TRAIN_GRAD_TOL:
+            raise AssertionError(f"{name}: step 0's gradient of {worst} differs from JAX's by "
+                                 f"{grad_err[worst]} of its max |g|")
+        results[name] = {"losses": losses, "jax_losses": [float(v) for v in want_losses],
+                         "loss_rel": rel, "grad_rel_worst": grad_err[worst],
+                         "grad_rel_worst_leaf": worst, "grad_leaves": len(grad_err),
+                         "peak_gib": peak}
+        del model, renderer, optimizer, step
+        torch.cuda.empty_cache()
+    return results
+
+
+@contextlib.contextmanager
+def loss_terms_capture():
+    """While active, the names of the predictions each AlphaLoss call gets
+    go to the set it yields."""
+    from nerftex_torch.render import loss
+
+    real = loss.AlphaLoss.__call__
+    names = set()
+
+    def call(self, *args, **kwargs):
+        names.update(k for k, v in kwargs.items() if v is not None)
+        return real(self, *args, **kwargs)
+
+    loss.AlphaLoss.__call__ = call
+    try:
+        yield names
+    finally:
+        loss.AlphaLoss.__call__ = real
+
+
+def mip_jax_frame(card):
+    """configs/demo_grass_mip_render.py's renderer at its own settings on the
+    fixture's 64x64 rays of its first camera (radius 20), with the JAX
+    init weights (checked by digest) under stream_key(STREAM_PERTURB, 0):
+    its PSNR over color and alpha against the JAX package's render, at
+    MIP_GOLDEN_PSNR_DB."""
+    import importlib
+
+    from nerftex_torch.utils import rng
+    from nerftex_torch.utils.util import instantiate
+
+    inputs = np.load(os.path.join(ROOT, "tests", MIP_INPUTS))
+    config = importlib.import_module("configs.demo_grass_mip_render").config
+    model = mip_init_model(config, inputs)
+    renderer = instantiate(dict(config["renderer_config"], model=model, device="cuda"))
+    data = {k: inputs[f"frame/{k}"] for k in ("rays_o", "rays_d", "t", "cone_scale",
+                                               "parameters")}
+    with overflow_capture() as drops:
+        out = renderer(**data, key=rng.stream_key(rng.STREAM_PERTURB, 0))
+    color, alpha = out["color_pred"].cpu().numpy(), out["alpha_pred"].cpu().numpy()
+    want_c, want_a = inputs["frame/color"], inputs["frame/alpha"]
+    diff = np.concatenate([color - want_c, (alpha - want_a)[..., None]], -1)
+    psnr = float(10 * np.log10(1 / max(float(np.mean(diff**2)), 1e-30)))
+    want_drops = [tuple(inputs["frame/overflow"].tolist())]
+    log(f"grass_mip 64x64 frame at full width (JAX init) vs the JAX package's render: "
+        f"{psnr:.2f} dB (floor {MIP_GOLDEN_PSNR_DB}), max |diff| {float(np.abs(diff).max()):.3g}, "
+        f"alpha mean {float(alpha.mean()):.4f} (JAX {float(want_a.mean()):.4f}), dropped "
+        f"(hits, samples) {drops} (JAX {want_drops}) on {card}")
+    if not psnr >= MIP_GOLDEN_PSNR_DB:
+        raise AssertionError(f"the grass_mip frame diverged from JAX's: {psnr:.2f} dB")
+    if drops != want_drops:
+        raise AssertionError(f"the grass_mip frame dropped {drops}, the JAX package {want_drops}")
+    del model, renderer, out
+    torch.cuda.empty_cache()
+    return {"psnr_db": psnr, "max_abs_diff": float(np.abs(diff).max()), "drops": drops}
+
+
+def main_mip(counts, card):
+    """The mip phase (see the module docstring): the full-width steps
+    against JAX, the user's train-then-render sequence through
+    nerftex_torch.main (demo_grass_mip_train for MIP_TRAIN_STEPS steps on a
+    synthetic TFRecord with the dataset's five parameters, then
+    demo_grass_mip_render from the directory it trained into, the
+    demo_grass_mip_imp_train run beside it), and the 64x64 full-width frame
+    against JAX.  Returns (numbers, kernel rows, launch counts) per run."""
+    import importlib
+    import tempfile
+
+    from nerftex_torch import main as port_main
+    from nerftex_torch.models import mlp
+    from nerftex_torch.tools.synth import make_synthetic_tfrecord
+
+    reset_counts, read_counts, check_counts = counts
+    numbers, rows, launches = {}, {}, {}
+    t0 = time.perf_counter()
+    numbers["grass_mip_steps_vs_jax"] = mip_fixture_steps(card)
+    log(f"mip: full-width steps vs JAX {time.perf_counter() - t0:.1f} s")
+
+    os.environ["NERFTEX_NO_TENSORBOARD"] = "1"
+    config = importlib.import_module("configs.demo_grass_mip_train").config
+    n = MIP_TRAIN_STEPS
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix="_mip_") as work:
+        # -- the user's train command --------------------------------------------
+        proxy = config["train_dataset_config"]["proxy_config"]
+        t0 = time.perf_counter()
+        tfr = make_synthetic_tfrecord(os.path.join(work, "grass_mip.tfr"), **TRAIN_SYNTH,
+                                      n_parameters=MIP_SYNTH_PARAMETERS,
+                                      b_0=tuple(proxy["b_0"]), b_1=tuple(proxy["b_1"]))
+        synth_s = time.perf_counter() - t0
+        cfg_path, target = write_train_config(
+            work, "grass_mip_train", "demo_grass_mip_train", tfr, {"n_iters": n},
+            {"i_img": n, "i_checkpoint": MIP_TRAIN_CHECKPOINT_EVERY})
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        mlp._INIT_COUNTER[0] = 0
+        t0 = time.perf_counter()
+        with logger_timing((10, n - 10)) as record:
+            port_main.main([cfg_path])
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        train_launches, variants = read_counts()
+        rate = steps_per_s(record, 10, n - 10, n // MIP_TRAIN_CHECKPOINT_EVERY - 1)
+        log(f"nerftex_torch.main {cfg_path} ({n} steps, synthetic TFRecord of "
+            f"{TRAIN_SYNTH['n_images']} x {TRAIN_SYNTH['size']}^2 with {sum(MIP_SYNTH_PARAMETERS)} "
+            f"parameters written in {synth_s:.1f} s): {main_s:.1f} s; {rate:.2f} steps/s over "
+            f"steps 10-{n - 10} (validation renders and saves excluded); validation renders "
+            f"{record['render_images']} s, saves {record['save_checkpoint']} s; peak device "
+            f"memory {peak:.2f} GiB; launches {train_launches}, variants {variants} on {card}")
+        check_counts("grass_mip_train (main)", train_launches, variants,
+                     idle=("tex_fetch", "selk_resolve"), want=F32_FRAME_VARIANTS)
+        with open(os.path.join(target, "scalars.jsonl")) as f:
+            losses = [json.loads(line)["Loss"] for line in f]
+        if len(losses) != n // 10 or not np.isfinite(losses).all():
+            raise AssertionError(f"{len(losses)} scalars, not {n // 10}: {losses}")
+        first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+        log(f"grass_mip_train losses (every 10th step): {losses}; mean of the last five "
+            f"{last5:.5f} vs the first five {first5:.5f}")
+        if not last5 < 0.9 * first5:
+            raise AssertionError(f"the mip loss did not fall: {first5} -> {last5}")
+        ckpts = sorted(os.listdir(os.path.join(target, "checkpoints")))
+        want_ckpts = sorted(f"ckpt-{s}.pkl" for s in range(
+            MIP_TRAIN_CHECKPOINT_EVERY, n + 1, MIP_TRAIN_CHECKPOINT_EVERY))
+        if ckpts != want_ckpts:
+            raise AssertionError(f"checkpoints {ckpts}, not {want_ckpts}")
+        names = sorted(os.listdir(os.path.join(target, "media", "validation", str(n))))
+        if names != ["0.png", "1.png"]:
+            raise AssertionError(f"validation images {names}")
+        val, rows["grass_mip_train"] = check_validation_render(
+            "grass_mip_train", config, target, n, counts, maps=MIP_MAPS)
+        launches["grass_mip_train"] = train_launches
+        numbers["grass_mip_train"] = {
+            "steps": n, "steps_per_s": rate, "main_s": main_s, "peak_gib": peak,
+            "loss_first5": first5, "loss_last5": last5, "checkpoints": ckpts,
+            "validation_render_s": record["render_images"],
+            "checkpoint_save_s": record["save_checkpoint"], **val}
+
+        # -- demo_grass_mip_imp_train: mip_importance and the coarse terms ---------
+        m = MIP_IMP_TRAIN_STEPS
+        cfg_path, imp_target = write_train_config(
+            work, "grass_mip_imp_train", "demo_grass_mip_imp_train", tfr, {"n_iters": m},
+            {"i_summary": 1, "i_img": m, "i_checkpoint": m})
+        reset_counts()
+        mlp._INIT_COUNTER[0] = 0
+        t0 = time.perf_counter()
+        with logger_timing((2, m - 1)) as record, loss_terms_capture() as terms:
+            port_main.main([cfg_path])
+        torch.cuda.synchronize()
+        imp_s = time.perf_counter() - t0
+        imp_launches, imp_variants = read_counts()
+        with open(os.path.join(imp_target, "scalars.jsonl")) as f:
+            imp_losses = [json.loads(line)["Loss"] for line in f]
+        imp_rate = steps_per_s(record, 2, m - 1, 0)
+        log(f"nerftex_torch.main {cfg_path} (256 + 256 importance posts; {m} steps): "
+            f"{imp_s:.1f} s, {imp_rate:.2f} steps/s; losses {imp_losses}; the loss got "
+            f"{sorted(terms)}; launches {imp_launches}, variants {imp_variants}")
+        if len(imp_losses) != m or not np.isfinite(imp_losses).all():
+            raise AssertionError(f"grass_mip_imp_train losses {imp_losses}")
+        if not {"color_pred_coarse", "alpha_pred_coarse"} <= terms:
+            raise AssertionError(f"the mip_importance loss had no coarse terms: {sorted(terms)}")
+        check_counts("grass_mip_imp_train (main)", imp_launches, imp_variants,
+                     idle=("tex_fetch", "selk_resolve"), want=F32_FRAME_VARIANTS)
+        numbers["grass_mip_imp_train"] = {"steps": m, "steps_per_s": imp_rate, "main_s": imp_s,
+                                          "losses": imp_losses, "loss_terms": sorted(terms),
+                                          "launches": imp_launches}
+
+        # -- the user's render command, from the trained directory -----------------
+        want_drops = [tuple(d) for d in np.load(os.path.join(ROOT, "tests", MIP_INPUTS))[
+            "sweep/overflow"].tolist()]
+        numbers["grass_mip"], rows["grass_mip"], launches["grass_mip"] = check_render_mode(
+            "grass_mip", "demo_grass_mip_render", work, target, None, counts, card, MIP_MAPS,
+            frame_mlp=True, want_drops=want_drops)
+
+    numbers["grass_mip_jax_frame"] = mip_jax_frame(card)
+    return numbers, rows, launches
+
+
+def kernel_counts():
+    """(reset, read, check) over the kernel wrappers' launch counters:
+    reset() zeroes every count; read() gives ({kernel: launches},
+    {kernel: {variant: launches}}); check(frame, launches, variants, idle,
+    want) fails unless every kernel outside ``idle`` launched, those in it
+    did not, and every launch of a kernel in ``want`` ran its variant."""
+    from nerftex_torch.kernels import mlp_fused as fused, selk_resolve as selk, tex_gather
+
+    counters = {"tex_fetch": tex_gather.sample_channel, "mlp_fused": fused.mlp_fused,
+                "selk_resolve": selk.selk_resolve}
+
+    def reset_counts():
+        for fn in counters.values():
+            fn.launches = 0
+            if hasattr(fn, "variant_launches"):
+                fn.variant_launches = dict.fromkeys(fn.variant_launches, 0)
+
+    def read_counts():
+        return ({name: fn.launches for name, fn in counters.items()},
+                {name: dict(fn.variant_launches) for name, fn in counters.items()
+                 if hasattr(fn, "variant_launches")})
+
+    def check_counts(frame, launches, variants, idle=(), want=FRAME_VARIANTS):
+        for name, n in launches.items():
+            if name in idle and n:
+                raise AssertionError(f"the {frame} frame launched {name} {n} times, not 0")
+            if name not in idle and n <= 0:
+                raise AssertionError(f"the {frame} frame did not launch {name}")
+        for name, variant in want.items():
+            if name not in idle and variants[name][variant] != launches[name]:
+                raise AssertionError(f"the {frame} frame ran {name} variants {variants[name]}, "
+                                     f"not {variant} alone")
+
+    return reset_counts, read_counts, check_counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this test needs a CUDA card",
@@ -2085,30 +2508,8 @@ def main():
     for frame in ("bench", "plush"):
         rows[frame]["selk_resolve"] = check_selk(selk, frame)
     log(f"phase kernels: {time.perf_counter() - t_phase:.1f} s")
-    counters = {"tex_fetch": tex_gather.sample_channel, "mlp_fused": fused.mlp_fused,
-                "selk_resolve": selk.selk_resolve}
-
-    def reset_counts():
-        for fn in counters.values():
-            fn.launches = 0
-            if hasattr(fn, "variant_launches"):
-                fn.variant_launches = dict.fromkeys(fn.variant_launches, 0)
-
-    def read_counts():
-        return ({name: fn.launches for name, fn in counters.items()},
-                {name: dict(fn.variant_launches) for name, fn in counters.items()
-                 if hasattr(fn, "variant_launches")})
-
-    def check_counts(frame, launches, variants, idle=(), want=FRAME_VARIANTS):
-        for name, n in launches.items():
-            if name in idle and n:
-                raise AssertionError(f"the {frame} frame launched {name} {n} times, not 0")
-            if name not in idle and n <= 0:
-                raise AssertionError(f"the {frame} frame did not launch {name}")
-        for name, variant in want.items():
-            if name not in idle and variants[name][variant] != launches[name]:
-                raise AssertionError(f"the {frame} frame ran {name} variants {variants[name]}, "
-                                     f"not {variant} alone")
+    counts = kernel_counts()
+    reset_counts, read_counts, check_counts = counts
 
     # -- the bench frame -------------------------------------------------------
     t_phase = time.perf_counter()
@@ -2311,7 +2712,6 @@ def main():
     log(f"phase grass frame: {time.perf_counter() - t_phase:.1f} s")
 
     # -- the carpet and carpet10k frames ------------------------------------------------
-    counts = (reset_counts, read_counts, check_counts)
     frames = {"bench": bench, "bench_f32": f32_frame, "plush": plush, "grass": grass}
     launches = {"bench": bench_launches, "bench_f32": f32_launches, "plush": plush_launches,
                 "grass": grass_launches}
@@ -2348,8 +2748,15 @@ def main():
     frames.update(train)
     rows.update(train_rows)
     launches.update(device_launches)
-    train_launches.update(device_launches)
     log(f"phase device-resident training: {time.perf_counter() - t_phase:.1f} s")
+
+    # -- the mip paths: demo_grass_mip_train then demo_grass_mip_render ------------
+    t_phase = time.perf_counter()
+    mip, mip_rows, mip_launches = main_mip(counts, card)
+    frames.update(mip)
+    rows.update(mip_rows)
+    launches.update(mip_launches)
+    log(f"phase mip: {time.perf_counter() - t_phase:.1f} s")
 
     kernels = [dict(row, frame=frame, launches=launches[frame][name])
                for frame in launches for name, row in rows[frame].items()]
@@ -2365,10 +2772,15 @@ def main():
         {"frame": "grass_filtered", "name": "tex_fetch",
          "launches": launches["grass_filtered"]["tex_fetch"],
          "why": "configs/config_grass_filtered_render.py has no texture channel (textures "
+                "['', '', 'light'])"},
+        {"frame": "grass_mip", "name": "tex_fetch", "launches": launches["grass_mip"]["tex_fetch"],
+         "why": "configs/demo_grass_mip_render.py has no texture channel (textures "
                 "['', '', 'light'])"}] + [
-        {"frame": frame, "name": name, "launches": train_launches[frame][name],
-         "why": "training has no instancer: its validation renders run the plain Renderer"}
-        for frame in ("carpet_train", "grass_filtered_train", "carpet_train_device")
+        {"frame": frame, "name": name, "launches": launches[frame][name],
+         "why": "training has no instancer: its validation renders run the plain Renderer "
+                "(MipRenderer for the mip configs)"}
+        for frame in ("carpet_train", "grass_filtered_train", "carpet_train_device",
+                      "grass_mip_train")
         for name in ("tex_fetch", "selk_resolve")]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

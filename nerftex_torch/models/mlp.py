@@ -90,14 +90,12 @@ class ParamNerf(nn.Module):
         device=None,
     ) -> None:
         super().__init__()
-        if n_pos != 3 or embedding_config is not None or include_param_dims:
-            raise NotImplementedError(
-                "n_pos != 3 and extra embeddings (the IPE/mip variants) come with the mip slice"
-            )
         if isinstance(n_parameters, int):
             n_parameters = [n_parameters, 0]
         self.name = name
         self.n_geo, self.n_app = int(n_parameters[0]), int(n_parameters[1])
+        self.n_pos = int(n_pos)
+        self.include_param_dims = bool(include_param_dims)
         self.depth, self.width = int(depth), int(width)
         self.skips = tuple(skips)
         self.color_depth = int(color_depth)
@@ -106,6 +104,9 @@ class ParamNerf(nn.Module):
         self.pos_fm = instantiate(pos_embedding)
         self.dir_fm = instantiate(dir_embedding)
         self.param_fm = instantiate(param_embedding)
+        # Extra features of the position (and, with include_param_dims, the
+        # parameters), joined after the position encoding.
+        self.extra_fm = instantiate(embedding_config) if embedding_config else None
 
         device = resolve_device(device)
         # One key per dense layer, drawn in the JAX factory's layer order.
@@ -135,7 +136,10 @@ class ParamNerf(nn.Module):
                 self.param_app.append(dense(app_dim, param_width))
                 app_dim = param_width
 
-        self.pos_dim = self.pos_fm.out_dim(3) + geo_dim
+        self.pos_dim = self.pos_fm.out_dim(self.n_pos) + geo_dim
+        if self.extra_fm is not None:
+            extra_in = self.n_pos + (self.n_geo + self.n_app if self.include_param_dims else 0)
+            self.pos_dim += self.extra_fm.out_dim(extra_in)
         self.dir_dim = self.dir_fm.out_dim(3) + app_dim
         self.trunk = nn.ModuleList()
         in_dim = self.pos_dim
@@ -176,14 +180,22 @@ class ParamNerf(nn.Module):
         return {layer: (layer.weight.to(cdt), layer.bias.to(cdt))
                 for layer in self.modules() if isinstance(layer, nn.Linear)}
 
+    def _extra(self, pos, prms):
+        """The extra features (embedding_config) in float32, or None."""
+        if self.extra_fm is None:
+            return None
+        return self.extra_fm(torch.cat([pos, prms], -1) if self.include_param_dims else pos)
+
     def encode(self, pos, dirs, prms):
-        """The Fourier encodings in ``compute_dtype``: (pos, dirs, geometry
-        parameters, appearance parameters), the last two None when the model
-        has no such parameters."""
+        """The encodings in ``compute_dtype``: (pos, dirs, geometry
+        parameters, appearance parameters, extra features), each of the last
+        three None when the model has no such input."""
         cdt = self.compute_dtype
         geo = self.param_fm(prms[:, : self.n_geo]).to(cdt) if self.n_geo > 0 else None
         app = self.param_fm(prms[:, self.n_geo:]).to(cdt) if self.n_app > 0 else None
-        return self.pos_fm(pos).to(cdt), self.dir_fm(dirs).to(cdt), geo, app
+        extra = self._extra(pos, prms)
+        return (self.pos_fm(pos).to(cdt), self.dir_fm(dirs).to(cdt), geo, app,
+                None if extra is None else extra.to(cdt))
 
     def forward(self, pos, dirs, prms, weights=None):
         """(color logits [N, 3], density [N, 1]), float32, computed in
@@ -191,11 +203,12 @@ class ParamNerf(nn.Module):
         ``cast_weights`` gives them, else each layer casts its own."""
         return self.chain(*self.encode(pos, dirs, prms), weights=weights)
 
-    def chain(self, pos_enc, dir_enc, geo_enc, app_enc, weights=None):
+    def chain(self, pos_enc, dir_enc, geo_enc, app_enc, extra_enc=None, weights=None):
         """``forward`` from the encodings on: the parameter MLPs and the
-        dense chain."""
+        dense chain.  The trunk's input rows are the position encoding's,
+        then the extra features', then the geometry features'."""
         cdt = self.compute_dtype
-        pos_parts = [pos_enc]
+        pos_parts = [pos_enc] if extra_enc is None else [pos_enc, extra_enc]
         dir_parts = [dir_enc]
         if geo_enc is not None:
             pos_parts.append(self._param_part(self.param_geo, geo_enc, cdt, weights))
@@ -219,10 +232,16 @@ class ParamNerf(nn.Module):
 
     def feature_maps(self, pos, dirs, prms):
         """pos_map [N, pos_dim] and dir_map [N, dir_dim] in float32: the
-        encodings with the parameter features joined, as the Pallas wrapper
-        builds them outside its kernel."""
+        encodings with the extra and parameter features joined in the
+        trunk's row order, built outside the kernel."""
         pos_map = [self.pos_fm(pos)]
         dir_map = [self.dir_fm(dirs)]
+        extra = self._extra(pos, prms)
+        if extra is not None:
+            # The JAX Pallas wrapper leaves these out (its pos_map is the
+            # position and geometry features only); the JAX model's apply,
+            # which this follows, has them.
+            pos_map.append(extra)
         if self.n_geo > 0:
             pos_map.append(self._param_part(self.param_geo, self.param_fm(prms[:, : self.n_geo]),
                                             torch.float32))

@@ -1,5 +1,6 @@
 """Volume-rendering primitives (counterpart of nerftex_tpu/ops/volume.py):
-stratified sampling, alpha compositing, inverse-CDF importance sampling.
+stratified sampling, alpha compositing, inverse-CDF importance sampling,
+and mip-NeRF's cone Gaussians.
 Random draws come from utils.jax_rng keys, so they are the JAX package's
 for the same key."""
 
@@ -113,6 +114,54 @@ def sample_pdf(bins: torch.Tensor, weights: torch.Tensor, n_samples: int, det: b
     denom = torch.where(denom < 1e-5, torch.ones_like(denom), denom)
     frac = (u - cdf_below) / denom
     return bins_below + frac * (bins_above - bins_below)
+
+
+def _cone_moments(mu, hw):
+    """(t_var, r_var / radius^2) of conical frustums at distance mu with
+    half-width hw.  A degenerate segment (mu = hw = 0: a proxy-missing ray
+    whose t was zeroed) makes every term 0/0; den_raw is 0 exactly there
+    (both its terms are non-negative), and den = 1 in its place makes each
+    term, and its gradient, exactly 0 instead of NaN, while every other
+    segment, however small, keeps the formula bit for bit."""
+    den_raw = 3 * mu**2 + hw**2
+    den = torch.where(den_raw == 0.0, torch.ones_like(den_raw), den_raw)
+    t_var = (hw**2) / 3 - (4 / 15) * ((hw**4 * (12 * mu**2 - hw**2)) / den**2)
+    r_var = (mu**2) / 4 + (5 / 12) * hw**2 - 4 / 15 * (hw**4) / den
+    return den, t_var, r_var
+
+
+def _null_outer_diag(rays_d):
+    """(d * d, the diagonal of 1 - d d^T / |d|^2) per direction [..., 3]."""
+    d_mag_sq = torch.clamp(torch.sum(rays_d**2, -1, keepdim=True), min=1e-10)
+    d_outer_diag = rays_d**2
+    return d_outer_diag, 1 - d_outer_diag / d_mag_sq
+
+
+def cone_segment_gaussians(rays_o, rays_d, t_vals, radii):
+    """mip-NeRF conical-frustum Gaussians per segment: t_vals [R, S+1]
+    fence posts, radii [R, 1] -> (mean [R, S, 3], diagonal covariance
+    [R, S, 3])."""
+    t0 = t_vals[..., :-1]
+    t1 = t_vals[..., 1:]
+    mu = (t0 + t1) / 2
+    hw = (t1 - t0) / 2
+    den, t_var, r_var = _cone_moments(mu, hw)
+    t_mean = mu + (2 * mu * hw**2) / den
+    r_var = radii**2 * r_var
+    mean = rays_o[..., None, :] + rays_d[..., None, :] * t_mean[..., None]
+    d_outer_diag, null_outer_diag = _null_outer_diag(rays_d)
+    t_cov_diag = t_var[..., None] * d_outer_diag[..., None, :]
+    xy_cov_diag = r_var[..., None] * null_outer_diag[..., None, :]
+    return mean, t_cov_diag + xy_cov_diag
+
+
+def cone_sample_cov(rays_d, t_vals, radii, dists):
+    """Per-sample cone covariance of the instanced mip path: rays_d [N, 3],
+    t_vals, radii and dists (the half-widths) [N] -> [N, 3]."""
+    _, t_var, r_var = _cone_moments(t_vals, dists)
+    r_var = radii**2 * r_var
+    d_outer_diag, null_outer_diag = _null_outer_diag(rays_d)
+    return t_var[:, None] * d_outer_diag + r_var[:, None] * null_outer_diag
 
 
 def mean_distance(mu, hw):

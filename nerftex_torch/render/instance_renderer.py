@@ -1,6 +1,7 @@
-"""Instanced-patch renderer: device instancer -> conditioned MLP ->
+"""Instanced-patch renderers: device instancer -> conditioned MLP ->
 composite (counterpart of nerftex_tpu/render/instance_renderer.py, sorted
-and dense grid paths)."""
+and dense grid paths): InstanceRenderer and its mip variant,
+MipInstanceRenderer."""
 
 import torch
 
@@ -115,21 +116,22 @@ class InstanceRenderer(Renderer):
         density[mask] = d[:, 0]
         return color, density
 
-    def _model_parameters(self, inst, cone_scale):
-        """The per-sample parameters [R,S,P], the blur slot scaled by
-        cone_scale [R,1] * t [R,S] / patch_scale in the JAX package's
-        order of operations (_model_inputs), before the Fourier lift."""
+    def _model_inputs(self, inst, cone_scale):
+        """The per-sample model positions [R,S,3] and parameters [R,S,P],
+        the blur slot scaled by cone_scale [R,1] * t [R,S] / patch_scale in
+        the JAX package's order of operations (_model_inputs), before the
+        Fourier lift."""
         prms = inst["parameters"]
         if self.blur_idx is None:
-            return prms
+            return inst["pts"], prms
         blur_scale = cone_scale[:, None, :] * inst["t"][:, :, None] / self.patch_scale
         b = self.blur_idx
-        return torch.cat([prms[..., :b], prms[..., b, None] * blur_scale, prms[..., b + 1:]], -1)
+        return inst["pts"], torch.cat([prms[..., :b], prms[..., b, None] * blur_scale,
+                                       prms[..., b + 1:]], -1)
 
     def _shade(self, inst, cone_scale):
-        color, density = self._eval_mlp(inst["pts"], inst["rays_d"],
-                                        self._model_parameters(inst, cone_scale),
-                                        inst["dists"] > 0)
+        pos, prms = self._model_inputs(inst, cone_scale)
+        color, density = self._eval_mlp(pos, inst["rays_d"], prms, inst["dists"] > 0)
         if self.density_reweighting:
             density = density * inst["alpha_weight"]
         density = density * self.density_scale
@@ -137,3 +139,29 @@ class InstanceRenderer(Renderer):
             color, density, inst["dists"], inst["color_last"], inst["alpha_last"],
             self.patch_scale, map_exr=self.map_exr,
         )
+
+
+class MipInstanceRenderer(InstanceRenderer):
+    """The integrated-positional-encoding variant (counterpart of the JAX
+    ``MipInstanceRenderer``, grid paths): each sample's model position
+    (``_model_inputs``) is [pts, cone_sample_cov(local direction, t,
+    radius, dists)] in patch-local coordinates, with the radius
+    params[blur_idx] * cone_scale / patch_scale; the blur slot is spliced
+    out of the sample's parameters.  ``blur_idx`` is kept from the base
+    class (as ``blur_idx_mip``), which therefore scales no parameter per
+    sample."""
+
+    def __init__(self, blur_idx: int = None, **kwargs):
+        super().__init__(**kwargs)
+        self.blur_idx_mip = blur_idx
+
+    def _model_inputs(self, inst, cone_scale):
+        b = self.blur_idx_mip
+        prms = inst["parameters"]
+        radii = prms[..., b] * cone_scale[..., None, 0] / self.patch_scale
+        prms = torch.cat([prms[..., :b], prms[..., b + 1:]], -1)
+        r, s = inst["t"].shape
+        cov = volume.cone_sample_cov(inst["rays_d"].reshape(r * s, 3), inst["t"].reshape(r * s),
+                                     radii.reshape(r * s),
+                                     inst["dists"].reshape(r * s)).reshape(r, s, 3)
+        return torch.cat([inst["pts"], cov], -1), prms

@@ -24,8 +24,15 @@ REMAP = {
     "network.model.CoarseFine": "nerftex_torch.models.mlp.CoarseFine",
     "network.model.FourierFeatures": "nerftex_torch.models.encodings.FourierFeatures",
     "network.layer.FourierFeatures": "nerftex_torch.models.encodings.FourierFeatures",
+    "network.model.IntegratedPositionalEncoding":
+        "nerftex_torch.models.encodings.IntegratedPositionalEncoding",
+    "network.layer.IntegratedPositionalEncoding":
+        "nerftex_torch.models.encodings.IntegratedPositionalEncoding",
     "network.renderer.Renderer": "nerftex_torch.render.renderer.Renderer",
     "network.renderer.InstanceRenderer": "nerftex_torch.render.instance_renderer.InstanceRenderer",
+    "network.renderer.MipRenderer": "nerftex_torch.render.renderer.MipRenderer",
+    "network.renderer.MipInstanceRenderer":
+        "nerftex_torch.render.instance_renderer.MipInstanceRenderer",
     "instancer.instancer.Instancer": "nerftex_torch.instancing.instancer.Instancer",
     "network.proxy.AABB": "nerftex_torch.ops.proxy.AABB",
     # GenerateData's default pose distribution names data.dist.

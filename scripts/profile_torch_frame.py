@@ -8,7 +8,10 @@ chip_smoke.py does, the bench frame with an f32 ParamNerf (``--scene
 bench_f32``, chip_smoke.py's f32 bench frame), or the first frame that
 ``nerftex_torch.main configs/config_grass_filtered_render.py`` renders
 (``--scene grass_filtered``: the config's own f32 renderer, blur_idx 0,
-render_chunk 16384, the committed grass_filtered weights), renders the frame twice to warm up, then profiles one
+render_chunk 16384, the committed grass_filtered weights), or the first frame
+that ``nerftex_torch.main configs/demo_grass_mip_render.py`` renders
+(``--scene grass_mip``: 256x256, the config's MipInstanceRenderer, the
+JAX init weights that tests/torch_grass_mip_inputs.npz digests), renders the frame twice to warm up, then profiles one
 render with torch.profiler and prints: the wall time, the summed device
 time of all kernels, the device idle share (1 - busy / wall), the number
 of kernel launches, the kernels ranked by device time, and the port's own
@@ -20,7 +23,7 @@ fetch) and the rest (sort, MLP, composite).
 
 Run from the repo root on a machine with a CUDA card:
 
-    python3 scripts/profile_torch_frame.py [--scene bench|bench_f32|plush|grass|carpet|carpet10k|grass_filtered] \
+    python3 scripts/profile_torch_frame.py [--scene bench|bench_f32|plush|grass|carpet|carpet10k|grass_filtered|grass_mip] \
         [--top 25] [--root DIR]
 
 ``--root`` is a checkout of this repo (default: this one) whose
@@ -45,7 +48,8 @@ PORT_KERNELS = ("tex_fetch_kernel", "mlp_fused_kernel", "mlp_wgmma_kernel", "mlp
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--scene", choices=("bench", "bench_f32", "plush", "grass", "carpet",
-                                        "carpet10k", "grass_filtered"), default="bench")
+                                        "carpet10k", "grass_filtered", "grass_mip"),
+                    default="bench")
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--root", default=ROOT)
     args = ap.parse_args()
@@ -83,6 +87,16 @@ def main():
         params = chip_smoke.npz_params("torch_bench_inputs.npz")
         m_cfg, r_cfg = chip_smoke.carpet_configs(args.scene)
         model = instantiate(m_cfg, device="cuda")
+    elif args.scene == "grass_mip":
+        from configs.demo_grass_mip_render import config
+        from nerftex_torch.utils import rng
+
+        rng.set_seed(config["seed"])
+        data = next(iter(instantiate(config["test_dataset_config"]).take(1)))
+        model = chip_smoke.mip_init_model(
+            config, np.load(os.path.join(root, "tests", chip_smoke.MIP_INPUTS)))
+        params = None
+        r_cfg = config["renderer_config"]
     else:
         from configs.config_grass_filtered_render import config
 
@@ -91,7 +105,8 @@ def main():
         model = instantiate(config["model_config"], device="cuda")
         r_cfg = config["renderer_config"]
     kw = {"key": jax_rng.key(1)}
-    load_jax_params(model, params)
+    if params is not None:
+        load_jax_params(model, params)
     renderer = instantiate(dict(r_cfg, model=model, device="cuda"))
     for _ in range(2):
         renderer(**data, **kw)

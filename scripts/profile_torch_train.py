@@ -28,10 +28,17 @@ PROFILE_REPLAYS replays each, the device busy time and idle share and the
 kernel launches per step (``--steps`` and ``--profile-steps`` count
 dispatches there).
 
+With ``--config mip`` or ``mip_imp`` it builds
+configs/demo_grass_mip_train.py's or demo_grass_mip_imp_train.py's
+host-fed step (MipRenderer, IPE on n_pos 6; the _imp one with 256
+importance posts) on 32 synthetic swatches with the dataset's five
+parameters and the config's proxy box.
+
 Run from the repo root on a machine with a CUDA card:
 
     python3 scripts/profile_torch_train.py [--steps 50] [--profile-steps 5] [--top 20] \
-        [--remat false|true|save_encodings] [--trace FILE] [--device-resident]
+        [--remat false|true|save_encodings] [--trace FILE] [--device-resident] \
+        [--config carpet|mip|mip_imp]
 """
 
 import argparse
@@ -46,21 +53,25 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PROFILE_REPLAYS = 10  # graph replays per profiled dispatch (--device-resident)
+# --config: (config module, the synthetic swatches' parameter split)
+CONFIGS = {"carpet": ("config_carpet_train", (1, 6)),
+           "mip": ("demo_grass_mip_train", (2, 3)),
+           "mip_imp": ("demo_grass_mip_imp_train", (2, 3))}
 
 
-def build(tfr, remat, device_resident=False):
-    """(dataset, train step, state) of configs/config_carpet_train.py (with
+def build(tfr, remat, device_resident=False, stock="config_carpet_train"):
+    """(dataset, train step, state) of configs/<stock>.py (with
     device_resident: configs/full_carpet_train_device.py) on the TFRecord
     ``tfr``, set up by Train's own ``build_step``, with remat_net_chunks
     set to ``remat`` (device_resident: the config's own)."""
+    import importlib
+
     from nerftex_torch.render.train import TrainState, build_step
     from nerftex_torch.utils import rng
 
     if device_resident:
-        from configs.full_carpet_train_device import config as stock
-    else:
-        from configs.config_carpet_train import config as stock
-    cfg = copy.deepcopy(stock)
+        stock = "full_carpet_train_device"
+    cfg = copy.deepcopy(importlib.import_module(f"configs.{stock}").config)
     cfg["train_dataset_config"]["data_loader_config"]["tfr_path"] = tfr
     if not device_resident:
         cfg["renderer_config"]["remat_net_chunks"] = remat
@@ -176,6 +187,7 @@ def main():
     ap.add_argument("--remat", default="false", choices=("false", "true", "save_encodings"))
     ap.add_argument("--trace", default=None)
     ap.add_argument("--device-resident", action="store_true")
+    ap.add_argument("--config", default="carpet", choices=tuple(CONFIGS))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_torch_train: needs a CUDA card")
@@ -192,10 +204,16 @@ def main():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     remat = {"false": False, "true": True}.get(args.remat, args.remat)
+    import importlib
+
+    stock, n_parameters = CONFIGS[args.config]
+    proxy = importlib.import_module(f"configs.{stock}").config["train_dataset_config"][
+        "proxy_config"]
     with tempfile.TemporaryDirectory() as tmp:
         tfr = make_synthetic_tfrecord(os.path.join(tmp, "train.tfr"), n_images=32, size=64,
-                                      seed=0)
-        dataset, step, state = build(tfr, remat)
+                                      seed=0, n_parameters=n_parameters,
+                                      b_0=tuple(proxy["b_0"]), b_1=tuple(proxy["b_1"]))
+        dataset, step, state = build(tfr, remat, stock=stock)
     n_total = args.warmup + args.steps + args.profile_steps
     batches = iter(dataset.take(n_total))
     base = rng.stream_key(rng.STREAM_PERTURB)
@@ -254,7 +272,7 @@ def main():
 
     n_prof = args.profile_steps
     summary = {
-        "card": chip_smoke.card_line(), "remat_net_chunks": remat,
+        "card": chip_smoke.card_line(), "config": args.config, "remat_net_chunks": remat,
         "steps_per_s_free": free_rate, "steps_per_s_synced": n_sync / sync_wall,
         "ms_per_step_host": {k: v / n_sync * 1e3 for k, v in times.items()},
         "peak_gib": peak,
@@ -263,8 +281,8 @@ def main():
                      "idle_share": 1 - busy_us / 1e6 / wall,
                      "launches_per_step": n_launches / n_prof},
     }
-    print(f"card: {summary['card']}  config: configs/config_carpet_train.py (4 x 256 rays x 256 "
-          f"samples, f32, IEEE matmuls)  remat_net_chunks: {remat}")
+    print(f"card: {summary['card']}  config: configs/{stock}.py (4 x 256 rays, f32, IEEE "
+          f"matmuls)  remat_net_chunks: {remat}")
     print(f"steps/s: {free_rate:.2f} free-running, {n_sync / sync_wall:.2f} synchronised each "
           f"step; peak device memory {peak:.2f} GiB")
     print("host ms per synchronised step: " + ", ".join(

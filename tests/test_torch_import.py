@@ -106,8 +106,8 @@ def test_kernel_wrappers_refuse_foreign_devices():
 SUPPORTED_RENDER_CONFIGS = (
     "config_carpet_render", "config_carpet10k_render", "config_grass_render",
     "config_grass_filtered_render", "config_plush_render", "demo_carpet_render",
-    "demo_grass_render", "demo_grass_filtered_render", "demo_plush_render",
-    "full_carpet_render",
+    "demo_grass_render", "demo_grass_filtered_render", "demo_grass_mip_render",
+    "demo_plush_render", "full_carpet_render",
 )
 
 
@@ -168,7 +168,8 @@ def test_supported_render_configs_resolve_inside_the_port():
 SUPPORTED_TRAIN_CONFIGS = (
     "config_carpet_train", "config_fur_train", "config_grass_train",
     "config_grass_filtered_train", "config_plush_train", "demo_carpet_train", "demo_fur_train",
-    "demo_grass_train", "demo_grass_filtered_train", "demo_plush_train", "full_carpet_train",
+    "demo_grass_train", "demo_grass_filtered_train", "demo_grass_mip_train",
+    "demo_grass_mip_imp_train", "demo_plush_train", "full_carpet_train",
     "full_carpet_train_device",
 )
 
@@ -193,18 +194,16 @@ def test_supported_train_configs_resolve_inside_the_port():
     assert not outside, outside
 
 
-@pytest.mark.parametrize("config,path", [
-    ("demo_grass_mip_render", "network.renderer.MipInstanceRenderer"),
-    ("demo_grass_mip_render", "network.model.IntegratedPositionalEncoding"),
-    ("demo_grass_mip_train", "network.renderer.MipRenderer"),
-    ("demo_grass_mip_train", "network.model.IntegratedPositionalEncoding"),
+@pytest.mark.parametrize("path", [
+    "data.blur.process", "data.nerf2tfr.convert", "data.create_dataset.render_views",
+    "network.model.Model",
 ])
-def test_unported_paths_raise_and_import_no_jax(config, path):
-    """A mip config's unported path raises UnportedPathError (a
-    NotImplementedError) that names it, instead of reaching nerftex_tpu
-    through a shim; nothing of jax or nerftex_tpu is imported."""
-    out = _resolve_in_subprocess((config,), (
-        f"assert {path!r} in paths[{config!r}], paths\n"
+def test_unported_paths_raise_and_import_no_jax(path):
+    """A reference path the port does not map (the offline dataset tools,
+    the JAX model wrapper) raises UnportedPathError (a NotImplementedError)
+    that names it, instead of reaching nerftex_tpu through a shim; nothing
+    of jax or nerftex_tpu is imported."""
+    out = _resolve_in_subprocess((), (
         "try:\n"
         f"    util.get_attr_from_path({path!r})\n"
         "except util.UnportedPathError as e:\n"

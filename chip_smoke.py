@@ -61,7 +61,8 @@ Phases (any failure raises and exits non-zero):
      configs initialise), each on its config dataset's first item as the
      port's data layer builds it and JAX's draws for key(1), checked
      against tests/golden_scene_<scene>.npz at the 50 dB floor on the 8x
-     box downsample, timed (best of 2) with its peak device memory; every
+     box downsample, its dropped hits and samples equal to CARPET_DROPS,
+     timed (best of 2) with its peak device memory; every
      kernel against its plain version at the frame's inputs (tex_fetch's
      first launch, mlp_fused's first net_chunk, every selk_resolve launch);
   10. the render mode: nerftex_torch.main on
@@ -133,7 +134,29 @@ Phases (any failure raises and exits non-zero):
      not cover its sweep in either package), the direct render's MLP
      launches replayed beside the cuBLAS f32 chain; and a 64x64 render of
      the render config's first camera with the JAX init against the JAX
-     package's render in the fixture, at MIP_GOLDEN_PSNR_DB.
+     package's render in the fixture, at MIP_GOLDEN_PSNR_DB;
+  14. the compact path (sample_budget_per_ray): the bench frame at bench.py's
+     settings (bf16, bf16 dots, key(1)) first on the sorted grid, whose
+     per-ray n_steps give the covering budget (the smallest multiple of 8
+     at which no ray block overflows), then compact at that budget (within
+     COMPACT_MAX_DIFF of the grid frame, 55 dB against the golden, the grid
+     frame's drops, each block taking all its samples) and at
+     COMPACT_DROP_BUDGET (the drops and per-block taken counts reckoned
+     from the grid frame's n_steps), both frames timed interleaved (G C C G
+     G C); the f32 rays of tests/torch_compact_inputs.npz (two bench blocks
+     at the dropping budget, written on the CPU by
+     scripts/make_torch_compact_inputs.py from the JAX package's compact
+     render) within COMPACT_F32_MAX_DIFF of JAX's and with its drops, every
+     mlp_fused launch wgmma_tf32x3; and the first camera of
+     configs/demo_grass_mip_render.py (the fixture's JAX init) through
+     MipInstanceRenderer at its covering budget, within COMPACT_MAX_DIFF of
+     its grid frame, no tex_fetch.  Every selk_resolve launch of the three
+     compact frames is held against its plain version as it runs;
+     mlp_fused is held against plain on the frame's net_chunk with the
+     most taken samples (it must hold taken samples only) and tex_fetch on
+     the first launch of the ray block that took the most; each frame has
+     its kernels-line rows (bench_compact, bench_compact_f32,
+     grass_mip_compact) and the phase prints its peak device memory.
 The first render of each frame runs with its selk_resolve calls captured
 (selk_capture); the frame's launch histogram (launches by Rb, S, K and
 method, with the window and valid slots of their inputs) is printed on a
@@ -165,6 +188,14 @@ GOLDEN_PSNR_DB = 55.0                 # bench.py's floor
 PLUSH_GOLDEN_PSNR_DB = 50.0           # scripts/bench_scene.py's floor
 GRASS_GOLDEN_PSNR_DB = 50.0           # the same
 CARPET_GOLDEN_PSNR_DB = 50.0          # the same, carpet and carpet10k
+# The carpet frames' dropped (hits, samples), the port's on the CPU and on
+# the card.  The JAX package drops 576,101 carpet samples on the CPU and
+# 576,099 on the TPU: ray 141,186 (pixel 275, 386) needs 0.674 of arc, 337
+# steps of 0.002 exactly, and the last ulp of its float32 arc length (JAX on
+# the CPU 0.6740003, the port 0.6739998) decides 337 or 336 steps, so 17 or
+# 16 dropped past the cap of 320; five more rays sit on such edges below the
+# cap.  A knife edge, not a fault (ROADMAP Queue 3).
+CARPET_DROPS = {"carpet": (63884, 576100), "carpet10k": (103734, 0)}
 MAIN_U8_MAX_DIFF = 1                  # nerftex_torch.main's first PNG vs the direct render, u8 levels
 MAIN_PLAIN_MAX_DIFF = 1e-3            # grass_filtered, kernel vs plain MLP (as the f32 bench frame)
 MAIN_FRAMES = 5                       # configs/config_grass_filtered_render.py's dataset_size
@@ -278,6 +309,11 @@ MIP_IMP_TRAIN_STEPS = 20
 MIP_SYNTH_PARAMETERS = (2, 3)         # the dataset's [Blur, Length, LightXYZ]
 MIP_MAPS = (69, 54)                   # pos: IPE 60 + Length 9; dir: 27 + LightXYZ 27
 MIP_GOLDEN_PSNR_DB = 50.0             # the 64x64 full-width frame vs the JAX package's
+COMPACT_MAX_DIFF = 1e-5               # compact frame vs its grid frame, color and alpha
+COMPACT_DROP_BUDGET = 32              # the dropping budget per ray
+COMPACT_INPUTS = "torch_compact_inputs.npz"
+COMPACT_F32_MAX_DIFF = 1e-3           # the f32 fixture rays vs the JAX package's render
+COMPACT_SELK_TIMED = 8                # selk_resolve launches kept per frame for timing
 H100_BYTES_PER_S = 3.35e12            # HBM3, SXM data sheet
 H100_BF16_FLOPS = 989e12              # dense tensor-core bf16
 H100_F32_FLOPS = 67e12                # f32 outside the tensor cores
@@ -685,10 +721,16 @@ def selk_bound(rb, s, k, method, work):
 
 
 def compare_selk(selk, args, method, blend):
-    """The kernel against its plain version on ``args``: n_active equal,
-    nearest/random picks equal, nearest_blend picks equal off knife edges,
-    p_sel within SELK_P_RTOL where the picks agree.  Returns the counts."""
+    """The kernel against its plain version on ``args`` (compare_selk_outputs)."""
     got = selk.selk_resolve(*args, method=method, blend_range=blend)
+    return compare_selk_outputs(selk, got, args, method, blend)
+
+
+def compare_selk_outputs(selk, got, args, method, blend):
+    """The kernel's outputs ``got`` on ``args`` against its plain version's:
+    n_active equal, nearest/random picks equal, nearest_blend picks equal
+    off knife edges, p_sel within SELK_P_RTOL where the picks agree.
+    Returns the counts."""
     ref = selk.selk_resolve_plain(*args, method=method, blend_range=blend)
     torch.cuda.synchronize()
     sel, p, n = got
@@ -859,6 +901,68 @@ def tex_capture():
         yield calls
     finally:
         device.sample_channel = real
+
+
+@contextlib.contextmanager
+def busiest_capture():
+    """While active, keep the inputs of the compact path's kernel launches
+    that hold the most real samples, chosen by the samples taken: of
+    mlp_fused, the net_chunk of _shade_compact's packed rows with the
+    most taken rows (each call's rows located by their offset in the
+    _shade_compact call and read against inst["taken"]); of tex_fetch, the
+    first launch of the ray block (_block_compact) that took the most
+    samples.  Yields a dict: "mlp" [(pos_map, dir_map, packed)] and
+    "mlp_taken" (taken rows, rows) of that chunk; "tex" [(channel, uv
+    [N, 2], quads)] and "tex_taken" (the block's taken samples)."""
+    from nerftex_torch.instancing.device import DeviceInstancer
+    import nerftex_torch.instancing.device as device
+    from nerftex_torch.render.instance_renderer import InstanceRenderer
+
+    kept = {"mlp": [], "mlp_taken": (-1, 0), "tex": [], "tex_taken": -1}
+    shade = {"taken": None, "offset": 0}
+    block_tex = []
+    real_shade, real_block = InstanceRenderer._shade_compact, DeviceInstancer._block_compact
+    real_tex = device.sample_channel
+
+    def shade_compact(self, inst, *args):
+        shade.update(taken=inst["taken"], offset=0)
+        try:
+            return real_shade(self, inst, *args)
+        finally:
+            shade["taken"] = None
+
+    def call(real, pos_map, dir_map, packed):
+        if shade["taken"] is not None:
+            n, off = pos_map.shape[0], shade["offset"]
+            shade["offset"] = off + n
+            taken = int(shade["taken"][off:off + n].sum())
+            if taken > kept["mlp_taken"][0]:
+                kept.update(mlp=[(pos_map.clone(), dir_map.clone(), packed)],
+                            mlp_taken=(taken, n))
+        return real.mlp_fused(pos_map, dir_map, packed)
+
+    def block_compact(self, *args):
+        block_tex.clear()
+        out = real_block(self, *args)
+        taken = int(out["taken"].sum())
+        if block_tex and taken > kept["tex_taken"]:
+            kept.update(tex=block_tex[:1], tex_taken=taken)
+        block_tex.clear()
+        return out
+
+    def tex(channel, uv, quads=None):
+        if not block_tex:
+            block_tex.append((channel, uv.reshape(-1, 2).clone(), quads))
+        return real_tex(channel, uv, quads)
+
+    InstanceRenderer._shade_compact, DeviceInstancer._block_compact = shade_compact, block_compact
+    device.sample_channel = tex
+    try:
+        with mlp_wrap(call):
+            yield kept
+    finally:
+        InstanceRenderer._shade_compact, DeviceInstancer._block_compact = real_shade, real_block
+        device.sample_channel = real_tex
 
 
 def check_selk_frame(selk, calls, frame):
@@ -1143,14 +1247,17 @@ def carpet_frame(scene, params, counts, card):
     reset_counts()
     t0 = time.perf_counter()
     with selk_capture(keep_inputs=True) as selk_calls, mlp_capture() as mlp_calls, \
-            tex_capture() as tex_calls:
+            tex_capture() as tex_calls, overflow_capture() as drops:
         out = renderer(**data, key=jax_rng.key(1))
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches, variants = read_counts()
     log(f"{scene} frame ({n_instances} instances, scene build {build_s:.2f} s, first render "
-        f"{first_s:.2f} s): launches {launches}, variants {variants}")
+        f"{first_s:.2f} s): launches {launches}, variants {variants}; dropped (hits, samples) "
+        f"{drops} (gate {CARPET_DROPS[scene]})")
     check_counts(scene, launches, variants)
+    if drops != [CARPET_DROPS[scene]]:
+        raise AssertionError(f"the {scene} frame dropped {drops}, not {CARPET_DROPS[scene]}")
     psnr = frame_psnr(scene, out, h, w)
     log(f"{scene} golden check: {psnr:.2f} dB (floor {CARPET_GOLDEN_PSNR_DB}, 8x downsample)")
     if not psnr >= CARPET_GOLDEN_PSNR_DB:
@@ -2413,6 +2520,333 @@ def main_mip(counts, card):
     return numbers, rows, launches
 
 
+@contextlib.contextmanager
+def per_ray_capture():
+    """While active, the n_steps [Rb] of each ray block's per-ray stage
+    (DeviceInstancer._per_ray, left on the device) go to the list it
+    yields, in call order."""
+    from nerftex_torch.instancing.device import DeviceInstancer
+
+    real = DeviceInstancer._per_ray
+    steps = []
+
+    def per_ray(self, *args, **kwargs):
+        out = real(self, *args, **kwargs)
+        steps.append(out["n_steps"])
+        return out
+
+    DeviceInstancer._per_ray = per_ray
+    try:
+        yield steps
+    finally:
+        DeviceInstancer._per_ray = real
+
+
+@contextlib.contextmanager
+def taken_capture():
+    """While active, the samples each ray block took in every
+    get_model_input_compact call (a list per call, one call per render
+    chunk) go to the list it yields."""
+    from nerftex_torch.instancing.device import DeviceInstancer
+
+    real = DeviceInstancer.get_model_input_compact
+    taken = []
+
+    def call(self, rays_o, rays_d, parameters, n_samples, step_size, budget, key=None):
+        out = real(self, rays_o, rays_d, parameters, n_samples, step_size, budget, key=key)
+        per_block = budget * min(self.ray_block, rays_o.shape[0])
+        taken.append(out["taken"].reshape(-1, per_block).sum(-1).tolist())
+        return out
+
+    DeviceInstancer.get_model_input_compact = call
+    try:
+        yield taken
+    finally:
+        DeviceInstancer.get_model_input_compact = real
+
+
+@contextlib.contextmanager
+def selk_check_capture(selk, keep=COMPACT_SELK_TIMED):
+    """While active, every selk_resolve launch of the render path is held
+    against its plain version on its own inputs as it runs
+    (compare_selk_outputs; the plain calls launch no kernel) and recorded
+    as selk_capture records it, the inputs of the ``keep`` launches with
+    the most window slots kept for timing.  Yields (calls, totals of the
+    comparisons)."""
+    import nerftex_torch.instancing.device as device
+
+    real = device.selk_resolve
+    calls, kept = [], []
+    totals = {"mismatches": 0, "max_abs_err": 0.0, "max_knife_edge": 0.0}
+
+    def capture(*a, **k):
+        tk0, tk1, kvalid, t_pt = a[0], a[1], a[2], a[5]
+        call = {"key": (tk0.shape[0], t_pt.shape[1], tk0.shape[1], k["method"]),
+                "work": selk_work(tk0, tk1, kvalid, t_pt)}
+        slots = int(call["work"][0])
+        if len(kept) < keep or slots > kept[0][0]:
+            call["args"] = (tuple(None if x is None else x.clone() for x in a), k)
+            kept.append((slots, len(calls), call))
+            kept.sort(key=lambda x: x[:2])
+            if len(kept) > keep:
+                del kept.pop(0)[2]["args"]
+        calls.append(call)
+        got = real(*a, **k)
+        stats = compare_selk_outputs(selk, got, a, k["method"], k["blend_range"])
+        totals["mismatches"] += stats["mismatches"]
+        for name in ("max_abs_err", "max_knife_edge"):
+            totals[name] = max(totals[name], stats[name])
+        return got
+
+    device.selk_resolve = capture
+    try:
+        yield calls, totals
+    finally:
+        device.selk_resolve = real
+
+
+def covering_budget(steps):
+    """The smallest multiple of 8 samples per ray at which no ray block of
+    the per-ray n_steps ``steps`` (a list of [Rb]) overflows its budget;
+    with each block's sum of n_steps and its size."""
+    sums = torch.stack([s.sum() for s in steps]).tolist()
+    block = int(steps[0].shape[0])
+    return 8 * -(-max(sums) // (8 * block)), sums, block
+
+
+def frame_diff(a, b):
+    """Max |a - b| over color and alpha of two renders."""
+    return max(float((a[k] - b[k]).abs().max()) for k in ("color_pred", "alpha_pred"))
+
+
+def compact_rows(frame, counts_launches, calls, totals, mlp_calls, tex_calls, dtype_name, texture):
+    """The kernels-line rows of a compact frame: tex_fetch on the first
+    launch of its busiest ray block, mlp_fused on its busiest net_chunk
+    (both as busiest_capture keeps them), selk_resolve's histogram
+    and summed bound over all its launches (each checked against plain as
+    it ran) and its COMPACT_SELK_TIMED busiest launches timed together."""
+    from nerftex_torch.kernels import mlp_fused as fused, selk_resolve as selk, tex_gather
+
+    rows = {}
+    if tex_calls:
+        tex, uv, quads = tex_calls[0]
+        rows["tex_fetch"] = tex_kernel_row(
+            [tex_shape_row(tex_gather, tex, quads, uv,
+                           f"the {frame} frame's busiest block's first launch")],
+            texture)
+    packed = mlp_calls[0][2]
+    rows["mlp_fused"] = mlp_kernel_row(fused, packed, [mlp_row(
+        fused, packed, *mlp_calls[0][:2], dtype_name, f"the {frame} frame's busiest net_chunk")])
+    timed = [c for c in calls if "args" in c]
+    log(f"selk_resolve on all {len(calls)} launches of the {frame} frame, against plain as they "
+        f"ran: {totals['mismatches']} picks differ, max |p - plain| {totals['max_abs_err']:.3g}")
+    rows["selk_resolve"] = dict(
+        check_selk_frame(selk, timed, f"{frame} ({len(timed)} busiest launches)"),
+        per=f"the frame's {len(timed)} launches with the most window slots",
+        frame_mismatches=totals["mismatches"],
+        frame_max_abs_err=totals["max_abs_err"],
+        **selk_frame_record(calls, counts_launches["selk_resolve"], frame))
+    return rows
+
+
+def compact_render(renderer, data, key, counts, frame, want, idle=()):
+    """A checking render on the compact path: kernel counts from zero,
+    every selk_resolve launch against plain as it ran, the busiest MLP
+    chunk and tex_fetch launch kept (busiest_capture), drops and per-block
+    taken counts.  The kept MLP chunk must be all taken samples, and the
+    kept tex_fetch launch (where the frame has a texture) that of the
+    block that took the most.  Returns (out, launches, capture lists)."""
+    from nerftex_torch.kernels import selk_resolve as selk
+
+    reset_counts, read_counts, check_counts = counts
+    reset_counts()
+    t0 = time.perf_counter()
+    with selk_check_capture(selk) as (calls, totals), busiest_capture() as busiest, \
+            overflow_capture() as drops, taken_capture() as taken:
+        out = renderer(**data, key=key)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches, variants = read_counts()
+    log(f"{frame} frame (first render, checking every selk_resolve launch, {first_s:.2f} s): "
+        f"launches {launches}, variants {variants}, dropped (hits, samples) {drops}")
+    check_counts(frame, launches, variants, idle=idle, want=want)
+    most = max(sum(taken, []))
+    log(f"{frame}: kept mlp_fused net_chunk holds {busiest['mlp_taken'][0]} taken rows of "
+        f"{busiest['mlp_taken'][1]}; kept tex_fetch launch is of a block that took "
+        f"{busiest['tex_taken']} samples (most in a block {most})")
+    if busiest["mlp_taken"][0] != busiest["mlp_taken"][1]:
+        raise AssertionError(f"the {frame} frame has no mlp_fused chunk of taken samples only: "
+                             f"{busiest['mlp_taken']}")
+    if "tex_fetch" not in idle and not busiest["tex_taken"] == most > 0:
+        raise AssertionError(f"the {frame} frame's kept tex_fetch launch took "
+                             f"{busiest['tex_taken']} samples, not the most in a block, {most}")
+    return out, launches, {"calls": calls, "totals": totals, "mlp": busiest["mlp"],
+                           "tex": busiest["tex"], "drops": drops, "taken": taken}
+
+
+def main_compact(params, counts, card):
+    """The compact phase (see the module docstring).  Returns (numbers,
+    kernel rows, launch counts) per frame."""
+    import importlib
+
+    from nerftex_torch.ops.rays import frame_rays
+    from nerftex_torch.render.checkpoint import load_jax_params
+    from nerftex_torch.utils import jax_rng, rng
+    from nerftex_torch.utils.util import instantiate
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    numbers, rows, launches = {}, {}, {}
+    data = frame_rays(512, 512, np.array([0.47, -0.65, 0.6]) * 6.0, 0.55,
+                      [1, 1, 1, 0.1, 0, 0, 1.0])
+    key = jax_rng.key(1)
+
+    def renderer_at(budget, precision="bfloat16", compute_dtype="bfloat16"):
+        model = instantiate(model_config(precision, compute_dtype), device="cuda")
+        load_jax_params(model, params)
+        return instantiate(dict(renderer_config(precision), sample_budget_per_ray=budget,
+                                model=model, device="cuda"))
+
+    # -- the grid frame, its per-ray steps and the covering budget --------------
+    grid = renderer_at(0)
+    with per_ray_capture() as steps, overflow_capture() as grid_drops:
+        grid_out = grid(**data, key=key)
+    b_full, sums, block = covering_budget(steps)
+    cap_drops = grid_drops[0][1]
+    log(f"compact: the sorted grid bench frame drops (hits, samples) {grid_drops}; its "
+        f"{len(sums)} ray blocks need up to {max(sums)} samples ({max(sums) / block:.2f} per "
+        f"ray): covering budget {b_full} per ray")
+
+    # -- 1. the covering budget -----------------------------------------------------
+    compact = renderer_at(b_full)
+    out, launch, cap = compact_render(compact, data, key, counts, "bench_compact", FRAME_VARIANTS)
+    diff = frame_diff(out, grid_out)
+    psnr = golden_psnr(out)
+    log(f"bench_compact (budget {b_full}): max |compact - grid| {diff:.3g} (limit "
+        f"{COMPACT_MAX_DIFF}), golden {psnr:.2f} dB (floor {GOLDEN_PSNR_DB}), dropped "
+        f"{cap['drops']} (grid {grid_drops}); per-block taken = per-block samples: "
+        f"{sum(cap['taken'], []) == sums}")
+    if not diff <= COMPACT_MAX_DIFF:
+        raise AssertionError(f"the compact bench frame differs from the grid frame by {diff}")
+    if not psnr >= GOLDEN_PSNR_DB:
+        raise AssertionError(f"the compact bench frame diverged from golden: {psnr:.2f} dB")
+    if cap["drops"] != grid_drops or sum(cap["taken"], []) != sums:
+        raise AssertionError(f"the covering budget dropped {cap['drops']}, took {cap['taken']}")
+    rows["bench_compact"] = compact_rows("bench_compact", launch, cap["calls"], cap["totals"],
+                                         cap["mlp"], cap["tex"], "bfloat16",
+                                         "smooth_checkerboard.png")
+    launches["bench_compact"] = launch
+    numbers["bench_compact"] = {"budget": b_full, "max_block_samples": max(sums),
+                                "max_abs_diff_vs_grid": diff, "golden_psnr_db": psnr,
+                                "drops": cap["drops"][0]}
+    del cap
+
+    # -- 2. the dropping budget -----------------------------------------------------
+    b_drop = COMPACT_DROP_BUDGET
+    want_drops = (grid_drops[0][0], cap_drops + sum(max(n - b_drop * block, 0) for n in sums))
+    want_taken = [min(n, b_drop * block) for n in sums]
+    dropping = renderer_at(b_drop)
+    with overflow_capture() as drops, taken_capture() as taken:
+        drop_out = dropping(**data, key=key)
+    log(f"bench_compact at budget {b_drop}: dropped {drops} (reckoned from the grid frame's "
+        f"n_steps: {want_drops}); taken per block as reckoned: {sum(taken, []) == want_taken}; "
+        f"alpha mean {float(drop_out['alpha_pred'].mean()):.4f} (grid "
+        f"{float(grid_out['alpha_pred'].mean()):.4f})")
+    if drops != [want_drops] or sum(taken, []) != want_taken:
+        raise AssertionError(f"the dropping budget dropped {drops} and took {taken}, not "
+                             f"{want_drops} and {want_taken}")
+    numbers["bench_compact"]["dropping"] = {"budget": b_drop, "drops": drops[0]}
+    del dropping, drop_out
+
+    # -- timing: grid and compact interleaved -----------------------------------
+    times = {"grid": [], "compact": []}
+    for name in ("grid", "compact", "compact", "grid", "grid", "compact"):
+        r = grid if name == "grid" else compact
+        t0 = time.perf_counter()
+        r(**data, key=key)
+        torch.cuda.synchronize()
+        times[name].append(time.perf_counter() - t0)
+    best = {k: min(v) for k, v in times.items()}
+    log(f"bench frame, interleaved G C C G G C: sorted grid {[round(t * 1e3, 1) for t in times['grid']]} ms, "
+        f"compact (budget {b_full}) {[round(t * 1e3, 1) for t in times['compact']]} ms; best "
+        f"{512 * 512 / best['grid']:.1f} vs {512 * 512 / best['compact']:.1f} rays/s on {card}")
+    numbers["bench_compact"].update(rays_per_s=512 * 512 / best["compact"],
+                                    grid_rays_per_s=512 * 512 / best["grid"],
+                                    best_ms=best["compact"] * 1e3, grid_best_ms=best["grid"] * 1e3)
+    del grid, compact, out, grid_out
+    torch.cuda.empty_cache()
+
+    # -- 3. the f32 rays against the JAX package's compact render ----------------
+    inputs = np.load(os.path.join(ROOT, "tests", COMPACT_INPUTS))
+    sel = inputs["rays"]
+    n = (int(sel.max()) // 1024 + 1) * 1024
+    sub = {"parameters": data["parameters"],
+           "rays_o": np.broadcast_to(np.float32([0, 0, 50.0]), (1, n, 3)).copy(),
+           "rays_d": np.broadcast_to(np.float32([0, 0, 1.0]), (1, n, 3)).copy(),
+           "t": np.full((1, n, 2), np.inf, np.float32),
+           "cone_scale": np.zeros((1, n, 1), np.float32)}
+    for k in ("rays_o", "rays_d", "t", "cone_scale"):
+        sub[k][:, sel] = data[k][:, sel]
+    f32 = renderer_at(int(inputs["budget"]), "float32", "float32")
+    out, launch, cap = compact_render(f32, sub, key, counts, "bench_compact_f32",
+                                      F32_FRAME_VARIANTS)
+    color = out["color_pred"][0, sel].cpu().numpy()
+    alpha = out["alpha_pred"][0, sel].cpu().numpy()
+    f32_diff = max(float(np.abs(color - inputs["color"]).max()),
+                   float(np.abs(alpha - inputs["alpha"]).max()))
+    want_drops = [tuple(inputs["overflow"].tolist())]
+    log(f"bench_compact_f32 ({len(sel)} rays of blocks {sorted(set((sel // 1024).tolist()))} at "
+        f"budget {int(inputs['budget'])}, f32 dots and MLP): max |port - JAX| {f32_diff:.3g} "
+        f"(limit {COMPACT_F32_MAX_DIFF}), dropped {cap['drops']} (JAX {want_drops})")
+    if not f32_diff <= COMPACT_F32_MAX_DIFF:
+        raise AssertionError(f"the f32 compact rays differ from JAX's by {f32_diff}")
+    if cap["drops"] != want_drops:
+        raise AssertionError(f"the f32 compact rays dropped {cap['drops']}, JAX {want_drops}")
+    rows["bench_compact_f32"] = compact_rows("bench_compact_f32", launch, cap["calls"],
+                                             cap["totals"], cap["mlp"], cap["tex"], "float32",
+                                             "smooth_checkerboard.png")
+    launches["bench_compact_f32"] = launch
+    numbers["bench_compact_f32"] = {"max_abs_diff_vs_jax": f32_diff, "drops": cap["drops"][0]}
+    del f32, out, cap
+    torch.cuda.empty_cache()
+
+    # -- 4. the mip frame --------------------------------------------------------------
+    config = importlib.import_module("configs.demo_grass_mip_render").config
+    mip_inputs = np.load(os.path.join(ROOT, "tests", MIP_INPUTS))
+    rng.set_seed(config["seed"])
+    mip_data = list(instantiate(config["test_dataset_config"]).take(1))[0]
+    model = mip_init_model(config, mip_inputs)
+    mip_grid = instantiate(dict(config["renderer_config"], model=model, device="cuda"))
+    with per_ray_capture() as steps, overflow_capture() as mip_drops:
+        mip_grid_out = mip_grid(**mip_data, key=key)
+    m_full, m_sums, m_block = covering_budget(steps)
+    mip = instantiate(dict(config["renderer_config"], sample_budget_per_ray=m_full, model=model,
+                           device="cuda"))
+    out, launch, cap = compact_render(mip, mip_data, key, counts, "grass_mip_compact",
+                                      F32_FRAME_VARIANTS, idle=("tex_fetch",))
+    m_diff = frame_diff(out, mip_grid_out)
+    log(f"grass_mip_compact (demo_grass_mip_render's first camera, {len(m_sums)} blocks of "
+        f"{m_block}, covering budget {m_full}): max |compact - grid| {m_diff:.3g} (limit "
+        f"{COMPACT_MAX_DIFF}), dropped {cap['drops']} (grid {mip_drops}), alpha mean "
+        f"{float(out['alpha_pred'].mean()):.4f}")
+    if not m_diff <= COMPACT_MAX_DIFF:
+        raise AssertionError(f"the compact mip frame differs from its grid frame by {m_diff}")
+    if cap["drops"] != mip_drops or sum(cap["taken"], []) != m_sums:
+        raise AssertionError(f"the compact mip frame dropped {cap['drops']}, grid {mip_drops}")
+    rows["grass_mip_compact"] = compact_rows("grass_mip_compact", launch, cap["calls"],
+                                             cap["totals"], cap["mlp"], cap["tex"], "float32",
+                                             None)
+    launches["grass_mip_compact"] = launch
+    numbers["grass_mip_compact"] = {"budget": m_full, "max_abs_diff_vs_grid": m_diff,
+                                    "drops": cap["drops"][0]}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    numbers["bench_compact"]["phase_peak_gib"] = peak
+    log(f"compact phase: peak device memory {peak:.2f} GiB on {card}")
+    del mip, mip_grid, model, out, cap
+    torch.cuda.empty_cache()
+    return numbers, rows, launches
+
+
 def kernel_counts():
     """(reset, read, check) over the kernel wrappers' launch counters:
     reset() zeroes every count; read() gives ({kernel: launches},
@@ -2758,6 +3192,14 @@ def main():
     launches.update(mip_launches)
     log(f"phase mip: {time.perf_counter() - t_phase:.1f} s")
 
+    # -- the compact path: bench at a covering and a dropping budget, f32 vs JAX, mip --
+    t_phase = time.perf_counter()
+    compact, phase_rows, compact_launches = main_compact(params, counts, card)
+    frames.update(compact)
+    rows.update(phase_rows)
+    launches.update(compact_launches)
+    log(f"phase compact: {time.perf_counter() - t_phase:.1f} s")
+
     kernels = [dict(row, frame=frame, launches=launches[frame][name])
                for frame in launches for name, row in rows[frame].items()]
     log(json.dumps({"frames": frames, "serving": serve, "card": card,
@@ -2774,6 +3216,10 @@ def main():
          "why": "configs/config_grass_filtered_render.py has no texture channel (textures "
                 "['', '', 'light'])"},
         {"frame": "grass_mip", "name": "tex_fetch", "launches": launches["grass_mip"]["tex_fetch"],
+         "why": "configs/demo_grass_mip_render.py has no texture channel (textures "
+                "['', '', 'light'])"},
+        {"frame": "grass_mip_compact", "name": "tex_fetch",
+         "launches": launches["grass_mip_compact"]["tex_fetch"],
          "why": "configs/demo_grass_mip_render.py has no texture channel (textures "
                 "['', '', 'light'])"}] + [
         {"frame": frame, "name": name, "launches": launches[frame][name],

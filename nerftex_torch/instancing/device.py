@@ -31,7 +31,15 @@ shaded terminators):
      caller's terminator-only shading), and the results put back in ray
      order.  ``get_model_input`` is the dense grid over
      ``min(n_samples, max_steps_per_ray)`` steps, the exactness yardstick
-     of the sorted path.
+     of the sorted path;
+  4. ``get_model_input_compact``: per ray block, the valid samples packed
+     sample-major into ``budget_per_ray`` x Rb slots (the deepest dropped
+     past it), then ``_per_sample`` on those slots alone: the grid path's
+     arc-to-t step, pick and tail on [M] samples.
+
+Texture slots take each sample's uv from the instance's linearised anchor
+map (``texture_lookup="jacobian"``) or from the exact closest point over
+the instance's nearest base-mesh triangles (``"closest"``).
 
 The JAX package's one-hot selects, packed permutes, layout barriers and
 ``lax.switch`` buckets exist for the TPU; here they are plain indexing,
@@ -132,6 +140,14 @@ class DeviceScene:
                 for c, ch in enumerate(chans[:3]):
                     stack[i, :ch.shape[0], :ch.shape[1], c] = ch
             self.mesh_tex = t(stack)
+
+        # Each instance's k nearest base-mesh triangles, for the exact
+        # closest-point texture lookup (texture_lookup="closest").
+        self.tri_candidates, self.k_tri = None, 0
+        if getattr(scene, "instance_tri_candidates", None) is not None and \
+                scene.base_mesh is not None:
+            self.tri_candidates = t(scene.instance_tri_candidates, torch.int64)
+            self.k_tri = int(self.tri_candidates.shape[1])
 
         self.anchor_uv = self.uv_jacobian = None
         if getattr(scene, "anchor_uv", None) is not None:
@@ -321,6 +337,47 @@ def _slice_hits(ray, K_b):
     return ray
 
 
+def _closest_point_tri(p, a, b, c):
+    """Barycentrics [..., 3] of the exact closest point of triangle (a, b, c)
+    to p (Ericson's region tests, as scene.closest_point_triangles), with
+    the JAX package's guard eps and order of selects (the last matching
+    region wins)."""
+    ab, ac = b - a, c - a
+    ap, bp, cp = p - a, p - b, p - c
+    d1, d2 = _dot3(ab, ap), _dot3(ac, ap)
+    d3, d4 = _dot3(ab, bp), _dot3(ac, bp)
+    d5, d6 = _dot3(ab, cp), _dot3(ac, cp)
+    # a * b - c * d as XLA contracts it: fma(a, b, -(c d)).
+    vc = fma(d1, d4, -(d3 * d2))
+    vb = fma(d5, d2, -(d1 * d6))
+    va = fma(d3, d6, -(d5 * d4))
+
+    eps = 1e-20
+
+    def guard(x):
+        return torch.where(x.abs() < eps, eps, x)
+
+    denom = 1.0 / guard(va + vb + vc)
+    v_in, w_in = vb * denom, vc * denom
+    v_ab = d1 / guard(d1 - d3)
+    v_ac = d2 / guard(d2 - d6)
+    v_bc = (d4 - d3) / guard((d4 - d3) + (d5 - d6))
+    zero, one = torch.zeros_like(d1), torch.ones_like(d1)
+
+    bary = torch.stack([fma(-vc, denom, 1 - v_in), v_in, w_in], -1)
+    for region, corners in (
+        ((va <= 0) & (d4 - d3 >= 0) & (d5 - d6 >= 0), (zero, 1 - v_bc, v_bc)),
+        ((vb <= 0) & (d2 >= 0) & (d6 <= 0), (1 - v_ac, zero, v_ac)),
+        ((vc <= 0) & (d1 >= 0) & (d3 <= 0), (1 - v_ab, v_ab, zero)),
+        ((d6 >= 0) & (d5 <= d6), (zero, zero, one)),
+        ((d3 >= 0) & (d4 <= d3), (zero, one, zero)),
+        ((d1 <= 0) & (d2 <= 0), (one, zero, zero)),
+    ):
+        bary = torch.where(region[..., None], torch.stack(corners, -1), bary)
+    bary = torch.clamp(bary, 0, 1)
+    return bary / torch.clamp(bary.sum(-1, keepdim=True), min=eps)
+
+
 def _dists_grid(n_steps, total, tiny, S, step):
     """Sample spacing [Rb, S] from the per-ray scalars: uniform ``step``, a
     shortened last interval, and the single sample of a tiny interval."""
@@ -355,6 +412,8 @@ class DeviceInstancer:
         shadow_tri_cull_budget: int = 0,
         deterministic_offset: bool = False,
         matmul_precision: str = "float32",
+        texture_lookup: str = "jacobian",
+        seed: int = 0,
     ):
         if scene.instance_sampling_method not in ("random", "nearest", "nearest_blend"):
             raise ValueError(
@@ -378,10 +437,20 @@ class DeviceInstancer:
         # Operand rounding of the slab test's ray-to-local matmuls (see
         # models.encodings.round_operand).
         self.matmul_precision = check_matmul_precision(matmul_precision)
+        # "jacobian": a texture's uv from the instance's linearised anchor
+        # map; "closest" (or any other value, as in the JAX package): the
+        # exact closest point over the instance's k nearest base-mesh
+        # triangles.
+        self.texture_lookup = texture_lookup
+        # A call without a key draws under fold_in(key(seed), n) for its
+        # n-th keyless call, as the JAX package does.
+        self.seed = seed
+        self._call_counter = 0
 
         ds = self.ds
         n = ds.n_instances
-        self.use_jac = bool(ds.texture_parameter_idxs) and ds.anchor_uv is not None
+        self.use_jac = (bool(ds.texture_parameter_idxs) and texture_lookup == "jacobian"
+                        and ds.anchor_uv is not None)
         # One [N, D] per-instance table read once per sample: inv_rot 9,
         # inv_trans 3, [dir_inv 9], [anchor_uv 2, uv_jacobian 6, origins 3].
         cols = [ds.inv_rot.reshape(n, 9), ds.inv_trans]
@@ -433,7 +502,15 @@ class DeviceInstancer:
             return None
         return jax_rng.uniform(key, shape, self.device, full_width=full_width)
 
-    def get_model_input(self, rays_o, rays_d, parameters, n_samples, step_size, key):
+    def _call_key(self, key):
+        """``key``, or for the n-th call without one fold_in(key(seed), n),
+        as the JAX package draws."""
+        if key is None:
+            key = jax_rng.fold_in(jax_rng.key(self.seed), self._call_counter)
+            self._call_counter += 1
+        return key
+
+    def get_model_input(self, rays_o, rays_d, parameters, n_samples, step_size, key=None):
         """Dense grid over S = min(n_samples, max_steps_per_ray) steps:
         rays_d [R,S,3] (local), pts [R,S,3] (local), t, dists,
         alpha_weight, instance_id [R,S], parameters [R,S,P],
@@ -441,6 +518,7 @@ class DeviceInstancer:
         counts.  Block b draws its pick uniforms from
         split(fold_in(key, b))[1] of the jax_rng ``key``, as the JAX
         package's dense path does."""
+        key = self._call_key(key)
         rays_o, rays_d, parameters, u_off, _, r, block = self._prepare(
             rays_o, rays_d, parameters, key)
         S = min(int(n_samples), self.max_steps_per_ray)
@@ -457,6 +535,98 @@ class DeviceInstancer:
             for k in outs[0]
         }
 
+    def get_model_input_compact(self, rays_o, rays_d, parameters, n_samples, step_size,
+                                budget_per_ray, key=None):
+        """Compacted model input: each ray block's valid samples, sample-major
+        (m = i * Rb + r), packed into B = budget_per_ray * Rb slots, so that
+        a block over its budget drops its deepest samples first (counted
+        in overflow_steps).  Returns [R * budget_per_ray] sample arrays
+        (pts, rays_d, parameters, t, dists_c, alpha_weight, instance_id,
+        taken, ray_idx, i_idx) and the per-ray dists [R,S], color_last,
+        alpha_last, hit, overflow_hits and overflow_steps.  Block b draws
+        its offsets and pick uniforms (B of them) from split(fold_in(key,
+        b)).
+
+        Not ported: the JAX package's row-packed permutes and its estimate
+        of TPU lane padding (_permute_rows_packed, _check_compact_capacity
+        and NERFTEX_COMPACT_MAX_GB) model TPU tiles; a request that does
+        not fit fails as PyTorch's allocator fails."""
+        key = self._call_key(key)
+        rays_o, rays_d, parameters, u_off, _, r, block = self._prepare(
+            rays_o, rays_d, parameters, key)
+        S = min(int(n_samples), self.max_steps_per_ray)
+        step = float(step_size)
+        outs = []
+        for b, i in enumerate(range(0, rays_o.shape[0], block)):
+            k_sample = jax_rng.split(jax_rng.fold_in(key, b))[1]
+            out = self._block_compact(rays_o[i:i + block], rays_d[i:i + block],
+                                      parameters[i:i + block], S, step, int(budget_per_ray),
+                                      u_off[i:i + block], k_sample)
+            out["ray_idx"] = out["ray_idx"] + i
+            outs.append(out)
+        flat = {k: (sum(o[k] for o in outs) if k.startswith("overflow")
+                    else torch.cat([o[k] for o in outs])) for k in outs[0]}
+        flat["dists"] = _dists_grid(flat.pop("n_steps"), flat.pop("total"), flat.pop("tiny"), S,
+                                    step)
+        for k in ("dists", "color_last", "alpha_last", "hit"):
+            flat[k] = flat[k][:r]
+        # Samples of the padding rays are not taken.
+        flat["taken"] = flat["taken"] & (flat["ray_idx"] < r)
+        return flat
+
+    def _block_compact(self, rays_o, rays_d, parameters, S, step, budget, u_off, k_sample):
+        Rb = rays_o.shape[0]
+        B = budget * Rb
+        dev = rays_o.device
+        ray = self._per_ray(rays_o, rays_d, parameters, S, step, u_off)
+        n_steps = ray["n_steps"]
+
+        # Sample-major compaction without a host sync: the slot of each
+        # valid sample is the exclusive prefix count of valid samples
+        # before it; those past the budget go to a dump slot.  Unfilled
+        # slots keep m = 0, as jnp.nonzero's fill_value leaves them.
+        mask = (torch.arange(S, device=dev)[:, None] < n_steps[None, :]).reshape(-1)
+        slot = torch.cumsum(mask, 0) - 1
+        n_valid = slot[-1] + 1
+        dest = torch.where(mask & (slot < B), slot, B)
+        m_idx = torch.zeros(B + 1, dtype=torch.int64, device=dev)
+        m_idx.scatter_(0, dest, torch.arange(S * Rb, device=dev))
+        m_idx = m_idx[:B]
+        taken = torch.arange(B, device=dev) < n_valid
+        ray_idx, i_idx = m_idx % Rb, m_idx // Rb
+        overflow_steps = ray["overflow_steps"] + torch.clamp(n_valid - B, min=0)
+
+        sample = self._per_sample(ray, rays_o, rays_d, parameters, ray_idx, i_idx, step,
+                                  self._draw_u_sel((B,), k_sample))
+
+        # Per-sample spacing from the gathered per-ray scalars (the
+        # expressions of _dists_grid).
+        ns_c, tot_c, tiny_c = n_steps[ray_idx], ray["total"][ray_idx], ray["tiny"][ray_idx]
+        dists_c = torch.where(i_idx == ns_c - 1, step + tot_c - ns_c * step,
+                              torch.full_like(tot_c, step))
+        dists_c = torch.where(tiny_c, torch.where(i_idx == 0, tot_c, 0.0), dists_c)
+        dists_c = torch.where(i_idx < ns_c, dists_c, 0.0)
+        return {
+            "pts": sample["pts"],
+            "rays_d": sample["dirs"],
+            "parameters": sample["parameters"],
+            "t": sample["t"],
+            "dists_c": torch.where(taken, dists_c, 0.0),
+            "alpha_weight": sample["weight"],
+            "instance_id": sample["instance_id"],
+            "taken": taken,
+            "ray_idx": ray_idx,
+            "i_idx": i_idx,
+            "n_steps": n_steps,
+            "total": ray["total"],
+            "tiny": ray["tiny"],
+            "color_last": ray["color_last"],
+            "alpha_last": ray["alpha_last"],
+            "hit": ray["hit"],
+            "overflow_hits": ray["overflow_hits"],
+            "overflow_steps": overflow_steps,
+        }
+
     def _block(self, rays_o, rays_d, parameters, S, step, u_off, u_sel):
         ray = self._per_ray(rays_o, rays_d, parameters, S, step, u_off)
         sample = self._per_sample_grid(ray, rays_o, rays_d, parameters, S, step, u_sel)
@@ -468,13 +638,16 @@ class DeviceInstancer:
 
     def render_grid_sorted(self, rays_o, rays_d, parameters, n_samples, step_size, shade_block,
                            key, extra=(), empty_block=None):
-        """Occupancy-sorted render.  shade_block(inst_block, extra_block)
-        and empty_block(ray_tables_block, extra_block) return tuples of
+        """Occupancy-sorted render.  shade_block(inst_block, extra_block,
+        key) and empty_block(ray_tables_block, extra_block) return tuples of
         [Rb, ...] tensors; empty_block serves the sorted blocks in which
         every ray has zero marching steps.  The offsets and pick uniforms
-        are the JAX package's draws under ``key`` (a jax_rng key): sorted
-        block b draws uniform(split(fold_in(fold_in(key, 0x7FFFFFFF),
-        b))[0], (Rb, S_bucket)) and uses its first S_b columns.  Returns
+        are the JAX package's draws under ``key`` (a jax_rng key): with
+        bkey = fold_in(fold_in(key, 0x7FFFFFFF), b), sorted block b draws
+        uniform(split(bkey)[0], (Rb, S_bucket)) and uses its first S_b
+        columns, and shade_block gets split(bkey)[1], with the width
+        S_bucket of JAX's [Rb, S_bucket] grid as inst_block["draw_width"]
+        (a draw over that grid keeps its first S_b columns).  Returns
         (tuple of [R, ...], aux = {hit [R], overflow_hits,
         overflow_steps})."""
         rays_o, rays_d, parameters, u_off, extra, r, block = self._prepare(
@@ -514,10 +687,13 @@ class DeviceInstancer:
         # JAX's step-capacity buckets: a block's pick uniforms are drawn at
         # its bucket's width.
         buckets = sorted({min(cap, 8), *(max(1, cap * q // 8) for q in range(1, 9)), cap})
-        # Sorted block b draws its pick uniforms from these keys' row b.
+        # Sorted block b draws its pick uniforms from sample_keys' row b and
+        # shades under shade_keys' row b.
+        k_sorted = jax_rng.fold_in(key, _SORTED_FOLD)
         sample_keys = None
         if self.ds.instance_sampling_method != "nearest":
-            sample_keys = jax_rng.block_keys(jax_rng.fold_in(key, _SORTED_FOLD), n_blocks)
+            sample_keys = jax_rng.block_keys(k_sorted, n_blocks)
+        shade_keys = jax_rng.block_keys(k_sorted, n_blocks, index=1)
         outs = []
         for b, (s_max, n_hits) in enumerate(zip(block_max, block_hits)):
             sl = slice(b * block, (b + 1) * block)
@@ -530,13 +706,14 @@ class DeviceInstancer:
             if K_b < K:
                 ray = _slice_hits(ray, K_b)
             S_b = max(int(s_max), 1)
+            width = buckets[bisect.bisect_left(buckets, s_max)]
             k_sample = None if sample_keys is None else sample_keys[b]
-            u_sel = self._draw_u_sel((block, S_b), k_sample,
-                                     full_width=buckets[bisect.bisect_left(buckets, s_max)])
+            u_sel = self._draw_u_sel((block, S_b), k_sample, full_width=width)
             sample = self._per_sample_grid(ray, rays_o_s[sl], rays_d_s[sl], prm_s[sl], S_b, step,
                                            u_sel)
             inst = self._assemble_grid(ray, sample, rays_d_s[sl], prm_s[sl], S_b, step)
-            outs.append(shade_block(inst, ext))
+            inst["draw_width"] = width
+            outs.append(shade_block(inst, ext, shade_keys[b]))
 
         # 4. back to ray order, padding dropped.
         inv_order = torch.empty_like(order)
@@ -864,30 +1041,65 @@ class DeviceInstancer:
         t_pt = mean_distance(t_mu, step) if ds.use_mean_distance else t_mu
         pts_w = rays_o[:, None, :] + rays_d[:, None, :] * t_pt[..., None]  # [Rb,S,3]
 
-        # Overlap resolution over the K hit slots (the kernel; its plain
-        # [Rb,S,K] chain for CPU tensors), then the pick's density weight.
-        method = ds.instance_sampling_method
-        sel_k, p_sel, n_active = selk_resolve(
-            ray["tk0"], ray["tk1"], ray["kvalid"], ray["sel_a"], ray["sel_b"], t_pt, u_sel,
-            method=method, blend_range=ds.nearest_blend_range)
+        sel_k, weight = self._pick(
+            [ray[k] for k in ("tk0", "tk1", "kvalid", "sel_a", "sel_b")], t_pt, u_sel)
+        inst = ray["inst_idx"].gather(1, sel_k.long())                    # [Rb,S]
+        return self._per_sample_grid_tail(ray, rays_d, parameters, inst, weight, s_arc, t_mu,
+                                          pts_w)
+
+    def _pick(self, tables, t_pt, u_sel):
+        """The overlap pick over the K hit slots of ``tables`` (tk0, tk1,
+        kvalid, sel_a, sel_b [Rb, K]) at t_pt [Rb, S] (the kernel; its plain
+        [Rb, S, K] chain for CPU tensors) and the pick's density weight:
+        the active count (random), 1 (nearest) or 1 / p_sel (nearest_blend),
+        and 1 where one slot is active.  Returns (sel_k, weight) [Rb, S]."""
+        method = self.ds.instance_sampling_method
+        sel_k, p_sel, n_active = selk_resolve(*tables, t_pt, u_sel, method=method,
+                                              blend_range=self.ds.nearest_blend_range)
         if method == "random":
             weight = n_active.to(torch.float32)
         elif method == "nearest":
-            weight = torch.ones_like(s_arc)
+            weight = torch.ones_like(t_pt)
         else:
             weight = 1.0 / torch.clamp(p_sel, min=1e-20)
-        weight = torch.where(n_active == 1, 1.0, weight)
-        return self._per_sample_grid_tail(ray, rays_d, parameters, sel_k.long(), weight, s_arc,
-                                          t_mu, pts_w)
+        return sel_k, torch.where(n_active == 1, 1.0, weight)
 
-    def _per_sample_grid_tail(self, ray, rays_d, parameters, sel_k, weight, s_arc, t_mu, pts_w):
-        """Downstream of the overlap pick: the picked instance's local
-        frame, texture-driven parameters and the light direction."""
+    def _per_sample(self, ray, rays_o, rays_d, parameters, ray_idx, i_idx, step, u_sel):
+        """The per-sample stage over M compacted samples (ray_idx, i_idx
+        [M] into the block's rays and steps): the arc-to-t step, the
+        overlap pick through kernels.selk_resolve over the gathered [M, K]
+        hit tables with t and u as [M, 1] planes, then the grid tail on
+        [M, 1] planes.  Returns the tail's outputs as [M, ...]."""
         ds = self.ds
-        Rb, S = sel_k.shape
+        K = ray["tk0"].shape[-1]
+        s_arc = i_idx.to(torch.float32) * step + ray["t_offset"][ray_idx]      # [M]
+        j = torch.searchsorted(ray["cum_incl"][ray_idx], s_arc[:, None], right=True)[:, 0]
+        t_mu = s_arc + ray["arc_corr"][ray_idx, torch.clamp(j, max=2 * K - 1)]
+        t_pt = mean_distance(t_mu, step) if ds.use_mean_distance else t_mu
+        pts_w = rays_o[ray_idx] + rays_d[ray_idx] * t_pt[:, None]              # [M,3]
+
+        tables = [None if ray[k] is None else ray[k][ray_idx]
+                  for k in ("tk0", "tk1", "kvalid", "sel_a", "sel_b")]
+        sel_k, weight = self._pick(tables, t_pt[:, None],
+                                   None if u_sel is None else u_sel[:, None])
+        sel_k, weight = sel_k[:, 0].long(), weight[:, 0]
+        inst = ray["inst_idx"][ray_idx, sel_k]                                 # [M]
+
+        per_ray = {k: None if ray[k] is None else ray[k][ray_idx]
+                   for k in ("light_dir_w", "shadow_blocked", "total")}
+        out = self._per_sample_grid_tail(
+            per_ray, rays_d[ray_idx], parameters[ray_idx], inst[:, None], weight[:, None],
+            s_arc[:, None], t_mu[:, None], pts_w[:, None, :])
+        return {k: v[:, 0] for k, v in out.items()}
+
+    def _per_sample_grid_tail(self, ray, rays_d, parameters, inst, weight, s_arc, t_mu, pts_w):
+        """Downstream of the overlap pick of instance ``inst`` [Rb, S]: its
+        local frame, texture-driven parameters and the light direction.
+        ``ray`` needs light_dir_w, shadow_blocked and total [Rb, ...]."""
+        ds = self.ds
+        Rb, S = inst.shape
         P = parameters.shape[-1]
 
-        inst = ray["inst_idx"].gather(1, sel_k)                           # [Rb,S]
         vals = self.inst_table[inst]                                      # [Rb,S,D]
         rot = vals[..., 0:9].reshape(Rb, S, 3, 3)
         pts_l = torch.sum(rot * pts_w[..., None, :], -1) + vals[..., 9:12]
@@ -900,11 +1112,15 @@ class DeviceInstancer:
         dirs_l = torch.sum(dinv * rays_d[:, None, None, :], -1)
 
         params_out = parameters[:, None, :].expand(Rb, S, P).clone()
+        uv = None
         if self.use_jac:
             a_uv = vals[..., d0:d0 + 2]
             jac = vals[..., d0 + 2:d0 + 8].reshape(Rb, S, 2, 3)
             rel = pts_w - vals[..., d0 + 8:d0 + 11]
             uv = torch.clamp(a_uv + torch.sum(jac * rel[..., None, :], -1), 0.0, 1.0)
+        elif ds.texture_parameter_idxs and ds.tri_candidates is not None:
+            uv = self._closest_uv(inst, pts_w)
+        if uv is not None:
             uv = uv.contiguous()
             for i, slot in enumerate(ds.texture_parameter_idxs):
                 texel = sample_channel(ds.tex_channels[i], uv, ds.tex_quads[i])
@@ -943,6 +1159,23 @@ class DeviceInstancer:
             "weight": weight,
             "instance_id": inst.to(torch.int32),
         }
+
+    def _closest_uv(self, inst, pts_w):
+        """The uv [..., 2] of the closest point to each sample pts_w [..., 3]
+        over its instance's k_tri candidate triangles (the first of equal
+        distances)."""
+        ds = self.ds
+        cand = ds.tri_candidates[inst]                                    # [..., Kt]
+        a = ds.tri_v0[cand]
+        b = a + ds.tri_e1[cand]
+        c = a + ds.tri_e2[cand]
+        p = pts_w[..., None, :]
+        bary = _closest_point_tri(p, a, b, c)                             # [..., Kt, 3]
+        cp = fma(bary[..., 2:3], c, fma(bary[..., 1:2], b, bary[..., 0:1] * a))
+        best = torch.argmin(_dot3(cp - p, cp - p), -1, keepdim=True)
+        tri = cand.gather(-1, best)[..., 0]
+        bary_sel = bary.gather(-2, best[..., None].expand(*best.shape, 3))[..., 0, :]
+        return torch.sum(bary_sel[..., None] * ds.tri_uv[tri], -2)
 
     def _assemble_grid(self, ray, sample, rays_d, parameters, S, step):
         """Mask the per-sample outputs into the dense [Rb, S] model input

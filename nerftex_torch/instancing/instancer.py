@@ -3,6 +3,7 @@ scene compiler and device instancer (counterpart of
 nerftex_tpu/instancing/instancer.py)."""
 
 import numpy as np
+import torch
 
 from nerftex_torch.instancing.device import DeviceInstancer
 from nerftex_torch.instancing.scene import Scene
@@ -83,7 +84,28 @@ class Instancer:
             shadow_tri_cull_budget=shadow_tri_cull_budget,
             deterministic_offset=deterministic_offset,
             matmul_precision=matmul_precision,
+            seed=seed,
         )
 
     def n_instances(self) -> int:
         return self.scene.n_instances()
+
+    def get_model_input(self, rays_o, rays_d, parameters, n_samples, step_size):
+        """The reference's ten outputs (instancer.pyx:54) as tensors on the
+        instancer's device: (rays_d, pts, t, dists, color_last, alpha_last,
+        alpha_weight, instance_id, hit_idxs, parameters), hit_idxs [H, 1]
+        the indices of the rays that hit anything.  Each call draws under
+        the device instancer's next keyless key."""
+        out = self.device_instancer.get_model_input(
+            np.asarray(rays_o, np.float32), np.asarray(rays_d, np.float32),
+            np.asarray(parameters, np.float32), n_samples, step_size)
+        hit_idxs = torch.nonzero(out["hit"])
+        return (out["rays_d"], out["pts"], out["t"], out["dists"], out["color_last"],
+                out["alpha_last"], out["alpha_weight"], out["instance_id"], hit_idxs,
+                out["parameters"])
+
+    def get_model_input_dict(self, rays_o, rays_d, parameters, n_samples, step_size, key=None):
+        """The fixed-shape dict of DeviceInstancer.get_model_input (masks
+        instead of hit indices)."""
+        return self.device_instancer.get_model_input(rays_o, rays_d, parameters, n_samples,
+                                                     step_size, key)

@@ -178,14 +178,27 @@ def composite_precomputed_alpha(
     patch_scale: float,
     composite_bkgd: bool = False,
     bkgd_color=(1.0, 1.0, 1.0),
+    raw_noise_std: float = 0.0,
+    noise_key=None,
     map_exr: bool = False,
+    false_color: torch.Tensor = None,
+    noise_width: int = None,
 ):
     """Instance-renderer compositing: per-sample world-space dists, a
     terminator sample appended, density divided by patch_scale.
 
     color_logits [R,S,3], density [R,S], dists [R,S], color_last [R,1,3],
-    alpha_last [R,1] -> (color_map [R,3], alpha_map [R])."""
-    color_map = torch.cat([map_color(color_logits, map_exr), color_last], 1)
+    alpha_last [R,1] -> (color_map [R,3], alpha_map [R]).  The density
+    noise is ``normal(noise_key, [R,S]) * raw_noise_std``, added before the
+    relu (with ``noise_width``, the first S columns of the draw over [R,
+    noise_width]); a given ``false_color`` [R,S,3] replaces the mapped
+    colors."""
+    if false_color is None:
+        false_color = map_color(color_logits, map_exr)
+    color_map = torch.cat([false_color, color_last], 1)
+    if raw_noise_std > 0:
+        noise = jax_rng.normal(noise_key, density.shape, density.device, full_width=noise_width)
+        density = density + noise * raw_noise_std
     alpha = 1.0 - torch.exp(-torch.relu(density) * dists / patch_scale)
     alpha_map = torch.cat([alpha, alpha_last], 1)
     # The +1e-10 guard keeps the transmittance of an opaque sample nonzero;

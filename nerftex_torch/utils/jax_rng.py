@@ -89,13 +89,14 @@ def fold_in(key, data) -> torch.Tensor:
     return torch.cat([y0, y1])
 
 
-def block_keys(key, n: int) -> torch.Tensor:
-    """[n, 2] keys, row b = split(fold_in(key, b))[0]: the key that the JAX
-    render path draws ray block b's numbers from."""
+def block_keys(key, n: int, index: int = 0) -> torch.Tensor:
+    """[n, 2] keys, row b = split(fold_in(key, b))[index]: the key that the
+    JAX render path draws ray block b's numbers from (index 0) or shades
+    sorted block b under (index 1)."""
     k0, k1 = _words(key)
     zeros = torch.zeros(n, dtype=torch.int64, device=k0.device)
     y0, y1 = threefry2x32(k0, k1, zeros, torch.arange(n, dtype=torch.int64, device=k0.device))
-    return torch.stack(threefry2x32(y0, y1, zeros, zeros), -1)
+    return torch.stack(threefry2x32(y0, y1, zeros, torch.full_like(zeros, index)), -1)
 
 
 def uniform_rows(keys: torch.Tensor, width: int, device="cpu") -> torch.Tensor:
@@ -184,13 +185,15 @@ def _fma32(a: torch.Tensor, b, c) -> torch.Tensor:
     return (a.double() * b + c).float()
 
 
-def uniform_range(key, shape, minval: float, maxval: float, device="cpu") -> torch.Tensor:
+def uniform_range(key, shape, minval: float, maxval: float, device="cpu",
+                  full_width: int = None) -> torch.Tensor:
     """``jax.random.uniform(key, shape, float32, minval, maxval)`` as the
     JAX package computes it on the CPU: max(min, u * (max - min) + min),
-    the bounds rounded to float32 first and the scale-and-shift fused."""
+    the bounds rounded to float32 first and the scale-and-shift fused.
+    ``full_width`` as in ``uniform``."""
     lo = float(np.float32(minval))
     hi = float(np.float32(maxval))
-    u = uniform(key, shape, device=device)
+    u = uniform(key, shape, device=device, full_width=full_width)
     return torch.clamp_min(_fma32(u, float(np.float32(hi - lo)), lo), lo)
 
 
@@ -215,7 +218,9 @@ def erfinv(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() == 1, x * float("inf"), p * x)
 
 
-def normal(key, shape, device="cpu") -> torch.Tensor:
-    """``jax.random.normal(key, shape)`` (float32) on ``device``."""
+def normal(key, shape, device="cpu", full_width: int = None) -> torch.Tensor:
+    """``jax.random.normal(key, shape)`` (float32) on ``device``;
+    ``full_width`` as in ``uniform``."""
     lo = float(np.nextafter(np.float32(-1), np.float32(0)))
-    return float(np.float32(np.sqrt(2))) * erfinv(uniform_range(key, shape, lo, 1.0, device))
+    u = uniform_range(key, shape, lo, 1.0, device, full_width=full_width)
+    return float(np.float32(np.sqrt(2))) * erfinv(u)

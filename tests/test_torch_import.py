@@ -239,7 +239,7 @@ def _run_main_in(tmp_path, config_body):
     return proc.stdout.splitlines()
 
 
-def test_main_refuses_a_train_config_without_jax(tmp_path):
+def test_main_trains_the_device_resident_config_without_jax(tmp_path):
     """The device-resident carpet config (device_resident, steps_per_dispatch
     100, bf16, save_encodings, net_chunk 16384), cut to CPU size (4 x 16^2
     swatches, depth 2, width 32), trains through main with jax, optax and

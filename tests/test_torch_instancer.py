@@ -157,7 +157,7 @@ def test_sorted_blocks_equal_dense_grid(setup):
         widths = [0, 0] * (v.dim() - 2) + [0, cap - v.shape[1]]
         return torch.nn.functional.pad(v, widths)
 
-    def shade_block(inst, extra):
+    def shade_block(inst, extra, key):
         valid = inst["dists"] > 0
         out = []
         for k in keys:

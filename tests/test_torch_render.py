@@ -141,10 +141,24 @@ def test_carpet_render_config_instantiates():
     assert r.render_chunk == 16384 and r.net_chunk == 32768
 
 
-def test_unported_options_raise():
-    cfg = _renderer_cfg(True)
-    with pytest.raises(NotImplementedError):
-        instantiate(dict(cfg, sample_budget_per_ray=160, device="cpu"))
+def test_unported_options_raise(frame):
+    """The options that raised before the compact path was ported
+    (sample_budget_per_ray > 0, false_color, raw_noise_std > 0) build and
+    render the frame on the CPU: finite, some of it opaque, in palette
+    colors, and the same frame for the same key."""
+    data, _, tm = frame
+    cfg = dict(_renderer_cfg(True), sample_budget_per_ray=160, false_color=True,
+               raw_noise_std=0.1, model=tm, device="cpu")
+    r = instantiate(cfg)
+    assert r.sample_budget_per_ray == 160 and r.false_color and r.raw_noise_std == 0.1
+    out = r(**data, key=jax_rng.key(1))
+    color, alpha = out["color_pred"].numpy(), out["alpha_pred"].numpy()
+    assert color.shape == (1, H * W, 3) and alpha.shape == (1, H * W)
+    assert np.isfinite(color).all() and np.isfinite(alpha).all() and alpha.max() > 0.5
+    # Premultiplied palette colors (uniform in [0, 1)) stay within alpha.
+    assert (color <= alpha[..., None] + 1e-6).all()
+    again = r(**data, key=jax_rng.key(1))
+    assert np.array_equal(again["color_pred"].numpy(), color)
 
 
 def test_bench_rays_match_tpu_golden():

@@ -142,7 +142,7 @@ def test_sorted_hit_tiers_equal_the_dense_grid(setup):
                      **dict(DEV_KW, max_hits=64, deterministic_offset=True))
     td = inst.device_instancer
     keys = ("pts", "rays_d", "t", "dists", "parameters", "instance_id", "alpha_weight")
-    def shade_block(blk, extra):
+    def shade_block(blk, extra, key):
         valid = blk["dists"] > 0
         out = []
         for k in keys:

@@ -156,7 +156,31 @@ Phases (any failure raises and exits non-zero):
      most taken samples (it must hold taken samples only) and tex_fetch on
      the first launch of the ray block that took the most; each frame has
      its kernels-line rows (bench_compact, bench_compact_f32,
-     grass_mip_compact) and the phase prints its peak device memory.
+     grass_mip_compact) and the phase prints its peak device memory;
+  15. parallelism (nerftex_torch.parallel), in processes this script
+     spawns (``--parallel-worker``), each killed after PARALLEL_TIMEOUT_S;
+     a rank that does not exit 0 fails the phase.  Two gloo ranks on
+     cuda:0 (NCCL refuses two ranks on one card): (a) the training phase's
+     full-width step of config_carpet_train through
+     make_parallel_train_step, 128 of each image's 256 rays a rank, over
+     the fixture's three JAX batches, at the training phase's limits
+     (loss, all-reduced step-0 gradient, later losses), both ranks'
+     parameters bit-equal after every step, and rank 0's largest
+     difference from the single-process port step printed; (b) the carpet
+     frame at config_carpet_render's own render_chunk (16 chunks, 8 a
+     rank) through shard_render, within PARALLEL_FRAME_MAX_DIFF of the
+     unsharded render with its drops, each rank launching all three
+     kernels and their summed launches the unsharded render's, rank 0's
+     kernels against their plain versions (the kernels-line rows
+     carpet_sharded), the golden PSNR printed only (the draws are chunked
+     differently from the golden's).  Then an NCCL world of one: (c)
+     full_carpet_train_device through make_parallel_fused_train_step on
+     phase 12's 16-record table, one capture and PARALLEL_FUSED_STEPS
+     replays with the all-reduce inside the graph and no eager step, the
+     losses and parameters bit-equal to a single-process FusedStep's,
+     steps/s of both interleaved P C C P; and the carpet frame through
+     shard_render on the device all-gather, within
+     PARALLEL_FRAME_MAX_DIFF of the unsharded frame.
 The first render of each frame runs with its selk_resolve calls captured
 (selk_capture); the frame's launch histogram (launches by Rb, S, K and
 method, with the window and valid slots of their inputs) is printed on a
@@ -168,8 +192,9 @@ kernel and frame, the f32 MLP in its own frame, bench_f32, grass_filtered's
 launches those of nerftex_torch.main's five frames, carpet_train's and
 grass_filtered_train's and grass_mip_train's those of their runs of
 nerftex_torch.main, all in the validation renders, grass_mip's those of
-nerftex_torch.main's five mip frames, and the kernels a path did not
-launch) and the device JSON.
+nerftex_torch.main's five mip frames, carpet_sharded's those of both gloo
+ranks' shard_render, and the kernels a path did not launch) and the
+device JSON.
 """
 
 import contextlib
@@ -314,6 +339,10 @@ COMPACT_DROP_BUDGET = 32              # the dropping budget per ray
 COMPACT_INPUTS = "torch_compact_inputs.npz"
 COMPACT_F32_MAX_DIFF = 1e-3           # the f32 fixture rays vs the JAX package's render
 COMPACT_SELK_TIMED = 8                # selk_resolve launches kept per frame for timing
+PARALLEL_TIMEOUT_S = 300              # each spawned job of phase 15
+PARALLEL_FRAME_MAX_DIFF = 1e-6        # the gathered carpet frame vs the unsharded render
+PARALLEL_FUSED_STEPS = 20             # replays of the captured data-parallel step
+PARALLEL_RATE_STEPS = 100             # steps a side in the P C C P timing
 H100_BYTES_PER_S = 3.35e12            # HBM3, SXM data sheet
 H100_BF16_FLOPS = 989e12              # dense tensor-core bf16
 H100_F32_FLOPS = 67e12                # f32 outside the tensor cores
@@ -2115,14 +2144,16 @@ def compare_host_fed(config, tfr, fused, start, card):
     return rates
 
 
-def main_device_training(counts, card):
+def main_device_training(counts, card, keep_tfr):
     """The device-resident training phase (see the module docstring):
     configs/full_carpet_train_device.py through nerftex_torch.main on a
     DEVICE_TRAIN_RECORDS-record TFRecord of synthetic 512x512 views, with
     the sampler, graph-vs-eager, loss, validation and graph-use checks, and
-    the host-fed comparison.  Returns (numbers, kernel rows, main's launch
-    counts)."""
+    the host-fed comparison; the DEVICE_TRAIN_CHECK_VIEWS-record TFRecord
+    is copied to ``keep_tfr`` for phase 15.  Returns (numbers, kernel rows,
+    main's launch counts)."""
     import importlib
+    import shutil
     import tempfile
 
     from nerftex_torch import main as port_main
@@ -2142,6 +2173,7 @@ def main_device_training(counts, card):
         log(f"device-resident training data: {DEVICE_TRAIN_VIEWS} distinct 512x512 synthetic "
             f"views in {synth_s:.1f} s, cycled into {DEVICE_TRAIN_RECORDS} and "
             f"{DEVICE_TRAIN_CHECK_VIEWS} records")
+        shutil.copy(tfrs[DEVICE_TRAIN_CHECK_VIEWS], keep_tfr)
         t0 = time.perf_counter()
         numbers["sampler_card_vs_cpu"] = check_device_sampler(
             config, tfrs[DEVICE_TRAIN_CHECK_VIEWS])
@@ -2847,6 +2879,413 @@ def main_compact(params, counts, card):
     return numbers, rows, launches
 
 
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def spawn_parallel(job, world, work, *extra):
+    """Run ``python3 chip_smoke.py --parallel-worker <job> <rank> <world>
+    <port> <work> ...`` for every rank at once, each killed after
+    PARALLEL_TIMEOUT_S; their logs are printed with a rank prefix, and any
+    rank that does not exit 0 fails the phase.  Returns each rank's
+    <work>/<job>_<rank>.json."""
+    port = _free_port()
+    logs, procs = [], []
+    for rank in range(world):
+        logs.append(open(os.path.join(work, f"{job}_{rank}.log"), "w+"))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--parallel-worker", job, str(rank),
+             str(world), str(port), work, *extra],
+            cwd=ROOT, stdout=logs[-1], stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + PARALLEL_TIMEOUT_S
+    try:
+        for proc in procs:
+            try:
+                proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                break
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for rank, f in enumerate(logs):
+            f.seek(0)
+            for line in f.read().splitlines():
+                log(f"[{job} rank {rank}] {line}")
+            f.close()
+    bad = {rank: proc.returncode for rank, proc in enumerate(procs) if proc.returncode != 0}
+    if bad:
+        raise AssertionError(f"the {job} job's ranks exited {bad} (killed past "
+                             f"{PARALLEL_TIMEOUT_S} s if -9)")
+    out = []
+    for rank in range(world):
+        with open(os.path.join(work, f"{job}_{rank}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def param_digest(model):
+    """sha256 of a model's parameters' bytes, in order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for p in model.parameters():
+        h.update(p.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def same_on_every_rank(value, what):
+    """Fail unless every process of the job holds ``value``."""
+    import torch.distributed as dist
+
+    values = [None] * dist.get_world_size()
+    dist.all_gather_object(values, value)
+    if any(v != values[0] for v in values):
+        raise AssertionError(f"{what} differs between the ranks: {values}")
+
+
+def parallel_dp_step(mesh, card):
+    """Phase 15 (a): config_carpet_train's model (the JAX init), renderer,
+    loss and Adam at full width through make_parallel_train_step on this
+    rank's half of each of tests/torch_train_inputs.npz's three batches
+    (128 of 256 rays an image) under fold_in(stream_key(STREAM_PERTURB),
+    s): the all-reduced loss and step-0 gradient against JAX's at the
+    training phase's limits, both ranks' parameters bit-equal after every
+    step; then, on rank 0, the single-process port step from the same
+    init on the whole batches, its largest difference printed."""
+    import importlib
+
+    import torch.distributed as dist
+
+    from nerftex_torch.parallel import make_parallel_train_step
+    from nerftex_torch.render.checkpoint import as_jax_tree, flatten_params, load_jax_params
+    from nerftex_torch.render.train import make_optimizer, make_train_step
+    from nerftex_torch.utils import jax_rng, rng
+    from nerftex_torch.utils.util import instantiate
+
+    config = importlib.import_module("configs.config_carpet_train").config
+    inputs = np.load(os.path.join(ROOT, "tests", "torch_train_inputs.npz"))
+    want = [float(v) for v in inputs["loss"]]
+    batches = [{k[len(f"batch{s}/"):]: inputs[k] for k in inputs.files
+                if k.startswith(f"batch{s}/")} for s in range(len(want))]
+
+    def build():
+        rng.set_seed(config["seed"])
+        model = instantiate(dict(config["model_config"], n_parameters=[1, 6]), device=mesh.device)
+        load_jax_params(model, npz_params("torch_train_inputs.npz"))
+        renderer = instantiate(dict(config["renderer_config"], model=model, device=mesh.device))
+        optimizer = make_optimizer(model.parameters(), config["lrate"], config["lrate_decay"])
+        return model, renderer, instantiate(config["loss_config"]), optimizer
+
+    model, renderer, loss_fn, optimizer = build()
+    params = {"model": model}
+    step, place_params, place_batch = make_parallel_train_step(
+        renderer, loss_fn, optimizer, mesh, False, [1, 1, 1.0], batches[0], params)
+    place_params(params)
+    base = rng.stream_key(rng.STREAM_PERTURB)
+    losses, after, grad_err = [], [], {}
+    t0 = time.perf_counter()
+    for s, batch in enumerate(batches):
+        losses.append(float(step(place_batch(batch), jax_rng.fold_in(base, s))))
+        if s == 0:
+            grads = flatten_params(as_jax_tree(model, lambda p: p.grad.cpu().numpy()))
+            for leaf, g in grads.items():
+                for name in ("grad", "grad64"):
+                    ref = inputs[f"{name}/{leaf}"]
+                    grad_err[(name, leaf)] = float(np.abs(g - ref).max() / np.abs(ref).max())
+        same_on_every_rank(param_digest(model), f"the parameters after step {s}")
+        same_on_every_rank(losses[-1], f"the loss of step {s}")
+        after.append([p.detach().clone() for p in model.parameters()])
+    torch.cuda.synchronize()
+    dp_s = time.perf_counter() - t0
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, want)]
+    worst = max(grad_err, key=grad_err.get)
+    log(f"dp step, {mesh.world} gloo ranks on {mesh.device}, {len(losses)} steps of 4 x 128 rays "
+        f"a rank: losses {losses} vs JAX {want}, relative {rel} (limits {TRAIN_STEP_LOSS_RTOL}, "
+        f"then {TRAIN_LATER_LOSS_RTOL}); all-reduced step-0 gradient worst {worst} "
+        f"{grad_err[worst]:.3g} of its max |g| (limit {TRAIN_GRAD_TOL}); parameters bit-equal on "
+        f"the ranks after every step; {dp_s:.2f} s for the steps on {card}")
+    if not rel[0] <= TRAIN_STEP_LOSS_RTOL:
+        raise AssertionError(f"the dp step's loss differs from JAX's by {rel[0]} relative")
+    if not max(rel[1:]) <= TRAIN_LATER_LOSS_RTOL:
+        raise AssertionError(f"the dp losses after Adam updates differ from JAX's by {rel[1:]}")
+    if not grad_err[worst] <= TRAIN_GRAD_TOL:
+        raise AssertionError(f"the all-reduced gradient of {worst} differs by {grad_err[worst]}")
+    numbers = {"losses": losses, "jax_losses": want, "loss_rel": rel,
+               "grad_rel_worst": grad_err[worst], "grad_rel_worst_leaf": list(worst),
+               "steps_s": dp_s}
+    if mesh.rank == 0:
+        single_model, single_renderer, single_loss, single_opt = build()
+        single = make_train_step(single_renderer, single_loss, single_opt, False, [1, 1, 1.0])
+        diffs, single_losses = [], []
+        for s, batch in enumerate(batches):
+            on_card = {k: torch.tensor(v, device=mesh.device) for k, v in batch.items()}
+            single_losses.append(float(single(on_card, jax_rng.fold_in(base, s))))
+            diffs.append(max(float((p.detach() - q).abs().max())
+                             for p, q in zip(single_model.parameters(), after[s])))
+        log(f"dp step vs the single-process port step on the card, from the same init: losses "
+            f"{single_losses} (dp {losses}), parameters max abs diff per step {diffs}")
+        numbers.update(single_losses=single_losses, single_param_max_abs_diff=diffs)
+    dist.barrier()
+    return numbers
+
+
+def parallel_carpet(mesh, counts, card, rows=False):
+    """Phase 15 (b) and (c)'s frame: configs/config_carpet_render.py at its
+    own render_chunk (16 chunks of 16,384 rays), the carpet operating point
+    and the golden's bf16 dots (carpet_configs), key(1), through
+    shard_render: the gathered frame within PARALLEL_FRAME_MAX_DIFF of the
+    unsharded render on rank 0 (whose drops it must have), every rank
+    launching all three kernels, their summed launches the unsharded
+    render's.  With ``rows`` (rank 0 of the gloo job), the kernels against
+    their plain versions at the sharded render's inputs: tex_fetch's first
+    launch, mlp_fused's first net_chunk, every selk_resolve launch."""
+    import importlib
+
+    import torch.distributed as dist
+
+    from nerftex_torch.kernels import mlp_fused as fused, selk_resolve as selk, tex_gather
+    from nerftex_torch.parallel import shard_render
+    from nerftex_torch.render.checkpoint import load_jax_params
+    from nerftex_torch.utils import jax_rng
+    from nerftex_torch.utils.util import instantiate
+
+    reset_counts, read_counts, check_counts = counts
+    data, h, w = config_item("carpet")
+    model_cfg, renderer_cfg = carpet_configs("carpet")
+    chunk = importlib.import_module("configs.config_carpet_render").config[
+        "renderer_config"]["render_chunk"]
+    model = instantiate(model_cfg, device=mesh.device)
+    load_jax_params(model, npz_params("torch_bench_inputs.npz"))
+    renderer = instantiate(dict(renderer_cfg, model=model, device=mesh.device,
+                                render_chunk=chunk))
+    sharded = shard_render(renderer, mesh)
+    captures = (selk_capture(keep_inputs=True), mlp_capture(), tex_capture()) if rows else ()
+    reset_counts()
+    dist.barrier()
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack, overflow_capture() as drops:
+        calls = [stack.enter_context(c) for c in captures]
+        out = sharded(**data, key=jax_rng.key(1))
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches, variants = read_counts()
+    check_counts(f"carpet_sharded rank {mesh.rank}", launches, variants)
+    per_rank = [None] * mesh.world
+    dist.all_gather_object(per_rank, launches)
+    summed = {k: sum(r[k] for r in per_rank) for k in launches}
+    numbers = {"first_render_s": first_s, "drops": drops, "launches_per_rank": per_rank,
+               "render_chunk": chunk, "chunks": h * w // chunk}
+    if mesh.rank == 0:
+        reset_counts()
+        with overflow_capture() as whole_drops:
+            whole = renderer(**data, key=jax_rng.key(1))
+        torch.cuda.synchronize()
+        single, _ = read_counts()
+        diff = max(float((out[k] - whole[k]).abs().max()) for k in ("color_pred", "alpha_pred"))
+        equal = all(torch.equal(out[k], whole[k]) for k in ("color_pred", "alpha_pred"))
+        psnr = frame_psnr("carpet", out, h, w)
+        log(f"carpet frame through shard_render ({mesh.world} {mesh.backend} ranks, "
+            f"{h * w // chunk} chunks of {chunk}): max |sharded - unsharded| {diff:.3g} (limit "
+            f"{PARALLEL_FRAME_MAX_DIFF}, bit-equal {equal}); dropped {drops} vs {whole_drops}; "
+            f"launches per rank {per_rank}, summed {summed}, unsharded {single}; golden "
+            f"{psnr:.2f} dB (not gated: chunked draws differ from the golden's); first sharded "
+            f"render {first_s:.2f} s on {card}")
+        if not diff <= PARALLEL_FRAME_MAX_DIFF:
+            raise AssertionError(f"the sharded carpet frame differs from the unsharded by {diff}")
+        if drops != whole_drops:
+            raise AssertionError(f"the sharded frame dropped {drops}, the unsharded {whole_drops}")
+        if summed != single:
+            raise AssertionError(f"summed launches {summed}, the unsharded render's {single}")
+        numbers.update(max_abs_diff=diff, bit_equal=equal, golden_psnr_db=psnr,
+                       unsharded_launches=single, launches=summed)
+        del whole
+    dist.barrier()
+    t0 = time.perf_counter()
+    sharded(**data, key=jax_rng.key(1))
+    torch.cuda.synchronize()
+    numbers["sharded_s"] = time.perf_counter() - t0
+    dist.barrier()
+    if mesh.rank == 0:
+        t0 = time.perf_counter()
+        renderer(**data, key=jax_rng.key(1))
+        torch.cuda.synchronize()
+        numbers["unsharded_s"] = time.perf_counter() - t0
+        log(f"carpet frame: sharded {numbers['sharded_s']:.3f} s ({mesh.world} {mesh.backend} "
+            f"ranks on one card), unsharded {numbers['unsharded_s']:.3f} s on {card}")
+    if rows:
+        selk_calls, mlp_calls, tex_calls = calls
+        tex, uv, quads = tex_calls[0]
+        packed = mlp_calls[0][2]
+        numbers["rows"] = {
+            "tex_fetch": tex_kernel_row([tex_shape_row(
+                tex_gather, tex, quads, uv, "the sharded carpet frame's first launch, rank 0")],
+                "smooth_checkerboard.png"),
+            "mlp_fused": mlp_kernel_row(fused, packed, [mlp_row(
+                fused, packed, *mlp_calls[0][:2], "bfloat16",
+                "the sharded carpet frame's first net_chunk, rank 0")]),
+            "selk_resolve": dict(check_selk_frame(selk, selk_calls, "carpet_sharded rank 0"),
+                                 **selk_frame_record(selk_calls, launches["selk_resolve"],
+                                                     "carpet_sharded rank 0")),
+        }
+        selk_calls.clear()
+        mlp_calls.clear()
+        tex_calls.clear()
+    dist.barrier()
+    return numbers
+
+
+def parallel_fused(mesh, tfr, card):
+    """Phase 15 (c): configs/full_carpet_train_device.py (bf16, net_chunk
+    16,384, full width) on ``tfr``'s records through
+    make_parallel_fused_train_step in this NCCL world of one: one capture,
+    PARALLEL_FUSED_STEPS replays with the all-reduce in the graph (no
+    eager step; the all-reduces issued while the graph was captured
+    counted, as many as the warm-up issued), their losses and parameters
+    bit-equal to a single-process FusedStep's as many replays from the
+    same init; then steps/s of both, interleaved P C C P (P the
+    single-process step)."""
+    import importlib
+
+    import torch.distributed as dist
+
+    from nerftex_torch.models import mlp
+    from nerftex_torch.parallel import make_parallel_fused_train_step
+    from nerftex_torch.render import train as train_mod
+    from nerftex_torch.utils import rng
+
+    config = importlib.import_module("configs.full_carpet_train_device").config
+    cfg = copy.deepcopy(config)
+    cfg["train_dataset_config"]["data_loader_config"]["tfr_path"] = tfr
+    k = PARALLEL_FUSED_STEPS
+
+    def build():
+        rng.set_seed(cfg["seed"])
+        mlp._INIT_COUNTER[0] = 0
+        _, models, _, step = train_mod.build_step(
+            cfg["train_dataset_config"], cfg["model_config"], cfg["loss_config"], cfg["lrate"],
+            cfg["lrate_decay"], cfg["renderer_config"], mesh.device, train_mod.TrainState(),
+            flat_params=cfg.get("flat_params", False), steps_per_dispatch=k)
+        return models, step
+
+    models, base = build()
+    fused, place_params, place_tables = make_parallel_fused_train_step(
+        base.renderer, base.loss_fn, base.optimizer, base.sampler, mesh, base.composite_bkgd,
+        base.bkgd_color, models, max_steps=k)
+    place_params(models)
+    single_models, single = build()
+    if [param_digest(m) for m in models.values()] != \
+            [param_digest(m) for m in single_models.values()]:
+        raise AssertionError("the two steps do not start from the same parameters")
+    for name in train_mod.step_counts:
+        train_mod.step_counts[name] = 0
+    # Each all-reduce the step issues, and whether a CUDA graph was being
+    # captured on the stream that issued it.
+    issued, real_all_reduce = [], dist.all_reduce
+
+    def all_reduce(*args, **kwargs):
+        issued.append(torch.cuda.is_current_stream_capturing())
+        return real_all_reduce(*args, **kwargs)
+
+    dist.all_reduce = all_reduce
+    try:
+        losses = fused.run(0, k)
+    finally:
+        dist.all_reduce = real_all_reduce
+    graph = dict(train_mod.step_counts, all_reduces_captured=sum(issued),
+                 all_reduces_eager=len(issued) - sum(issued))
+    single_losses = single.run(0, k)
+    equal = torch.equal(losses, single_losses) and all(
+        torch.equal(p, q) for p, q in zip(fused._params(), single._params()))
+    log(f"device-resident dp step, NCCL world of one on {mesh.device}: {graph} for {k} steps; "
+        f"losses {losses.tolist()}; single-process FusedStep {single_losses.tolist()}; losses and "
+        f"parameters bit-equal {equal}")
+    if graph["captures"] != 1 or graph["graph_replays"] != k or graph["eager_steps"] != 0 \
+            or not 0 < graph["all_reduces_captured"] == graph["all_reduces_eager"]:
+        raise AssertionError(f"the dp step ran {graph}, not {k} replays of one capture with "
+                             f"the warm-up's all-reduces captured")
+    if not equal:
+        raise AssertionError("the dp step's replays differ from the single-process step's")
+
+    def timed(step, start):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(0, PARALLEL_RATE_STEPS, k):
+            step.run(start + i, k)
+        torch.cuda.synchronize()
+        return PARALLEL_RATE_STEPS / (time.perf_counter() - t0)
+
+    rates = {"single": [], "dp": []}
+    start = {"single": k, "dp": k}
+    for side in ("single", "dp", "dp", "single"):
+        rates[side].append(timed(single if side == "single" else fused, start[side]))
+        start[side] += PARALLEL_RATE_STEPS
+    log(f"steps/s interleaved P C C P (P: the single-process FusedStep, C: the dp step with its "
+        f"captured all-reduce; {PARALLEL_RATE_STEPS} steps a side, {k} replays a dispatch): "
+        f"single {rates['single']}, dp {rates['dp']} on {card}")
+    del fused, single, base
+    torch.cuda.empty_cache()
+    return {"graph": graph, "bit_equal": equal, "steps_per_s": rates, "losses": losses.tolist()}
+
+
+def parallel_worker(job, rank, world, port, work, tfr=None):
+    """One rank of phase 15's jobs (spawn_parallel): "gloo", two ranks on
+    cuda:0 ((a) parallel_dp_step, then (b) parallel_carpet with rank 0's
+    kernel rows), or "nccl", a world of one ((c) parallel_fused on ``tfr``,
+    then parallel_carpet on the device all-gather).  Writes
+    <work>/<job>_<rank>.json."""
+    sys.path.insert(0, ROOT)
+    os.chdir(ROOT)
+    import torch.distributed as dist
+
+    from nerftex_torch.kernels import build
+    from nerftex_torch.parallel import init_distributed, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank, world = int(rank), int(world)
+    build.build()
+    card = card_line()
+    init_distributed(f"localhost:{port}", world, rank, backend=job, device="cuda:0")
+    try:
+        mesh = make_mesh()
+        log(f"rank {rank} of {world}, backend {mesh.backend}, device {mesh.device}")
+        counts = kernel_counts()
+        if job == "gloo":
+            result = {"dp_step": parallel_dp_step(mesh, card),
+                      "carpet": parallel_carpet(mesh, counts, card, rows=rank == 0)}
+        else:
+            result = {"fused": parallel_fused(mesh, tfr, card),
+                      "carpet": parallel_carpet(mesh, counts, card)}
+        with open(os.path.join(work, f"{job}_{rank}.json"), "w") as f:
+            json.dump(result, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def main_parallel(card, tfr):
+    """Phase 15 (module docstring): two gloo ranks on the card, then an NCCL
+    world of one on ``tfr``; returns (numbers, the carpet_sharded kernel
+    rows, their summed launches)."""
+    import tempfile
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix="_parallel_") as work:
+        gloo = spawn_parallel("gloo", 2, work)
+        nccl = spawn_parallel("nccl", 1, work, tfr)
+    carpet = gloo[0]["carpet"]
+    rows = carpet.pop("rows")
+    numbers = {"dp_step": gloo[0]["dp_step"], "carpet_sharded_gloo": carpet,
+               "fused_nccl": nccl[0]["fused"], "carpet_sharded_nccl": nccl[0]["carpet"]}
+    log(f"phase parallel on {card}: {json.dumps(numbers)}")
+    return numbers, rows, carpet["launches"]
+
+
 def kernel_counts():
     """(reset, read, check) over the kernel wrappers' launch counters:
     reset() zeroes every count; read() gives ({kernel: launches},
@@ -2884,6 +3323,8 @@ def kernel_counts():
 
 
 def main():
+    import tempfile
+
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this test needs a CUDA card",
               file=sys.stderr)
@@ -3178,7 +3619,9 @@ def main():
 
     # -- device-resident training: full_carpet_train_device through main --------
     t_phase = time.perf_counter()
-    train, train_rows, device_launches = main_device_training(counts, card)
+    keep = tempfile.TemporaryDirectory(dir=ROOT, prefix="_parallel_data_")
+    parallel_tfr = os.path.join(keep.name, f"records{DEVICE_TRAIN_CHECK_VIEWS}.tfr")
+    train, train_rows, device_launches = main_device_training(counts, card, parallel_tfr)
     frames.update(train)
     rows.update(train_rows)
     launches.update(device_launches)
@@ -3199,6 +3642,13 @@ def main():
     rows.update(phase_rows)
     launches.update(compact_launches)
     log(f"phase compact: {time.perf_counter() - t_phase:.1f} s")
+
+    # -- parallelism: gloo ranks on the card, then an NCCL world of one -------------
+    t_phase = time.perf_counter()
+    frames["parallel"], rows["carpet_sharded"], launches["carpet_sharded"] = main_parallel(
+        card, parallel_tfr)
+    keep.cleanup()
+    log(f"phase parallel: {time.perf_counter() - t_phase:.1f} s")
 
     kernels = [dict(row, frame=frame, launches=launches[frame][name])
                for frame in launches for name, row in rows[frame].items()]
@@ -3234,4 +3684,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--parallel-worker"]:
+        parallel_worker(*sys.argv[2:])
+    else:
+        main()

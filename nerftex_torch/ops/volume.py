@@ -2,14 +2,17 @@
 stratified sampling, alpha compositing, inverse-CDF importance sampling,
 and mip-NeRF's cone Gaussians.
 Random draws come from utils.jax_rng keys, so they are the JAX package's
-for the same key."""
+for the same key.  Each drawing function takes ``rows``: the rays' rows in
+a larger batch (a data-parallel shard's global rows), whose draws they
+then take; None is rows 0 .. R - 1."""
 
 import torch
 
 from nerftex_torch.utils import jax_rng
 
 
-def stratified_z_vals(t: torch.Tensor, n_samples: int, perturb: bool, key=None) -> torch.Tensor:
+def stratified_z_vals(t: torch.Tensor, n_samples: int, perturb: bool, key=None,
+                      rows=None) -> torch.Tensor:
     """Evenly spaced samples in [t0, t1] per ray, with perturb jittered
     uniformly within their bins by ``uniform(key, [R, n_samples])``.  t
     [R, 2] (misses sanitized by the caller) -> z_vals [R, n_samples]."""
@@ -19,7 +22,7 @@ def stratified_z_vals(t: torch.Tensor, n_samples: int, perturb: bool, key=None) 
         mids = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
         upper = torch.cat([mids, z_vals[..., -1:]], -1)
         lower = torch.cat([z_vals[..., :1], mids], -1)
-        z_rand = jax_rng.uniform(key, z_vals.shape, device=t.device)
+        z_rand = jax_rng.uniform(key, z_vals.shape, device=t.device, rows=rows)
         z_vals = lower + (upper - lower) * z_rand
     return z_vals
 
@@ -58,7 +61,7 @@ def exclusive_cumprod(x: torch.Tensor) -> torch.Tensor:
 
 def composite(color_logits, density_logits, z_vals, rays_d, composite_bkgd: bool = False,
               bkgd_color=(1.0, 1.0, 1.0), raw_noise_std: float = 0.0, noise_key=None,
-              map_exr: bool = False, repeat_last_dist: bool = True):
+              map_exr: bool = False, repeat_last_dist: bool = True, rows=None):
     """Alpha-composite per-sample model outputs along rays.
 
     color_logits [R,S,3], density_logits [R,S], z_vals [R,S] (or S + 1 fence
@@ -75,7 +78,7 @@ def composite(color_logits, density_logits, z_vals, rays_d, composite_bkgd: bool
     dists = dists * torch.linalg.norm(rays_d[..., None, :], dim=-1)
     color_map = map_color(color_logits, map_exr)
     if raw_noise_std > 0:
-        noise = jax_rng.normal(noise_key, density_logits.shape, density_logits.device)
+        noise = jax_rng.normal(noise_key, density_logits.shape, density_logits.device, rows=rows)
         density_logits = density_logits + noise * raw_noise_std
     alpha = 1.0 - torch.exp(-torch.relu(density_logits) * dists)
     weights = alpha * exclusive_cumprod(1.0 - alpha + 1e-10)
@@ -89,7 +92,7 @@ def composite(color_logits, density_logits, z_vals, rays_d, composite_bkgd: bool
 
 
 def sample_pdf(bins: torch.Tensor, weights: torch.Tensor, n_samples: int, det: bool = False,
-               key=None) -> torch.Tensor:
+               key=None, rows=None) -> torch.Tensor:
     """Inverse-CDF samples of the piecewise-constant pdf ``weights`` [R,B-1]
     over ``bins`` [R,B] -> [R, n_samples]: evenly spaced quantiles with
     ``det``, else ``uniform(key, [R, n_samples])``."""
@@ -102,7 +105,7 @@ def sample_pdf(bins: torch.Tensor, weights: torch.Tensor, n_samples: int, det: b
         u = torch.linspace(0.0, 1.0, n_samples, dtype=torch.float32, device=cdf.device)
         u = u.expand(shape).contiguous()
     else:
-        u = jax_rng.uniform(key, shape, device=cdf.device)
+        u = jax_rng.uniform(key, shape, device=cdf.device, rows=rows)
     inds = torch.searchsorted(cdf.contiguous(), u, right=True)
     below = torch.clamp(inds - 1, min=0)
     above = torch.clamp(inds, max=cdf.shape[-1] - 1)

@@ -41,6 +41,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 # Builtins a checkpoint may name: containers and scalars, nothing callable
 # beyond their constructors.
@@ -122,10 +123,17 @@ class CheckpointManager:
         return self._path(steps[-1]) if steps else None
 
     def save(self, state: dict, step: int) -> str:
+        """Write ``state`` as step ``step``'s checkpoint; returns its path.
+        In a torch.distributed job every process materialises the state
+        (a device-to-host copy) but only rank 0 writes and sweeps: a single
+        writer, as the JAX package's process 0."""
         path = self._path(step)
+        state_np = _to_numpy(state)
+        if dist.is_available() and dist.is_initialized() and dist.get_rank() != 0:
+            return path
         tmp = path + ".tmp"
         with open(tmp, "wb") as f:
-            pickle.dump(_to_numpy(state), f, protocol=pickle.HIGHEST_PROTOCOL)
+            pickle.dump(state_np, f, protocol=pickle.HIGHEST_PROTOCOL)
         os.replace(tmp, path)
         self._save_times[step] = time.time()
         self._sweep(step)

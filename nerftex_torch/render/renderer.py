@@ -109,30 +109,33 @@ class Renderer:
     # -- the per-ray render ----------------------------------------------------
 
     def render_rays(self, rays_o, rays_d, t, parameters, cone_scale, composite_bkgd,
-                    bkgd_color, key, training: bool = False, differentiable: bool = False) -> dict:
+                    bkgd_color, key, training: bool = False, differentiable: bool = False,
+                    rows=None) -> dict:
         """March a flat chunk of rays [R, ...] under ``key``.  The models run
         ``forward`` (autograd) when ``differentiable``, else ``infer``;
-        ``training`` turns on the stratified jitter (with ``perturb``)."""
+        ``training`` turns on the stratified jitter (with ``perturb``).
+        ``rows`` [R] (int64): the rays' rows in a larger batch, whose draws
+        they take (ops/volume.py); None is rows 0 .. R - 1."""
         k_perturb, k_noise, k_noise2, k_imp = jax_rng.split(key, 4)
         miss = torch.isinf(t[:, 0])
         t_safe = torch.where(miss[:, None], torch.zeros_like(t), t)
         rays_d_n = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
 
         z_vals = volume.stratified_z_vals(t_safe, self.n_samples, self.perturb and training,
-                                          k_perturb)
+                                          k_perturb, rows=rows)
         pts = rays_o[..., None, :] + rays_d[..., None, :] * z_vals[..., :, None]
         color, density = self._evaluate_model(self.model, pts, rays_d_n, parameters, cone_scale,
                                               z_vals, differentiable)
         color_map, alpha_map, weights, _ = volume.composite(
             color, density, z_vals, rays_d, raw_noise_std=self.raw_noise_std, noise_key=k_noise,
-            map_exr=self.map_exr)
+            map_exr=self.map_exr, rows=rows)
         out = {"color_pred": color_map, "alpha_pred": alpha_map}
 
         if self.n_importance > 0:
             z_vals_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
             # det=self.perturb is the reference's own (inverted) sense.
             z_samples = volume.sample_pdf(z_vals_mid, weights[..., 1:-1], self.n_importance,
-                                          det=self.perturb, key=k_imp).detach()
+                                          det=self.perturb, key=k_imp, rows=rows).detach()
             z_all = torch.sort(torch.cat([z_vals, z_samples], -1), -1).values
             pts = rays_o[..., None, :] + rays_d[..., None, :] * z_all[..., :, None]
             fine = self.model if self.model_fine is None else self.model_fine
@@ -140,7 +143,7 @@ class Renderer:
                                                       z_all, differentiable)
             color_map_i, alpha_map_i, _, _ = volume.composite(
                 color_i, density_i, z_all, rays_d, raw_noise_std=self.raw_noise_std,
-                noise_key=k_noise2, map_exr=self.map_exr)
+                noise_key=k_noise2, map_exr=self.map_exr, rows=rows)
             out = {"color_pred": color_map_i, "alpha_pred": alpha_map_i,
                    "color_pred_coarse": color_map, "alpha_pred_coarse": alpha_map}
 
@@ -201,16 +204,21 @@ class Renderer:
         }
 
     def apply(self, data: dict, key, composite_bkgd: bool = False, bkgd_color=(1, 1, 1.0),
-              training: bool = True) -> dict:
+              training: bool = True, rows=None) -> dict:
         """Differentiable render of a whole batch (the training step's):
         data {rays_o [B,R,3], rays_d, t [B,R,2], parameters [B,P],
         cone_scale [B,R,1]} -> {name: [B,R,...]}, through the models'
-        ``forward``."""
+        ``forward``.  ``rows`` [B*R] (int64): each ray's flat row b * R' + r'
+        in the whole batch [B, R'] that this one is a shard of (a
+        data-parallel step's, parallel/mesh.py), so that every draw is that
+        row's of the whole batch's draw; None: this batch is the whole.
+        The draws need no row count: row i of a draw of width W takes the
+        positions i * W .. i * W + W - 1 however many rows it has."""
         b, r = data["rays_o"].shape[0], data["rays_o"].shape[1]
         flat = self._flatten_batch(data)
         out = self.render_rays(flat["rays_o"], flat["rays_d"], flat["t"], flat["parameters"],
                                flat["cone_scale"], composite_bkgd, bkgd_color, key,
-                               training=training, differentiable=True)
+                               training=training, differentiable=True, rows=rows)
         return {k: v.reshape((b, r) + v.shape[1:]) for k, v in out.items()}
 
     @torch.inference_mode()
@@ -224,38 +232,59 @@ class Renderer:
         STREAM_PERTURB key).  Returns
         {"color_pred": [B,R,3], "alpha_pred": [B,R], ...} as tensors on the
         renderer's device."""
+        key = self.frame_key(key)
+        b, r = rays_o.shape[0], rays_o.shape[1]
+        flat, chunk = self.chunk_rays({"rays_o": rays_o, "rays_d": rays_d, "t": t,
+                                       "parameters": parameters, "cone_scale": cone_scale})
+        out = self.render_chunks(flat, range(0, flat["t"].shape[0], chunk), chunk, key,
+                                 composite_bkgd, bkgd_color, training)
+        out = self.frame_of(out, b, r)
+        self._report_diagnostics(out)
+        return out
+
+    def frame_key(self, key=None):
+        """``key``, or for a call without one this renderer's next key,
+        rng.stream_key(STREAM_PERTURB, n) for its n-th keyless call."""
         if key is None:
             key = rng.stream_key(rng.STREAM_PERTURB, self._call_counter)
             self._call_counter += 1
-        data = {"rays_o": rays_o, "rays_d": rays_d, "t": t, "parameters": parameters,
-                "cone_scale": cone_scale}
-        b, r = rays_o.shape[0], rays_o.shape[1]
+        return key
+
+    def chunk_rays(self, data: dict):
+        """(flat, chunk): the [B, R] ray grid ``data`` as flat tensors
+        (_flatten_batch) padded with missing rays (t = inf) to whole render
+        chunks of ``chunk`` rays."""
         flat = self._flatten_batch(data)
-        n = b * r
+        n = flat["t"].shape[0]
         chunk = min(self.render_chunk, n)
         n_pad = -(-n // chunk) * chunk
         if n_pad > n:
             flat = {k: torch.cat([v, v.new_full((n_pad - n,) + v.shape[1:],
                                                 float("inf") if k == "t" else 0.0)])
                     for k, v in flat.items()}
+        return flat, chunk
 
+    def render_chunks(self, flat: dict, starts, chunk: int, key, composite_bkgd, bkgd_color,
+                      training: bool) -> dict:
+        """The chunks of ``flat`` that start at the ray indices ``starts``,
+        each rendered under fold_in(key, start), their outputs concatenated
+        in order; drop counts (names that start with "_") summed as ints."""
         outs = []
-        for i in range(0, n_pad, chunk):
+        for i in starts:
             c = {k: v[i:i + chunk] for k, v in flat.items()}
             outs.append(self.render_rays(
                 c["rays_o"], c["rays_d"], c["t"], c["parameters"], c["cone_scale"],
                 composite_bkgd, bkgd_color, jax_rng.fold_in(key, i), training=training,
             ))
+        return {name: sum(int(o[name]) for o in outs) if name.startswith("_")
+                else torch.cat([o[name] for o in outs]) for name in outs[0]}
 
-        out = {}
-        for name in outs[0]:
-            if name.startswith("_"):
-                out[name] = sum(int(o[name]) for o in outs)
-                continue
-            v = torch.cat([o[name] for o in outs])[:n]
-            out[name] = v.reshape((b, r) + v.shape[1:])
-        self._report_diagnostics(out)
-        return out
+    @staticmethod
+    def frame_of(out: dict, b: int, r: int) -> dict:
+        """Flat chunk outputs as the [B, R] grid's: padding cut, each output
+        [B, R, ...]; drop counts as they are."""
+        return {name: v if name.startswith("_") else v[:b * r].reshape((b, r) + v.shape[1:])
+                for name, v in out.items()}
 
     def _report_diagnostics(self, out: dict) -> None:
         pass
@@ -285,7 +314,7 @@ class MipRenderer(Renderer):
         self.mip_importance = mip_importance
 
     def _march(self, model, rays_o, rays_d, rays_d_n, z_vals, blur, parameters, noise_key,
-               differentiable):
+               differentiable, rows):
         """Shade and composite the segments between the posts z_vals:
         (color [R, 3], alpha [R], weights [R, S])."""
         mean, cov_diag = volume.cone_segment_gaussians(rays_o, rays_d, z_vals, blur)
@@ -293,11 +322,12 @@ class MipRenderer(Renderer):
                                               parameters, None, None, differentiable)
         color_map, alpha_map, weights, _ = volume.composite(
             color, density, z_vals, rays_d, raw_noise_std=self.raw_noise_std,
-            noise_key=noise_key, map_exr=self.map_exr, repeat_last_dist=False)
+            noise_key=noise_key, map_exr=self.map_exr, repeat_last_dist=False, rows=rows)
         return color_map, alpha_map, weights
 
     def render_rays(self, rays_o, rays_d, t, parameters, cone_scale, composite_bkgd,
-                    bkgd_color, key, training: bool = False, differentiable: bool = False) -> dict:
+                    bkgd_color, key, training: bool = False, differentiable: bool = False,
+                    rows=None) -> dict:
         if self.n_importance > 0 and not self.mip_importance:
             raise NotImplementedError(
                 "Importance sampling for mip-NeRF style rendering is not implemented "
@@ -307,22 +337,23 @@ class MipRenderer(Renderer):
         t_safe = torch.where(miss[:, None], torch.zeros_like(t), t)
         rays_d_n = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
         z_vals = volume.stratified_z_vals(t_safe, self.n_samples + 1, self.perturb and training,
-                                          k_perturb)
+                                          k_perturb, rows=rows)
         b = self.blur_idx_mip
         blur = parameters[..., b, None] * cone_scale
         parameters = torch.cat([parameters[..., :b], parameters[..., b + 1:]], -1)
 
         color_map, alpha_map, weights = self._march(self.model, rays_o, rays_d, rays_d_n, z_vals,
-                                                    blur, parameters, k_noise, differentiable)
+                                                    blur, parameters, k_noise, differentiable,
+                                                    rows)
         out = {"color_pred": color_map, "alpha_pred": alpha_map}
         if self.n_importance > 0:
             z_samples = volume.sample_pdf(z_vals, weights, self.n_importance,
                                           det=not (self.perturb and training),
-                                          key=k_imp).detach()
+                                          key=k_imp, rows=rows).detach()
             z_all = torch.sort(torch.cat([z_vals, z_samples], -1), -1).values
             fine = self.model if self.model_fine is None else self.model_fine
             color_i, alpha_i, _ = self._march(fine, rays_o, rays_d, rays_d_n, z_all, blur,
-                                              parameters, k_noise2, differentiable)
+                                              parameters, k_noise2, differentiable, rows)
             out = {"color_pred": color_i, "alpha_pred": alpha_i,
                    "color_pred_coarse": color_map, "alpha_pred_coarse": alpha_map}
 

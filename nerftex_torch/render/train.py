@@ -83,6 +83,7 @@ def make_optimizer(params, lrate: float, lrate_decay: float,
     else:
         optimizer = torch.optim.Adam(params, lr=lrate, betas=(0.9, 0.999), eps=1e-7)
     optimizer.schedule = lambda count: learning_rate(lrate, lrate_decay, count)
+    optimizer.lrate, optimizer.lrate_decay = float(lrate), float(lrate_decay)
     return optimizer
 
 
@@ -150,7 +151,9 @@ class FusedStep:
     as a CUDA graph: it warms up once on a side stream, puts every
     parameter, Adam state, counter and buffer back as it was, captures,
     and from then on only replays.  A failed capture raises: nothing runs
-    the step eagerly on the card.  On the CPU each step runs eagerly."""
+    the step eagerly on the card.  On the CPU each step runs eagerly.
+    ``_loss`` is the part of the step between sampling and Adam, which the
+    data-parallel step (parallel/mesh.py) replaces."""
 
     def __init__(self, renderer, loss_fn, optimizer, sampler, composite_bkgd, bkgd_color,
                  lrate: float, lrate_decay: float, max_steps: int = 1):
@@ -202,16 +205,20 @@ class FusedStep:
         batch = self.sampler.sample_from(self.sampler.tables,
                                          jax_rng.fold_in(self.data_key, s))
         self.optimizer.zero_grad(set_to_none=True)
-        pred = self.renderer.apply(batch, jax_rng.fold_in(self.perturb_key, s),
-                                   composite_bkgd=self.composite_bkgd,
+        loss = self._loss(batch, jax_rng.fold_in(self.perturb_key, s))
+        self._set_lr()
+        self.optimizer.step()
+        self.losses.index_copy_(0, self.slot.view(1), loss.view(1))
+        self.slot += 1
+        self.step += 1
+
+    def _loss(self, batch: dict, key) -> torch.Tensor:
+        """The batch's loss (detached), its gradient in the parameters."""
+        pred = self.renderer.apply(batch, key, composite_bkgd=self.composite_bkgd,
                                    bkgd_color=self.bkgd_color, training=True)
         loss = self.loss_fn(color_true=batch["color"], alpha_true=batch["alpha"], **pred)
         loss.backward()
-        self._set_lr()
-        self.optimizer.step()
-        self.losses.index_copy_(0, self.slot.view(1), loss.detach().view(1))
-        self.slot += 1
-        self.step += 1
+        return loss.detach()
 
     def _state_tensors(self):
         """Every tensor a step updates in place."""

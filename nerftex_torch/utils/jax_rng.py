@@ -35,6 +35,8 @@ PyTorch's uint32 support is partial; every add and rotation is masked back
 to 32 bits.
 """
 
+import math
+
 import numpy as np
 import torch
 
@@ -135,26 +137,32 @@ def uniform_at(key, counters: torch.Tensor) -> torch.Tensor:
     return _unit_float(bits_at(key, counters))
 
 
-def uniform(key, shape, device="cpu", full_width: int = None) -> torch.Tensor:
+def _positions(shape, device, full_width: int = None, rows: torch.Tensor = None) -> torch.Tensor:
+    """The flat positions (int64, ``shape``) that a draw of ``shape`` takes
+    from its key: the iota over ``shape``; with ``full_width``, those of
+    the leading ``shape[-1]`` columns of a draw ``full_width`` wide; with
+    ``rows`` (int64 indices of the flattened leading dimensions), those of
+    rows ``rows`` of a larger draw.  Position (row, column) is row * width +
+    column whatever the number of rows, so a shard of a batch draws exactly
+    its rows of the whole batch's draw."""
+    if (full_width is None and rows is None) or not shape:
+        return torch.arange(math.prod(shape), dtype=torch.int64, device=device).reshape(shape)
+    width = shape[-1] if full_width is None else int(full_width)
+    if rows is None:
+        rows = torch.arange(math.prod(shape[:-1]), dtype=torch.int64, device=device)
+    counters = (rows.to(device=device, dtype=torch.int64).reshape(-1, 1) * width
+                + torch.arange(shape[-1], dtype=torch.int64, device=device)[None, :])
+    return counters.reshape(shape)
+
+
+def uniform(key, shape, device="cpu", full_width: int = None, rows=None) -> torch.Tensor:
     """``jax.random.uniform(key, shape)`` (float32) on ``device``.
 
     With ``full_width``, the leading ``shape[-1]`` columns of
     ``uniform(key, shape[:-1] + (full_width,))``, computed without drawing
-    the rest."""
+    the rest; with ``rows``, rows ``rows`` of a larger draw (_positions)."""
     shape = tuple(int(s) for s in shape)
-    if full_width is None or not shape:
-        n = 1
-        for s in shape:
-            n *= s
-        counters = torch.arange(n, dtype=torch.int64, device=device).reshape(shape)
-    else:
-        rows = 1
-        for s in shape[:-1]:
-            rows *= s
-        counters = (torch.arange(rows, dtype=torch.int64, device=device)[:, None] * int(full_width)
-                    + torch.arange(shape[-1], dtype=torch.int64, device=device)[None, :])
-        counters = counters.reshape(shape)
-    return uniform_at(key, counters)
+    return uniform_at(key, _positions(shape, device, full_width, rows))
 
 
 def randint(key, shape, minval: int, maxval: int, device="cpu") -> torch.Tensor:
@@ -186,14 +194,14 @@ def _fma32(a: torch.Tensor, b, c) -> torch.Tensor:
 
 
 def uniform_range(key, shape, minval: float, maxval: float, device="cpu",
-                  full_width: int = None) -> torch.Tensor:
+                  full_width: int = None, rows=None) -> torch.Tensor:
     """``jax.random.uniform(key, shape, float32, minval, maxval)`` as the
     JAX package computes it on the CPU: max(min, u * (max - min) + min),
     the bounds rounded to float32 first and the scale-and-shift fused.
-    ``full_width`` as in ``uniform``."""
+    ``full_width`` and ``rows`` as in ``uniform``."""
     lo = float(np.float32(minval))
     hi = float(np.float32(maxval))
-    u = uniform(key, shape, device=device, full_width=full_width)
+    u = uniform(key, shape, device=device, full_width=full_width, rows=rows)
     return torch.clamp_min(_fma32(u, float(np.float32(hi - lo)), lo), lo)
 
 
@@ -218,9 +226,9 @@ def erfinv(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() == 1, x * float("inf"), p * x)
 
 
-def normal(key, shape, device="cpu", full_width: int = None) -> torch.Tensor:
+def normal(key, shape, device="cpu", full_width: int = None, rows=None) -> torch.Tensor:
     """``jax.random.normal(key, shape)`` (float32) on ``device``;
-    ``full_width`` as in ``uniform``."""
+    ``full_width`` and ``rows`` as in ``uniform``."""
     lo = float(np.nextafter(np.float32(-1), np.float32(0)))
-    u = uniform_range(key, shape, lo, 1.0, device, full_width=full_width)
+    u = uniform_range(key, shape, lo, 1.0, device, full_width=full_width, rows=rows)
     return float(np.float32(np.sqrt(2))) * erfinv(u)

@@ -117,16 +117,17 @@ class EasyDict(dict):
 
 
 def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: ``device`` if given, else CUDA.
-    Raises when no device is given and CUDA is absent, so nothing silently
-    runs on the CPU."""
+    """The device an entry point runs on: ``device`` if given, else the
+    current CUDA device (the card a torch.distributed process is pinned
+    to, parallel.init_distributed).  Raises when no device is given and
+    CUDA is absent, so nothing silently runs on the CPU."""
     if device is not None:
         return torch.device(device)
     if not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device available; pass device='cpu' to run on the CPU"
         )
-    return torch.device("cuda")
+    return torch.device("cuda", torch.cuda.current_device())
 
 
 def format_name(prefix: str, idx: int, max_idx: int, suffix: str) -> str:

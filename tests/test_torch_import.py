@@ -59,7 +59,8 @@ def test_package_imports_with_jax_blocked():
               "nerftex_torch.utils.image", "nerftex_torch.utils.exr",
               "nerftex_torch.ops.interpolate", "nerftex_torch.render.train",
               "nerftex_torch.render.loss", "nerftex_torch.tools.synth",
-              "nerftex_torch.data.device_dataset"):
+              "nerftex_torch.data.device_dataset", "nerftex_torch.parallel",
+              "nerftex_torch.parallel.mesh"):
         assert m in modules, m
     code = (
         "import sys\n"

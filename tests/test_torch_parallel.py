@@ -1,0 +1,393 @@
+"""nerftex_torch.parallel against the JAX package's nerftex_tpu.parallel at
+tests/test_parallel.py's sizes (depth 4, width 64, n_samples 16, batch 2 x
+32) and tolerances (loss rtol 1e-5, parameters and frames atol 1e-5).
+
+The port runs as two gloo processes on the CPU
+(tests/_torch_parallel_worker.py), spawned once for each of its three
+cases, each killed at RANK_TIMEOUT_S so that a hung collective fails the
+test; JAX runs on its 8-device CPU mesh (tests/conftest.py).  The weights
+go across with render/checkpoint.load_jax_params.  The training cases draw
+(perturb and raw_noise_std on), so the shards' draws at their global rows
+are held to JAX's sharded draws:
+
+- the dp step against JAX's make_parallel_train_step and JAX's single
+  step, the two ranks' parameters bit-equal; then the single writer:
+  rank 1 writes no checkpoint, and both restore rank 0's;
+- the fused dp step against JAX's make_parallel_fused_train_step (the
+  setup of tests/test_parallel.py's fused test);
+- shard_render on the plain Renderer and on the instanced real-MLP scene
+  (compact path) against JAX's sharded and unsharded renders and the
+  port's unsharded render, and on the sorted path against the port's
+  unsharded render (JAX's sorted path compiles for minutes on the CPU);
+- in one process: Renderer.apply (n_importance) and MipRenderer.apply
+  (mip_importance) on a ray shard with its global rows equal that slice
+  of the whole batch's apply; init_distributed without arguments or
+  environment; the refusals."""
+
+import os
+import socket
+import subprocess
+import sys
+import time
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import nerftex_tpu.models.mlp as jax_mlp
+from nerftex_tpu.parallel.mesh import (make_mesh as jax_make_mesh,
+                                       make_parallel_fused_train_step as jax_fused_dp,
+                                       make_parallel_train_step as jax_dp,
+                                       shard_render as jax_shard_render)
+from nerftex_tpu.render.loss import AlphaLoss as JaxAlphaLoss
+from nerftex_tpu.render.renderer import Renderer as JaxRenderer
+from nerftex_tpu.render.train import make_optimizer as jax_make_optimizer, make_train_step
+from nerftex_tpu.utils import rng as jax_streams
+from nerftex_tpu.utils import util as jax_util
+from nerftex_torch import parallel
+from nerftex_torch.models import mlp as port_mlp
+from nerftex_torch.parallel import Mesh
+from nerftex_torch.render.checkpoint import flatten_params
+from nerftex_torch.render.renderer import MipRenderer, Renderer
+from nerftex_torch.utils import jax_rng, rng
+from nerftex_torch.utils.util import instantiate
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+WORKER = os.path.join(ROOT, "tests", "_torch_parallel_worker.py")
+RANK_TIMEOUT_S = 120
+LOSS_RTOL = 1e-5     # tests/test_parallel.py:79
+ATOL = 1e-5          # parameters (:81) and frames (:117, :184)
+CHUNKS = {"plain": 24, "compact": 64, "sorted": 32}  # 3 (uneven), 2 and 4 render chunks
+
+MODEL = {
+    "module": "network.model.ParamNerf",
+    "pos_embedding": {"module": "network.model.FourierFeatures", "n_freq_bands": 6},
+    "dir_embedding": {"module": "network.model.FourierFeatures", "n_freq_bands": 2},
+    "param_embedding": {"module": "network.model.FourierFeatures", "n_freq_bands": 2},
+    "n_parameters": [1, 6], "depth": 4, "width": 64, "skips": [2],
+}
+DRAWS = dict(n_samples=16, perturb=True, raw_noise_std=0.1)  # the worker's RENDERER
+
+
+def _jax_setup(**renderer):
+    """tests/test_parallel.py's _setup, with the draws on."""
+    jax_streams.set_seed(0)
+    jax_mlp._INIT_COUNTER[0] = 0
+    models = jax_util.instantiate(jax_util.EasyDict(MODEL))
+    r = JaxRenderer(model=models["model"], **dict(DRAWS, **renderer))
+    loss_fn = JaxAlphaLoss(loss_fn="network.loss.smape", alpha_loss_fn="network.loss.mse")
+    return models["model"], r, loss_fn, jax_make_optimizer(5e-4, 500)
+
+
+def _batch(b=2, r=32, p=7, seed=0):
+    rs = np.random.RandomState(seed)
+    return {
+        "rays_o": rs.randn(b, r, 3).astype(np.float32) * 0.1 + np.array([0, 0, 3], np.float32),
+        "rays_d": np.tile(np.array([0, 0, -1.0], np.float32), (b, r, 1)),
+        "t": np.tile(np.array([2.0, 4.0], np.float32), (b, r, 1)),
+        "parameters": rs.rand(b, p).astype(np.float32),
+        "cone_scale": np.full((b, r, 1), 0.01, np.float32),
+        "color": rs.rand(b, r, 3).astype(np.float32),
+        "alpha": rs.randint(0, 2, (b, r)).astype(np.float32),
+    }
+
+
+def _flat(params):
+    return flatten_params(jax.tree.map(np.asarray, params["model"]))
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _spawn(case, directory, inputs):
+    """Run ``case`` in two gloo ranks on ``inputs``; their outputs."""
+    np.savez(os.path.join(directory, "inputs.npz"), **inputs)
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    port = _free_port()
+    logs = [open(os.path.join(directory, f"rank{r}.log"), "w+") for r in (0, 1)]
+    procs = [subprocess.Popen([sys.executable, WORKER, case, str(r), "2", str(port),
+                               str(directory)], env=env, cwd=ROOT, stdout=logs[r],
+                              stderr=subprocess.STDOUT) for r in (0, 1)]
+    deadline = time.monotonic() + RANK_TIMEOUT_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        text = []
+        for r, log in enumerate(logs):
+            log.seek(0)
+            text.append(f"rank {r}:\n{log.read()[-3000:]}")
+            log.close()
+    assert all(p.returncode == 0 for p in procs), "\n".join(text)
+    return [dict(np.load(os.path.join(directory, f"out_{r}.npz"))) for r in (0, 1)]
+
+
+def _params_of(out):
+    return {k[len("param/"):]: v for k, v in out.items() if k.startswith("param/")}
+
+
+def _check_step(outs, want_loss, want_params):
+    for out in outs:
+        np.testing.assert_allclose(float(out["loss"]), float(want_loss), rtol=LOSS_RTOL)
+        got = _params_of(out)
+        assert set(got) == set(want_params)
+        for leaf, p in want_params.items():
+            np.testing.assert_allclose(got[leaf], p, rtol=0, atol=ATOL, err_msg=leaf)
+    assert float(outs[0]["loss"]) == float(outs[1]["loss"])
+    for leaf, p in _params_of(outs[0]).items():
+        np.testing.assert_array_equal(_params_of(outs[1])[leaf], p, err_msg=leaf)
+
+
+# -- the dp step and the single writer (one spawn) ------------------------------------
+
+
+@pytest.fixture(scope="module")
+def dp_run(tmp_path_factory):
+    model, renderer, loss_fn, optimizer = _jax_setup()
+    params = {"model": model.params}
+    weights = _flat(params)  # before the sharded step donates its buffers
+    batch = _batch()
+    key = jax.random.key(7)
+    single = make_train_step(renderer, loss_fn, optimizer, False, [1, 1, 1.0], donate=False)
+    p1, _, loss1 = single(params, optimizer.init(params),
+                          {k: jnp.asarray(v) for k, v in batch.items()}, key)
+    mesh = jax_make_mesh(8, shape=(8, 1))
+    step, place_params, place_batch = jax_dp(renderer, loss_fn, optimizer, mesh, False,
+                                             [1, 1, 1.0], batch, params)
+    placed = place_params(params)
+    p2, _, loss2 = step(placed, optimizer.init(placed), place_batch(batch), key)
+    inputs = {"key": np.int64(7), **{f"param/{k}": v for k, v in weights.items()},
+              **{f"batch/{k}": v for k, v in batch.items()}}
+    directory = tmp_path_factory.mktemp("dp")
+    outs = _spawn("dp", directory, inputs)
+    return outs, (float(loss1), _flat(p1)), (float(loss2), _flat(p2)), directory
+
+
+def test_dp_step_matches_jax_sharded_and_single(dp_run):
+    """One step on 2 x 32 rays, 16 a rank: the loss and every parameter
+    against JAX's 8-way sharded step and its single step, the ranks
+    bit-equal."""
+    outs, single, sharded, _ = dp_run
+    for want_loss, want_params in (sharded, single):
+        _check_step(outs, want_loss, want_params)
+
+
+def test_single_writer_checkpoint(dp_run):
+    """Rank 1's save writes nothing; the shared directory holds rank 0's
+    one checkpoint, which both ranks restored after a barrier and matched
+    to their own parameters (asserted in the worker)."""
+    outs, _, _, directory = dp_run
+    assert list(outs[0]["private_files"]) == ["ckpt-1.pkl"]
+    assert list(outs[1]["private_files"]) == []
+    assert list(outs[0]["shared_files"]) == list(outs[1]["shared_files"]) == ["ckpt-1.pkl"]
+    assert sorted(os.listdir(directory / "private_1")) == []
+
+
+# -- the fused dp step ------------------------------------------------------------------
+
+
+def test_fused_dp_step_matches_jax(tmp_path):
+    """One device-resident step, the tables replicated and each rank's
+    shard of the batch sampled under the step's data key, against JAX's
+    make_parallel_fused_train_step on the 8-device mesh with the same
+    step keys (the streams' keys at step 0)."""
+    from math import tan
+
+    from nerftex_tpu.data.dataset import ListSource, look_at_np
+    from nerftex_tpu.data.device_dataset import DeviceResidentSampler
+    from nerftex_tpu.data.pixel_sampler import Proxy as ProxyPixels
+    from nerftex_tpu.data.ray_sampler import Proxy as ProxyRays
+    from nerftex_tpu.ops.proxy import AABB
+
+    model, renderer, loss_fn, optimizer = _jax_setup()
+    params = {"model": model.params}
+    weights = _flat(params)  # before the sharded step donates its buffers
+    rs = np.random.RandomState(5)
+    size, angle = 16, 0.63
+    focal = size / tan(angle / 2) / 2
+    records = []
+    for _ in range(4):
+        direction = rs.randn(3)
+        direction[2] = abs(direction[2]) + 0.3
+        records.append({"image": rs.rand(size, size, 3).astype(np.float32),
+                        "alpha": rs.rand(size, size).astype(np.float32),
+                        "pose": look_at_np(direction / np.linalg.norm(direction) * 5.0),
+                        "parameters": rs.rand(7).astype(np.float32)})
+    proxy = AABB([-1.5, -1.3, -0.2], [1.3, 1.3, 1.9])
+    sampler = DeviceResidentSampler(
+        ListSource(records),
+        ProxyPixels(height=size, width=size, n_samples=32, proxy=proxy, focal=focal,
+                    downsample_factor=2),
+        ProxyRays(height=size, width=size, focal=focal, proxy=proxy),
+        batchsize=2, height=size, width=size, focal=focal, composite_bkgd=False,
+        bkgd_color=[1, 1, 1.0])
+    mesh = jax_make_mesh(8, shape=(8, 1))
+    step, place_params, place_tables = jax_fused_dp(renderer, loss_fn, optimizer, sampler, mesh,
+                                                    False, [1, 1, 1.0], params)
+    placed = place_params(params)
+    data_key = jax.random.fold_in(jax_streams.stream_key(jax_streams.STREAM_DATA), 0)
+    key = jax.random.fold_in(jax_streams.stream_key(jax_streams.STREAM_PERTURB), 0)
+    p2, _, loss2 = step(placed, optimizer.init(placed), place_tables(), data_key, key)
+
+    inputs = {"size": np.int64(size), "focal": np.float64(focal),
+              **{f"param/{k}": v for k, v in weights.items()},
+              **{name: np.stack([np.asarray(r[name], np.float32) for r in records])
+                 for name in ("image", "alpha", "pose", "parameters")}}
+    outs = _spawn("fused", tmp_path, inputs)
+    _check_step(outs, float(loss2), _flat(p2))
+
+
+# -- shard_render (one spawn, three renderers) ------------------------------------------
+
+
+def _instanced_jax(model, **kw):
+    from nerftex_tpu.instancing.instancer import Instancer
+    from nerftex_tpu.render.instance_renderer import InstanceRenderer
+
+    shift = np.eye(4, dtype=np.float32)
+    shift[0, 3] = 0.6
+    inst = Instancer(b_0=[-0.5, -0.5, -0.5], b_1=[0.5, 0.5, 0.5],
+                     transformations=[np.eye(4, dtype=np.float32), shift], ray_block=16,
+                     max_hits=4)
+    return InstanceRenderer(instancer_config=inst, model=model, n_samples=32, step_size=0.05,
+                            **kw)
+
+
+def _instanced_rays(n=128):
+    """tests/test_parallel.py's real-MLP scene's rays."""
+    rs = np.random.RandomState(1)
+    return dict(
+        rays_o=np.concatenate([rs.uniform(-0.3, 0.8, (1, n, 2)), np.full((1, n, 1), 5.0)],
+                              -1).astype(np.float32),
+        rays_d=np.tile([0, 0, -1.0], (1, n, 1)).astype(np.float32),
+        t=np.tile([3.0, 7.0], (1, n, 1)).astype(np.float32),
+        parameters=rs.rand(1, 7).astype(np.float32),
+        cone_scale=np.full((1, n, 1), 0.01, np.float32),
+    )
+
+
+@pytest.fixture(scope="module")
+def render_run(tmp_path_factory):
+    model, plain, _, _ = _jax_setup(render_chunk=CHUNKS["plain"])
+    mesh = jax_make_mesh(8, shape=(8, 1))
+    plain_data = {k: v for k, v in _batch().items() if k not in ("color", "alpha")}
+    inst_data = _instanced_rays()
+    compact = _instanced_jax(model, render_chunk=CHUNKS["compact"], sample_budget_per_ray=16)
+    want = {}
+    for name, renderer, data in (("plain", plain, plain_data), ("compact", compact, inst_data)):
+        key = jax.random.key(0)
+        ref = renderer(**data, training=False, key=key)
+        sharded = jax_shard_render(renderer, mesh)(**data, training=False, key=key)
+        want[name] = {side: {k: np.asarray(v) for k, v in out.items() if not k.startswith("_")}
+                      for side, out in (("jax", ref), ("jax_sharded", sharded))}
+    assert want["compact"]["jax"]["alpha_pred"].max() > 0, "the scene must be hit"
+    inputs = {**{f"param/{k}": v for k, v in _flat({"model": model.params}).items()},
+              **{f"plain/{k}": v for k, v in plain_data.items()},
+              **{f"instanced/{k}": v for k, v in inst_data.items()},
+              **{f"{name}_chunk": np.int64(c) for name, c in CHUNKS.items()}}
+    return _spawn("render", tmp_path_factory.mktemp("render"), inputs), want
+
+
+@pytest.mark.parametrize("name", ["plain", "compact", "sorted"])
+def test_shard_render_matches_the_unsharded_render(render_run, name):
+    """Every rank's gathered frame equals the port's unsharded render of
+    the same rays and key and, on the plain and compact renderers, JAX's
+    unsharded and sharded renders; the drop counts are the unsharded
+    render's."""
+    outs, want = render_run
+    for out in outs:
+        got = {k.split("/")[-1]: v for k, v in out.items() if k.startswith(f"{name}/sharded/")}
+        whole = {k.split("/")[-1]: v for k, v in out.items() if k.startswith(f"{name}/whole/")}
+        assert set(got) == set(whole) and {"color_pred", "alpha_pred"} <= set(got)
+        for k, v in got.items():
+            np.testing.assert_allclose(v, whole[k], rtol=0, atol=ATOL, err_msg=k)
+        for side in want.get(name, {}).values():
+            for k, v in side.items():
+                np.testing.assert_allclose(got[k], v, rtol=0, atol=ATOL, err_msg=k)
+        (whole_drops, sharded_drops) = out[f"{name}/drops"]
+        np.testing.assert_array_equal(sharded_drops, whole_drops)
+
+
+# -- one process ------------------------------------------------------------------------
+
+
+def _port_model(cfg):
+    rng.set_seed(0)
+    port_mlp._INIT_COUNTER[0] = 0
+    return instantiate(cfg, device="cpu")
+
+
+def _mip_renderer():
+    cfg = dict(MODEL, pos_embedding={"module": "network.model.IntegratedPositionalEncoding",
+                                     "n_freq_bands": 4}, n_pos=6, n_parameters=[1, 5])
+    return MipRenderer(model=_port_model(cfg), blur_idx=0, n_samples=8, n_importance=8,
+                       mip_importance=True, perturb=True, raw_noise_std=0.1, device="cpu")
+
+
+@pytest.mark.parametrize("kind", ["renderer_importance", "mip_importance"])
+def test_apply_on_a_shard_with_global_rows_is_that_slice_of_the_batch(kind):
+    """Rank 1 of 2 renders rays 4-7 of each of two images with their global
+    rows: every output equals those rays of the whole [2, 8] batch's
+    apply, under the same key, with training draws (jitter, density noise
+    and importance samples)."""
+    if kind == "renderer_importance":
+        renderer = Renderer(model=_port_model(MODEL), n_importance=8, device="cpu",
+                            **dict(DRAWS, n_samples=8))
+    else:
+        renderer = _mip_renderer()
+    data = {k: torch.tensor(v) for k, v in _batch(b=2, r=8).items()}
+    data["cone_scale"] = data["cone_scale"] * 10
+    key = jax_rng.key(3)
+    mesh = Mesh(1, 2, "cpu")
+    local = {k: v if k == "parameters" else mesh.shard(v, 1) for k, v in data.items()}
+    with torch.no_grad():
+        whole = renderer.apply(data, key)
+        shard = renderer.apply(local, key, rows=mesh.global_rows(2, 4))
+    assert "color_pred_coarse" in whole
+    for k, v in whole.items():
+        np.testing.assert_allclose(shard[k].numpy(), v[:, 4:8].numpy(), rtol=0, atol=1e-6,
+                                   err_msg=k)
+
+
+def test_init_distributed_without_arguments_or_environment(monkeypatch):
+    for name in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE", "LOCAL_RANK"):
+        monkeypatch.delenv(name, raising=False)
+    assert parallel.init_distributed() is False
+    assert not torch.distributed.is_initialized()
+    with pytest.raises(RuntimeError, match="init_distributed"):
+        parallel.make_mesh()
+
+
+def test_refusals():
+    """Uneven shards, fewer render chunks than processes, and the
+    tensor-parallel shard_model raise before any collective."""
+    mesh = Mesh(0, 2, "cpu")
+    renderer = Renderer(model=_port_model(MODEL), render_chunk=32, device="cpu", **DRAWS)
+    loss_fn = object()
+    with pytest.raises(ValueError, match="evenly"):
+        parallel.make_parallel_train_step(renderer, loss_fn, None, mesh, False, [1, 1, 1.0],
+                                          _batch(r=33), {"model": renderer.model})
+    _, _, place_batch = parallel.make_parallel_train_step(
+        renderer, loss_fn, None, mesh, False, [1, 1, 1.0], _batch(), {"model": renderer.model})
+    with pytest.raises(ValueError, match="evenly"):
+        place_batch(_batch(r=31))
+    data = {k: v for k, v in _batch(b=1, r=32).items() if k not in ("color", "alpha")}
+    with pytest.raises(ValueError, match="render chunks"):
+        parallel.shard_render(renderer, mesh)(**data, key=jax_rng.key(0))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        parallel.make_parallel_train_step(renderer, loss_fn, None, mesh, False, [1, 1, 1.0],
+                                          _batch(), {"model": renderer.model}, shard_model=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        parallel.make_parallel_fused_train_step(renderer, loss_fn, None, None, mesh, False,
+                                                [1, 1, 1.0], {"model": renderer.model},
+                                                shard_model=True)

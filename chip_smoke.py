@@ -180,7 +180,23 @@ Phases (any failure raises and exits non-zero):
      losses and parameters bit-equal to a single-process FusedStep's,
      steps/s of both interleaved P C C P; and the carpet frame through
      shard_render on the device all-gather, within
-     PARALLEL_FRAME_MAX_DIFF of the unsharded frame.
+     PARALLEL_FRAME_MAX_DIFF of the unsharded frame;
+  16. tensor parallelism and the offline tools: (a) two gloo ranks on
+     cuda:0 as the (1, 2) mesh (TP_SHAPE) take the training phase's
+     full-width carpet step through make_parallel_train_step with
+     shard_model (each rank holding its blocks of the trunk), the loss and
+     the gathered step-0 gradient against JAX's at the training phase's
+     limits, the gathered parameters after three steps within
+     TP_PARAM_TOL of the single-process port step's, steps/s of both
+     interleaved P C C P, and a validation frame of the gathered model
+     through the kernel (its carpet_tp row); (b) the grass_filtered model
+     refused at tp 2 with ValueError, the carpet model placed at tp 2 and
+     4; (c) make_synthetic_tfrecord(backend="torch") writes the
+     full-scale carpet dataset's first shard (100 views at 512^2) with the
+     march on the card, render and PNG-encode times a view, its first
+     SYNTH_CHECK_VIEWS views within SYNTH_MAX_U8 levels of the numpy
+     integrator (worker processes); (d) gen_assets writes meshes/* byte
+     for byte, the 10,000 scale anchors included (a worker process).
 The first render of each frame runs with its selk_resolve calls captured
 (selk_capture); the frame's launch histogram (launches by Rb, S, K and
 method, with the window and valid slots of their inputs) is printed on a
@@ -193,8 +209,9 @@ launches those of nerftex_torch.main's five frames, carpet_train's and
 grass_filtered_train's and grass_mip_train's those of their runs of
 nerftex_torch.main, all in the validation renders, grass_mip's those of
 nerftex_torch.main's five mip frames, carpet_sharded's those of both gloo
-ranks' shard_render, and the kernels a path did not launch) and the
-device JSON.
+ranks' shard_render, carpet_tp's those of the tensor-parallel model's
+validation frame, and the kernels a path did not launch) and the device
+JSON.
 """
 
 import contextlib
@@ -343,6 +360,18 @@ PARALLEL_TIMEOUT_S = 300              # each spawned job of phase 15
 PARALLEL_FRAME_MAX_DIFF = 1e-6        # the gathered carpet frame vs the unsharded render
 PARALLEL_FUSED_STEPS = 20             # replays of the captured data-parallel step
 PARALLEL_RATE_STEPS = 100             # steps a side in the P C C P timing
+# Phase 16: tensor parallelism and the offline tools.
+TP_SHAPE = (1, 2)                     # (dp, tp): two gloo ranks on the card
+TP_PARAM_TOL = 1e-4                   # vs the single-process step after three steps
+# A frame of the trained model: config_carpet_train's second validation
+# parameters, seen from tests/test_toolchain.py's synth pose.
+TP_VALIDATION = dict(size=64, eye=(2.0, -2.5, 2.2), angle=0.63,
+                     parameters=[1, 1, 1, 0.1, 0, -0.707, 0.707])
+SYNTH_SHARD = dict(n_images=100, size=512, n_parameters=(1, 6), seed=0, imgs_per_shard=100)
+SYNTH_CHECK_VIEWS = 4                 # held to the numpy integrator
+SYNTH_MAX_U8 = 2                      # tests/test_toolchain.py:262
+SYNTH_MAX_SHARE = 0.2                 # :263
+SCALE_ANCHORS = 10000                 # meshes/cloth10k_anchor_points.ply
 H100_BYTES_PER_S = 3.35e12            # HBM3, SXM data sheet
 H100_BF16_FLOPS = 989e12              # dense tensor-core bf16
 H100_F32_FLOPS = 67e12                # f32 outside the tensor cores
@@ -3234,11 +3263,12 @@ def parallel_fused(mesh, tfr, card):
 
 
 def parallel_worker(job, rank, world, port, work, tfr=None):
-    """One rank of phase 15's jobs (spawn_parallel): "gloo", two ranks on
-    cuda:0 ((a) parallel_dp_step, then (b) parallel_carpet with rank 0's
-    kernel rows), or "nccl", a world of one ((c) parallel_fused on ``tfr``,
-    then parallel_carpet on the device all-gather).  Writes
-    <work>/<job>_<rank>.json."""
+    """One rank of phase 15's and 16's jobs (spawn_parallel): "gloo", two
+    ranks on cuda:0 ((a) parallel_dp_step, then (b) parallel_carpet with
+    rank 0's kernel rows), "nccl", a world of one ((c) parallel_fused on
+    ``tfr``, then parallel_carpet on the device all-gather), or "tp", gloo
+    ranks on cuda:0 on the TP_SHAPE mesh (phase 16 (a)
+    parallel_tp_step).  Writes <work>/<job>_<rank>.json."""
     sys.path.insert(0, ROOT)
     os.chdir(ROOT)
     import torch.distributed as dist
@@ -3251,12 +3281,16 @@ def parallel_worker(job, rank, world, port, work, tfr=None):
     rank, world = int(rank), int(world)
     build.build()
     card = card_line()
-    init_distributed(f"localhost:{port}", world, rank, backend=job, device="cuda:0")
+    init_distributed(f"localhost:{port}", world, rank, backend="nccl" if job == "nccl" else "gloo",
+                     device="cuda:0")
     try:
-        mesh = make_mesh()
-        log(f"rank {rank} of {world}, backend {mesh.backend}, device {mesh.device}")
+        mesh = make_mesh(shape=TP_SHAPE if job == "tp" else None)
+        log(f"rank {rank} of {world}, backend {mesh.backend}, device {mesh.device}, mesh "
+            f"{mesh.shape}")
         counts = kernel_counts()
-        if job == "gloo":
+        if job == "tp":
+            result = parallel_tp_step(mesh, counts, card)
+        elif job == "gloo":
             result = {"dp_step": parallel_dp_step(mesh, card),
                       "carpet": parallel_carpet(mesh, counts, card, rows=rank == 0)}
         else:
@@ -3284,6 +3318,392 @@ def main_parallel(card, tfr):
                "fused_nccl": nccl[0]["fused"], "carpet_sharded_nccl": nccl[0]["carpet"]}
     log(f"phase parallel on {card}: {json.dumps(numbers)}")
     return numbers, rows, carpet["launches"]
+
+
+def tp_grads(model, mesh):
+    """{"trunk/0/w": gradient, ...} of a tensor-parallel model's whole
+    parameters (the JAX layout), its blocks' gradients gathered over the
+    model row."""
+    shardings = model.sharded_trunk.shardings
+    grads = {}
+    for pname, p in model.named_parameters():
+        g = p.grad
+        if pname in shardings:
+            g = mesh.model_all_gather(g, shardings[pname].spec.index("model"))
+        layer, _, kind = pname.rpartition(".")
+        leaf = layer.replace(".", "/") + ("/w" if kind == "weight" else "/b")
+        grads[leaf] = (g.T if kind == "weight" else g).cpu().numpy()
+    return grads
+
+
+def parallel_tp_step(mesh, counts, card):
+    """Phase 16 (a): config_carpet_train's model (the JAX init), renderer,
+    loss and Adam at full width through make_parallel_train_step with
+    shard_model on the (1, 2) mesh: each rank holds its blocks of the 8 x
+    256 trunk (the skip layer's [328, 256] weight split 164 input rows a
+    rank) and renders every ray of tests/torch_train_inputs.npz's three
+    batches under fold_in(stream_key(STREAM_PERTURB), s).  On rank 0 the
+    single-process port step from the same init takes the same steps
+    (after one untimed step of a throwaway model); the order is P C C P (P: three single steps, C: three tensor-parallel
+    steps), each step timed to its loss on the host.  Gates: the loss
+    and the gathered step-0 gradient against JAX's at the training phase's
+    limits, the losses the same on both ranks, the gathered parameters
+    after three steps within TP_PARAM_TOL of the single step's (a leaf
+    beyond it passes only where each element beyond is an Adam sign flip
+    on a near-zero gradient: at most 2 x lrate a step, its step-0
+    gradient under 1e-3 of the leaf's max |g|); then, inside gathered,
+    rank 0 renders a TP_VALIDATION frame of the trained model through
+    ParamNerf.infer with the kernel counts reset just before and read just
+    after (mlp_fused only, every launch wgmma_tf32x3), within
+    TRAIN_PLAIN_MAX_DIFF of the plain MLP's render, the kernel against its
+    plain version at the frame's first net_chunk (the carpet_tp row)."""
+    import importlib
+
+    import torch.distributed as dist
+
+    from nerftex_torch.kernels import mlp_fused as fused
+    from nerftex_torch.ops.rays import frame_rays
+    from nerftex_torch.parallel import gathered, make_parallel_train_step
+    from nerftex_torch.render.checkpoint import (as_jax_tree, export_jax_params, flatten_params,
+                                                 load_jax_params)
+    from nerftex_torch.render.train import make_optimizer, make_train_step
+    from nerftex_torch.utils import jax_rng, rng
+    from nerftex_torch.utils.util import instantiate
+
+    reset_counts, read_counts, check_counts = counts
+    config = importlib.import_module("configs.config_carpet_train").config
+    inputs = np.load(os.path.join(ROOT, "tests", "torch_train_inputs.npz"))
+    want = [float(v) for v in inputs["loss"]]
+    n = len(want)
+    batches = [{k[len(f"batch{s}/"):]: inputs[k] for k in inputs.files
+                if k.startswith(f"batch{s}/")} for s in range(n)]
+    base = rng.stream_key(rng.STREAM_PERTURB)
+
+    def build():
+        rng.set_seed(config["seed"])
+        model = instantiate(dict(config["model_config"], n_parameters=[1, 6]), device=mesh.device)
+        load_jax_params(model, npz_params("torch_train_inputs.npz"))
+        renderer = instantiate(dict(config["renderer_config"], model=model, device=mesh.device))
+        optimizer = make_optimizer(model.parameters(), config["lrate"], config["lrate_decay"])
+        return model, renderer, instantiate(config["loss_config"]), optimizer
+
+    def timed_steps(step, place, first, after_step0=None):
+        """Steps first .. first + n - 1 over the batches (``place``d);
+        (losses, seconds in the steps), ``after_step0()`` run outside the
+        timing after step 0."""
+        losses, seconds = [], 0.0
+        for s in range(first, first + n):
+            batch = place(batches[s % n])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(step(batch, jax_rng.fold_in(base, s))))
+            seconds += time.perf_counter() - t0
+            if s == 0 and after_step0 is not None:
+                after_step0()
+        return losses, seconds
+
+    def on_card(batch):
+        return {k: torch.tensor(v, device=mesh.device) for k, v in batch.items()}
+
+    rates = {"single": [], "tp": []}
+    if mesh.rank == 0:  # P, after one untimed step of a throwaway model (CUDA and cuBLAS set-up)
+        warm_model, warm_renderer, warm_loss, warm_opt = build()
+        make_train_step(warm_renderer, warm_loss, warm_opt, False, [1, 1, 1.0])(
+            on_card(batches[0]), jax_rng.fold_in(base, 0))
+        del warm_model, warm_renderer, warm_loss, warm_opt
+        s_model, s_renderer, s_loss, s_opt = build()
+        single = make_train_step(s_renderer, s_loss, s_opt, False, [1, 1, 1.0])
+        grads0 = {}
+        single_losses, secs = timed_steps(single, on_card, 0, lambda: grads0.update(
+            flatten_params(as_jax_tree(s_model, lambda p: p.grad.cpu().numpy()))))
+        rates["single"].append(n / secs)
+        single_after = flatten_params(export_jax_params(s_model))
+    dist.barrier()
+
+    model, renderer, loss_fn, optimizer = build()  # C
+    params = {"model": model}
+    step, place_params, place_batch = make_parallel_train_step(
+        renderer, loss_fn, optimizer, mesh, False, [1, 1, 1.0], batches[0], params,
+        shard_model=True)
+    place_params(params)
+    blocks = {k: list(p.shape) for k, p in model.named_parameters()
+              if k in model.sharded_trunk.shardings}
+    grad_err = {}
+
+    def gradient_errors():
+        for leaf, g in tp_grads(model, mesh).items():
+            for name in ("grad", "grad64"):
+                ref = inputs[f"{name}/{leaf}"]
+                grad_err[(name, leaf)] = float(np.abs(g - ref).max() / np.abs(ref).max())
+
+    losses, secs = timed_steps(step, place_batch, 0, gradient_errors)
+    rates["tp"].append(n / secs)
+    with gathered(params, mesh):
+        tp_after = flatten_params(export_jax_params(model))
+    same_on_every_rank(losses, "the tensor-parallel losses")
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, want)]
+    worst = max(grad_err, key=grad_err.get)
+    log(f"tp step, mesh {mesh.shape} of gloo ranks on {mesh.device}, blocks {blocks}: losses "
+        f"{losses} vs JAX {want}, relative {rel} (limits {TRAIN_STEP_LOSS_RTOL}, then "
+        f"{TRAIN_LATER_LOSS_RTOL}); gathered step-0 gradient worst {worst} "
+        f"{grad_err[worst]:.3g} of its max |g| (limit {TRAIN_GRAD_TOL})")
+    if not rel[0] <= TRAIN_STEP_LOSS_RTOL:
+        raise AssertionError(f"the tp step's loss differs from JAX's by {rel[0]} relative")
+    if not max(rel[1:]) <= TRAIN_LATER_LOSS_RTOL:
+        raise AssertionError(f"the tp losses after Adam updates differ from JAX's by {rel[1:]}")
+    if not grad_err[worst] <= TRAIN_GRAD_TOL:
+        raise AssertionError(f"the gathered gradient of {worst} differs by {grad_err[worst]}")
+    _, secs = timed_steps(step, place_batch, n)  # C
+    rates["tp"].append(n / secs)
+    numbers = {"mesh": list(mesh.shape), "blocks": blocks, "losses": losses, "jax_losses": want,
+               "loss_rel": rel, "grad_rel_worst": grad_err[worst],
+               "grad_rel_worst_leaf": list(worst)}
+    if mesh.rank == 0:
+        diffs = {leaf: float(np.abs(tp_after[leaf] - v).max()) for leaf, v in
+                 single_after.items()}
+        flips = {}
+        for leaf, d in diffs.items():
+            if d <= TP_PARAM_TOL:
+                continue
+            beyond = np.abs(tp_after[leaf] - single_after[leaf]) > TP_PARAM_TOL
+            g = np.abs(grads0[leaf])
+            explained = (np.abs(tp_after[leaf] - single_after[leaf])[beyond]
+                         <= 2 * config["lrate"] * n) & (g[beyond] < 1e-3 * g.max())
+            if not explained.all():
+                raise AssertionError(f"the tp parameters of {leaf} after {n} steps differ from "
+                                     f"the single-process step's by {d} (limit {TP_PARAM_TOL}), "
+                                     f"not only at Adam sign flips of near-zero gradients")
+            flips[leaf] = int(beyond.sum())
+        worst_leaf = max(diffs, key=diffs.get)
+        log(f"tp step vs the single-process port step after {n} steps from the same init: "
+            f"single losses {single_losses} (tp {losses}); parameters worst {worst_leaf} "
+            f"{diffs[worst_leaf]:.3g} (limit {TP_PARAM_TOL}), sign flips beyond it {flips}")
+        _, secs = timed_steps(single, on_card, n)  # P
+        rates["single"].append(n / secs)
+        numbers.update(single_losses=single_losses, param_max_abs_diff=diffs[worst_leaf],
+                       param_max_abs_diff_leaf=worst_leaf, sign_flips=flips)
+    log(f"tp steps/s P C C P on {card}: single {rates['single']}, tp {rates['tp']}")
+    numbers["steps_per_s"] = rates
+    dist.barrier()
+
+    v = TP_VALIDATION
+    data = frame_rays(v["size"], v["size"], np.asarray(v["eye"]), v["angle"], v["parameters"],
+                      config["train_dataset_config"]["proxy_config"]["b_0"],
+                      config["train_dataset_config"]["proxy_config"]["b_1"])
+    with gathered(params, mesh):
+        if mesh.rank == 0:
+            reset_counts()
+            with mlp_capture() as mlp_calls:
+                out = renderer(**data, training=False, key=jax_rng.key(0))
+            torch.cuda.synchronize()
+            launches, variants = read_counts()
+            check_counts("carpet_tp validation", launches, variants,
+                         idle=("tex_fetch", "selk_resolve"), want=F32_FRAME_VARIANTS)
+            with mlp_wrap(lambda real, *args: real.mlp_fused_plain(*args)):
+                plain = renderer(**data, training=False, key=jax_rng.key(0))
+            plain_diff = max(float((out[k] - plain[k]).abs().max())
+                             for k in ("color_pred", "alpha_pred"))
+            ref = s_renderer(**data, training=False, key=jax_rng.key(0))
+            single_diff = max(float((out[k] - ref[k]).abs().max())
+                              for k in ("color_pred", "alpha_pred"))
+            log(f"tp validation frame ({v['size']}^2, the gathered model after {2 * n} steps): "
+                f"launches {launches}, max |kernel - plain MLP| {plain_diff:.3g} (limit "
+                f"{TRAIN_PLAIN_MAX_DIFF}), vs the single-process model after the same steps "
+                f"{single_diff:.3g}; alpha mean {float(out['alpha_pred'].mean()):.4f}")
+            if not plain_diff <= TRAIN_PLAIN_MAX_DIFF:
+                raise AssertionError(f"the tp validation frame through the kernel differs from "
+                                     f"the plain MLP's by {plain_diff}")
+            pos_map, dir_map, packed = mlp_calls[0]
+            numbers["row"] = mlp_kernel_row(fused, packed, [mlp_row(
+                fused, packed, pos_map, dir_map, "float32",
+                "the carpet_tp validation frame's first net_chunk")])
+            numbers.update(launches=launches, validation_plain_max_abs_diff=plain_diff,
+                           validation_vs_single_max_abs_diff=single_diff)
+    dist.barrier()
+    return numbers
+
+
+def tp_refusal(card):
+    """Phase 16 (b): make_parallel_train_step with shard_model on a mesh
+    with tp 2 refuses config_grass_filtered_train's full-width model on
+    the card before any collective (its row-parallel skip layer is [337,
+    256]), as the JAX package refuses to place it; config_carpet_train's
+    model places at tp 2 and 4."""
+    import importlib
+
+    from nerftex_torch.parallel import Mesh, make_parallel_train_step, model_shardings
+    from nerftex_torch.utils import rng
+    from nerftex_torch.utils.util import instantiate
+
+    models = {}
+    for name, n_parameters in (("config_grass_filtered_train", [2, 3]),
+                               ("config_carpet_train", [1, 6])):
+        config = importlib.import_module(f"configs.{name}").config
+        rng.set_seed(config["seed"])
+        models[name] = instantiate(dict(config["model_config"], n_parameters=n_parameters),
+                                   device="cuda")
+    try:
+        make_parallel_train_step(None, None, None, Mesh(0, 2, "cuda", tp=2), False,
+                                 [1, 1, 1.0], {}, {"model": models["config_grass_filtered_train"]},
+                                 shard_model=True)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("the grass_filtered model was not refused at tp 2")
+    if "trunk layer 5" not in refused or "337" not in refused:
+        raise AssertionError(f"the refusal names another leaf: {refused}")
+    placed = {}
+    for tp in (2, 4):
+        specs = model_shardings({"model": models["config_carpet_train"]},
+                                Mesh(0, tp, "cuda", tp=tp))["model"]
+        placed[tp] = sum(1 for s in specs.values() if s.spec)
+    log(f"tp refusal on {card}: grass_filtered at tp 2 raised ValueError: {refused}; carpet "
+        f"places {placed[2]} and {placed[4]} sharded leaves at tp 2 and 4")
+    return {"grass_filtered_tp2": refused, "carpet_sharded_leaves": placed}
+
+
+def _numpy_swatch(view):
+    """The numpy integrator's u8 image (as encode_png quantises it) of
+    view ``view`` of phase 16's synthetic shard.  Runs in a worker
+    process."""
+    from nerftex_torch.tools import synth
+
+    pose, params = synth.swatch_views(view + 1, SYNTH_SHARD["n_parameters"],
+                                      seed=SYNTH_SHARD["seed"])[view]
+    rgba = synth.render_swatch(pose, params, SYNTH_SHARD["n_parameters"][0], SYNTH_SHARD["size"],
+                               0.63, np.asarray((-1.5, -1.3, -0.2)), np.asarray((1.3, 1.3, 1.9)))
+    return np.clip(rgba * 255.0 + 0.5, 0, 255).astype(np.uint8)
+
+
+def _gen_assets(out):
+    """nerftex_torch.tools.gen_assets (seed 0, and SCALE_ANCHORS scale
+    anchors) into ``out``: {file: equal to meshes/<file>}.  Runs in a
+    worker process."""
+    from nerftex_torch.tools import gen_assets
+
+    gen_assets.generate(out, seed=0)
+    gen_assets.generate_scale_anchors(out, SCALE_ANCHORS, 0)
+    equal = {}
+    for name in sorted(os.listdir(out)):
+        with open(os.path.join(out, name), "rb") as f, \
+                open(os.path.join(ROOT, "meshes", name), "rb") as g:
+            equal[name] = f.read() == g.read()
+    return equal
+
+
+def synth_shard(work, card):
+    """Phase 16 (c): make_synthetic_tfrecord(backend="torch") writes the
+    full-scale carpet dataset's first shard (SYNTH_SHARD: 100 views at
+    512^2, n_parameters (1, 6), seed 0) with the march on the card; each
+    view's render call (the host's rays, swatch_rays, timed on their own;
+    the march; the u8 image back) and its PNG encode on the host are timed
+    apart.  Returns (numbers, the shard's path)."""
+    from nerftex_torch.data import tfrecord
+    from nerftex_torch.tools import synth
+
+    times = {"render": [], "rays": [], "encode": []}
+    real_make, real_encode, real_rays = (synth.make_swatch_renderer, synth._encode_png_u8,
+                                         synth.swatch_rays)
+
+    def rays(*args):
+        t0 = time.perf_counter()
+        out = real_rays(*args)
+        times["rays"].append(time.perf_counter() - t0)
+        return out
+
+    def make(*args, **kwargs):
+        render = real_make(*args, **kwargs)
+
+        def timed(pose, params):
+            t0 = time.perf_counter()
+            out = render(pose, params)  # ends in the u8 image's copy to the host
+            times["render"].append(time.perf_counter() - t0)
+            return out
+
+        return timed
+
+    def encode(arr):
+        t0 = time.perf_counter()
+        out = real_encode(arr)
+        times["encode"].append(time.perf_counter() - t0)
+        return out
+
+    synth.make_swatch_renderer, synth._encode_png_u8, synth.swatch_rays = make, encode, rays
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        path = synth.make_synthetic_tfrecord(os.path.join(work, "carpet_full.tfr"),
+                                             backend="torch", **SYNTH_SHARD)
+    finally:
+        synth.make_swatch_renderer, synth._encode_png_u8, synth.swatch_rays = (
+            real_make, real_encode, real_rays)
+    total_s = time.perf_counter() - t0
+    shard = os.path.join(work, "carpet_full-00000-of-00001.tfr")
+    records = list(tfrecord.read_records(shard))
+    if len(records) != SYNTH_SHARD["n_images"] or len(times["render"]) != len(records):
+        raise AssertionError(f"the shard holds {len(records)} records, {len(times['render'])} "
+                             f"renders")
+    numbers = {"views": len(records), "size": SYNTH_SHARD["size"], "total_s": total_s,
+               "render_ms_per_view": 1e3 * float(np.mean(times["render"][1:])),
+               "host_rays_ms_per_view": 1e3 * float(np.mean(times["rays"][1:])),
+               "first_render_ms": 1e3 * times["render"][0],
+               "encode_ms_per_view": 1e3 * float(np.mean(times["encode"])),
+               "shard_bytes": os.path.getsize(shard),
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    log(f"device synth shard on {card}: {len(records)} views at {SYNTH_SHARD['size']}^2 in "
+        f"{total_s:.2f} s; render {numbers['render_ms_per_view']:.2f} ms a view (of which the "
+        f"host's rays {numbers['host_rays_ms_per_view']:.2f} ms; the first view "
+        f"{numbers['first_render_ms']:.1f} ms), PNG encode on the host "
+        f"{numbers['encode_ms_per_view']:.2f} ms a view, {numbers['shard_bytes']} bytes, peak "
+        f"device memory {numbers['peak_gib']:.2f} GiB")
+    return numbers, shard
+
+
+def main_tensor_parallel(card):
+    """Phase 16 (module docstring): gen_assets starts in a worker process
+    (one core, its arrays in cache), then the tensor-parallel step in two
+    gloo ranks, the refusal, the device synth shard, and the numpy
+    integrator on the shard's first views in worker processes.  Returns
+    (numbers, the carpet_tp kernel rows, their launches)."""
+    import concurrent.futures
+    import multiprocessing
+    import tempfile
+
+    from nerftex_torch.data import tfrecord
+    from nerftex_torch.utils.image import decode_png_u8
+
+    torch.cuda.empty_cache()
+    spawn = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix="_tp_") as work, \
+            concurrent.futures.ProcessPoolExecutor(1, mp_context=spawn) as assets_pool:
+        assets = assets_pool.submit(_gen_assets, os.path.join(work, "meshes"))
+        tp = spawn_parallel("tp", TP_SHAPE[0] * TP_SHAPE[1], work)
+        numbers = {"tp_step": tp[0], "refusal": tp_refusal(card)}
+        numbers["synth"], shard = synth_shard(work, card)
+        t0 = time.perf_counter()
+        with concurrent.futures.ProcessPoolExecutor(SYNTH_CHECK_VIEWS, mp_context=spawn) as pool:
+            want = list(pool.map(_numpy_swatch, range(SYNTH_CHECK_VIEWS)))
+        assets = assets.result()
+        workers_s = time.perf_counter() - t0
+        images = [tfrecord.parse_example(r)["image"] for _, r in
+                  zip(range(SYNTH_CHECK_VIEWS), tfrecord.read_records(shard))]
+    diffs = []
+    for i, (png, ref) in enumerate(zip(images, want)):
+        d = np.abs(decode_png_u8(png).astype(np.int32) - ref.astype(np.int32))
+        diffs.append({"max_u8": int(d.max()), "share": float((d > 0).mean())})
+    log(f"device synth vs the numpy integrator on the first {SYNTH_CHECK_VIEWS} views: {diffs} "
+        f"(limits {SYNTH_MAX_U8} levels, share {SYNTH_MAX_SHARE}); gen_assets vs meshes/: "
+        f"{assets}; the numpy integrator's workers {workers_s:.1f} s")
+    if any(d["max_u8"] > SYNTH_MAX_U8 or d["share"] >= SYNTH_MAX_SHARE for d in diffs):
+        raise AssertionError(f"the device synth images leave the numpy integrator's: {diffs}")
+    if len(assets) != 8 or not all(assets.values()):
+        raise AssertionError(f"gen_assets differs from the committed meshes: {assets}")
+    numbers["synth"]["vs_numpy"] = diffs
+    numbers["gen_assets"] = assets
+    rows = {"mlp_fused": tp[0].pop("row")}
+    launches = tp[0].pop("launches")
+    log(f"phase tensor parallel and tools on {card}: {json.dumps(numbers)}")
+    return numbers, rows, launches
 
 
 def kernel_counts():
@@ -3650,6 +4070,12 @@ def main():
     keep.cleanup()
     log(f"phase parallel: {time.perf_counter() - t_phase:.1f} s")
 
+    # -- tensor parallelism and the offline tools ----------------------------------
+    t_phase = time.perf_counter()
+    frames["tensor_parallel"], rows["carpet_tp"], launches["carpet_tp"] = main_tensor_parallel(
+        card)
+    log(f"phase tensor parallel and tools: {time.perf_counter() - t_phase:.1f} s")
+
     kernels = [dict(row, frame=frame, launches=launches[frame][name])
                for frame in launches for name, row in rows[frame].items()]
     log(json.dumps({"frames": frames, "serving": serve, "card": card,
@@ -3676,7 +4102,7 @@ def main():
          "why": "training has no instancer: its validation renders run the plain Renderer "
                 "(MipRenderer for the mip configs)"}
         for frame in ("carpet_train", "grass_filtered_train", "carpet_train_device",
-                      "grass_mip_train")
+                      "grass_mip_train", "carpet_tp")
         for name in ("tex_fetch", "selk_resolve")]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
-"""Minimal PLY mesh reader (ascii + binary_little_endian).
+"""Minimal PLY mesh IO (ascii + binary_little_endian).
 
-The port's own copy of nerftex_tpu/instancing/ply.py ``read_ply``: vertex
-positions, optional normals (nx, ny, nz), optional UVs (s,t or u,v or
-texture_u/texture_v) and triangle faces; polygons are fan-triangulated.
+The port's own copy of nerftex_tpu/instancing/ply.py: ``read_ply`` reads
+vertex positions, optional normals (nx, ny, nz), optional UVs (s,t or u,v
+or texture_u/texture_v) and triangle faces, polygons fan-triangulated;
+``write_ply`` writes the same bytes as the JAX package's.
 """
 
 import numpy as np
@@ -129,3 +130,42 @@ def read_ply(path: str) -> PlyData:
                 break
 
     return PlyData(V, np.asarray(F, np.int32) if F else None, N, UV)
+
+
+def write_ply(path: str, V, F=None, N=None, UV=None, binary: bool = True) -> None:
+    """Write vertices (with optional faces, normals and UVs) as PLY:
+    binary little endian, or ascii with ``binary=False``."""
+    V = np.asarray(V, np.float32).reshape(-1, 3)
+    props = [("x", V[:, 0]), ("y", V[:, 1]), ("z", V[:, 2])]
+    if N is not None:
+        N = np.asarray(N, np.float32).reshape(-1, 3)
+        props += [("nx", N[:, 0]), ("ny", N[:, 1]), ("nz", N[:, 2])]
+    if UV is not None:
+        UV = np.asarray(UV, np.float32).reshape(-1, 2)
+        props += [("s", UV[:, 0]), ("t", UV[:, 1])]
+
+    lines = ["ply", f"format {'binary_little_endian' if binary else 'ascii'} 1.0"]
+    lines.append(f"element vertex {len(V)}")
+    lines += [f"property float {name}" for name, _ in props]
+    n_faces = 0 if F is None else len(F)
+    lines.append(f"element face {n_faces}")
+    lines.append("property list uchar int vertex_indices")
+    lines.append("end_header")
+
+    with open(path, "wb") as f:
+        f.write(("\n".join(lines) + "\n").encode("ascii"))
+        vdata = np.stack([v for _, v in props], -1).astype("<f4")
+        if binary:
+            f.write(vdata.tobytes())
+            if n_faces:
+                F = np.asarray(F, "<i4").reshape(-1, 3)
+                rec = np.zeros(len(F), np.dtype([("n", "u1"), ("i", "<i4", 3)]))
+                rec["n"] = 3
+                rec["i"] = F
+                f.write(rec.tobytes())
+        else:
+            for row in vdata:
+                f.write((" ".join(f"{x:g}" for x in row) + "\n").encode())
+            if n_faces:
+                for face in np.asarray(F, np.int64).reshape(-1, 3):
+                    f.write(f"3 {face[0]} {face[1]} {face[2]}\n".encode())

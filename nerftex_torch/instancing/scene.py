@@ -4,10 +4,8 @@ baked textures, ready to move to the device once per scene.
 The port's own copy of nerftex_tpu/instancing/scene.py (texture and light
 parameter slots, tangent frames, anchor placement by closest-point queries
 with rotation jitter, the per-instance UV Jacobian bake, auxiliary meshes,
-transform export)
-and of nerftex_tpu/tools/gen_assets.py ``vertex_normals``.  Numpy only: it
-runs once per scene, never in the render loop, and its tables equal the
-JAX package's on the same inputs.
+transform export).  Numpy only: it runs once per scene, never in the
+render loop, and its tables equal the JAX package's on the same inputs.
 """
 
 import json
@@ -16,18 +14,7 @@ import numpy as np
 
 from nerftex_torch.instancing import native
 from nerftex_torch.instancing.ply import read_ply
-
-
-def vertex_normals(V, F):
-    """Area-weighted vertex normals (nerftex_tpu/tools/gen_assets.py)."""
-    N = np.zeros_like(V)
-    e1 = V[F[:, 1]] - V[F[:, 0]]
-    e2 = V[F[:, 2]] - V[F[:, 0]]
-    fn = np.cross(e1, e2)
-    for k in range(3):
-        np.add.at(N, F[:, k], fn)
-    norm = np.linalg.norm(N, axis=-1, keepdims=True)
-    return N / np.maximum(norm, 1e-12)
+from nerftex_torch.tools.gen_assets import vertex_normals
 
 
 class SceneMesh:

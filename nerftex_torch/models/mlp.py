@@ -156,6 +156,9 @@ class ParamNerf(nn.Module):
         self.pre_color = dense(in_dim, width // 2)
         self.color = dense(width // 2, 3)
         self._packed = {}
+        # Set by parallel.mesh while the trunk's layers hold only this
+        # process's blocks of a tensor-parallel job: the trunk's forward.
+        self.sharded_trunk = None
 
     def summary(self) -> None:
         print(f"Model '{self.name}': {sum(p.numel() for p in self.parameters()):,} parameters")
@@ -206,7 +209,9 @@ class ParamNerf(nn.Module):
     def chain(self, pos_enc, dir_enc, geo_enc, app_enc, extra_enc=None, weights=None):
         """``forward`` from the encodings on: the parameter MLPs and the
         dense chain.  The trunk's input rows are the position encoding's,
-        then the extra features', then the geometry features'."""
+        then the extra features', then the geometry features'.  A model
+        placed by a tensor-parallel step holds its blocks of the trunk and
+        runs it through ``sharded_trunk`` (parallel/mesh.py ShardedTrunk)."""
         cdt = self.compute_dtype
         pos_parts = [pos_enc] if extra_enc is None else [pos_enc, extra_enc]
         dir_parts = [dir_enc]
@@ -214,10 +219,13 @@ class ParamNerf(nn.Module):
             pos_parts.append(self._param_part(self.param_geo, geo_enc, cdt, weights))
         if app_enc is not None:
             dir_parts.append(self._param_part(self.param_app, app_enc, cdt, weights))
-        parts = list(pos_parts)
-        for i, layer in enumerate(self.trunk):
-            h = torch.relu(_dense_cat(layer, parts, cdt, weights))
-            parts = pos_parts + [h] if i in self.skips else [h]
+        if self.sharded_trunk is not None:
+            parts = self.sharded_trunk(self, pos_parts, cdt, weights)
+        else:
+            parts = list(pos_parts)
+            for i, layer in enumerate(self.trunk):
+                h = torch.relu(_dense_cat(layer, parts, cdt, weights))
+                parts = pos_parts + [h] if i in self.skips else [h]
         density = _dense_cat(self.alpha, parts, cdt, weights)
         h = _dense_cat(self.bottleneck, parts, cdt, weights)
         parts = dir_parts + [h]
@@ -281,6 +289,9 @@ class ParamNerf(nn.Module):
         """The fused kernel's weight layout, rebuilt whenever the compute
         dtype or a parameter changes (keyed by storage and in-place version:
         an optimizer step bumps every parameter's version)."""
+        if self.sharded_trunk is not None:
+            raise RuntimeError("this model holds only its blocks of a tensor-parallel trunk: "
+                               "render inside nerftex_torch.parallel.gathered(...)")
         key = (self.compute_dtype,) + tuple((p.data_ptr(), p._version) for p in self.parameters())
         if self._packed.get("key") != key:
             with torch.no_grad():

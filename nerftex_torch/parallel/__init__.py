@@ -1,10 +1,13 @@
 """Parallelism on torch.distributed (counterpart of nerftex_tpu/parallel):
-one process per device, the rays of a batch or a frame split over them.
+one process per device on a ("data", "model") mesh, the rays of a batch or
+a frame split over "data" and the MLP trunk's width over "model".
 
 ``init_distributed`` joins the processes into one job; ``mesh`` holds the
-data-parallel train steps, their placement helpers and ``shard_render``.
-A run over N cards of one host is ``torchrun --nproc_per_node=N
-<script>``, whose script calls ``init_distributed()`` with no arguments.
+mesh, the data- and tensor-parallel train steps, their placement helpers,
+``model_shardings``, ``gathered`` and ``shard_render``.  A run over N cards
+of one host is ``torchrun --nproc_per_node=N <script>``, whose script
+calls ``init_distributed()`` with no arguments and ``make_mesh(shape=(dp,
+tp))`` with dp * tp = N.
 """
 
 import os
@@ -16,9 +19,11 @@ from nerftex_torch.parallel.mesh import (
     Mesh,
     Sharding,
     batch_sharding,
+    gathered,
     make_mesh,
     make_parallel_fused_train_step,
     make_parallel_train_step,
+    model_shardings,
     replicated,
     shard_render,
 )
@@ -74,6 +79,6 @@ def init_distributed(coordinator_address=None, num_processes=None, process_id=No
     return True
 
 
-__all__ = ["Mesh", "Sharding", "batch_sharding", "init_distributed", "make_mesh",
-           "make_parallel_fused_train_step", "make_parallel_train_step", "replicated",
-           "shard_render"]
+__all__ = ["Mesh", "Sharding", "batch_sharding", "gathered", "init_distributed", "make_mesh",
+           "make_parallel_fused_train_step", "make_parallel_train_step", "model_shardings",
+           "replicated", "shard_render"]

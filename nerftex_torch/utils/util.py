@@ -54,6 +54,11 @@ REMAP.update({f"data.sampler.{name}": f"nerftex_torch.data.sampler.{name}"
 REMAP.update({f"data.distribution.{name}": f"nerftex_torch.data.distribution.{name}"
               for name in ("Distribution", "Sphere", "Hemisphere", "AABB", "Constant", "Range",
                            "Concat")})
+# The offline dataset tools.
+REMAP.update({f"data.blur.{name}": f"nerftex_torch.tools.blur.{name}"
+              for name in ("process", "blur_png", "inv_cdf")})
+REMAP["data.nerf2tfr.convert"] = "nerftex_torch.tools.nerf2tfr.convert"
+REMAP["data.create_dataset.render_views"] = "nerftex_torch.tools.create_dataset.render_views"
 
 
 def get_attr_from_module(module_name: str, attr_name: str) -> Any:

@@ -60,7 +60,9 @@ def test_package_imports_with_jax_blocked():
               "nerftex_torch.ops.interpolate", "nerftex_torch.render.train",
               "nerftex_torch.render.loss", "nerftex_torch.tools.synth",
               "nerftex_torch.data.device_dataset", "nerftex_torch.parallel",
-              "nerftex_torch.parallel.mesh"):
+              "nerftex_torch.parallel.mesh", "nerftex_torch.tools.gen_assets",
+              "nerftex_torch.tools.nerf2tfr", "nerftex_torch.tools.blur",
+              "nerftex_torch.tools.create_dataset"):
         assert m in modules, m
     code = (
         "import sys\n"
@@ -195,24 +197,38 @@ def test_supported_train_configs_resolve_inside_the_port():
     assert not outside, outside
 
 
+# The offline dataset tools' reference paths and the port's module of each.
+TOOL_PATHS = {
+    "data.blur.process": "nerftex_torch.tools.blur",
+    "data.blur.blur_png": "nerftex_torch.tools.blur",
+    "data.blur.inv_cdf": "nerftex_torch.tools.blur",
+    "data.nerf2tfr.convert": "nerftex_torch.tools.nerf2tfr",
+    "data.create_dataset.render_views": "nerftex_torch.tools.create_dataset",
+}
+
+
 @pytest.mark.parametrize("path", [
     "data.blur.process", "data.nerf2tfr.convert", "data.create_dataset.render_views",
-    "network.model.Model",
+    "network.model.Model", "data.blur.blur_png", "data.blur.inv_cdf",
 ])
 def test_unported_paths_raise_and_import_no_jax(path):
-    """A reference path the port does not map (the offline dataset tools,
-    the JAX model wrapper) raises UnportedPathError (a NotImplementedError)
-    that names it, instead of reaching nerftex_tpu through a shim; nothing
-    of jax or nerftex_tpu is imported."""
+    """The offline dataset tools' reference paths resolve into
+    nerftex_torch.tools; a reference path the port does not map (the JAX
+    model wrapper) raises UnportedPathError (a NotImplementedError) that
+    names it, instead of reaching nerftex_tpu through a shim; nothing of
+    jax or nerftex_tpu is imported either way."""
     out = _resolve_in_subprocess((), (
         "try:\n"
-        f"    util.get_attr_from_path({path!r})\n"
+        f"    print('resolved', util.get_attr_from_path({path!r}).__module__)\n"
         "except util.UnportedPathError as e:\n"
         "    assert isinstance(e, NotImplementedError)\n"
         "    print('raised', e)\n"
     ))
     lines = out.splitlines()
-    assert lines[0].startswith("raised") and repr(path) in lines[0], lines
+    if path in TOOL_PATHS:
+        assert lines[0] == f"resolved {TOOL_PATHS[path]}", lines
+    else:
+        assert lines[0].startswith("raised") and repr(path) in lines[0], lines
     assert lines[-1] == "loaded []", lines[-1]
 
 

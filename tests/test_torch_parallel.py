@@ -1,11 +1,14 @@
 """nerftex_torch.parallel against the JAX package's nerftex_tpu.parallel at
 tests/test_parallel.py's sizes (depth 4, width 64, n_samples 16, batch 2 x
-32) and tolerances (loss rtol 1e-5, parameters and frames atol 1e-5).
+32) and tolerances (data parallel: loss rtol 1e-5, parameters and frames
+atol 1e-5; tensor parallel: loss rtol 1e-4, parameters atol 1e-4).
 
-The port runs as two gloo processes on the CPU
-(tests/_torch_parallel_worker.py), spawned once for each of its three
-cases, each killed at RANK_TIMEOUT_S so that a hung collective fails the
-test; JAX runs on its 8-device CPU mesh (tests/conftest.py).  The weights
+The port runs as gloo processes on the CPU
+(tests/_torch_parallel_worker.py): two, spawned once for each of the three
+data-parallel cases, and the tensor-parallel case once on a (2, 2) mesh
+(four processes) and once on a (1, 2) mesh (two); each is killed at
+RANK_TIMEOUT_S so that a hung collective fails the test.  JAX runs on its
+8-device CPU mesh (tests/conftest.py).  The weights
 go across with render/checkpoint.load_jax_params.  The training cases draw
 (perturb and raw_noise_std on), so the shards' draws at their global rows
 are held to JAX's sharded draws:
@@ -19,10 +22,21 @@ are held to JAX's sharded draws:
   (compact path) against JAX's sharded and unsharded renders and the
   port's unsharded render, and on the sorted path against the port's
   unsharded render (JAX's sorted path compiles for minutes on the CPU);
+- the tensor-parallel steps (shard_model, the model's layer 3 a skip
+  layer, row-parallel, fed by [pos | h2]): the host-fed step against
+  JAX's make_parallel_train_step(shard_model=True) on its (2, 2) mesh and
+  JAX's single step, each process's blocks against JAX's at the same
+  model rank, the checkpoint written inside ``gathered``; the fused step
+  against JAX's fused steps on the (2, 2) mesh with shard_model and on
+  the 8-way dp mesh; the replicated parameters bit-equal within each
+  model row; shard_render of the gathered model over the data axis; and
+  the mutation check: the gradients all-reduced over the whole job
+  instead of the data column break the sharded parameters' match;
 - in one process: Renderer.apply (n_importance) and MipRenderer.apply
   (mip_importance) on a ray shard with its global rows equal that slice
-  of the whole batch's apply; init_distributed without arguments or
-  environment; the refusals."""
+  of the whole batch's apply; model_shardings' specs against JAX's, and
+  its refusals against JAX's on the shipped train configs' models;
+  init_distributed without arguments or environment; the refusals."""
 
 import os
 import socket
@@ -59,6 +73,9 @@ WORKER = os.path.join(ROOT, "tests", "_torch_parallel_worker.py")
 RANK_TIMEOUT_S = 120
 LOSS_RTOL = 1e-5     # tests/test_parallel.py:79
 ATOL = 1e-5          # parameters (:81) and frames (:117, :184)
+TP_LOSS_RTOL = 1e-4  # tests/test_parallel.py:102, the dp x tp step
+TP_ATOL = 1e-4       # :104
+TP_SHAPES = {"mesh2x2": (2, 2), "mesh1x2": (1, 2)}
 CHUNKS = {"plain": 24, "compact": 64, "sorted": 32}  # 3 (uneven), 2 and 4 render chunks
 
 MODEL = {
@@ -104,16 +121,17 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _spawn(case, directory, inputs):
-    """Run ``case`` in two gloo ranks on ``inputs``; their outputs."""
+def _spawn(case, directory, inputs, world=2):
+    """Run ``case`` in ``world`` gloo ranks on ``inputs``; their outputs."""
     np.savez(os.path.join(directory, "inputs.npz"), **inputs)
     env = dict(os.environ, OMP_NUM_THREADS="1",
                PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
     port = _free_port()
-    logs = [open(os.path.join(directory, f"rank{r}.log"), "w+") for r in (0, 1)]
-    procs = [subprocess.Popen([sys.executable, WORKER, case, str(r), "2", str(port),
+    ranks = range(world)
+    logs = [open(os.path.join(directory, f"rank{r}.log"), "w+") for r in ranks]
+    procs = [subprocess.Popen([sys.executable, WORKER, case, str(r), str(world), str(port),
                                str(directory)], env=env, cwd=ROOT, stdout=logs[r],
-                              stderr=subprocess.STDOUT) for r in (0, 1)]
+                              stderr=subprocess.STDOUT) for r in ranks]
     deadline = time.monotonic() + RANK_TIMEOUT_S
     try:
         for p in procs:
@@ -129,48 +147,75 @@ def _spawn(case, directory, inputs):
             text.append(f"rank {r}:\n{log.read()[-3000:]}")
             log.close()
     assert all(p.returncode == 0 for p in procs), "\n".join(text)
-    return [dict(np.load(os.path.join(directory, f"out_{r}.npz"))) for r in (0, 1)]
+    return [dict(np.load(os.path.join(directory, f"out_{r}.npz"))) for r in ranks]
 
 
-def _params_of(out):
-    return {k[len("param/"):]: v for k, v in out.items() if k.startswith("param/")}
+def _params_of(out, prefix="param/"):
+    return {k[len(prefix):]: v for k, v in out.items() if k.startswith(prefix)}
 
 
-def _check_step(outs, want_loss, want_params):
+def _check_step(outs, want_loss, want_params, prefix="", rtol=LOSS_RTOL, atol=ATOL):
+    """Every rank's loss and parameters (``<prefix>loss``,
+    ``<prefix>param/<leaf>``) against the reference, and the same on
+    every rank."""
     for out in outs:
-        np.testing.assert_allclose(float(out["loss"]), float(want_loss), rtol=LOSS_RTOL)
-        got = _params_of(out)
+        np.testing.assert_allclose(float(out[prefix + "loss"]), float(want_loss), rtol=rtol)
+        got = _params_of(out, prefix + "param/")
         assert set(got) == set(want_params)
         for leaf, p in want_params.items():
-            np.testing.assert_allclose(got[leaf], p, rtol=0, atol=ATOL, err_msg=leaf)
-    assert float(outs[0]["loss"]) == float(outs[1]["loss"])
-    for leaf, p in _params_of(outs[0]).items():
-        np.testing.assert_array_equal(_params_of(outs[1])[leaf], p, err_msg=leaf)
+            np.testing.assert_allclose(got[leaf], p, rtol=0, atol=atol, err_msg=leaf)
+    for out in outs[1:]:
+        assert float(out[prefix + "loss"]) == float(outs[0][prefix + "loss"])
+        for leaf, p in _params_of(outs[0], prefix + "param/").items():
+            np.testing.assert_array_equal(_params_of(out, prefix + "param/")[leaf], p,
+                                          err_msg=leaf)
 
 
 # -- the dp step and the single writer (one spawn) ------------------------------------
 
 
 @pytest.fixture(scope="module")
-def dp_run(tmp_path_factory):
+def jax_steps():
+    """The model's weights, the batch, and JAX's single step and its
+    8-way dp and (2, 2) dp x tp sharded steps on them, key(7): (weights,
+    batch, {"single" | "dp" | "tp": (loss, parameters)}, the tp step's
+    blocks {(model rank, parameter name): block in nn.Linear's layout})."""
     model, renderer, loss_fn, optimizer = _jax_setup()
     params = {"model": model.params}
-    weights = _flat(params)  # before the sharded step donates its buffers
+    weights = _flat(params)  # before the sharded steps donate their buffers
     batch = _batch()
     key = jax.random.key(7)
     single = make_train_step(renderer, loss_fn, optimizer, False, [1, 1, 1.0], donate=False)
     p1, _, loss1 = single(params, optimizer.init(params),
                           {k: jnp.asarray(v) for k, v in batch.items()}, key)
-    mesh = jax_make_mesh(8, shape=(8, 1))
-    step, place_params, place_batch = jax_dp(renderer, loss_fn, optimizer, mesh, False,
-                                             [1, 1, 1.0], batch, params)
-    placed = place_params(params)
-    p2, _, loss2 = step(placed, optimizer.init(placed), place_batch(batch), key)
+    want = {"single": (float(loss1), _flat(p1))}
+    blocks = {}
+    for name, shape in (("dp", (8, 1)), ("tp", (2, 2))):
+        mesh = jax_make_mesh(shape[0] * shape[1], shape=shape)
+        step, place_params, place_batch = jax_dp(renderer, loss_fn, optimizer, mesh, False,
+                                                 [1, 1, 1.0], batch, params,
+                                                 shard_model=name == "tp")
+        placed = place_params(params)
+        p2, _, loss2 = step(placed, optimizer.init(placed), place_batch(batch), key)
+        want[name] = (float(loss2), _flat(p2))
+    for m in range(2):
+        device = mesh.devices[0, m]
+        for i, layer in enumerate(p2["model"]["trunk"]):
+            for leaf, pname in (("w", f"trunk.{i}.weight"), ("b", f"trunk.{i}.bias")):
+                shard = next(s for s in layer[leaf].addressable_shards if s.device == device)
+                block = np.asarray(shard.data)
+                blocks[(m, pname)] = block.T if leaf == "w" else block
+    return weights, batch, want, blocks
+
+
+@pytest.fixture(scope="module")
+def dp_run(tmp_path_factory, jax_steps):
+    weights, batch, want, _ = jax_steps
     inputs = {"key": np.int64(7), **{f"param/{k}": v for k, v in weights.items()},
               **{f"batch/{k}": v for k, v in batch.items()}}
     directory = tmp_path_factory.mktemp("dp")
     outs = _spawn("dp", directory, inputs)
-    return outs, (float(loss1), _flat(p1)), (float(loss2), _flat(p2)), directory
+    return outs, want["single"], want["dp"], directory
 
 
 def test_dp_step_matches_jax_sharded_and_single(dp_run):
@@ -196,11 +241,13 @@ def test_single_writer_checkpoint(dp_run):
 # -- the fused dp step ------------------------------------------------------------------
 
 
-def test_fused_dp_step_matches_jax(tmp_path):
-    """One device-resident step, the tables replicated and each rank's
-    shard of the batch sampled under the step's data key, against JAX's
-    make_parallel_fused_train_step on the 8-device mesh with the same
-    step keys (the streams' keys at step 0)."""
+@pytest.fixture(scope="module")
+def fused_jax():
+    """tests/test_parallel.py's fused setup (four 16 x 16 records), and
+    JAX's make_parallel_fused_train_step on it, one step under the
+    streams' keys at step 0, on the 8-way dp mesh and on the (2, 2) mesh
+    with shard_model: (the port's inputs, {"dp" | "tp": (loss,
+    parameters)})."""
     from math import tan
 
     from nerftex_tpu.data.dataset import ListSource, look_at_np
@@ -209,9 +256,6 @@ def test_fused_dp_step_matches_jax(tmp_path):
     from nerftex_tpu.data.ray_sampler import Proxy as ProxyRays
     from nerftex_tpu.ops.proxy import AABB
 
-    model, renderer, loss_fn, optimizer = _jax_setup()
-    params = {"model": model.params}
-    weights = _flat(params)  # before the sharded step donates its buffers
     rs = np.random.RandomState(5)
     size, angle = 16, 0.63
     focal = size / tan(angle / 2) / 2
@@ -231,20 +275,129 @@ def test_fused_dp_step_matches_jax(tmp_path):
         ProxyRays(height=size, width=size, focal=focal, proxy=proxy),
         batchsize=2, height=size, width=size, focal=focal, composite_bkgd=False,
         bkgd_color=[1, 1, 1.0])
-    mesh = jax_make_mesh(8, shape=(8, 1))
-    step, place_params, place_tables = jax_fused_dp(renderer, loss_fn, optimizer, sampler, mesh,
-                                                    False, [1, 1, 1.0], params)
-    placed = place_params(params)
-    data_key = jax.random.fold_in(jax_streams.stream_key(jax_streams.STREAM_DATA), 0)
-    key = jax.random.fold_in(jax_streams.stream_key(jax_streams.STREAM_PERTURB), 0)
-    p2, _, loss2 = step(placed, optimizer.init(placed), place_tables(), data_key, key)
+    want = {}
+    for name, shape in (("dp", (8, 1)), ("tp", (2, 2))):
+        model, renderer, loss_fn, optimizer = _jax_setup()
+        params = {"model": model.params}
+        weights = _flat(params)  # before the sharded step donates its buffers
+        mesh = jax_make_mesh(shape[0] * shape[1], shape=shape)
+        step, place_params, place_tables = jax_fused_dp(
+            renderer, loss_fn, optimizer, sampler, mesh, False, [1, 1, 1.0], params,
+            shard_model=name == "tp")
+        placed = place_params(params)
+        data_key = jax.random.fold_in(jax_streams.stream_key(jax_streams.STREAM_DATA), 0)
+        key = jax.random.fold_in(jax_streams.stream_key(jax_streams.STREAM_PERTURB), 0)
+        p2, _, loss2 = step(placed, optimizer.init(placed), place_tables(), data_key, key)
+        want[name] = (float(loss2), _flat(p2))
 
     inputs = {"size": np.int64(size), "focal": np.float64(focal),
               **{f"param/{k}": v for k, v in weights.items()},
               **{name: np.stack([np.asarray(r[name], np.float32) for r in records])
                  for name in ("image", "alpha", "pose", "parameters")}}
+    return inputs, want
+
+
+def test_fused_dp_step_matches_jax(tmp_path, fused_jax):
+    """One device-resident step, the tables replicated and each rank's
+    shard of the batch sampled under the step's data key, against JAX's
+    make_parallel_fused_train_step on the 8-device mesh with the same
+    step keys (the streams' keys at step 0)."""
+    inputs, want = fused_jax
     outs = _spawn("fused", tmp_path, inputs)
-    _check_step(outs, float(loss2), _flat(p2))
+    _check_step(outs, *want["dp"])
+
+
+# -- the tensor-parallel steps (one spawn per mesh shape) -----------------------------
+
+
+@pytest.fixture(scope="module", params=sorted(TP_SHAPES))
+def tp_run(request, tmp_path_factory, jax_steps, fused_jax):
+    shape = TP_SHAPES[request.param]
+    weights, batch, want, blocks = jax_steps
+    fused_inputs, fused_want = fused_jax
+    inputs = dict(fused_inputs, key=np.int64(7), shape=np.int64(shape),
+                  plain_chunk=np.int64(CHUNKS["plain"]),
+                  **{f"batch/{k}": v for k, v in batch.items()},
+                  **{f"plain/{k}": v for k, v in batch.items() if k not in ("color", "alpha")})
+    outs = _spawn("tp", tmp_path_factory.mktemp(request.param), inputs,
+                  world=shape[0] * shape[1])
+    return shape, outs, want, blocks, fused_want
+
+
+def test_tp_step_matches_jax_sharded_and_single(tp_run):
+    """The host-fed dp x tp step: every rank's loss and whole parameters
+    (gathered) against JAX's (2, 2) sharded step and its single step;
+    each rank's blocks against JAX's at the same model rank (the layout
+    model_shardings describes, the skip layer's row blocks JAX's); the
+    checkpoint written inside gathered holds the whole parameters."""
+    shape, outs, want, blocks, _ = tp_run
+    for name in ("tp", "single"):
+        _check_step(outs, *want[name], prefix="tp/", rtol=TP_LOSS_RTOL, atol=TP_ATOL)
+    for rank, out in enumerate(outs):
+        sharded = list(out["tp/sharded"])
+        assert sharded == sorted([f"trunk.{i}.weight" for i in range(4)]
+                                 + ["trunk.0.bias", "trunk.2.bias"])
+        m = rank % shape[1]
+        for pname in sharded:
+            np.testing.assert_allclose(out[f"tp/local/{pname}"], blocks[(m, pname)], rtol=0,
+                                       atol=TP_ATOL, err_msg=f"rank {rank} {pname}")
+        for leaf, p in _params_of(out, "tp/param/").items():
+            np.testing.assert_array_equal(out[f"ckpt/{leaf}"], p, err_msg=leaf)
+
+
+def test_fused_tp_step_matches_jax(tp_run):
+    """The device-resident dp x tp step, of a per-layer model (sharded)
+    and of a flat_params one (replicated over "model", its flat gradient
+    all-reduced over the data column), against JAX's fused step on the
+    (2, 2) mesh with shard_model and on the 8-way dp mesh."""
+    _, outs, _, _, fused_want = tp_run
+    for name in ("tp", "dp"):
+        for prefix in ("fused/", "flat/"):
+            _check_step(outs, *fused_want[name], prefix=prefix, rtol=TP_LOSS_RTOL,
+                        atol=TP_ATOL)
+
+
+@pytest.mark.parametrize("step", ["tp", "fused"])
+def test_tp_replicated_parameters_bit_equal_within_model_rows(tp_run, step):
+    """After the step, the processes of a model row hold bit-equal
+    replicated parameters (the heads, the parameter MLPs, the
+    row-parallel biases): the conjugate pair gave them equal gradients."""
+    shape, outs, _, _, _ = tp_run
+    sharded = set(outs[0][f"{step}/sharded"])
+    names = [k for k in outs[0] if k.startswith(f"{step}/local/")
+             and k[len(f"{step}/local/"):] not in sharded]
+    assert len(names) == 12  # two row-parallel biases and the five heads' w and b
+    for d in range(shape[0]):
+        row = outs[d * shape[1]:(d + 1) * shape[1]]
+        for out in row[1:]:
+            for k in names:
+                np.testing.assert_array_equal(out[k], row[0][k], err_msg=k)
+
+
+def test_tp_mutation_breaks_the_match(tp_run):
+    """The mutation check: with every gradient all-reduced over the whole
+    job instead of the data column, the sharded parameters (blocks of
+    different processes averaged) leave JAX's step by more than the
+    tolerance, while the replicated ones still match."""
+    _, outs, want, _, _ = tp_run
+    _, ref = want["tp"]
+    got = _params_of(outs[0], "mutant/param/")
+    err = {leaf: float(np.abs(got[leaf] - p).max()) for leaf, p in ref.items()}
+    sharded = [f"trunk/{i}/w" for i in range(4)] + ["trunk/0/b", "trunk/2/b"]
+    assert max(err[leaf] for leaf in sharded) > 2 * TP_ATOL, err
+    assert max(v for leaf, v in err.items() if leaf not in sharded) <= TP_ATOL, err
+
+
+def test_tp_render_needs_gathered_parameters(tp_run):
+    """Outside gathered a render of the sharded model raises; inside it,
+    shard_render over the data axis equals the unsharded render."""
+    _, outs, _, _, _ = tp_run
+    for out in outs:
+        assert bool(out["render/outside_raised"])
+        got = _params_of(out, "render/sharded/")
+        assert {"color_pred", "alpha_pred"} <= set(got)
+        for k, v in got.items():
+            np.testing.assert_allclose(v, out[f"render/whole/{k}"], rtol=0, atol=ATOL, err_msg=k)
 
 
 # -- shard_render (one spawn, three renderers) ------------------------------------------
@@ -359,6 +512,74 @@ def test_apply_on_a_shard_with_global_rows_is_that_slice_of_the_batch(kind):
                                    err_msg=k)
 
 
+def test_model_shardings_match_jax():
+    """The port's specs are JAX's model_shardings on a (4, 2) mesh, w's
+    read in nn.Linear's [out, in] layout (reversed); every other leaf
+    replicates; a flat-parameter model replicates whole."""
+    from jax.sharding import PartitionSpec as P
+
+    from nerftex_tpu.parallel.mesh import model_shardings as jax_model_shardings
+    from nerftex_torch.render.train import apply_flat_param_space
+
+    model, *_ = _jax_setup()
+    want = jax_model_shardings({"model": model.params}, jax_make_mesh(8, shape=(4, 2)))["model"]
+    port = _port_model(MODEL)
+    got = parallel.model_shardings({"model": port}, Mesh(0, 8, "cpu", tp=2))["model"]
+    assert set(got) == {n for n, _ in port.named_parameters()}
+    for i, layer in enumerate(want["trunk"]):
+        assert got[f"trunk.{i}.weight"].spec[::-1] == tuple(layer["w"].spec), i
+        assert got[f"trunk.{i}.bias"].spec == tuple(layer["b"].spec), i
+    assert [got[f"trunk.{i}.weight"].spec for i in range(3)] == [
+        ("model", None), (None, "model"), ("model", None)]
+    for key in ("alpha", "bottleneck", "pre_color", "color"):
+        assert want[key]["w"].spec == P() and got[f"{key}.weight"].spec == ()
+    apply_flat_param_space({"model": port})
+    flat = parallel.model_shardings({"model": port}, Mesh(0, 8, "cpu", tp=2))["model"]
+    assert {k: v.spec for k, v in flat.items()} == {"flat": ()}
+
+
+@pytest.mark.parametrize("config,tp", [("config_carpet_train", 2), ("config_carpet_train", 4),
+                                       ("config_grass_filtered_train", 2),
+                                       ("demo_grass_mip_train", 2)])
+def test_model_shardings_refuse_what_jax_refuses(config, tp):
+    """A shipped train config's full-width model at tp 2 or 4: JAX's
+    device_put under model_shardings and the port's model_shardings both
+    place it or both raise ValueError (the row-parallel skip layer: carpet
+    [328, 256] places at tp 2 and 4, grass_filtered [337, 256] and mip
+    [325, 256] do not at tp 2), the port's naming the layer and the
+    dimension."""
+    import importlib
+
+    from nerftex_tpu.parallel.mesh import model_shardings as jax_model_shardings
+
+    cfg = dict(importlib.import_module(f"configs.{config}").config["model_config"])
+    cfg.setdefault("n_parameters", {"config_carpet_train": [1, 6],
+                                    "config_grass_filtered_train": [2, 3]}.get(config))
+    jax_streams.set_seed(0)
+    jax_mlp._INIT_COUNTER[0] = 0
+    params = {"model": jax_util.instantiate(jax_util.EasyDict(cfg))["model"].params}
+    shapes = [tuple(layer["w"].shape) for layer in params["model"]["trunk"]]
+    try:
+        jax.device_put(params, jax_model_shardings(params, jax_make_mesh(2 * tp,
+                                                                         shape=(2, tp))))
+        jax_error = None
+    except ValueError as e:
+        jax_error = e
+    port = _port_model(cfg)
+    mesh = Mesh(0, 2 * tp, "cpu", tp=tp)
+    if jax_error is None:
+        specs = parallel.model_shardings({"model": port}, mesh)["model"]
+        assert len([s for s in specs.values() if s.spec]) == 8 + 4
+    else:
+        bad = next(i for i, (n_in, n_out) in enumerate(shapes)
+                   if (n_out if i % 2 == 0 else n_in) % tp)
+        dim = shapes[bad][0 if bad % 2 else 1]
+        with pytest.raises(ValueError, match=f"trunk layer {bad} .* dimension of {dim} "):
+            parallel.model_shardings({"model": port}, mesh)
+    assert (jax_error is None) == ((config, tp) in {("config_carpet_train", 2),
+                                                    ("config_carpet_train", 4)}), jax_error
+
+
 def test_init_distributed_without_arguments_or_environment(monkeypatch):
     for name in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE", "LOCAL_RANK"):
         monkeypatch.delenv(name, raising=False)
@@ -369,8 +590,10 @@ def test_init_distributed_without_arguments_or_environment(monkeypatch):
 
 
 def test_refusals():
-    """Uneven shards, fewer render chunks than processes, and the
-    tensor-parallel shard_model raise before any collective."""
+    """Uneven shards, fewer render chunks than processes, and a
+    tensor-parallel shard_model whose trunk the model axis does not split
+    (grass_filtered's row-parallel skip layer, [337, 256], at tp 2) raise
+    before any collective."""
     mesh = Mesh(0, 2, "cpu")
     renderer = Renderer(model=_port_model(MODEL), render_chunk=32, device="cpu", **DRAWS)
     loss_fn = object()
@@ -384,10 +607,15 @@ def test_refusals():
     data = {k: v for k, v in _batch(b=1, r=32).items() if k not in ("color", "alpha")}
     with pytest.raises(ValueError, match="render chunks"):
         parallel.shard_render(renderer, mesh)(**data, key=jax_rng.key(0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        parallel.make_parallel_train_step(renderer, loss_fn, None, mesh, False, [1, 1, 1.0],
-                                          _batch(), {"model": renderer.model}, shard_model=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        parallel.make_parallel_fused_train_step(renderer, loss_fn, None, None, mesh, False,
-                                                [1, 1, 1.0], {"model": renderer.model},
-                                                shard_model=True)
+    import importlib
+
+    cfg = dict(importlib.import_module("configs.config_grass_filtered_train")
+               .config["model_config"], n_parameters=[2, 3])
+    grass = {"model": _port_model(cfg)}
+    tp_mesh = Mesh(0, 2, "cpu", tp=2)
+    with pytest.raises(ValueError, match="trunk layer 5 .* dimension of 337 "):
+        parallel.make_parallel_train_step(renderer, loss_fn, None, tp_mesh, False, [1, 1, 1.0],
+                                          _batch(), grass, shard_model=True)
+    with pytest.raises(ValueError, match="trunk layer 5 .* dimension of 337 "):
+        parallel.make_parallel_fused_train_step(renderer, loss_fn, None, None, tp_mesh, False,
+                                                [1, 1, 1.0], grass, shard_model=True)

@@ -132,9 +132,11 @@ Phases (any failure raises and exits non-zero):
      against its plain version on every launch, each frame dropping the
      hits and samples the JAX package drops for it: the config's caps do
      not cover its sweep in either package), the direct render's MLP
-     launches replayed beside the cuBLAS f32 chain; and a 64x64 render of
-     the render config's first camera with the JAX init against the JAX
-     package's render in the fixture, at MIP_GOLDEN_PSNR_DB;
+     launches replayed beside the cuBLAS f32 chain; and 64x64 renders of
+     the render config's first camera (4.2 % of it drawn) and of its pose
+     at radius 2.5 (frame2, at least MIP_FRAME2_DRAWN drawn) with the JAX
+     init against the JAX package's renders in the fixture, at
+     MIP_GOLDEN_PSNR_DB;
   14. the compact path (sample_budget_per_ray): the bench frame at bench.py's
      settings (bf16, bf16 dots, key(1)) first on the sorted grid, whose
      per-ray n_steps give the covering budget (the smallest multiple of 8
@@ -196,7 +198,34 @@ Phases (any failure raises and exits non-zero):
      march on the card, render and PNG-encode times a view, its first
      SYNTH_CHECK_VIEWS views within SYNTH_MAX_U8 levels of the numpy
      integrator (worker processes); (d) gen_assets writes meshes/* byte
-     for byte, the 10,000 scale anchors included (a worker process).
+     for byte, the 10,000 scale anchors included (a worker process);
+  17. the device instancer against the host oracle
+     (nerftex_torch/instancing/oracle.py, numpy on the host, no JAX): the
+     bench, plush and grass scenes at their shipped settings (mesh,
+     instances, patch box, max_hits, step and cap, light, textures, culls;
+     f32 slab dots, deterministic offsets so that the oracle samples the
+     same arc positions), each on ORACLE_RAYS rays of its frame (hit rays
+     spread over every stride-th ray the oracle sees hit; bench adds
+     missing rays), through DeviceInstancer.get_model_input on the card:
+     hit, per-ray sample counts (knife-edge arcs counted), dists, the t
+     spacing, alpha_last and color_last against oracle.get_model_input;
+     nearest picks against the oracle's at the same arc positions up to
+     anchor ties and interval-boundary knife edges, random and
+     nearest_blend picks among the oracle's active instances with the
+     weight of _select_instance's rule (blend weights within the range the
+     pick formula's float32 error allows; counted); local points and
+     directions against the oracle's transforms; bench under all three
+     methods, plush under all three (its own nearest_blend first), grass
+     under nearest; the texture slot of ORACLE_TEX_SAMPLES samples under
+     texture_lookup="closest" against Scene.get_parameters (candidate
+     misses held to the closest point over the instance's candidates) and
+     under "jacobian" at tests/test_device_instancer.py's limits; grass's
+     point-light strength; plush's and grass's occlusion at the device's
+     own shadow points against oracle.is_shadowed (differing points must
+     be knife edges); the auxiliary-mesh scene of
+     tests/test_device_instancer.py; selk_resolve launched in every scene
+     and tex_fetch where a parameter texture exists.  An ``oracle <scene>``
+     line per scene; the phase's seconds beside ORACLE_BUDGET_S.
 The first render of each frame runs with its selk_resolve calls captured
 (selk_capture); the frame's launch histogram (launches by Rb, S, K and
 method, with the window and valid slots of their inputs) is printed on a
@@ -350,7 +379,8 @@ MIP_TRAIN_CHECKPOINT_EVERY = 100
 MIP_IMP_TRAIN_STEPS = 20
 MIP_SYNTH_PARAMETERS = (2, 3)         # the dataset's [Blur, Length, LightXYZ]
 MIP_MAPS = (69, 54)                   # pos: IPE 60 + Length 9; dir: 27 + LightXYZ 27
-MIP_GOLDEN_PSNR_DB = 50.0             # the 64x64 full-width frame vs the JAX package's
+MIP_GOLDEN_PSNR_DB = 50.0             # the 64x64 full-width frames vs the JAX package's
+MIP_FRAME2_DRAWN = 0.5                # the second camera's share of drawn rays
 COMPACT_MAX_DIFF = 1e-5               # compact frame vs its grid frame, color and alpha
 COMPACT_DROP_BUDGET = 32              # the dropping budget per ray
 COMPACT_INPUTS = "torch_compact_inputs.npz"
@@ -372,6 +402,24 @@ SYNTH_CHECK_VIEWS = 4                 # held to the numpy integrator
 SYNTH_MAX_U8 = 2                      # tests/test_toolchain.py:262
 SYNTH_MAX_SHARE = 0.2                 # :263
 SCALE_ANCHORS = 10000                 # meshes/cloth10k_anchor_points.ply
+# Phase 17: the device instancer against the host oracle.
+ORACLE_RAYS = {"bench": (256, 32), "plush": (64, 0), "grass": (64, 0)}  # hit, missing rays
+ORACLE_SCAN = 3                       # rays scanned at a fixed stride per ray kept
+ORACLE_KEY = 0                        # the device's pick draws and the oracle's seed
+ORACLE_TEX_SAMPLES = 2048             # texture slots held at a fixed stride of samples
+ORACLE_EDGE = 1e-5                    # knife edges: arcs, anchor ties, boundaries, shadow slack
+ORACLE_PICK_ULPS = 8                  # float32 error of the device's anchor d^2, in ulps of its terms
+ORACLE_TOLS = {"dists": 1e-4, "t_spacing": 2e-3, "alpha_last": 1e-5, "color_last": 2e-2,
+               "pts": 1e-4, "rays_d": 1e-4, "alpha_weight": 1e-4, "texture": 1e-4,
+               "point_light": 1e-4}  # alpha_weight and point_light relative
+ORACLE_BLEND_BIAS = 1e-3              # mean relative blend weight error (measured 3.8e-5)
+ORACLE_JACOBIAN = (0.06, 0.25)        # tests/test_device_instancer.py:303-304, mean and max
+# The max is that test's limit on the smooth checkerboard; plush's
+# checkerboard.png has hard edges, where a fraction of a texel of uv flips a
+# sample's value by up to 0.5, so plush holds the mean and prints the max.
+ORACLE_JACOBIAN_MAX_SCENES = ("bench",)
+ORACLE_AUX_SHADED = 0.05              # :382, the aux terminator is shaded
+ORACLE_BUDGET_S = 60
 H100_BYTES_PER_S = 3.35e12            # HBM3, SXM data sheet
 H100_BF16_FLOPS = 989e12              # dense tensor-core bf16
 H100_F32_FLOPS = 67e12                # f32 outside the tensor cores
@@ -2425,10 +2473,12 @@ def loss_terms_capture():
 
 def mip_jax_frame(card):
     """configs/demo_grass_mip_render.py's renderer at its own settings on the
-    fixture's 64x64 rays of its first camera (radius 20), with the JAX
-    init weights (checked by digest) under stream_key(STREAM_PERTURB, 0):
-    its PSNR over color and alpha against the JAX package's render, at
-    MIP_GOLDEN_PSNR_DB."""
+    fixture's 64x64 rays of its first camera (radius 20) and of the second
+    camera (frame2: the same pose at radius 2.5, where the grass fills
+    most of the frame), with the JAX init weights (checked by digest) under
+    stream_key(STREAM_PERTURB, 0): each frame's PSNR over color and alpha
+    against the JAX package's render, at MIP_GOLDEN_PSNR_DB, and its drawn
+    share (alpha > 0.01; frame2 at least MIP_FRAME2_DRAWN)."""
     import importlib
 
     from nerftex_torch.utils import rng
@@ -2438,26 +2488,37 @@ def mip_jax_frame(card):
     config = importlib.import_module("configs.demo_grass_mip_render").config
     model = mip_init_model(config, inputs)
     renderer = instantiate(dict(config["renderer_config"], model=model, device="cuda"))
-    data = {k: inputs[f"frame/{k}"] for k in ("rays_o", "rays_d", "t", "cone_scale",
-                                               "parameters")}
-    with overflow_capture() as drops:
-        out = renderer(**data, key=rng.stream_key(rng.STREAM_PERTURB, 0))
-    color, alpha = out["color_pred"].cpu().numpy(), out["alpha_pred"].cpu().numpy()
-    want_c, want_a = inputs["frame/color"], inputs["frame/alpha"]
-    diff = np.concatenate([color - want_c, (alpha - want_a)[..., None]], -1)
-    psnr = float(10 * np.log10(1 / max(float(np.mean(diff**2)), 1e-30)))
-    want_drops = [tuple(inputs["frame/overflow"].tolist())]
-    log(f"grass_mip 64x64 frame at full width (JAX init) vs the JAX package's render: "
-        f"{psnr:.2f} dB (floor {MIP_GOLDEN_PSNR_DB}), max |diff| {float(np.abs(diff).max()):.3g}, "
-        f"alpha mean {float(alpha.mean()):.4f} (JAX {float(want_a.mean()):.4f}), dropped "
-        f"(hits, samples) {drops} (JAX {want_drops}) on {card}")
-    if not psnr >= MIP_GOLDEN_PSNR_DB:
-        raise AssertionError(f"the grass_mip frame diverged from JAX's: {psnr:.2f} dB")
-    if drops != want_drops:
-        raise AssertionError(f"the grass_mip frame dropped {drops}, the JAX package {want_drops}")
+    numbers = {}
+    for prefix in ("frame", "frame2"):
+        data = {k: inputs[f"{prefix}/{k}"] for k in ("rays_o", "rays_d", "t", "cone_scale",
+                                                      "parameters")}
+        with overflow_capture() as drops:
+            out = renderer(**data, key=rng.stream_key(rng.STREAM_PERTURB, 0))
+        color, alpha = out["color_pred"].cpu().numpy(), out["alpha_pred"].cpu().numpy()
+        want_c, want_a = inputs[f"{prefix}/color"], inputs[f"{prefix}/alpha"]
+        diff = np.concatenate([color - want_c, (alpha - want_a)[..., None]], -1)
+        psnr = float(10 * np.log10(1 / max(float(np.mean(diff**2)), 1e-30)))
+        drawn = float((want_a > 0.01).mean())
+        want_drops = [tuple(inputs[f"{prefix}/overflow"].tolist())]
+        log(f"grass_mip 64x64 {prefix} at full width (JAX init) vs the JAX package's render: "
+            f"{psnr:.2f} dB (floor {MIP_GOLDEN_PSNR_DB}), max |diff| "
+            f"{float(np.abs(diff).max()):.3g}, {drawn:.3f} of the rays drawn (port "
+            f"{float((alpha > 0.01).mean()):.3f}), alpha mean {float(alpha.mean()):.4f} (JAX "
+            f"{float(want_a.mean()):.4f}), dropped (hits, samples) {drops} (JAX {want_drops}) "
+            f"on {card}")
+        if not psnr >= MIP_GOLDEN_PSNR_DB:
+            raise AssertionError(f"the grass_mip {prefix} diverged from JAX's: {psnr:.2f} dB")
+        if drops != want_drops:
+            raise AssertionError(f"the grass_mip {prefix} dropped {drops}, the JAX package "
+                                 f"{want_drops}")
+        if prefix == "frame2" and not drawn >= MIP_FRAME2_DRAWN:
+            raise AssertionError(f"the grass_mip frame2 draws {drawn} of its rays, not "
+                                 f"{MIP_FRAME2_DRAWN}")
+        numbers[prefix] = {"psnr_db": psnr, "max_abs_diff": float(np.abs(diff).max()),
+                           "drawn": drawn, "drops": drops}
     del model, renderer, out
     torch.cuda.empty_cache()
-    return {"psnr_db": psnr, "max_abs_diff": float(np.abs(diff).max()), "drops": drops}
+    return dict(numbers.pop("frame"), **numbers)
 
 
 def main_mip(counts, card):
@@ -3706,6 +3767,594 @@ def main_tensor_parallel(card):
     return numbers, rows, launches
 
 
+# -- phase 17: the device instancer against the host oracle ------------------
+
+
+class FixedOffsets(np.random.RandomState):
+    """The oracle's generator with every per-ray stratified offset at 0.5,
+    the device's ``deterministic_offset``, so that both sample the same
+    arc positions; its overlap draws (randint, choice) are the seeded
+    RandomState's."""
+
+    def uniform(self, low=0.0, high=1.0, size=None):
+        return low + 0.5 * (high - low)
+
+
+def oracle_scene_view(scene):
+    """A shallow copy of ``scene`` for the oracle's sampling run, with
+    ``nearest`` picks (the per-sample reference of the device's nearest
+    run; the random and blended picks are held to the oracle's rule at the
+    device's own samples) and without its texture slots (the exact
+    closest-point lookup is held on a strided subset instead) or its
+    shadow rays (held at the device's own shadow points instead), neither
+    of which any compared output reads."""
+    view = copy.copy(scene)
+    view.instance_sampling_method = "nearest"
+    view.texture_parameter_idxs = []
+    view.cast_shadow_rays = False
+    return view
+
+
+def oracle_ray_geometry(scene, o, d):
+    """The oracle's per-ray geometry, as get_model_input derives it: the
+    instances' clipped intervals and the first mesh hit's t (inf on a
+    miss)."""
+    from nerftex_torch.instancing import oracle
+
+    intervals = oracle.ray_box_events(scene, o, d)[1]
+    t_mesh = np.inf
+    for mesh in ([scene.base_mesh] if scene.base_mesh is not None else []) + scene.aux_meshes:
+        hit = oracle.mesh_first_hit(mesh, o, d)
+        if hit is not None:
+            t_mesh = min(t_mesh, hit[0])
+    return intervals, t_mesh
+
+
+def oracle_pick_rays(scene, rays_o, rays_d, n_hit, n_miss):
+    """Ray indices of a frame: n_hit rays the oracle sees hit and n_miss
+    that it sees miss, each spread evenly over the hits (misses) among
+    every stride-th ray of the frame; and the oracle's geometry of the
+    kept rays."""
+    n = len(rays_o)
+    stride = max(1, n // (ORACLE_SCAN * (n_hit + n_miss)))
+    geom = {}
+    while True:
+        for i in range(0, n, stride):
+            if i not in geom:
+                geom[i] = oracle_ray_geometry(scene, rays_o[i], rays_d[i])
+        hits = [i for i in range(0, n, stride) if geom[i][0] or np.isfinite(geom[i][1])]
+        misses = [i for i in range(0, n, stride) if i not in set(hits)]
+        if len(hits) >= n_hit and len(misses) >= n_miss:
+            break
+        if stride == 1:
+            raise AssertionError(f"{len(hits)} hit and {len(misses)} missing rays in the "
+                                 f"frame; need {n_hit} and {n_miss}")
+        stride = max(1, stride // 2)
+    keep = [hits[j] for j in np.linspace(0, len(hits) - 1, n_hit).astype(int)]
+    keep += [misses[j] for j in np.linspace(0, len(misses) - 1, n_miss).astype(int)]
+    return np.asarray(keep), [geom[i] for i in keep], stride
+
+
+def oracle_active(intervals, t_mesh, t_pt):
+    """The oracle's active instances at world t_pt (get_model_input's set,
+    with its nearest-interval fallback)."""
+    active = [inst for inst, (t0, t1) in intervals.items() if t0 <= t_pt < t1 and t0 < t_mesh]
+    if not active:
+        active = [min(intervals, key=lambda j: abs(intervals[j][0] - t_pt))]
+    return sorted(active)
+
+
+def oracle_on_boundary(intervals, inst, t_pt):
+    """Whether t_pt lies within ORACLE_EDGE of an end of inst's interval."""
+    if inst not in intervals:
+        return False
+    t0, t1 = intervals[inst]
+    return min(abs(t_pt - t0), abs(t_pt - t1)) < ORACLE_EDGE
+
+
+def oracle_per_ray(name, dev, orc, step, stats):
+    """hit, per-ray sample counts (knife-edge arcs counted), dists, the t
+    spacing re-based to each ray's first sample (tests/test_device_instancer.py
+    _compare), alpha_last and color_last.  Returns the per-ray sample counts
+    compared."""
+    if not np.array_equal(dev["hit"], orc["hit"]):
+        bad = np.nonzero(dev["hit"] != orc["hit"])[0]
+        raise AssertionError(f"oracle {name}: hit differs on rays {bad.tolist()}")
+    nd = (dev["dists"] > 0).sum(1)
+    no = (orc["dists"] > 0).sum(1)
+    total = orc["dists"].astype(np.float64).sum(1)
+    frac = total / step
+    knife = np.abs(frac - np.round(frac)) * step < ORACLE_EDGE
+    if not np.array_equal(nd[~knife], no[~knife]):
+        bad = np.nonzero((nd != no) & ~knife)[0]
+        raise AssertionError(f"oracle {name}: sample counts differ on rays {bad.tolist()}: "
+                             f"device {nd[bad].tolist()}, oracle {no[bad].tolist()}")
+    stats["knife_edge_rays"] = int((knife & (nd != no)).sum())
+    stats["rays"] = len(nd)
+    n = np.minimum(nd, no)
+    errs = {"dists": np.abs(dev["dists"][~knife] - orc["dists"][~knife]),
+            "alpha_last": np.abs(dev["alpha_last"] - orc["alpha_last"]),
+            "color_last": np.abs(dev["color_last"] - orc["color_last"])}
+    spacing = [np.abs(np.diff(dev["t"][r, :n[r]]) - np.diff(orc["t"][r, :n[r]]))
+               for r in range(len(n)) if n[r] > 1]
+    errs["t_spacing"] = np.concatenate(spacing) if spacing else np.zeros(1)
+    for key, err in errs.items():
+        worst = float(err.max()) if err.size else 0.0
+        stats.setdefault("max_err", {})[key] = max(stats.get("max_err", {}).get(key, 0.0),
+                                                   worst)
+        if not worst <= ORACLE_TOLS[key]:
+            raise AssertionError(f"oracle {name}: {key} differs by {worst} (limit "
+                                 f"{ORACLE_TOLS[key]})")
+    return n
+
+
+def oracle_local_frames(scene, inst, pts_w, rays_d):
+    """The oracle's local point and direction of each sample in instance
+    inst [M]: inverse[inst] pts_w + trans, dir_inverse[inst] rays_d."""
+    inv = np.asarray(scene.inverse, np.float32).reshape(-1, 4, 4)[inst]
+    dinv = np.asarray(scene.dir_inverse, np.float32).reshape(-1, 3, 3)[inst]
+    pts = np.einsum("mij,mj->mi", inv[:, :3, :3], pts_w) + inv[:, :3, 3]
+    return pts, np.einsum("mij,mj->mi", dinv, rays_d)
+
+
+def record_err(stats, key, err):
+    if err.size:
+        stats["max_err"][key] = max(stats["max_err"].get(key, 0.0), float(err.max()))
+    if not stats["max_err"].get(key, 0.0) <= ORACLE_TOLS[key]:
+        raise AssertionError(f"oracle {stats['scene']}: {key} differs by "
+                             f"{stats['max_err'][key]} (limit {ORACLE_TOLS[key]})")
+
+
+def pick_d2_error(o, t, anchors):
+    """The float32 error bound of the device's anchor distance d^2 = a +
+    2 t b + t^2 (a = |o - c|^2, b = d . (o - c)), whose terms cancel to
+    d^2 near an anchor: ORACLE_PICK_ULPS ulps of the largest term (as
+    tests/test_torch_instancer.py _near_ties bounds it, with 64)."""
+    a = np.sum((np.asarray(o, np.float64) - anchors) ** 2, -1)
+    return float(ORACLE_PICK_ULPS * 2.0**-24 * np.max(a + t * t))
+
+
+def oracle_picks(name, scene, dev, orc, geom, rays_o, rays_d, n, method, stats):
+    """Each compared sample's pick.  ``nearest``: the device's instance_id
+    equals the oracle's at the same arc position except at ties (anchor
+    distances within ORACLE_EDGE) and interval-boundary knife edges;
+    ``random`` and ``nearest_blend``: the device's pick lies among the
+    oracle's active instances at its sample (or on a boundary) and its
+    alpha_weight is that instance's weight under _select_instance's rule
+    (the active count; 1 / p_i), the blended weights' mean relative error
+    within ORACLE_BLEND_BIAS.  The local point and direction of the
+    device's pick against the oracle's transforms wherever the pick is the
+    oracle's or among its active set."""
+    ties = wide_ties = edges = blend_edges = 0
+    origins = np.asarray(scene.origins, np.float64).reshape(-1, 3)
+    rows, cols = np.nonzero(np.arange(dev["t"].shape[1])[None, :] < n[:, None])
+    ids = dev["instance_id"][rows, cols]
+    t_dev = dev["t"][rows, cols]
+    pts_w = rays_o[rows] + t_dev[:, None] * rays_d[rows]
+    ok = np.ones(len(rows), bool)
+    w_err, bias = [], []
+    for m, (r, i) in enumerate(zip(rows, cols)):
+        intervals, t_mesh = geom[r]
+        inst = int(ids[m])
+        if method == "nearest":
+            want = int(orc["instance_id"][r, i])
+            if inst == want:
+                continue
+            if any(oracle_on_boundary(intervals, j, float(t_dev[m])) for j in (inst, want)):
+                edges += 1
+                ok[m] = False
+                continue
+            active = oracle_active(intervals, t_mesh, float(t_dev[m]))
+            if inst in active and want in active:
+                p = pts_w[m].astype(np.float64)
+                d2 = [float(np.sum((p - origins[j]) ** 2)) for j in (inst, want)]
+                gap = abs(np.sqrt(d2[0]) - np.sqrt(d2[1]))
+                if gap < ORACLE_EDGE or abs(d2[0] - d2[1]) <= pick_d2_error(
+                        rays_o[r], float(t_dev[m]), origins[[inst, want]]):
+                    ties += 1
+                    wide_ties += gap >= ORACLE_EDGE
+                    ok[m] = False
+                    continue
+                raise AssertionError(f"oracle {name}: ray {r} sample {i} picked instance {inst}, "
+                                     f"the oracle {want}, anchor distance gap {gap}")
+        else:
+            active = oracle_active(intervals, t_mesh, float(t_dev[m]))
+        if inst not in active:
+            if oracle_on_boundary(intervals, inst, float(t_dev[m])) or any(
+                    oracle_on_boundary(intervals, j, float(t_dev[m])) for j in active):
+                edges += 1
+                ok[m] = False
+                continue
+            raise AssertionError(f"oracle {name}: ray {r} sample {i} (t {t_dev[m]}) picked "
+                                 f"instance {inst}, not among the oracle's active {active}")
+        if method == "nearest":
+            continue
+        if len(active) == 1:
+            want_w = 1.0
+        elif method == "random":
+            want_w = float(len(active))
+        else:
+            d = np.array([np.linalg.norm(pts_w[m] - scene.origins[j]) for j in active])
+            w = np.maximum(0.2 * scene.patch_scale + d.min() - d, 0.0)
+            p = w / w.sum()
+            want_w = float(1.0 / p[active.index(inst)]) if p[active.index(inst)] > 0 else np.inf
+        got = float(dev["alpha_weight"][r, i])
+        w_err.append(abs(got - want_w) / max(1.0, abs(want_w)))
+        if method == "nearest_blend" and len(active) > 1 and np.isfinite(want_w):
+            bias.append((got - want_w) / want_w)
+        if method == "nearest_blend" and w_err[-1] > ORACLE_TOLS["alpha_weight"]:
+            # The device's anchor distances carry the pick formula's
+            # float32 error: the weight's range under that error.
+            err_d = np.array([pick_d2_error(rays_o[r], float(t_dev[m]), origins[[j]])
+                              for j in active]) / (2 * np.maximum(d, 1e-30))
+            eps = err_d + err_d[np.argmin(d)]
+            k = active.index(inst)
+            lo = (w.sum() - eps.sum()) / (w[k] + eps[k])
+            hi = (w.sum() + eps.sum()) / (w[k] - eps[k]) if w[k] > eps[k] else np.inf
+            if not lo * (1 - ORACLE_TOLS["alpha_weight"]) <= got <= hi * (
+                    1 + ORACLE_TOLS["alpha_weight"]):
+                raise AssertionError(
+                    f"oracle {name}: ray {r} sample {i} weight {got} of instance {inst}, the "
+                    f"oracle's rule {want_w} (range {lo}-{hi} under the pick formula's "
+                    f"float32 error)")
+            w_err.pop()
+            blend_edges += 1
+    record_err(stats, "alpha_weight", np.asarray(w_err) if method != "nearest" else np.zeros(0))
+    pts_l, dirs_l = oracle_local_frames(scene, ids[ok], pts_w[ok], rays_d[rows[ok]])
+    record_err(stats, "pts", np.abs(dev["pts"][rows[ok], cols[ok]] - pts_l))
+    record_err(stats, "rays_d", np.abs(dev["rays_d"][rows[ok], cols[ok]] - dirs_l))
+    if method == "nearest":
+        same = ok & (ids == orc["instance_id"][rows, cols])
+        record_err(stats, "pts", np.abs(dev["pts"][rows[same], cols[same]]
+                                        - orc["pts"][rows[same], cols[same]]))
+        record_err(stats, "rays_d", np.abs(dev["rays_d"][rows[same], cols[same]]
+                                           - orc["rays_d"][rows[same], cols[same]]))
+    stats["samples"] = stats.get("samples", 0) + len(rows)
+    stats.setdefault("ties", {})[method] = ties
+    stats.setdefault("ties_past_edge", {})[method] = int(wide_ties)
+    if method == "nearest_blend":
+        # The float32 ranges are wide where an instance's weight is small;
+        # the rounding is unbiased, so a systematic error shows in the mean.
+        stats["blend_weights_in_float32_range"] = blend_edges
+        stats["blend_weight_bias"] = float(np.mean(bias)) if bias else 0.0
+        if not abs(stats["blend_weight_bias"]) <= ORACLE_BLEND_BIAS:
+            raise AssertionError(f"oracle {name}: the blended weights are "
+                                 f"{stats['blend_weight_bias']} (relative, mean over "
+                                 f"{len(bias)} samples) from the oracle's rule")
+    stats.setdefault("boundary_edges", {})[method] = edges
+    return rows, cols
+
+
+def oracle_textures(name, scene, near, closest, rays_o, rays_d, params, rows, cols, stats):
+    """The texture slots of ORACLE_TEX_SAMPLES samples at a fixed stride:
+    under texture_lookup="closest" within ORACLE_TOLS["texture"] of
+    Scene.get_parameters (the exact closest point over the whole base
+    mesh), or, at a candidate miss (that point's triangle is not among the
+    instance's candidates), of the host's closest point over the
+    candidates; under the default "jacobian" within the JAX test's mean
+    (and, on the smooth checkerboard, its max) of Scene.get_parameters."""
+    from nerftex_torch.instancing.scene import (closest_point_on_mesh, closest_point_triangles,
+                                                sample_texture)
+
+    pick = np.linspace(0, len(rows) - 1, min(ORACLE_TEX_SAMPLES, len(rows))).astype(int)
+    slots = list(scene.texture_parameter_idxs)
+    exact, got_c, got_j = [], [], []
+    for m in pick:
+        r, i = rows[m], cols[m]
+        if closest["t"][r, i] != near["t"][r, i]:
+            raise AssertionError(f"oracle {name}: the closest-lookup run moved sample ({r}, {i})")
+        pt = rays_o[r] + float(near["t"][r, i]) * rays_d[r]
+        exact.append(scene.get_parameters(pt, params[r])[slots])
+        got_c.append(closest["parameters"][r, i, slots])
+        got_j.append(near["parameters"][r, i, slots])
+    exact, got_c, got_j = np.asarray(exact), np.asarray(got_c), np.asarray(got_j)
+    # The device's closest lookup searches each instance's k nearest base
+    # mesh triangles (Scene.instance_tri_candidates, as the JAX package's
+    # does); where the exact closest triangle lies outside them, the device
+    # is held to the host's closest point over those candidates instead.
+    misses = 0
+    held = exact.copy()
+    err = np.abs(got_c - exact).max(-1)
+    for n_m in np.nonzero(err > ORACLE_TOLS["texture"])[0]:
+        m = pick[n_m]
+        r, i = rows[m], cols[m]
+        pt = rays_o[r] + float(near["t"][r, i]) * rays_d[r]
+        cand = scene.instance_tri_candidates[closest["instance_id"][r, i]]
+        if closest_point_on_mesh(pt, scene.base_mesh)[0] in cand:
+            continue
+        mesh = scene.base_mesh
+        tris = mesh.F[cand]
+        points, bary = closest_point_triangles(pt, *(mesh.V[tris[:, k]] for k in range(3)))
+        j = int(np.argmin(np.linalg.norm(points - pt, axis=-1)))
+        uv = bary[j] @ mesh.UV[tris[j]]
+        held[n_m] = [params[r][s] * sample_texture(scene.texture_channels[c], uv[None])[0]
+                      for c, s in enumerate(slots)]
+        misses += 1
+    record_err(stats, "texture", np.abs(got_c - held))
+    stats["texture_candidate_misses"] = misses
+    stats["texture_max_err_vs_exact"] = float(err.max())
+    err_j = np.abs(got_j - exact)
+    stats["texture_samples"] = len(pick)
+    stats["jacobian_mean_err"] = float(err_j.mean())
+    stats["jacobian_max_err"] = float(err_j.max())
+    stats["jacobian_past_max"] = int((err_j.max(-1) >= ORACLE_JACOBIAN[1]).sum())
+    mean_ok = err_j.mean() < ORACLE_JACOBIAN[0]
+    max_ok = err_j.max() < ORACLE_JACOBIAN[1] or name not in ORACLE_JACOBIAN_MAX_SCENES
+    if not (mean_ok and max_ok):
+        raise AssertionError(f"oracle {name}: the jacobian lookup is {err_j.mean()} (mean), "
+                             f"{err_j.max()} (max) from the exact texture, limits "
+                             f"{ORACLE_JACOBIAN}")
+
+
+@contextlib.contextmanager
+def occlusion_capture(device_instancer):
+    """While active, every call of the instance's _occlusion_branched
+    appends (points [M, 3], light directions [M, 3], validity [M], blocked
+    [M]) on the host to the list it yields."""
+    calls = []
+    real = device_instancer._occlusion_branched
+
+    def spy(pts, light_dir, pt_valid):
+        blocked = real(pts, light_dir, pt_valid)
+        shape = pts.shape[:-1]
+        calls.append(tuple(x.reshape(-1, *x.shape[len(shape):]).cpu().numpy() for x in (
+            pts, light_dir.expand(pts.shape), pt_valid.expand(shape), blocked)))
+        return blocked
+
+    device_instancer._occlusion_branched = spy
+    try:
+        yield calls
+    finally:
+        del device_instancer._occlusion_branched
+
+
+def occlusion_margin(scene, pt, d):
+    """The largest signed slack over the tests that is_shadowed and the
+    device's query share: each instance box's top face (entered from above)
+    and bottom face in local coordinates, each front-facing triangle's
+    Moller-Trumbore u, v, 1 - u - v and t.  A test passes where its slack
+    is positive, so a point whose answer |slack| < ORACLE_EDGE can flip
+    is a knife edge."""
+    from nerftex_torch.instancing import oracle
+
+    best = -np.inf
+    d = np.asarray(d, np.float32)
+    if scene.n_instances():
+        inv = np.asarray(scene.inverse, np.float32).reshape(-1, 4, 4)
+        o_l = inv[:, :3, :3] @ pt + inv[:, :3, 3]
+        d_l = inv[:, :3, :3] @ d
+        with np.errstate(divide="ignore", invalid="ignore"):
+            for z_plane, is_top in ((scene.b_1[2], True), (scene.b_0[2], False)):
+                t = (z_plane - o_l[:, 2]) / d_l[:, 2]
+                p = o_l + t[:, None] * d_l
+                slack = np.stack([t, oracle.T_FAR - t, p[:, 0] - scene.b_0[0],
+                                  scene.b_1[0] - p[:, 0], p[:, 1] - scene.b_0[1],
+                                  scene.b_1[1] - p[:, 1]] + ([-d_l[:, 2]] if is_top else []), -1)
+                best = max(best, float(np.nan_to_num(slack.min(-1), nan=-np.inf).max()))
+    for mesh in ([scene.base_mesh] if scene.base_mesh is not None else []) + scene.aux_meshes:
+        v0 = mesh.V[mesh.F[:, 0]]
+        e1 = mesh.V[mesh.F[:, 1]] - v0
+        e2 = mesh.V[mesh.F[:, 2]] - v0
+        front = np.cross(e1, e2) @ d < 0
+        pvec = np.cross(d, e2)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            inv_det = 1.0 / np.sum(e1 * pvec, -1)
+            tvec = pt - v0
+            u = np.sum(tvec * pvec, -1) * inv_det
+            qvec = np.cross(tvec, e1)
+            v = np.sum(d * qvec, -1) * inv_det
+            t = np.sum(e2 * qvec, -1) * inv_det
+        slack = np.stack([u, v, 1 - u - v, t - 1e-6], -1).min(-1)
+        slack = np.where(front, np.nan_to_num(slack, nan=-np.inf), -np.inf)
+        best = max(best, float(slack.max()) if len(slack) else -np.inf)
+    return best
+
+
+def oracle_occlusion(name, scene, calls, stats):
+    """The device's blocked flags at its own shadow points against
+    oracle.is_shadowed at the same points and light directions; every
+    differing point must be a knife edge (occlusion_margin)."""
+    from nerftex_torch.instancing import oracle
+
+    n = edges = 0
+    for pts, light, valid, blocked in calls:
+        for m in np.nonzero(valid)[0]:
+            n += 1
+            want = oracle.is_shadowed(scene, pts[m], light[m])
+            if bool(blocked[m]) == want:
+                continue
+            margin = occlusion_margin(scene, pts[m], light[m])
+            if not abs(margin) < ORACLE_EDGE:
+                raise AssertionError(f"oracle {name}: shadow point {pts[m].tolist()} toward "
+                                     f"{light[m].tolist()}: device blocked {bool(blocked[m])}, "
+                                     f"oracle {want}, deciding slack {margin}")
+            edges += 1
+    if n == 0:
+        raise AssertionError(f"oracle {name}: no shadow point was captured")
+    stats["shadow_points"] = n
+    stats["shadow_knife_edges"] = edges
+    stats["shadow_blocked"] = int(sum(b[v].sum() for _, _, v, b in calls))
+
+
+def oracle_run(instancer, rays_o, rays_d, params, n_samples, step):
+    """DeviceInstancer.get_model_input on the instancer's device, as numpy."""
+    from nerftex_torch.utils import jax_rng
+
+    out = instancer.get_model_input(rays_o, rays_d, params, n_samples, step,
+                                    key=jax_rng.key(ORACLE_KEY))
+    return {k: v.cpu().numpy() for k, v in out.items() if not k.startswith("overflow")}
+
+
+def oracle_scene(name, cfg, rays, n_samples, step, methods, device, counts, stats):
+    """One shipped scene against the oracle: the Instancer built from the
+    config (deterministic offsets, so that the oracle samples the same arc
+    positions), ORACLE_RAYS' rays, the device run under each of
+    ``methods`` (the scene's own first) and, with a texture channel, under
+    texture_lookup="closest"; shadows at the device's shadow points."""
+    from nerftex_torch.instancing import oracle
+    from nerftex_torch.instancing.device import DeviceInstancer
+    from nerftex_torch.utils.util import instantiate
+
+    t0 = time.perf_counter()
+    inst = instantiate(dict(cfg, deterministic_offset=True, matmul_precision="float32",
+                            device=device))
+    scene, dev = inst.scene, inst.device_instancer
+    stats.update(scene=name, instances=scene.n_instances(), max_err={})
+    n_hit, n_miss = ORACLE_RAYS[name]
+    idx, geom, stride = oracle_pick_rays(scene, rays["rays_o"], rays["rays_d"], n_hit, n_miss)
+    rays_o, rays_d = rays["rays_o"][idx], rays["rays_d"][idx]
+    params = np.repeat(rays["parameters"], len(idx), 0)
+    stats.update(hit_rays=n_hit, missing_rays=n_miss, of_frame=len(rays["rays_o"]),
+                 ray_stride=stride)
+    S = min(n_samples, dev.max_steps_per_ray)
+    stats["host_s"] = time.perf_counter() - t0
+
+    kw = dict(max_hits=dev.max_hits, ray_block=dev.ray_block,
+              max_steps_per_ray=dev.max_steps_per_ray, cull_budget=dev.cull_budget,
+              tri_cull_budget=dev.tri_cull_budget, shadow_samples=dev.shadow_samples,
+              shadow_cull_budget=dev.shadow_cull_budget,
+              shadow_tri_cull_budget=dev.shadow_tri_cull_budget, deterministic_offset=True)
+    outs, calls = {}, []
+    t0 = time.perf_counter()
+    for method in methods:
+        if method == scene.instance_sampling_method:
+            d = dev
+        else:
+            other = copy.copy(scene)
+            other.instance_sampling_method = method
+            d = DeviceInstancer(other, torch.device(device), **kw)
+        with occlusion_capture(d) as got:
+            outs[method] = oracle_run(d, rays_o, rays_d, params, n_samples, step)
+        if method == scene.instance_sampling_method:
+            calls = got
+            stats["shadow_branches"] = dict(d.shadow_branches)
+    if scene.texture_parameter_idxs:
+        closest = DeviceInstancer(scene, torch.device(device), texture_lookup="closest", **kw)
+        outs["closest"] = oracle_run(closest, rays_o, rays_d, params, n_samples, step)
+    stats["device_s"] = time.perf_counter() - t0
+    if counts is not None:
+        launches = counts[1]()[0]
+        stats["launches"] = {k: launches[k] for k in ("selk_resolve", "tex_fetch")}
+        oracle_launches(name, launches, bool(scene.texture_parameter_idxs))
+
+    t0 = time.perf_counter()
+    orc = oracle.get_model_input(oracle_scene_view(scene), rays_o, rays_d, params, S, step,
+                                 FixedOffsets(ORACLE_KEY))
+    stats["oracle_s"] = time.perf_counter() - t0
+    stats["terminated_rays"] = int(orc["alpha_last"].sum())
+    t0 = time.perf_counter()
+    for method in methods:
+        n = oracle_per_ray(name, outs[method], orc, step, stats)
+        rows, cols = oracle_picks(name, scene, outs[method], orc, geom, rays_o, rays_d, n,
+                                  method, stats)
+        if method == "nearest" and scene.light_strength_idx >= 0:
+            si = scene.light_strength_idx
+            got = outs[method]["parameters"][rows, cols, si]
+            want = orc["parameters"][rows, cols, si]
+            record_err(stats, "point_light", np.abs(got - want) / np.abs(want))
+    if "closest" in outs:
+        n = oracle_per_ray(name, outs["closest"], orc, step, stats)
+        rows, cols = np.nonzero(np.arange(S)[None, :] < n[:, None])
+        oracle_textures(name, scene, outs[methods[0]], outs["closest"], rays_o, rays_d, params,
+                        rows, cols, stats)
+    if scene.cast_shadow_rays:
+        oracle_occlusion(name, scene, calls, stats)
+    stats["check_s"] = time.perf_counter() - t0
+
+
+def oracle_launches(name, launches, textured):
+    """selk_resolve launched, and tex_fetch exactly where the scene has a
+    parameter texture."""
+    if launches["selk_resolve"] <= 0:
+        raise AssertionError(f"oracle {name}: selk_resolve was not launched")
+    if textured != (launches["tex_fetch"] > 0):
+        raise AssertionError(f"oracle {name}: tex_fetch launched {launches['tex_fetch']} "
+                             f"times with{'' if textured else 'out'} a parameter texture")
+
+
+def oracle_aux_scene(device, counts, stats):
+    """tests/test_device_instancer.py's auxiliary-mesh scene (no shipped
+    config sets auxiliary_meshes): one box, a far base mesh, and the cloth
+    mesh lowered by 2 with checkerboard.png; color_last and alpha_last
+    against the oracle's at that test's limits, the frame shaded."""
+    from nerftex_torch.instancing import oracle
+    from nerftex_torch.instancing.device import DeviceInstancer
+    from nerftex_torch.instancing.scene import Scene, SceneMesh
+
+    scene = Scene(b_0=[-0.5, -0.5, -0.5], b_1=[0.5, 0.5, 0.5], textures=["light"])
+    scene.add_instance(np.eye(4, dtype=np.float32))
+    scene.base_mesh = SceneMesh(
+        np.array([[-9, -9, -9], [9, -9, -9], [9, 9, -9], [-9, 9, -9]], np.float32),
+        np.array([[0, 1, 2], [0, 2, 3]], np.int32))
+    scene.add_mesh(os.path.join(ROOT, "meshes", "cloth_mesh.ply"),
+                   os.path.join(ROOT, "meshes", "checkerboard.png"))
+    scene.aux_meshes[0].V[:, 2] -= 2.0
+    rays_o = np.array([[0.1, 0.05, 5.0], [-0.2, 0.1, 5.0]], np.float32)
+    rays_d = np.tile(np.array([0, 0, -1.0], np.float32), (2, 1))
+    params = np.tile(np.array([0, 0, 1.0], np.float32), (2, 1))
+    dev = DeviceInstancer(scene, torch.device(device), max_hits=4, ray_block=2,
+                          deterministic_offset=True)
+    out = oracle_run(dev, rays_o, rays_d, params, 32, 0.1)
+    if counts is not None:
+        launches = counts[1]()[0]
+        stats["launches"] = {k: launches[k] for k in ("selk_resolve", "tex_fetch")}
+        oracle_launches("aux", launches, False)
+    orc = oracle.get_model_input(scene, rays_o, rays_d, params, 32, 0.1,
+                                 FixedOffsets(ORACLE_KEY))
+    stats.update(scene="aux", instances=1, rays=2, max_err={})
+    oracle_per_ray("aux", out, orc, 0.1, stats)
+    stats["color_last_max"] = float(out["color_last"].max())
+    if not stats["color_last_max"] > ORACLE_AUX_SHADED:
+        raise AssertionError(f"oracle aux: the terminator is not shaded "
+                             f"(color_last max {stats['color_last_max']})")
+
+
+def main_oracle(counts, card, device="cuda"):
+    """Phase 17 (module docstring): the bench, plush and grass scenes at
+    their shipped settings and the auxiliary-mesh scene, each device run
+    held against nerftex_torch/instancing/oracle.py on the host.  Returns
+    the per-scene numbers."""
+    from nerftex_torch.ops.rays import frame_rays
+
+    t_phase = time.perf_counter()
+    bench_rays = frame_rays(512, 512, np.array([0.47, -0.65, 0.6]) * 6.0, 0.55,
+                            [1, 1, 1, 0.1, 0, 0, 1.0])
+    scenes = (
+        ("bench", renderer_config("float32"), bench_rays,
+         ("nearest", "random", "nearest_blend")),
+        ("plush", plush_renderer_config(), scene_data("plush")[0],
+         ("nearest_blend", "nearest", "random")),
+        ("grass", grass_renderer_config(), scene_data("grass")[0], ("nearest",)),
+    )
+    numbers = {}
+    for name, render_cfg, data, methods in scenes:
+        rays = {"rays_o": data["rays_o"][0], "rays_d": data["rays_d"][0],
+                "parameters": data["parameters"]}
+        stats = {}
+        if counts is not None:
+            counts[0]()
+        t0 = time.perf_counter()
+        oracle_scene(name, render_cfg["instancer_config"], rays, render_cfg["n_samples"],
+                     render_cfg["step_size"], methods, device, counts, stats)
+        stats["seconds"] = time.perf_counter() - t0
+        if name == "grass" and not stats["terminated_rays"]:
+            raise AssertionError("oracle grass: no ray ends on the terrain")
+        log(f"oracle {name}: {json.dumps(stats)}")
+        numbers[name] = stats
+    stats = {}
+    if counts is not None:
+        counts[0]()
+    t0 = time.perf_counter()
+    oracle_aux_scene(device, counts, stats)
+    stats["seconds"] = time.perf_counter() - t0
+    log(f"oracle aux: {json.dumps(stats)}")
+    numbers["aux"] = stats
+    seconds = time.perf_counter() - t_phase
+    log(f"oracle phase: {seconds:.1f} s (budget {ORACLE_BUDGET_S} s) on {card}")
+    numbers["seconds"] = seconds
+    return numbers
+
+
 def kernel_counts():
     """(reset, read, check) over the kernel wrappers' launch counters:
     reset() zeroes every count; read() gives ({kernel: launches},
@@ -4075,6 +4724,9 @@ def main():
     frames["tensor_parallel"], rows["carpet_tp"], launches["carpet_tp"] = main_tensor_parallel(
         card)
     log(f"phase tensor parallel and tools: {time.perf_counter() - t_phase:.1f} s")
+
+    # -- the device instancer against the host oracle ---------------------------
+    frames["oracle"] = main_oracle(counts, card)
 
     kernels = [dict(row, frame=frame, launches=launches[frame][name])
                for frame in launches for name, row in rows[frame].items()]

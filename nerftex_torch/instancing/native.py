@@ -1,8 +1,9 @@
 """ctypes loader for the repo's native scene-compiler library.
 
 Compiles native/scene_compiler.cpp with the flags of native/Makefile into
-nerftex_torch/_build/ at first use, so the closest-point bake matches the
-JAX package's native path on the same machine.  Where no C++ compiler is
+nerftex_torch/_build/ at first use, so the closest-point bake and the
+batched first-hit casts match the JAX package's native path on the same
+machine.  Where no C++ compiler is
 available the caller uses the numpy path instead, as the JAX package does.
 """
 
@@ -46,6 +47,11 @@ def get_lib():
         f32p, ctypes.c_int64, f32p, f32p, f32p, ctypes.c_int64, i32p, f32p, f32p,
     ]
     lib.nt_closest_points.restype = None
+    lib.nt_ray_mesh_first_hit.argtypes = [
+        f32p, f32p, ctypes.c_int64, f32p, f32p, f32p, ctypes.c_int64,
+        ctypes.c_float, f32p, i32p, f32p, f32p,
+    ]
+    lib.nt_ray_mesh_first_hit.restype = None
     _STATE["lib"] = lib
     return lib
 
@@ -66,3 +72,24 @@ def closest_points(queries, tri_a, tri_b, tri_c):
     out_dist = np.empty(n, np.float32)
     lib.nt_closest_points(queries, n, tri_a, tri_b, tri_c, t, out_tri, out_bary, out_dist)
     return out_tri, out_bary, out_dist
+
+
+def ray_mesh_first_hit(rays_o, rays_d, v0, e1, e2, t_max=100.0):
+    """Batched Moller-Trumbore first-hit casts -> (t [N] (inf = miss),
+    tri [N], u [N], v [N]), or None when the library is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    rays_o = np.ascontiguousarray(rays_o, np.float32)
+    rays_d = np.ascontiguousarray(rays_d, np.float32)
+    v0 = np.ascontiguousarray(v0, np.float32)
+    e1 = np.ascontiguousarray(e1, np.float32)
+    e2 = np.ascontiguousarray(e2, np.float32)
+    n, t = len(rays_o), len(v0)
+    out_t = np.empty(n, np.float32)
+    out_tri = np.empty(n, np.int32)
+    out_u = np.empty(n, np.float32)
+    out_v = np.empty(n, np.float32)
+    lib.nt_ray_mesh_first_hit(rays_o, rays_d, n, v0, e1, e2, t, t_max, out_t, out_tri, out_u,
+                              out_v)
+    return out_t, out_tri, out_u, out_v

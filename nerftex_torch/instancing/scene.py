@@ -4,7 +4,8 @@ baked textures, ready to move to the device once per scene.
 The port's own copy of nerftex_tpu/instancing/scene.py (texture and light
 parameter slots, tangent frames, anchor placement by closest-point queries
 with rotation jitter, the per-instance UV Jacobian bake, auxiliary meshes,
-transform export).  Numpy only: it runs once per scene, never in the
+transform export, and the host oracle's exact closest-point texture
+lookup, ``get_parameters`` over ``sample_texture``).  Numpy only: it runs once per scene, never in the
 render loop, and its tables equal the JAX package's on the same inputs.
 """
 
@@ -39,6 +40,26 @@ def load_texture_channels(path: str):
         arr = arr[..., None]
     # arr[y_from_top, x, c] -> channel[x, y_from_bottom]
     return [np.ascontiguousarray(arr[::-1, :, c].T) for c in range(arr.shape[-1])]
+
+
+def sample_texture(channel, uv):
+    """Bilinear fetch of one [W, H] channel at uv [N, 2]
+    (instancer.cpp:605-637)."""
+    w, h = channel.shape
+    x = np.clip(uv[..., 0], 0, 1) * (w - 1)
+    y = np.clip(uv[..., 1], 0, 1) * (h - 1)
+    x0 = np.clip(np.floor(x).astype(np.int32), 0, w - 2) if w > 1 else np.zeros_like(x, np.int32)
+    y0 = np.clip(np.floor(y).astype(np.int32), 0, h - 2) if h > 1 else np.zeros_like(y, np.int32)
+    fx = x - x0
+    fy = y - y0
+    x1 = np.minimum(x0 + 1, w - 1)
+    y1 = np.minimum(y0 + 1, h - 1)
+    return (
+        channel[x0, y0] * (1 - fx) * (1 - fy)
+        + channel[x0, y1] * (1 - fx) * fy
+        + channel[x1, y0] * fx * (1 - fy)
+        + channel[x1, y1] * fx * fy
+    )
 
 
 def closest_point_triangles(p, a, b, c):
@@ -354,6 +375,20 @@ class Scene:
         ply = read_ply(mesh_path)
         textures = load_texture_channels(texture_path) if texture_path else []
         self.aux_meshes.append(SceneMesh(ply.V, ply.F, ply.N, ply.UV, textures))
+
+    # -- queries of the host oracle (instancing/oracle.py) -----------------
+
+    def get_parameters(self, pt, parameters):
+        """Scale texture-driven parameter slots by the base-mesh texture at
+        the closest surface point (instancer.cpp:640-667)."""
+        out = np.array(parameters, np.float32)
+        if self.base_mesh is None or not self.texture_parameter_idxs:
+            return out
+        tri, bary, d = closest_point_on_mesh(pt, self.base_mesh)
+        uv = bary @ self.base_mesh.UV[self.base_mesh.F[tri]]
+        for i, slot in enumerate(self.texture_parameter_idxs):
+            out[slot] *= sample_texture(self.texture_channels[i], uv[None])[0]
+        return out
 
     def export_transformations(self, file_path):
         """Dump forward transforms as JSON (instancer.cpp:1040-1061)."""

@@ -12,7 +12,8 @@ git hash appended, and instantiates the config: ``Train`` trains and
 writes scalars, validation images and checkpoints under ``target_path``;
 ``Render`` restores ``<target_path>/checkpoints`` and renders the test
 dataset into ``<target_path>/media/test``.  The kernels' nvcc builds are
-cached by kernels/build.py.
+cached by kernels/build.py.  ``NERFTEX_DEBUG_NANS=1`` makes the run raise
+on its first non-finite value (utils/debug.py).
 """
 
 import argparse
@@ -22,6 +23,7 @@ import shutil
 import sys
 
 from nerftex_torch.utils import rng, util
+from nerftex_torch.utils.debug import maybe_enable_debug_checks
 from nerftex_torch.utils.util import EasyDict
 
 
@@ -46,6 +48,7 @@ def main(argv=None) -> None:
         config.logger_config.update({"info": config_copy})
 
     rng.set_seed(config.get("seed"))
+    maybe_enable_debug_checks()
 
     os.makedirs(config.target_path, exist_ok=config.get("override", False))
     infix = "train" if "train" in config.module else "render"

@@ -38,6 +38,7 @@ from nerftex_torch.render.checkpoint import (CheckpointManager, adam_state_tree,
                                              export_jax_params, load_adam_state, load_jax_opt_state,
                                              load_jax_params)
 from nerftex_torch.utils import util
+from nerftex_torch.utils.debug import check_finite
 from nerftex_torch.utils.image import write_image
 
 
@@ -225,6 +226,8 @@ class Logger:
             bkgd_color=self.dataset.bkgd_color,
             training=False,
         )
+        check_finite("rendered frame", color_pred=pred["color_pred"],
+                     alpha_pred=pred["alpha_pred"])
         img = np.concatenate(
             [pred["color_pred"].float().cpu().numpy().reshape(-1, 3),
              pred["alpha_pred"].float().cpu().numpy().reshape(-1, 1)],

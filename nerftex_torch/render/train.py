@@ -38,6 +38,7 @@ import torch
 from nerftex_torch.models.mlp import model_dict
 from nerftex_torch.render.checkpoint import jax_flat_layout
 from nerftex_torch.utils import jax_rng, rng, util
+from nerftex_torch.utils.debug import check_finite, debug_checks_enabled
 from nerftex_torch.utils.util import EasyDict, resolve_device
 
 # Device-resident steps of this process: graph captures, graph replays,
@@ -151,7 +152,9 @@ class FusedStep:
     as a CUDA graph: it warms up once on a side stream, puts every
     parameter, Adam state, counter and buffer back as it was, captures,
     and from then on only replays.  A failed capture raises: nothing runs
-    the step eagerly on the card.  On the CPU each step runs eagerly.
+    the step eagerly on the card, but under NERFTEX_DEBUG_NANS
+    (utils/debug.py), whose checks a capture refuses.  On the CPU each step
+    runs eagerly.
     ``_loss`` is the part of the step between sampling and Adam, which the
     data-parallel step (parallel/mesh.py) replaces."""
 
@@ -256,7 +259,7 @@ class FusedStep:
         self._init_adam_state()
         self.step.fill_(int(start))
         self.slot.zero_()
-        if self.capturable:
+        if self.capturable and not debug_checks_enabled():
             if self.graph is None:
                 self._capture()
             for _ in range(k):
@@ -377,6 +380,7 @@ def Train(
         for k in dispatch_sizes(step, int(n_iters), steps_per_dispatch,
                                 (logger.i_img, logger.i_checkpoint)):
             losses = train_step.run(step, k)
+            check_finite(f"training steps {step}-{step + k - 1}", loss=losses)
             for model in models.values():
                 model.drop_packed()
             for loss in losses:
@@ -390,6 +394,7 @@ def Train(
         key = jax_rng.fold_in(base_key, logger.step)
         batch = {k: torch.as_tensor(v).to(device, non_blocking=True) for k, v in data.items()}
         loss = train_step(batch, key)
+        check_finite(f"training step {logger.step}", loss=loss)
         state.step = logger.step + 1
         logger({"Loss": loss})
     return models

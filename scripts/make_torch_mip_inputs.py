@@ -28,6 +28,10 @@ swatches:
                          color and alpha with the init weights under
                          stream_key(STREAM_PERTURB, 0); overflow, its
                          (dropped hits, dropped samples)
+  frame2/<name>          the same for a second camera of the render config,
+                         its pose and angle at radius FRAME2_RADIUS, where
+                         the grass fills most of the frame (the first
+                         camera's draws 4.2 % of its rays)
   sweep/overflow         int64 [5, 2]: the same per frame of the render
                          config's own sweep (five 256x256 frames, radius 20
                          down to 5, frame i under stream_key(STREAM_PERTURB,
@@ -40,6 +44,8 @@ gradient-identical to the config's False, one net_chunk of activations at
 a time).
 
 Run from the repo root:  JAX_PLATFORMS=cpu python scripts/make_torch_mip_inputs.py
+With ``--frame2`` it adds (or rewrites) only the frame2/ arrays of an
+existing file and keeps every other array as it is.
 """
 
 import copy
@@ -55,6 +61,7 @@ OUT = os.path.join(ROOT, "tests", "torch_grass_mip_inputs.npz")
 K = 3
 N_IMAGES, SIZE = 32, 64
 FRAME_SIZE = 64
+FRAME2_RADIUS = 2.5
 IMP_LEAVES = ("trunk/0/w", "trunk/7/w", "alpha/w", "color_layers/0/w", "color/w")
 
 
@@ -90,6 +97,58 @@ def record_drops(renderer) -> list:
 
     renderer._report_diagnostics = report
     return drops
+
+
+def jax_frame(render_stock, model, prefix, radius=None) -> dict:
+    """The render config's first camera (at ``radius``, if given) at
+    FRAME_SIZE^2 through the JAX MipInstanceRenderer with ``model`` under
+    stream_key(STREAM_PERTURB, 0): <prefix>/ rays, color, alpha and
+    overflow."""
+    from nerftex_tpu.utils import rng, util
+
+    rcfg = copy.deepcopy(render_stock)
+    loader = rcfg["test_dataset_config"]["data_loader_config"]
+    loader.update(height=FRAME_SIZE, width=FRAME_SIZE)
+    if radius is not None:
+        loader["radius"] = radius
+    rng.set_seed(rcfg["seed"])
+    data = next(iter(util.instantiate(util.EasyDict(rcfg["test_dataset_config"]))))
+    renderer = util.instantiate(util.EasyDict(dict(rcfg["renderer_config"], model=model)))
+    drops = record_drops(renderer)
+    frame = renderer(**data, training=False, key=rng.stream_key(rng.STREAM_PERTURB, 0))
+    out = {f"{prefix}/overflow": np.asarray(drops[0], np.int64)}
+    for k in ("rays_o", "rays_d", "t", "cone_scale", "parameters"):
+        out[f"{prefix}/{k}"] = np.asarray(data[k], np.float32)
+    out[f"{prefix}/color"] = np.asarray(frame["color_pred"], np.float32)
+    out[f"{prefix}/alpha"] = np.asarray(frame["alpha_pred"], np.float32)
+    print(f"{prefix}: alpha mean {out[f'{prefix}/alpha'].mean():.4f}, "
+          f"{(out[f'{prefix}/alpha'] > 0.01).mean():.3f} of the rays drawn, dropped (hits, "
+          f"samples) {drops[0]}", flush=True)
+    return out
+
+
+def add_frame2() -> None:
+    """Rewrite OUT with its frame2/ arrays (re)computed and every other
+    array as it was."""
+    sys.path.insert(0, ROOT)
+    import nerftex_tpu.models.mlp as jax_mlp
+    from configs.demo_grass_mip_render import config as render_stock
+    from configs.demo_grass_mip_train import config as stock
+    from nerftex_tpu.utils import rng, util
+
+    with np.load(OUT) as f:
+        out = {k: f[k] for k in f.files if not k.startswith("frame2/")}
+    rng.set_seed(stock["seed"])
+    jax_mlp._INIT_COUNTER[0] = 0
+    model = util.instantiate(util.EasyDict(copy.deepcopy(stock["model_config"])))["model"]
+    import jax
+
+    for k, v in flatten_params(jax.tree.map(np.asarray, model.params)).items():
+        if not np.array_equal(leaf_digest(v), out[f"digest/{k}"]):
+            raise AssertionError(f"the init's {k} is not the one the file holds")
+    out.update(jax_frame(render_stock, model, "frame2", radius=FRAME2_RADIUS))
+    np.savez_compressed(OUT, **out)
+    print(f"wrote {OUT} ({os.path.getsize(OUT) / 2**20:.2f} MiB)")
 
 
 def main() -> None:
@@ -161,23 +220,8 @@ def main() -> None:
     for k in IMP_LEAVES:
         out[f"imp/grad/{k}"] = grads[k]
 
-    # The render config's first camera at 64x64 with the same init weights.
-    rcfg = copy.deepcopy(render_stock)
-    rcfg["test_dataset_config"]["data_loader_config"].update(height=FRAME_SIZE,
-                                                             width=FRAME_SIZE)
-    rng.set_seed(rcfg["seed"])
-    data = next(iter(util.instantiate(util.EasyDict(rcfg["test_dataset_config"]))))
-    renderer = util.instantiate(util.EasyDict(dict(rcfg["renderer_config"], model=model)))
-    drops = record_drops(renderer)
-    frame = renderer(**data, training=False, key=rng.stream_key(rng.STREAM_PERTURB, 0))
-    out["frame/overflow"] = np.asarray(drops[0], np.int64)
-    for k in ("rays_o", "rays_d", "t", "cone_scale", "parameters"):
-        out[f"frame/{k}"] = np.asarray(data[k], np.float32)
-    out["frame/color"] = np.asarray(frame["color_pred"], np.float32)
-    out["frame/alpha"] = np.asarray(frame["alpha_pred"], np.float32)
-    print(f"frame: alpha mean {out['frame/alpha'].mean():.4f}, "
-          f"{(out['frame/alpha'] > 0.01).mean():.3f} of the rays drawn, dropped (hits, "
-          f"samples) {drops[0]}", flush=True)
+    out.update(jax_frame(render_stock, model, "frame"))
+    out.update(jax_frame(render_stock, model, "frame2", radius=FRAME2_RADIUS))
 
     # The sweep's drops at the render config's own settings.
     rcfg = copy.deepcopy(render_stock)
@@ -196,4 +240,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--frame2"]:
+        add_frame2()
+    else:
+        main()

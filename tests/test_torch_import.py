@@ -62,7 +62,8 @@ def test_package_imports_with_jax_blocked():
               "nerftex_torch.data.device_dataset", "nerftex_torch.parallel",
               "nerftex_torch.parallel.mesh", "nerftex_torch.tools.gen_assets",
               "nerftex_torch.tools.nerf2tfr", "nerftex_torch.tools.blur",
-              "nerftex_torch.tools.create_dataset"):
+              "nerftex_torch.tools.create_dataset", "nerftex_torch.instancing.oracle",
+              "nerftex_torch.utils.debug"):
         assert m in modules, m
     code = (
         "import sys\n"

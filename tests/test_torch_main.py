@@ -5,13 +5,16 @@ key and weights; the port's main on the grass_filtered render config, cut
 to 16x16 and a narrow ParamNerf, restored from one checkpoint that the
 JAX package's CheckpointManager wrote, writes the file names and images
 that the JAX package's Render writes; the eval Logger's PNG and EXR
-images, with and without its filtered downsample, are the JAX Logger's.
-(main's train configs: tests/test_torch_train.py.)"""
+images, with and without its filtered downsample, are the JAX Logger's;
+NERFTEX_DEBUG_NANS makes main and the Logger raise on an injected NaN, and
+nothing changes without it.  (main's train configs:
+tests/test_torch_train.py.)"""
 
 import contextlib
 import copy
 import importlib
 import io
+import json
 import os
 import re
 import sys
@@ -256,3 +259,96 @@ def test_logger_writes_the_jax_images(tmp_path, write_exr, factor):
             want, got = (decode_png_u8(p.read_bytes()).astype(np.int32) for p in paths)
             assert want.shape == (8 // factor, 12 // factor, 4)
             assert np.abs(got - want).max() <= (0 if factor == 1 else 1)
+
+
+@contextlib.contextmanager
+def _debug_nans(monkeypatch, on):
+    """NERFTEX_DEBUG_NANS set (or unset) for the block; the checks and
+    autograd's anomaly mode are off again after it."""
+    from nerftex_torch.utils import debug
+
+    if on:
+        monkeypatch.setenv("NERFTEX_DEBUG_NANS", "1")
+    else:
+        monkeypatch.delenv("NERFTEX_DEBUG_NANS", raising=False)
+    try:
+        yield debug
+    finally:
+        monkeypatch.delenv("NERFTEX_DEBUG_NANS", raising=False)
+        debug.maybe_enable_debug_checks()
+        assert not torch.is_anomaly_enabled()
+
+
+@pytest.mark.parametrize("debug_nans", [False, True])
+def test_debug_nans_raises_on_a_nan_loss_through_main(tmp_path, monkeypatch, debug_nans):
+    """configs/config_carpet_train.py through main on the CPU, cut to two
+    steps of 8 rays x 16 samples at depth 3 and width 64, with a NaN
+    injected into every loss: NERFTEX_DEBUG_NANS raises in the first step's
+    backward pass (autograd's anomaly mode) or at its loss; without it the
+    run completes and logs the NaN losses, as the JAX package's does."""
+    from nerftex_torch.render import loss as port_loss
+    from nerftex_torch.tools.synth import make_synthetic_tfrecord
+
+    monkeypatch.setenv("NERFTEX_NO_TENSORBOARD", "1")
+    cfg = copy.deepcopy(importlib.import_module("configs.config_carpet_train").config)
+    proxy = cfg["train_dataset_config"]["proxy_config"]
+    tfr = str(tmp_path / "train.tfr")
+    make_synthetic_tfrecord(tfr, n_images=4, size=16,
+                            n_parameters=tuple(cfg["model_config"]["n_parameters"]),
+                            b_0=tuple(proxy["b_0"]), b_1=tuple(proxy["b_1"]))
+    cfg["target_path"] = str(tmp_path / "logs")
+    cfg["n_iters"] = 2
+    cfg["train_dataset_config"]["data_loader_config"]["tfr_path"] = tfr
+    cfg["train_dataset_config"]["pixel_sampler_config"].update(n_samples=8, downsample_factor=2)
+    cfg["val_dataset_config"]["data_loader_config"].update(height=8, width=8)
+    cfg["model_config"].update(depth=3, width=64, skips=[1])
+    cfg["renderer_config"]["n_samples"] = 16
+    cfg["logger_config"].update(i_summary=1, i_img=100, i_checkpoint=100)
+    with open(tmp_path / "nan_train.py", "w") as f:
+        f.write(f"config = {cfg!r}\n")
+    real = port_loss.AlphaLoss.__call__
+    monkeypatch.setattr(port_loss.AlphaLoss, "__call__",
+                        lambda self, **kw: real(self, **kw) * float("nan"))
+    monkeypatch.chdir(tmp_path)
+    with _debug_nans(monkeypatch, debug_nans):
+        if debug_nans:
+            with pytest.raises((FloatingPointError, RuntimeError), match="(?i)nan|finite"):
+                port_main.main(["nan_train.py", "--device", "cpu"])
+            assert torch.is_anomaly_enabled() and torch.is_anomaly_check_nan_enabled()
+        else:
+            port_main.main(["nan_train.py", "--device", "cpu"])
+            assert not torch.is_anomaly_enabled()
+    scalars = tmp_path / "logs" / "scalars.jsonl"
+    losses = ([json.loads(line)["Loss"] for line in scalars.read_text().splitlines()]
+              if scalars.exists() else [])
+    if debug_nans:
+        assert losses == []
+    else:
+        assert len(losses) == 2 and np.isnan(losses).all()
+
+
+@pytest.mark.parametrize("debug_nans", [False, True])
+def test_debug_nans_checks_each_rendered_frame(tmp_path, monkeypatch, debug_nans):
+    """The eval Logger (Render's and the validation renders' path) on a
+    renderer whose second frame holds a NaN: under NERFTEX_DEBUG_NANS it
+    raises FloatingPointError after writing the first image; without it
+    both images are written."""
+    from nerftex_torch.render.logger import Logger
+
+    color = torch.zeros(2, 1, 96, 3)
+    alpha = torch.full((2, 1, 96), 0.5)
+    color[1, 0, 7, 1] = float("nan")
+
+    def renderer(index, **kwargs):
+        return {"color_pred": color[index], "alpha_pred": alpha[index]}
+
+    kw = dict(checkpoint_variables={}, dataset=_Frames(), is_training=False)
+    with _debug_nans(monkeypatch, debug_nans) as debug:
+        assert debug.maybe_enable_debug_checks() == debug_nans
+        if debug_nans:
+            with pytest.raises(FloatingPointError, match="rendered frame: color_pred"):
+                Logger(str(tmp_path), renderer=renderer, **kw)
+        else:
+            Logger(str(tmp_path), renderer=renderer, **kw)
+    written = sorted(os.listdir(tmp_path / "media" / "test"))
+    assert written == (["0.png"] if debug_nans else ["0.png", "1.png"])

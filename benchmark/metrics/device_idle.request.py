@@ -1,0 +1,9 @@
+"""The share of the traced run's profiled stretch in which no operation
+ran on the device: 1 - busy / wall."""
+
+
+def read(trace):
+    if trace.get("kind") != "session":
+        return None
+    p = trace["part2"]
+    return 100.0 * (1.0 - p["busy_s"] / p["wall_s"])

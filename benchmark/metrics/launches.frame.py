@@ -1,0 +1,9 @@
+"""Kernel launches per frame in the traced run's profiled frames (the
+chunk loop and the instancer's block loop launch most of them)."""
+
+
+def read(trace):
+    if trace.get("kind") != "session":
+        return None
+    p = trace["part2"]
+    return p["launches"] / p["units"]

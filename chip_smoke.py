@@ -4086,6 +4086,15 @@ def oracle_textures(name, scene, near, closest, rays_o, rays_d, params, rows, co
                              f"{ORACLE_JACOBIAN}")
 
 
+def shadow_branches() -> dict:
+    """How often the shadow query took each exact branch in what the tracer
+    recorded (its shadow.skip, shadow.culled and shadow.full counts)."""
+    from nerftex_torch.utils import trace
+
+    totals = trace.totals()
+    return {k: totals.get(f"shadow.{k}", 0) for k in ("skip", "culled", "full")}
+
+
 @contextlib.contextmanager
 def occlusion_capture(device_instancer):
     """While active, every call of the instance's _occlusion_branched
@@ -4193,6 +4202,7 @@ def oracle_scene(name, cfg, rays, n_samples, step, methods, device, counts, stat
     texture_lookup="closest"; shadows at the device's shadow points."""
     from nerftex_torch.instancing import oracle
     from nerftex_torch.instancing.device import DeviceInstancer
+    from nerftex_torch.utils import trace
     from nerftex_torch.utils.util import instantiate
 
     t0 = time.perf_counter()
@@ -4223,11 +4233,12 @@ def oracle_scene(name, cfg, rays, n_samples, step, methods, device, counts, stat
             other = copy.copy(scene)
             other.instance_sampling_method = method
             d = DeviceInstancer(other, torch.device(device), **kw)
-        with occlusion_capture(d) as got:
+        trace.reset()
+        with occlusion_capture(d) as got, trace.recording():
             outs[method] = oracle_run(d, rays_o, rays_d, params, n_samples, step)
         if method == scene.instance_sampling_method:
             calls = got
-            stats["shadow_branches"] = dict(d.shadow_branches)
+            stats["shadow_branches"] = shadow_branches()
     if scene.texture_parameter_idxs:
         closest = DeviceInstancer(scene, torch.device(device), texture_lookup="closest", **kw)
         outs["closest"] = oracle_run(closest, rays_o, rays_d, params, n_samples, step)
@@ -4403,7 +4414,7 @@ def main():
     from nerftex_torch.instancing.scene import load_texture_channels
     from nerftex_torch.kernels import build, mlp_fused as fused, selk_resolve as selk, tex_gather
     from nerftex_torch.ops.rays import frame_rays
-    from nerftex_torch.utils import jax_rng
+    from nerftex_torch.utils import jax_rng, trace
     from nerftex_torch.render.checkpoint import load_jax_params
     from nerftex_torch.utils.util import instantiate
 
@@ -4576,14 +4587,14 @@ def main():
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
-    with selk_capture() as selk_calls:
+    trace.reset()
+    with selk_capture() as selk_calls, trace.recording():
         out = renderer(**p_data, key=jax_rng.key(1))
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     plush_launches, plush_variants = read_counts()
-    log(f"plush frame (first render {first_s:.2f} s): launches {plush_launches}, variants "
-        f"{plush_variants}, shadow branches "
-        f"{renderer.instancer.device_instancer.shadow_branches}")
+    log(f"plush frame (first render {first_s:.2f} s, recorded by the tracer): launches "
+        f"{plush_launches}, variants {plush_variants}, shadow branches {shadow_branches()}")
     check_counts("plush", plush_launches, plush_variants)
     rows["plush"]["selk_resolve"].update(
         selk_frame_record(selk_calls, plush_launches["selk_resolve"], "plush"))
@@ -4615,14 +4626,15 @@ def main():
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
-    with selk_capture(keep_inputs=True) as selk_calls, mlp_capture() as mlp_calls:
+    trace.reset()
+    with selk_capture(keep_inputs=True) as selk_calls, mlp_capture() as mlp_calls, \
+            trace.recording():
         out = renderer(**g_data, key=jax_rng.key(1))
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     grass_launches, grass_variants = read_counts()
-    log(f"grass frame (first render {first_s:.2f} s): launches {grass_launches}, variants "
-        f"{grass_variants}, shadow branches "
-        f"{renderer.instancer.device_instancer.shadow_branches}")
+    log(f"grass frame (first render {first_s:.2f} s, recorded by the tracer): launches "
+        f"{grass_launches}, variants {grass_variants}, shadow branches {shadow_branches()}")
     # Grass has no texture channel (textures ["", "point"]): no tex_fetch.
     check_counts("grass", grass_launches, grass_variants, idle=("tex_fetch",))
     g_psnr = frame_psnr("grass", out, h, w)

@@ -8,6 +8,7 @@ dense, fixed-shape batch to its own device.  The records and items are the
 JAX package's for the same seed (utils/rng.set_seed seeds numpy).
 """
 
+import itertools
 import json
 import os
 import queue
@@ -21,7 +22,7 @@ from nerftex_torch.data import tfrecord as tfr
 from nerftex_torch.data.device_dataset import DeviceResidentSampler
 from nerftex_torch.ops.interpolate import interpolate_img
 from nerftex_torch.ops.rays import look_at
-from nerftex_torch.utils import util
+from nerftex_torch.utils import trace, util
 from nerftex_torch.utils.image import decode_png, read_image
 from nerftex_torch.utils.util import EasyDict
 
@@ -60,8 +61,18 @@ class LazyTFRecordSource:
 
     def __getitem__(self, i):
         if i in self._cache:
+            trace.count("decode.hit")
             return self._cache[i]
-        ex = self.examples[i]
+        trace.count("decode.miss")
+        with trace.span("data.decode"):
+            record = self._decode(self.examples[i])
+        self._cache[i] = record
+        self._order.append(i)
+        if len(self._order) > self.cache_size:
+            del self._cache[self._order.pop(0)]
+        return record
+
+    def _decode(self, ex) -> dict:
         record = {
             "pose": tfr.parse_tensor(ex["pose"]).astype(np.float32).reshape(4, 4),
             "parameters": tfr.parse_tensor(ex["parameters"]).astype(np.float32).reshape(-1),
@@ -78,11 +89,6 @@ class LazyTFRecordSource:
             else:
                 record["image"] = img[..., :3] * img[..., 3:]
             record["alpha"] = img[..., 3]
-
-        self._cache[i] = record
-        self._order.append(i)
-        if len(self._order) > self.cache_size:
-            del self._cache[self._order.pop(0)]
         return record
 
 
@@ -209,7 +215,14 @@ def _prefetch_iter(stream_fn, depth: int):
 
     def worker():
         try:
-            for item in stream_fn():
+            stream = iter(stream_fn())
+            for index in itertools.count():
+                # One batch made on this thread, a root span of its own
+                # whose unit ("batch", index) no span id can equal.
+                with trace.span("data.batch", unit=("batch", index)):
+                    item = next(stream, sentinel)
+                if item is sentinel:
+                    break
                 q.put(item)
         finally:
             q.put(sentinel)
@@ -217,7 +230,8 @@ def _prefetch_iter(stream_fn, depth: int):
     thread = threading.Thread(target=worker, daemon=True)
     thread.start()
     while True:
-        item = q.get()
+        with trace.span("data.wait"):
+            item = q.get()
         if item is sentinel:
             return
         yield item

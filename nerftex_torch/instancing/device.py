@@ -67,7 +67,8 @@ from nerftex_torch.kernels.selk_resolve import fma, selk_resolve
 from nerftex_torch.kernels.tex_gather import byte_quads, sample_channel
 from nerftex_torch.models.encodings import check_matmul_precision, round_operand
 from nerftex_torch.ops.volume import mean_distance
-from nerftex_torch.utils import jax_rng
+from nerftex_torch.utils import jax_rng, trace
+from nerftex_torch.utils.util import as_f32
 
 T_FAR = 100.0
 _INF = float("inf")
@@ -242,7 +243,9 @@ def _block_fan(rays_o, rays_d):
 
     resid = d_n - (d_n @ u)[:, None] * u
     cov = resid.T @ resid
-    w = cov[:, torch.argmax(torch.diagonal(cov))] + 1e-20
+    with trace.host_read("fan"):
+        # A 0-d index tensor is read back to the host as an int.
+        w = cov[:, torch.argmax(torch.diagonal(cov))] + 1e-20
     for _ in range(3):
         w = cov @ w
         w = w / torch.clamp(torch.linalg.norm(w), min=eps)
@@ -281,6 +284,16 @@ def _keep_to_candidates(keep, C):
     prio = torch.sort(torch.where(keep, idx, n + idx)).values[:C]
     cand_valid = prio < n
     return torch.where(cand_valid, prio, 0), cand_valid
+
+
+def _cull_fits(keep, budget) -> bool:
+    """Whether the kept ids fit the budget: a read of the device's count,
+    which picks the culled branch (counted ``cull.fit``) or the full one
+    (``cull.full``)."""
+    with trace.host_read("cull"):
+        fits = int(keep.sum()) <= budget
+    trace.count("cull.fit" if fits else "cull.full")
+    return fits
 
 
 def _dot3(a, b):
@@ -431,8 +444,6 @@ class DeviceInstancer:
         self.shadow_samples = shadow_samples
         self.shadow_cull_budget = shadow_cull_budget
         self.shadow_tri_cull_budget = shadow_tri_cull_budget
-        # How often the shadow query took each exact branch (diagnostic).
-        self.shadow_branches = {"skip": 0, "culled": 0, "full": 0}
         self.deterministic_offset = deterministic_offset
         # Operand rounding of the slab test's ray-to-local matmuls (see
         # models.encodings.round_operand).
@@ -471,24 +482,27 @@ class DeviceInstancer:
         ``deterministic_offset``, else drawn from ``key`` as JAX draws them
         for each ray block (split(fold_in(key, block))[0])."""
         dev = self.device
-
-        def f32(x):
-            return torch.as_tensor(x, dtype=torch.float32, device=dev)
-
-        rays_o, rays_d, parameters = f32(rays_o), f32(rays_d), f32(parameters)
+        rays_o, rays_d, parameters = (as_f32(x, dev) for x in (rays_o, rays_d, parameters))
         r = rays_o.shape[0]
         block = min(self.ray_block, r)
         n_pad = -(-r // block) * block
         if self.deterministic_offset:
             u_off = torch.full((r,), 0.5, device=dev)
         else:
-            u_off = jax_rng.uniform_rows(jax_rng.block_keys(key, n_pad // block), block,
-                                         dev).reshape(-1)
+            keys = jax_rng.block_keys(key, n_pad // block)
+            if keys.device.type == "cpu":
+                # Keys made on the host: a card waits for their copy (counted
+                # on every device, so that a CPU run counts what a card's does).
+                with trace.host_read("keys"):
+                    keys = keys.to(dev)
+            u_off = jax_rng.uniform_rows(keys, block, dev).reshape(-1)
         extra = tuple(extra)
         if n_pad > r:
             pad = n_pad - r
             rays_o = torch.cat([rays_o, rays_o.new_zeros(pad, 3)])
-            rays_d = torch.cat([rays_d, rays_d.new_tensor([[0, 0, 1.0]]).expand(pad, 3)])
+            with trace.host_read("pad"):
+                up = rays_d.new_tensor([[0, 0, 1.0]])
+            rays_d = torch.cat([rays_d, up.expand(pad, 3)])
             parameters = torch.cat([parameters, parameters.new_zeros(pad, parameters.shape[1])])
             if u_off.shape[0] < n_pad:
                 u_off = torch.cat([u_off, u_off.new_full((pad,), 0.5)])
@@ -662,28 +676,30 @@ class DeviceInstancer:
         per_block = [self._per_ray(rays_o[i:i + block], rays_d[i:i + block],
                                    parameters[i:i + block], cap, step, u_off[i:i + block])
                      for i in range(0, n_rows, block)]
-        overflow_hits = sum(t["overflow_hits"] for t in per_block)
-        overflow_steps = sum(t["overflow_steps"] for t in per_block)
-        tables = {k: None if v is None else torch.cat([t[k] for t in per_block])
-                  for k, v in per_block[0].items() if not k.startswith("overflow")}
-        hit = tables["hit"]
+        with trace.span("instancer.sort"):
+            overflow_hits = sum(t["overflow_hits"] for t in per_block)
+            overflow_steps = sum(t["overflow_steps"] for t in per_block)
+            tables = {k: None if v is None else torch.cat([t[k] for t in per_block])
+                      for k, v in per_block[0].items() if not k.startswith("overflow")}
+            hit = tables["hit"]
 
-        # 2. occupancy sort, descending and stable.
-        order = torch.argsort(tables["n_steps"], descending=True, stable=True)
-        tables_s = {k: None if v is None else v[order] for k, v in tables.items()}
-        rays_o_s, rays_d_s, prm_s = rays_o[order], rays_d[order], parameters[order]
-        extra_s = tuple(e[order] for e in extra)
+            # 2. occupancy sort, descending and stable.
+            order = torch.argsort(tables["n_steps"], descending=True, stable=True)
+            tables_s = {k: None if v is None else v[order] for k, v in tables.items()}
+            rays_o_s, rays_d_s, prm_s = rays_o[order], rays_d[order], parameters[order]
+            extra_s = tuple(e[order] for e in extra)
 
-        # 3. each sorted block at its own maximum step count (its first
-        # ray's) and, for K >= 64, at the JAX package's hit tier: valid hits
-        # are a prefix of the K slots, so the [.., K] tables cut to the
-        # smallest tier that holds the block's hits; the pick counts the
-        # trailing slots of that width, as JAX does.
-        K = tables["tk0"].shape[-1]
-        k_tiers = sorted({min(K, 8), max(1, K // 4), K}) if K >= 64 else [K]
-        block_hits = tables_s["kvalid"].sum(-1).reshape(n_blocks, block).max(-1).values
-        block_max, block_hits = torch.stack(
-            [tables_s["n_steps"][::block].long(), block_hits]).tolist()
+            # 3. each sorted block at its own maximum step count (its first
+            # ray's) and, for K >= 64, at the JAX package's hit tier: valid
+            # hits are a prefix of the K slots, so the [.., K] tables cut to
+            # the smallest tier that holds the block's hits; the pick counts
+            # the trailing slots of that width, as JAX does.
+            K = tables["tk0"].shape[-1]
+            k_tiers = sorted({min(K, 8), max(1, K // 4), K}) if K >= 64 else [K]
+            block_hits = tables_s["kvalid"].sum(-1).reshape(n_blocks, block).max(-1).values
+            with trace.host_read("block_table"):
+                block_max, block_hits = torch.stack(
+                    [tables_s["n_steps"][::block].long(), block_hits]).tolist()
         # JAX's step-capacity buckets: a block's pick uniforms are drawn at
         # its bucket's width.
         buckets = sorted({min(cap, 8), *(max(1, cap * q // 8) for q in range(1, 9)), cap})
@@ -696,24 +712,28 @@ class DeviceInstancer:
         shade_keys = jax_rng.block_keys(k_sorted, n_blocks, index=1)
         outs = []
         for b, (s_max, n_hits) in enumerate(zip(block_max, block_hits)):
-            sl = slice(b * block, (b + 1) * block)
-            ray = {k: (None if v is None else v[sl]) for k, v in tables_s.items()}
-            ext = tuple(e[sl] for e in extra_s)
-            if s_max == 0 and empty_block is not None:
-                outs.append(empty_block(ray, ext))
-                continue
-            K_b = k_tiers[bisect.bisect_left(k_tiers, n_hits)]
-            if K_b < K:
-                ray = _slice_hits(ray, K_b)
-            S_b = max(int(s_max), 1)
-            width = buckets[bisect.bisect_left(buckets, s_max)]
-            k_sample = None if sample_keys is None else sample_keys[b]
-            u_sel = self._draw_u_sel((block, S_b), k_sample, full_width=width)
-            sample = self._per_sample_grid(ray, rays_o_s[sl], rays_d_s[sl], prm_s[sl], S_b, step,
-                                           u_sel)
-            inst = self._assemble_grid(ray, sample, rays_d_s[sl], prm_s[sl], S_b, step)
-            inst["draw_width"] = width
-            outs.append(shade_block(inst, ext, shade_keys[b]))
+            with trace.span("instancer.block"):
+                trace.count("blocks")
+                sl = slice(b * block, (b + 1) * block)
+                ray = {k: (None if v is None else v[sl]) for k, v in tables_s.items()}
+                ext = tuple(e[sl] for e in extra_s)
+                if s_max == 0 and empty_block is not None:
+                    trace.count("blocks.empty")
+                    outs.append(empty_block(ray, ext))
+                    continue
+                K_b = k_tiers[bisect.bisect_left(k_tiers, n_hits)]
+                if K_b < K:
+                    ray = _slice_hits(ray, K_b)
+                S_b = max(int(s_max), 1)
+                trace.count("grid.samples", block * S_b)
+                width = buckets[bisect.bisect_left(buckets, s_max)]
+                k_sample = None if sample_keys is None else sample_keys[b]
+                u_sel = self._draw_u_sel((block, S_b), k_sample, full_width=width)
+                sample = self._per_sample_grid(ray, rays_o_s[sl], rays_d_s[sl], prm_s[sl], S_b,
+                                               step, u_sel)
+                inst = self._assemble_grid(ray, sample, rays_d_s[sl], prm_s[sl], S_b, step)
+                inst["draw_width"] = width
+                outs.append(shade_block(inst, ext, shade_keys[b]))
 
         # 4. back to ray order, padding dropped.
         inv_order = torch.empty_like(order)
@@ -724,6 +744,7 @@ class DeviceInstancer:
 
     # -- per-ray stage ----------------------------------------------------
 
+    @trace.span("instancer.per_ray")
     def _per_ray(self, rays_o, rays_d, parameters, S, step, u_off):
         ds = self.ds
         Rb = rays_o.shape[0]
@@ -739,22 +760,24 @@ class DeviceInstancer:
 
         # mesh first hit (clamps the intervals' exits): its distance,
         # triangle and barycentrics (the first of equal distances).
-        if ds.n_tris > 0:
-            first = None
-            if TC:
-                keep_t = _fan_keep(fan, ds.tri_center, ds.tri_radius)
-                if int(keep_t.sum()) <= TC:
-                    tcand, tvalid = _keep_to_candidates(keep_t, TC)
-                    t_all, u_all, v_all = _moller_trumbore(
-                        rays_o, rays_d, ds.tri_v0[tcand], ds.tri_e1[tcand], ds.tri_e2[tcand])
-                    first = (torch.where(tvalid[None, :], t_all, _INF), u_all, v_all, tcand)
-            if first is None:
-                first = (*_moller_trumbore(rays_o, rays_d, ds.tri_v0, ds.tri_e1, ds.tri_e2), None)
-            t_all, u_all, v_all, tri_ids = first
-            t_mesh, best = t_all.min(-1)
-        else:
-            t_mesh = torch.full((Rb,), _INF, device=dev)
-        mesh_hit = torch.isfinite(t_mesh)
+        with trace.span("per_ray.mesh_hit"):
+            if ds.n_tris > 0:
+                first = None
+                if TC:
+                    keep_t = _fan_keep(fan, ds.tri_center, ds.tri_radius)
+                    if _cull_fits(keep_t, TC):
+                        tcand, tvalid = _keep_to_candidates(keep_t, TC)
+                        t_all, u_all, v_all = _moller_trumbore(
+                            rays_o, rays_d, ds.tri_v0[tcand], ds.tri_e1[tcand], ds.tri_e2[tcand])
+                        first = (torch.where(tvalid[None, :], t_all, _INF), u_all, v_all, tcand)
+                if first is None:
+                    first = (*_moller_trumbore(rays_o, rays_d, ds.tri_v0, ds.tri_e1, ds.tri_e2),
+                             None)
+                t_all, u_all, v_all, tri_ids = first
+                t_mesh, best = t_all.min(-1)
+            else:
+                t_mesh = torch.full((Rb,), _INF, device=dev)
+            mesh_hit = torch.isfinite(t_mesh)
 
         # instance slab intervals + top-K nearest
         def intervals_topk(inv_rot_n, inv_trans_n, inst_ids, cand_valid):
@@ -791,60 +814,66 @@ class DeviceInstancer:
             hit_box = (box_hit & (t1 > 0)).any(-1)
             return tk0, tk1, inst_ids[sel], kvalid, overflow, hit_box
 
-        res = None
-        if C:
-            keep_i = _fan_keep(fan, ds.inst_center, ds.inst_radius)
-            if int(keep_i.sum()) <= C:
-                cand, cand_valid = _keep_to_candidates(keep_i, C)
-                res = intervals_topk(ds.inv_rot[cand], ds.inv_trans[cand], cand, cand_valid)
-        if res is None:
-            res = intervals_topk(ds.inv_rot, ds.inv_trans,
-                                 torch.arange(ds.n_instances, device=dev), None)
-        tk0, tk1, inst_idx, kvalid, overflow_hits, hit_box = res
+        with trace.span("per_ray.slabs"):
+            res = None
+            if C:
+                keep_i = _fan_keep(fan, ds.inst_center, ds.inst_radius)
+                if _cull_fits(keep_i, C):
+                    cand, cand_valid = _keep_to_candidates(keep_i, C)
+                    res = intervals_topk(ds.inv_rot[cand], ds.inv_trans[cand], cand, cand_valid)
+            if res is None:
+                res = intervals_topk(ds.inv_rot, ds.inv_trans,
+                                     torch.arange(ds.n_instances, device=dev), None)
+            tk0, tk1, inst_idx, kvalid, overflow_hits, hit_box = res
 
-        # |o + t d - c|^2 = a + 2 t b + t^2 (|d| = 1) per hit slot, for the
-        # anchor-distance picks; the 3-term dots rounded as XLA contracts
-        # them (the picks' distances cancel these terms, see selk_resolve).
-        diff = rays_o[:, None, :] - ds.origins[inst_idx]
-        sel_a = _dot3(diff, diff)
-        sel_b = _dot3(rays_d[:, None, :].expand_as(diff), diff)
+        with trace.span("per_ray.events"):
+            # |o + t d - c|^2 = a + 2 t b + t^2 (|d| = 1) per hit slot, for
+            # the anchor-distance picks; the 3-term dots rounded as XLA
+            # contracts them (the picks' distances cancel these terms, see
+            # selk_resolve).
+            diff = rays_o[:, None, :] - ds.origins[inst_idx]
+            sel_a = _dot3(diff, diff)
+            sel_b = _dot3(rays_d[:, None, :].expand_as(diff), diff)
 
-        # union of intervals via sorted events (starts before ends at equal t)
-        times = torch.cat([tk0, tk1], -1)
-        delta = torch.cat([torch.ones_like(tk0, dtype=torch.int32),
-                           torch.full_like(tk1, -1, dtype=torch.int32)], -1)
-        times_s, ev = torch.sort(times, dim=-1, stable=True)
-        count = torch.cumsum(delta.gather(1, ev), -1)
-        finite_t = torch.isfinite(times_s)
-        nxt = torch.cat([times_s[:, 1:], times_s[:, -1:]], -1)
-        gap = torch.where(torch.isfinite(nxt) & finite_t, nxt - times_s, 0.0)
-        seg_len = torch.where(count > 0, gap, 0.0)
-        cum_incl = torch.cumsum(seg_len, -1)
-        cum_excl = cum_incl - seg_len
-        total = cum_incl[:, -1]
-        arc_corr = torch.where(finite_t, times_s - cum_excl, 0.0)
+            # union of intervals via sorted events (starts before ends at
+            # equal t)
+            times = torch.cat([tk0, tk1], -1)
+            delta = torch.cat([torch.ones_like(tk0, dtype=torch.int32),
+                               torch.full_like(tk1, -1, dtype=torch.int32)], -1)
+            times_s, ev = torch.sort(times, dim=-1, stable=True)
+            count = torch.cumsum(delta.gather(1, ev), -1)
+            finite_t = torch.isfinite(times_s)
+            nxt = torch.cat([times_s[:, 1:], times_s[:, -1:]], -1)
+            gap = torch.where(torch.isfinite(nxt) & finite_t, nxt - times_s, 0.0)
+            seg_len = torch.where(count > 0, gap, 0.0)
+            cum_incl = torch.cumsum(seg_len, -1)
+            cum_excl = cum_incl - seg_len
+            total = cum_incl[:, -1]
+            arc_corr = torch.where(finite_t, times_s - cum_excl, 0.0)
 
-        # per-ray sample layout
-        necessary = torch.floor(total / step).to(torch.int32)
-        overflow_steps = torch.clamp(necessary - S, min=0).sum()
-        tiny = (necessary == 0) & (total > 0)
-        n_steps = torch.where(tiny, 1, torch.clamp(necessary, max=S)).to(torch.int32)
-        t_offset = torch.where(tiny, u_off * total, u_off * step)
+            # per-ray sample layout
+            necessary = torch.floor(total / step).to(torch.int32)
+            overflow_steps = torch.clamp(necessary - S, min=0).sum()
+            tiny = (necessary == 0) & (total > 0)
+            n_steps = torch.where(tiny, 1, torch.clamp(necessary, max=S)).to(torch.int32)
+            t_offset = torch.where(tiny, u_off * total, u_off * step)
 
         light_dir_w = shadow_blocked = None
         if ds.light_dir_idx >= 0 and P > ds.light_dir_idx + 2:
             light_dir_w = parameters[:, ds.light_dir_idx:ds.light_dir_idx + 3]
             if ds.cast_shadow_rays:
-                shadow_blocked = self._shadow_blocked_sparse(
-                    rays_o, rays_d, light_dir_w, cum_incl, cum_excl, times_s, total)
+                with trace.span("per_ray.shadow"):
+                    shadow_blocked = self._shadow_blocked_sparse(
+                        rays_o, rays_d, light_dir_w, cum_incl, cum_excl, times_s, total)
 
         # terminator: an opaque mesh, black unless an aux mesh is shaded
         color_last = torch.zeros(Rb, 1, 3, device=dev)
         if ds.n_tris > 0 and ds.n_meshes > 1:
-            color_last = self._shade_terminator(
-                rays_o, rays_d, t_mesh, best if tri_ids is None else tri_ids[best],
-                u_all.gather(1, best[:, None])[:, 0], v_all.gather(1, best[:, None])[:, 0],
-                mesh_hit, light_dir_w)[:, None, :]
+            with trace.span("per_ray.terminator"):
+                color_last = self._shade_terminator(
+                    rays_o, rays_d, t_mesh, best if tri_ids is None else tri_ids[best],
+                    u_all.gather(1, best[:, None])[:, 0], v_all.gather(1, best[:, None])[:, 0],
+                    mesh_hit, light_dir_w)[:, None, :]
         return {
             "tk0": tk0, "tk1": tk1, "inst_idx": inst_idx, "kvalid": kvalid,
             "sel_a": sel_a, "sel_b": sel_b,
@@ -873,6 +902,7 @@ class DeviceInstancer:
         valid = (total > 0) & torch.isfinite(times_s[:, 0])
         return self._occlusion_branched(pts, light_dir[:, None, :], valid[:, None])
 
+    @trace.span("instancer.shadow")
     def _occlusion_branched(self, pts, light_dir, pt_valid):
         """``_shadow_query`` through the exact 3-way block branch, chosen on
         the host: no valid point -> nothing is blocked; the swept-cone keep
@@ -902,9 +932,10 @@ class DeviceInstancer:
             if TC:
                 keep_t = _swept_keep(c, r, u_l, tan_a, ds.tri_center, ds.tri_radius)
                 fits = fits & (keep_t.sum() <= TC)
-        any_valid, fits = torch.stack([fvalid.any(), fits]).tolist()
-        self.shadow_branches["full" if any_valid and not fits else
-                             "culled" if any_valid else "skip"] += 1
+        with trace.host_read("shadow_branch"):
+            any_valid, fits = torch.stack([fvalid.any(), fits]).tolist()
+        trace.count("shadow.full" if any_valid and not fits else
+                    "shadow.culled" if any_valid else "shadow.skip")
         if not any_valid:
             return torch.zeros(shape, dtype=torch.bool, device=pts.device)
         inst_sel = tri_sel = None
@@ -1028,6 +1059,7 @@ class DeviceInstancer:
 
     # -- per-sample stage, dense [Rb, S] grid ------------------------------
 
+    @trace.span("instancer.per_sample")
     def _per_sample_grid(self, ray, rays_o, rays_d, parameters, S, step, u_sel=None):
         ds = self.ds
         K = ray["tk0"].shape[-1]
@@ -1142,7 +1174,8 @@ class DeviceInstancer:
                 bucket = torch.floor(
                     s_arc / torch.clamp(ray["total"][:, None], min=1e-12) * n_sh).long()
                 shadowed = blocked.gather(1, torch.clamp(bucket, 0, n_sh - 1))
-                down = local_l.new_tensor([0.0, 0.0, -1.0])
+                with trace.host_read("light_down"):
+                    down = local_l.new_tensor([0.0, 0.0, -1.0])
                 local_l = torch.where(shadowed[..., None], down, local_l)
             params_out[..., li:li + 3] = local_l
             if ds.light_strength_idx >= 0:
@@ -1177,6 +1210,7 @@ class DeviceInstancer:
         bary_sel = bary.gather(-2, best[..., None].expand(*best.shape, 3))[..., 0, :]
         return torch.sum(bary_sel[..., None] * ds.tri_uv[tri], -2)
 
+    @trace.span("instancer.assemble")
     def _assemble_grid(self, ray, sample, rays_d, parameters, S, step):
         """Mask the per-sample outputs into the dense [Rb, S] model input
         (invalid slots get benign values).  Every ray of the block must

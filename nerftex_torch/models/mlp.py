@@ -22,7 +22,7 @@ import torch
 from torch import nn
 
 from nerftex_torch.kernels import mlp_fused as fused
-from nerftex_torch.utils import jax_rng, rng
+from nerftex_torch.utils import jax_rng, rng, trace
 from nerftex_torch.utils.util import EasyDict, instantiate, resolve_device
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -299,9 +299,11 @@ class ParamNerf(nn.Module):
                     self.fused_layers(), self.pos_dim, self.dir_dim, self.compute_dtype)}
         return self._packed["value"]
 
+    @trace.span("mlp.infer")
     @torch.no_grad()
     def infer(self, pos, dirs, prms):
         """Inference forward through the fused MLP: (color [N, 3], density [N, 1])."""
+        trace.count("mlp.rows", pos.shape[0])
         pos_map, dir_map = self.feature_maps(pos, dirs, prms)
         out = fused.mlp_fused(pos_map, dir_map, self.packed())
         return out[:, :3], out[:, 3:4]

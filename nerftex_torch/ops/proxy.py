@@ -9,6 +9,8 @@ path's device rays).  Misses give t = [inf, inf].
 import numpy as np
 import torch
 
+from nerftex_torch.utils import trace
+
 
 class AABB:
     """Axis-aligned box [b_0, b_1]."""
@@ -36,8 +38,11 @@ class AABB:
         [..., 2].  The bounds are copied to a device once (a CUDA graph
         captures no host copy)."""
         if rays_o.device not in self._on_device:
-            self._on_device[rays_o.device] = (torch.as_tensor(self.b_0, device=rays_o.device),
-                                              torch.as_tensor(self.b_1, device=rays_o.device))
+            with trace.host_read("upload"):
+                b_0 = torch.as_tensor(self.b_0, device=rays_o.device)
+            with trace.host_read("upload"):
+                b_1 = torch.as_tensor(self.b_1, device=rays_o.device)
+            self._on_device[rays_o.device] = (b_0, b_1)
         b_0, b_1 = self._on_device[rays_o.device]
         inv_d = 1.0 / rays_d
         t_a = (b_0 - rays_o) * inv_d

@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from nerftex_torch.ops.proxy import AABB
+from nerftex_torch.utils import trace
 
 
 def look_at(pos, to=np.zeros(3), offset=np.zeros(3), eps=1e-6) -> np.ndarray:
@@ -53,7 +54,8 @@ def rays_from_camera_device(image_plane_loc: torch.Tensor, height, width, focal,
     """``rays_from_camera`` in float32 on the device of ``image_plane_loc``
     ([N, 2] row, col): (rays_o, rays_d unnormalized, cone_scale [N, 1])."""
     loc = image_plane_loc.float()
-    c2w = torch.as_tensor(np.asarray(c2w, np.float32), device=loc.device)
+    with trace.host_read("pose"):
+        c2w = torch.as_tensor(np.asarray(c2w, np.float32), device=loc.device)
     focal = float(np.float32(focal))
     dirs = torch.stack([(loc[:, 1] + 0.5 - 0.5 * width) / focal,
                         -(loc[:, 0] + 0.5 - 0.5 * height) / focal,

@@ -9,6 +9,7 @@ then take; None is rows 0 .. R - 1."""
 import torch
 
 from nerftex_torch.utils import jax_rng
+from nerftex_torch.utils.util import as_f32
 
 
 def stratified_z_vals(t: torch.Tensor, n_samples: int, perturb: bool, key=None,
@@ -86,7 +87,7 @@ def composite(color_logits, density_logits, z_vals, rays_d, composite_bkgd: bool
     depth_out = torch.sum(weights * z_mid, -1)
     alpha_out = torch.sum(weights, -1)
     if composite_bkgd:
-        bkgd = torch.as_tensor(bkgd_color, dtype=torch.float32, device=color_out.device)
+        bkgd = as_f32(bkgd_color, color_out.device)
         color_out = color_out + (1.0 - alpha_out[..., None]) * bkgd
     return color_out, alpha_out, weights, depth_out
 
@@ -210,6 +211,6 @@ def composite_precomputed_alpha(
     color_out = torch.sum(weights[..., None] * color_map, -2)
     alpha_out = torch.sum(weights, -1)
     if composite_bkgd:
-        bkgd = torch.as_tensor(bkgd_color, dtype=torch.float32, device=color_out.device)
+        bkgd = as_f32(bkgd_color, color_out.device)
         color_out = color_out + (1.0 - alpha_out[..., None]) * bkgd
     return color_out, alpha_out

@@ -7,8 +7,8 @@ import torch
 
 from nerftex_torch.ops import volume
 from nerftex_torch.render.renderer import Renderer, chunked_apply
-from nerftex_torch.utils import jax_rng, rng
-from nerftex_torch.utils.util import instantiate
+from nerftex_torch.utils import jax_rng, rng, trace
+from nerftex_torch.utils.util import as_f32, instantiate
 
 
 class InstanceRenderer(Renderer):
@@ -95,7 +95,7 @@ class InstanceRenderer(Renderer):
         color_map = color_map * valid[:, None]
         alpha_map = alpha_map * valid
         if composite_bkgd:
-            bkgd = torch.as_tensor(bkgd_color, dtype=torch.float32, device=color_map.device)
+            bkgd = as_f32(bkgd_color, color_map.device)
             color_map = color_map + (1.0 - alpha_map)[:, None] * bkgd
         return {
             "color_pred": color_map,
@@ -108,6 +108,8 @@ class InstanceRenderer(Renderer):
         # Never drop anything silently (instancer.cpp:1036's buffer warning).
         hits = out.pop("_overflow_hits", 0)
         steps = out.pop("_overflow_steps", 0)
+        trace.count("dropped.hits", hits)
+        trace.count("dropped.steps", steps)
         if hits:
             print(f"WARNING: hit capacity exceeded, dropped {hits} farthest "
                   f"ray-instance intervals (raise max_hits).")
@@ -121,10 +123,16 @@ class InstanceRenderer(Renderer):
         r, s = mask.shape
         color = pos.new_zeros(r, s, 3)
         density = pos.new_zeros(r, s)
-        c, d = chunked_apply(self.model.infer, (pos[mask], dirs[mask], prms[mask]),
-                             self.net_chunk)
-        color[mask] = c
-        density[mask] = d[:, 0]
+        # Each boolean gather and scatter reads the mask's count back.
+        rows = []
+        for x in (pos, dirs, prms):
+            with trace.host_read("mlp_gather"):
+                rows.append(x[mask])
+        c, d = chunked_apply(self.model.infer, tuple(rows), self.net_chunk)
+        with trace.host_read("mlp_scatter"):
+            color[mask] = c
+        with trace.host_read("mlp_scatter"):
+            density[mask] = d[:, 0]
         return color, density
 
     def _model_inputs(self, inst, cone_scale):
@@ -153,6 +161,7 @@ class InstanceRenderer(Renderer):
         false_color = self.instance_color[inst["instance_id"]] if self.false_color else None
         return density, false_color
 
+    @trace.span("renderer.composite")
     def _composite(self, inst, color, density, noise_key):
         """The composite with the terminator over [R,S] fields, the
         samples weighed by _weigh."""
@@ -162,6 +171,7 @@ class InstanceRenderer(Renderer):
             self.patch_scale, raw_noise_std=self.raw_noise_std, noise_key=noise_key,
             map_exr=self.map_exr, false_color=false_color, noise_width=inst.get("draw_width"))
 
+    @trace.span("renderer.shade")
     def _shade(self, inst, cone_scale, noise_key):
         pos, prms = self._model_inputs(inst, cone_scale)
         color, density = self._eval_mlp(pos, inst["rays_d"], prms, inst["dists"] > 0)

@@ -37,7 +37,7 @@ from nerftex_torch.ops.interpolate import filtered_downsample
 from nerftex_torch.render.checkpoint import (CheckpointManager, adam_state_tree,
                                              export_jax_params, load_adam_state, load_jax_opt_state,
                                              load_jax_params)
-from nerftex_torch.utils import util
+from nerftex_torch.utils import trace, util
 from nerftex_torch.utils.debug import check_finite
 from nerftex_torch.utils.image import write_image
 
@@ -151,16 +151,16 @@ class Logger:
         if step % self.i_summary == 0:
             record = {"step": step}
             for key, value in loss.items():
-                record[key] = float(value)
+                record[key] = _host_float(value)
                 if self._summary_writer is not None:
-                    self._summary_writer.add_scalar(key, float(value), step)
+                    self._summary_writer.add_scalar(key, record[key], step)
             self._scalar_file.write(json.dumps(record) + "\n")
             self._scalar_file.flush()
 
         if step % self.i_print == 0:
             parts = [f"Step {step}"]
             for key, value in loss.items():
-                parts.append(f"{key} {float(value):.3g}")
+                parts.append(f"{key} {_host_float(value):.3g}")
             parts.append(f"Duration {time.perf_counter() - self.time_print:.3g}")
             print(" | ".join(parts))
             self.time_print = time.perf_counter()
@@ -182,9 +182,15 @@ class Logger:
 
     def _trace(self, step: int) -> None:
         """From every i_trace-th step, profile the next trace_steps steps
-        (host and CUDA activity) into a Chrome trace under <target>/profile."""
+        (host and CUDA activity) into a Chrome trace under <target>/profile.
+        A trace that would end past n_iters is not started: nothing would
+        stop it, and a profiler left running keeps the process recording
+        (utils/trace.py).  What the tracer recorded under the profiler is in
+        the exported trace and is then forgotten, unless a
+        ``trace.recording()`` block is still open."""
         trace_dir = os.path.join(self.target_path, "profile")
-        if self._profiler is None and step % self.i_trace == 0:
+        if (self._profiler is None and step % self.i_trace == 0
+                and step + self.trace_steps <= self.n_iters):
             activities = [torch.profiler.ProfilerActivity.CPU]
             if torch.cuda.is_available():
                 activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -197,6 +203,8 @@ class Logger:
             path = os.path.join(trace_dir, f"trace_{self._tracing_until - self.trace_steps}.json")
             self._profiler.export_chrome_trace(path)
             self._profiler = None
+            if not trace.is_recording():
+                trace.reset()
             self._tracing_until = None
             print(f"Wrote profiler trace to {path}.")
 
@@ -228,17 +236,27 @@ class Logger:
         )
         check_finite("rendered frame", color_pred=pred["color_pred"],
                      alpha_pred=pred["alpha_pred"])
-        img = np.concatenate(
-            [pred["color_pred"].float().cpu().numpy().reshape(-1, 3),
-             pred["alpha_pred"].float().cpu().numpy().reshape(-1, 1)],
-            -1,
-        ).reshape(self.dataset.height, self.dataset.width, 4)
+        with trace.host_read("readback"):
+            color = pred["color_pred"].float().cpu().numpy()
+        with trace.host_read("readback"):
+            alpha = pred["alpha_pred"].float().cpu().numpy()
+        img = np.concatenate([color.reshape(-1, 3), alpha.reshape(-1, 1)], -1).reshape(
+            self.dataset.height, self.dataset.width, 4)
         if self.downsampling_factor > 1:
             img = filtered_downsample(img, self.downsampling_factor).numpy()
         if not self.write_exr:
             eps = 1e-5
             img = np.concatenate([img[..., :3] / (img[..., 3:] + eps), img[..., 3:]], -1)
         return img
+
+
+def _host_float(value) -> float:
+    """A logged value as a host float: a tensor is read from its device (a
+    host read wherever it lies, as a card would wait for it)."""
+    if isinstance(value, torch.Tensor):
+        with trace.host_read("loss"):
+            return float(value)
+    return float(value)
 
 
 def _try_tensorboard(path: str):

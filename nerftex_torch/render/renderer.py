@@ -19,8 +19,9 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from nerftex_torch.ops import volume
-from nerftex_torch.utils import jax_rng, rng
-from nerftex_torch.utils.util import resolve_device
+from nerftex_torch.utils import jax_rng, rng, trace
+from nerftex_torch.utils.util import as_f32, resolve_device
+
 
 def chunked_apply(fn, inputs, net_chunk: int, remat: "bool | str" = False,
                   cast_params: bool = False):
@@ -61,6 +62,15 @@ def chunked_apply(fn, inputs, net_chunk: int, remat: "bool | str" = False,
         return body(*inputs)
     outs = [body(*(x[i:i + net_chunk] for x in inputs)) for i in range(0, n, net_chunk)]
     return tuple(torch.cat(parts) for parts in zip(*outs))
+
+
+def _read_count(n) -> int:
+    """A drop count as a host int: a tensor is read from its device (a host
+    read wherever it lies, as a card would wait for it)."""
+    if not isinstance(n, torch.Tensor):
+        return int(n)
+    with trace.host_read("overflow"):
+        return int(n)
 
 
 class Renderer:
@@ -156,7 +166,7 @@ class Renderer:
             if composite_bkgd and "color" in name:
                 alpha = torch.where(miss, torch.zeros_like(valid), out[name.replace("color",
                                                                                     "alpha")])
-                bkgd = torch.as_tensor(bkgd_color, dtype=torch.float32, device=v.device)
+                bkgd = as_f32(bkgd_color, v.device)
                 v = v + (1.0 - alpha)[:, None] * bkgd
             out[name] = v
         return out
@@ -189,7 +199,7 @@ class Renderer:
         """[B, R, ...] ray data (numpy or tensors) as flat float32 [B*R, ...]
         tensors on the renderer's device; parameters [B, P] repeat per ray."""
         def f32(x):
-            return torch.as_tensor(x, dtype=torch.float32, device=self.device)
+            return as_f32(x, self.device)
 
         rays_o = f32(data["rays_o"])
         b, r = rays_o.shape[0], rays_o.shape[1]
@@ -239,7 +249,8 @@ class Renderer:
         out = self.render_chunks(flat, range(0, flat["t"].shape[0], chunk), chunk, key,
                                  composite_bkgd, bkgd_color, training)
         out = self.frame_of(out, b, r)
-        self._report_diagnostics(out)
+        with trace.span("renderer.diagnostics"):
+            self._report_diagnostics(out)
         return out
 
     def frame_key(self, key=None):
@@ -272,11 +283,12 @@ class Renderer:
         outs = []
         for i in starts:
             c = {k: v[i:i + chunk] for k, v in flat.items()}
-            outs.append(self.render_rays(
-                c["rays_o"], c["rays_d"], c["t"], c["parameters"], c["cone_scale"],
-                composite_bkgd, bkgd_color, jax_rng.fold_in(key, i), training=training,
-            ))
-        return {name: sum(int(o[name]) for o in outs) if name.startswith("_")
+            with trace.span("renderer.chunk"):
+                outs.append(self.render_rays(
+                    c["rays_o"], c["rays_d"], c["t"], c["parameters"], c["cone_scale"],
+                    composite_bkgd, bkgd_color, jax_rng.fold_in(key, i), training=training,
+                ))
+        return {name: sum(_read_count(o[name]) for o in outs) if name.startswith("_")
                 else torch.cat([o[name] for o in outs]) for name in outs[0]}
 
     @staticmethod
@@ -365,7 +377,7 @@ class MipRenderer(Renderer):
             v = v * (valid[:, None] if v.ndim == 2 else valid)
             if composite_bkgd and "color" in name:
                 alpha = torch.where(miss, torch.zeros_like(valid), out["alpha_pred"])
-                bkgd = torch.as_tensor(bkgd_color, dtype=torch.float32, device=v.device)
+                bkgd = as_f32(bkgd_color, v.device)
                 v = v + (1.0 - alpha)[:, None] * bkgd
             out[name] = v
         return out

@@ -27,7 +27,7 @@ import torch
 from nerftex_torch import operating_points
 from nerftex_torch.ops.rays import look_at, rays_from_camera_device
 from nerftex_torch.render.checkpoint import CheckpointManager, load_jax_params
-from nerftex_torch.utils import rng
+from nerftex_torch.utils import rng, trace
 from nerftex_torch.utils.image import encode_png
 from nerftex_torch.utils.util import EasyDict, instantiate, resolve_device
 
@@ -127,6 +127,7 @@ class RenderSession:
             pos = pos * self.default_radius
         return look_at(pos, to=np.asarray(look_at_point, np.float64))
 
+    @trace.span("session.rays")
     def device_rays(self, pose):
         """Whole-frame rays of ``pose`` on the session's device: (rays_o,
         rays_d normalized, proxy t, cone_scale), each [H*W, ...]."""
@@ -138,6 +139,7 @@ class RenderSession:
         rays_d = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
         return rays_o, rays_d, self.proxy(rays_o, rays_d), cone
 
+    @trace.span("session.render")
     def render(self, camera_pos, parameters=None, radius=None, look_at=(0, 0, 0.0)):
         """One frame at ``camera_pos`` as float32 [H, W, 4] straight-alpha
         RGBA."""
@@ -149,8 +151,11 @@ class RenderSession:
         self._frame += 1
         out = self.renderer(rays_o=rays_o[None], rays_d=rays_d[None], t=t[None],
                             parameters=parameters[None], cone_scale=cone[None], training=False)
-        return straight_rgba(out["color_pred"].cpu().numpy(), out["alpha_pred"].cpu().numpy(),
-                             self.height, self.width)
+        with trace.host_read("readback"):
+            color = out["color_pred"].cpu().numpy()
+        with trace.host_read("readback"):
+            alpha = out["alpha_pred"].cpu().numpy()
+        return straight_rgba(color, alpha, self.height, self.width)
 
 
 # ---------------------------------------------------------------------------

@@ -37,7 +37,7 @@ import torch
 
 from nerftex_torch.models.mlp import model_dict
 from nerftex_torch.render.checkpoint import jax_flat_layout
-from nerftex_torch.utils import jax_rng, rng, util
+from nerftex_torch.utils import jax_rng, rng, trace, util
 from nerftex_torch.utils.debug import check_finite, debug_checks_enabled
 from nerftex_torch.utils.util import EasyDict, resolve_device
 
@@ -65,7 +65,11 @@ def update_count(optimizer) -> int:
     """Updates the optimizer has applied (its state's step)."""
     for group in optimizer.param_groups:
         for p in group["params"]:
-            return int(optimizer.state.get(p, {}).get("step", 0))
+            count = optimizer.state.get(p, {}).get("step", 0)
+            if isinstance(count, torch.Tensor) and count.device.type != "cpu":
+                with trace.host_read("update_count"):
+                    return int(count)
+            return int(count)
     return 0
 
 
@@ -99,13 +103,18 @@ def make_train_step(renderer, loss_fn, optimizer, composite_bkgd, bkgd_color):
     """The host-fed update: step(batch, key) -> loss (a 0-d tensor on the
     device).  batch holds tensors on the renderer's device."""
 
+    @trace.span("train.step")
     def step(batch: dict, key) -> torch.Tensor:
         optimizer.zero_grad(set_to_none=True)
-        pred = renderer.apply(batch, key, composite_bkgd=composite_bkgd, bkgd_color=bkgd_color,
-                              training=True)
-        loss = loss_fn(color_true=batch.get("color"), alpha_true=batch.get("alpha"), **pred)
-        loss.backward()
-        optimizer_step(optimizer)
+        with trace.span("step.forward"):
+            pred = renderer.apply(batch, key, composite_bkgd=composite_bkgd,
+                                  bkgd_color=bkgd_color, training=True)
+        with trace.span("step.loss"):
+            loss = loss_fn(color_true=batch.get("color"), alpha_true=batch.get("alpha"), **pred)
+        with trace.span("step.backward"):
+            loss.backward()
+        with trace.span("step.optimizer"):
+            optimizer_step(optimizer)
         return loss.detach()
 
     return step
@@ -251,6 +260,7 @@ class FusedStep:
         self.graph = graph
         step_counts["captures"] += 1
 
+    @trace.span("train.replay")
     def run(self, start: int, k: int) -> torch.Tensor:
         """Steps start .. start + k - 1 (k at most max_steps); their losses
         [k] on the host."""
@@ -269,7 +279,8 @@ class FusedStep:
             for _ in range(k):
                 self._body()
             step_counts["eager_steps"] += k
-        return self.losses[:k].cpu()
+        with trace.host_read("losses"):
+            return self.losses[:k].cpu()
 
 
 def build_step(train_dataset_config: EasyDict, model_config: EasyDict, loss_config: EasyDict,
@@ -392,7 +403,9 @@ def Train(
     base_key = rng.stream_key(rng.STREAM_PERTURB)
     for data in train_dataset.take(int(n_iters) - logger.step):
         key = jax_rng.fold_in(base_key, logger.step)
-        batch = {k: torch.as_tensor(v).to(device, non_blocking=True) for k, v in data.items()}
+        with trace.span("train.copy"):
+            batch = {k: torch.as_tensor(v).to(device, non_blocking=True)
+                     for k, v in data.items()}
         loss = train_step(batch, key)
         check_finite(f"training step {logger.step}", loss=loss)
         state.step = logger.step + 1

@@ -19,6 +19,8 @@ import os
 
 import torch
 
+from nerftex_torch.utils import trace
+
 _STATE = {"on": False}
 
 
@@ -42,5 +44,7 @@ def check_finite(what: str, **tensors) -> None:
     if not _STATE["on"]:
         return
     for name, x in tensors.items():
-        if not bool(torch.isfinite(torch.as_tensor(x)).all()):
+        with trace.host_read("finite"):
+            finite = bool(torch.isfinite(torch.as_tensor(x)).all())
+        if not finite:
             raise FloatingPointError(f"NERFTEX_DEBUG_NANS: {what}: {name} is not finite")

@@ -17,6 +17,8 @@ from typing import Any
 
 import torch
 
+from nerftex_torch.utils import trace
+
 # Reference config paths -> port classes.
 REMAP = {
     "network.model.ParamNerf": "nerftex_torch.models.mlp.ParamNerf",
@@ -119,6 +121,17 @@ class EasyDict(dict):
 
     def __delattr__(self, key: str) -> None:
         del self[key]
+
+
+def as_f32(x, device: torch.device) -> torch.Tensor:
+    """``x`` (array-like or tensor) as a float32 tensor on ``device``.  A
+    tensor already there is not copied; anything else is copied, a host
+    read (utils/trace.py): a card waits for the stream to drain."""
+    if isinstance(x, torch.Tensor) and x.device.type == device.type and (
+            device.index is None or x.device.index == device.index):
+        return x.to(torch.float32)
+    with trace.host_read("copy"):
+        return torch.as_tensor(x, dtype=torch.float32, device=device)
 
 
 def resolve_device(device=None) -> torch.device:

@@ -470,3 +470,79 @@ def test_blur_sorted_frame_equals_dense_frame_on_the_card(cuda):
     np.testing.assert_allclose(a_s, a_d, rtol=0, atol=5e-7)
     _, a_n = render(blur_idx=None)
     assert np.abs(a_n - a_s).max() > 1e-2
+
+
+# (config, request): the carpet preview (no shadows) and a grass frame lit by
+# its point light (z 0.6 on the unit sphere), so the shadow pass and its
+# reads run.
+HOST_READ_RENDERS = {
+    "carpet": ([0.0, -0.7, 0.7], None),
+    "grass": ([0.30614675, -0.73910363, 0.6], [0, 0.33, 0.47, -0.64, 0.6]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(HOST_READ_RENDERS))
+def test_a_render_waits_for_the_card_only_in_host_reads(cuda, tmp_path, name):
+    """A 128x128 frame of configs/config_<name>_render.py through
+    RenderSession at the scene's operating point, the MLP in float32, random
+    weights, under the tracer's recording, with
+    torch.cuda.set_sync_debug_mode("warn"): every call that synchronises
+    with the card warns, and each warning comes while a sync.* span is
+    open, so the tracer's sync count misses no host read of the path."""
+    import importlib
+    import os
+    import traceback
+    import warnings
+    from collections import Counter
+
+    from nerftex_torch import operating_points
+    from nerftex_torch.render.serve import RenderSession
+    from nerftex_torch.utils import trace
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = dict(importlib.import_module(f"configs.config_{name}_render").config,
+               target_path=str(tmp_path))
+    cfg["renderer_config"] = dict(cfg["renderer_config"])
+    inst = cfg["renderer_config"]["instancer_config"] = dict(
+        cfg["renderer_config"]["instancer_config"])
+    for k in ("mesh_path", "patch_origins_path"):
+        inst[k] = os.path.join(root, inst[k])
+    inst["textures"] = [os.path.join(root, t) if t.endswith(".png") else t
+                        for t in inst["textures"]]
+    point = dict(operating_points.resolve(name), compute_dtype="float32")
+    session = RenderSession(cfg, height=128, width=128, operating_point=point)
+    camera, parameters = HOST_READ_RENDERS[name]
+    session.render(camera, parameters)          # builds, packs and uploads once
+    torch.cuda.synchronize()
+
+    inside, outside = [], []
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if "synchronizing CUDA operation" not in str(message):
+            return
+        open_spans = trace.open_spans()
+        if any(span.startswith("sync.") for span in open_spans):
+            inside.append(open_spans[-1])
+        else:
+            where = [f"{f.filename}:{f.lineno}" for f in traceback.extract_stack()[-7:-1]]
+            outside.append((open_spans[-1:], where))
+
+    trace.reset()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with trace.recording():
+                img = session.render(camera, parameters)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    totals = trace.totals()
+    trace.reset()
+    assert img.shape == (128, 128, 4) and np.isfinite(img).all()
+    assert not outside, outside
+    assert inside and totals["sync"] > 0
+    if name == "grass":
+        # The shadow pass ran its branch read and its light-down read.
+        assert {"sync.shadow_branch", "sync.light_down"} <= set(inside), Counter(inside)
+        assert sum(totals.get(f"shadow.{k}", 0) for k in ("skip", "culled", "full")) > 0

@@ -26,7 +26,7 @@ from nerftex_torch.instancing.device import DeviceInstancer
 from nerftex_torch.instancing.scene import Scene, SceneMesh
 from nerftex_torch.ops.rays import frame_rays
 from nerftex_torch.render.checkpoint import load_jax_params
-from nerftex_torch.utils import jax_rng
+from nerftex_torch.utils import jax_rng, trace
 from nerftex_torch.utils.util import instantiate
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -93,10 +93,13 @@ def frame():
 def test_grass_frame_matches_jax_with_the_same_key(frame):
     data, tm, (c_j, a_j) = frame
     renderer = instantiate(dict(_renderer_cfg(), model=tm, device="cpu"))
-    out = renderer(**data, key=jax_rng.key(1))
+    trace.reset()
+    with trace.recording():
+        out = renderer(**data, key=jax_rng.key(1))
     c_t, a_t = out["color_pred"].numpy(), out["alpha_pred"].numpy()
     assert renderer.instancer.device_instancer.ds.light_strength_idx == 1
-    assert sum(renderer.instancer.device_instancer.shadow_branches.values()) > 0
+    totals = trace.totals()
+    assert sum(totals.get(f"shadow.{k}", 0) for k in ("skip", "culled", "full")) > 0
     assert c_t.shape == c_j.shape == (1, H * W, 3) and a_t.shape == a_j.shape == (1, H * W)
     assert a_j.max() > 0.5 and (a_j > 0.1).mean() > 0.1
     # tests/test_torch_plush.py's gates (float32 roundings and nearest

@@ -19,7 +19,7 @@ from nerftex_tpu.utils import rng
 from nerftex_tpu.utils import util as jax_util
 from nerftex_torch.ops.rays import frame_rays
 from nerftex_torch.render.checkpoint import load_jax_params
-from nerftex_torch.utils import jax_rng
+from nerftex_torch.utils import jax_rng, trace
 from nerftex_torch.utils.util import instantiate
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -92,10 +92,12 @@ def frame():
 def test_plush_frame_matches_jax_with_the_same_key(frame):
     data, tm, (c_j, a_j) = frame
     renderer = instantiate(dict(_renderer_cfg(True), model=tm, device="cpu"))
-    out = renderer(**data, key=jax_rng.key(1))
+    trace.reset()
+    with trace.recording():
+        out = renderer(**data, key=jax_rng.key(1))
     c_t, a_t = out["color_pred"].numpy(), out["alpha_pred"].numpy()
-    inst = renderer.instancer.device_instancer
-    assert inst.shadow_branches["culled"] > 0 and inst.shadow_branches["skip"] > 0
+    totals = trace.totals()
+    assert totals.get("shadow.culled", 0) > 0 and totals.get("shadow.skip", 0) > 0
     assert c_t.shape == c_j.shape == (1, H * W, 3) and a_t.shape == a_j.shape == (1, H * W)
     assert a_j.max() > 0.5 and (a_j > 0.1).mean() > 0.1
     # tests/test_torch_render.py's gates.  Both draw the same numbers; the

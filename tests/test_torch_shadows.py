@@ -19,7 +19,7 @@ from nerftex_tpu.instancing.device import DeviceScene as JaxDeviceScene
 from nerftex_tpu.instancing.scene import Scene as JaxScene
 from nerftex_torch.instancing.instancer import Instancer
 from nerftex_torch.ops.rays import frame_rays
-from nerftex_torch.utils import jax_rng
+from nerftex_torch.utils import jax_rng, trace
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MESH = os.path.join(ROOT, "meshes", "stanford_bunny.ply")
@@ -81,14 +81,16 @@ def test_shadow_blocked_matches_jax_on_every_branch(setup):
     jax_per_ray = jax.jit(lambda o, d, p: jd._per_ray(o, d, p, 1280, STEP, jax.random.key(0)))
     branches = set()
     for i in range(0, len(o), BLOCK):
-        before = dict(td.shadow_branches)
         sl = slice(i, i + BLOCK)
         want = np.asarray(jax_per_ray(jnp.asarray(o[sl]), jnp.asarray(d[sl]),
                                       jnp.asarray(p[sl]))["shadow_blocked"])
         args = (torch.tensor(o[sl]), torch.tensor(d[sl]), torch.tensor(p[sl]), 1280, STEP,
                 torch.full((BLOCK,), 0.5))
-        culled = td._per_ray(*args)
-        taken = [k for k, n in td.shadow_branches.items() if n != before[k]]
+        trace.reset()
+        with trace.recording():
+            culled = td._per_ray(*args)
+        totals = trace.totals()
+        taken = [k for k in ("skip", "culled", "full") if totals.get(f"shadow.{k}", 0)]
         budgets = (td.shadow_cull_budget, td.shadow_tri_cull_budget)
         td.shadow_cull_budget = td.shadow_tri_cull_budget = 0
         try:

@@ -50,7 +50,7 @@ from nerftex_torch.render.checkpoint import (CheckpointManager, adam_state_tree,
                                              load_jax_opt_state, load_jax_params)
 from nerftex_torch.render.train import make_optimizer, optimizer_step
 from nerftex_torch.tools.synth import make_synthetic_tfrecord
-from nerftex_torch.utils import jax_rng, rng
+from nerftex_torch.utils import jax_rng, rng, trace
 from nerftex_torch.utils.image import decode_png_u8
 from nerftex_torch.utils.util import instantiate
 
@@ -477,11 +477,18 @@ def test_train_writes_tensorboard_and_a_profiler_trace(tfr, tmp_path, monkeypatc
     cfg = _config(tfr, str(tmp_path), n_iters=4)
     cfg["logger_config"].update(i_img=4, i_trace=2, trace_steps=1)
     _reset()
+    trace.reset()
     instantiate(cfg, device="cpu")
     assert any(n.startswith("events.out.tfevents") for n in os.listdir(tmp_path))
     assert os.listdir(tmp_path / "profile") == ["trace_2.json"]
+    # Step 4's trace would end past n_iters: it is not started, so no
+    # profiler is left running.
+    assert not torch.autograd.profiler._is_profiler_enabled
     with open(tmp_path / "profile" / "trace_2.json") as f:
-        assert json.load(f)["traceEvents"]
+        events = json.load(f)["traceEvents"]
+    # The program's spans are in the export, and the tracer forgot them.
+    assert any(e.get("name") == "nerftex.train.step" for e in events)
+    assert trace.snapshot() == {"spans": [], "counts": [], "dropped": 0}
     assert len(_losses(str(tmp_path))) == 4
 
 

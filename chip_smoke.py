@@ -226,6 +226,18 @@ Phases (any failure raises and exits non-zero):
      tests/test_device_instancer.py; selk_resolve launched in every scene
      and tex_fetch where a parameter texture exists.  An ``oracle <scene>``
      line per scene; the phase's seconds beside ORACLE_BUDGET_S.
+  18. the shadow query kernel (kernels/shadow_query.py) against its plain
+     chain, bit for bit, on a full ray block of the grass and of the plush
+     frame (the first block from the middle whose candidates fit the
+     shadow budgets), over those candidates and over every column; a
+     ``shadow_query <scene> <branch>`` line each with the kernel's device
+     ms (calls replayed from a CUDA graph), the plain chain's ms and the
+     bound (the float operations of the kernel's own walk, each test to its
+     exit and each point to its first blocking column, over the unfused f32
+     rate, against its bytes over HBM's; the kernel must not beat it).  The
+     rows go into the kernels line under the grass and plush frames, beside
+     those frames' shadow_query launches; every other frame must launch it
+     0 times.
 The first render of each frame runs with its selk_resolve calls captured
 (selk_capture); the frame's launch histogram (launches by Rb, S, K and
 method, with the window and valid slots of their inputs) is printed on a
@@ -425,6 +437,18 @@ H100_BF16_FLOPS = 989e12              # dense tensor-core bf16
 H100_F32_FLOPS = 67e12                # f32 outside the tensor cores
 H100_TF32_FLOPS = 495e12              # dense tensor-core TF32
 TF32X3_PRODUCTS = 3                   # wgmma_tf32x3: a_lo w_hi + a_hi w_lo + a_hi w_hi
+H100_F32_OPS = H100_F32_FLOPS / 2     # unfused f32 operations a second (an fma counts two)
+# Float operations (multiplies, adds, subtracts, the division, the
+# reciprocal; comparisons uncounted) of csrc/shadow_query.cu's tests up to
+# each exit.  A box: d_z (5); o_z and the two faces' numerators (8); o_x,
+# o_y, d_x, d_y (22); per face tried, its division (1) and, with t in
+# range, the crossing (4).  A triangle: the front-face test (5); the
+# P vector and det (14); 1 / det, the T vector and u (10); Q and v (15);
+# u + v (1); t (6).
+SHADOW_BOX_STEPS = (5, 8, 22)
+SHADOW_FACE_OPS = (1, 4)
+SHADOW_TRI_STEPS = (5, 14, 10, 15, 1, 6)
+SHADOW_TIMED_CALLS = 20               # kernel calls a CUDA graph holds
 
 
 def log(msg):
@@ -1629,7 +1653,7 @@ def serve_grass(params, h, w, reset_counts, read_counts, check_counts, card, fra
             latencies.append((time.perf_counter() - t0) * 1e3)
         launches, variants = read_counts()
         log(f"serving (4 requests): launches {launches}, variants {variants}")
-        check_counts("grass serving", launches, variants, idle=("tex_fetch",))
+        check_counts("grass serving", launches, variants, idle=("tex_fetch",), shadows=True)
         for img in images:
             if img.shape != (h, w, 4) or not np.isfinite(img).all():
                 raise AssertionError(f"served frame {img.shape} is not a finite {h}x{w} RGBA")
@@ -4245,8 +4269,10 @@ def oracle_scene(name, cfg, rays, n_samples, step, methods, device, counts, stat
     stats["device_s"] = time.perf_counter() - t0
     if counts is not None:
         launches = counts[1]()[0]
-        stats["launches"] = {k: launches[k] for k in ("selk_resolve", "tex_fetch")}
-        oracle_launches(name, launches, bool(scene.texture_parameter_idxs))
+        stats["launches"] = {k: launches[k] for k in ("selk_resolve", "tex_fetch",
+                                                      "shadow_query")}
+        oracle_launches(name, launches, bool(scene.texture_parameter_idxs),
+                        bool(scene.cast_shadow_rays))
 
     t0 = time.perf_counter()
     orc = oracle.get_model_input(oracle_scene_view(scene), rays_o, rays_d, params, S, step,
@@ -4273,14 +4299,18 @@ def oracle_scene(name, cfg, rays, n_samples, step, methods, device, counts, stat
     stats["check_s"] = time.perf_counter() - t0
 
 
-def oracle_launches(name, launches, textured):
-    """selk_resolve launched, and tex_fetch exactly where the scene has a
-    parameter texture."""
+def oracle_launches(name, launches, textured, shadowed):
+    """selk_resolve launched, tex_fetch exactly where the scene has a
+    parameter texture and shadow_query exactly where it casts shadow rays."""
     if launches["selk_resolve"] <= 0:
         raise AssertionError(f"oracle {name}: selk_resolve was not launched")
     if textured != (launches["tex_fetch"] > 0):
         raise AssertionError(f"oracle {name}: tex_fetch launched {launches['tex_fetch']} "
                              f"times with{'' if textured else 'out'} a parameter texture")
+    if shadowed != (launches["shadow_query"] > 0):
+        raise AssertionError(f"oracle {name}: shadow_query launched "
+                             f"{launches['shadow_query']} times with{'' if shadowed else 'out'} "
+                             f"shadow rays")
 
 
 def oracle_aux_scene(device, counts, stats):
@@ -4308,8 +4338,9 @@ def oracle_aux_scene(device, counts, stats):
     out = oracle_run(dev, rays_o, rays_d, params, 32, 0.1)
     if counts is not None:
         launches = counts[1]()[0]
-        stats["launches"] = {k: launches[k] for k in ("selk_resolve", "tex_fetch")}
-        oracle_launches("aux", launches, False)
+        stats["launches"] = {k: launches[k] for k in ("selk_resolve", "tex_fetch",
+                                                      "shadow_query")}
+        oracle_launches("aux", launches, False, False)
     orc = oracle.get_model_input(scene, rays_o, rays_d, params, 32, 0.1,
                                  FixedOffsets(ORACLE_KEY))
     stats.update(scene="aux", instances=1, rays=2, max_err={})
@@ -4366,16 +4397,214 @@ def main_oracle(counts, card, device="cuda"):
     return numbers
 
 
+def shadow_block_capture(name, render_cfg):
+    """The shadow query's arguments in one ray block of the scene's frame
+    whose swept-cone candidates fit the shadow budgets (the culled branch):
+    the first such block from the middle of the frame outward, run through
+    DeviceInstancer._per_ray on the card with nerftex_torch.instancing.
+    device.shadow_query spied on."""
+    from nerftex_torch.instancing import device as device_module
+    from nerftex_torch.utils.util import instantiate
+
+    cfg = render_cfg["instancer_config"]
+    dev = instantiate(dict(cfg, device="cuda")).device_instancer
+    data = scene_data(name)[0]
+    rays_o, rays_d = (torch.tensor(data[k][0], device="cuda") for k in ("rays_o", "rays_d"))
+    rb, n = dev.ray_block, rays_o.shape[0]
+    params = torch.tensor(np.repeat(data["parameters"], rb, 0), device="cuda")
+    u_off = torch.full((rb,), 0.5, device="cuda")
+    S = min(render_cfg["n_samples"], dev.max_steps_per_ray)
+    mid = n // rb // 2
+    calls = []
+    real = device_module.shadow_query
+
+    def spy(*args):
+        calls.append(args)
+        return real(*args)
+
+    device_module.shadow_query = spy
+    try:
+        for b in sorted(range(n // rb), key=lambda b: abs(b - mid)):
+            calls.clear()
+            dev._per_ray(rays_o[b * rb:(b + 1) * rb], rays_d[b * rb:(b + 1) * rb], params, S,
+                         render_cfg["step_size"], u_off)
+            if calls and calls[0][5] is not None:
+                return b, calls[0]
+    finally:
+        device_module.shadow_query = real
+    raise AssertionError(f"shadow_query {name}: no ray block took the culled branch")
+
+
+def shadow_query_work(args, plane=1 << 20):
+    """(float operations, blocked [M]) of the kernel's own walk over one
+    query: each point's tests in its order (boxes, then triangles, each in
+    candidate order, a padding column as zeros) up to and including its
+    first blocking column, each test counted to the exit it takes
+    (SHADOW_BOX_STEPS, SHADOW_TRI_STEPS).  The tests are the plain chain's
+    operations in the kernel's order and rounding, so every exit is the
+    kernel's.  Computed in chunks of points of at most ``plane`` pairs."""
+    from nerftex_torch.instancing.geometry import T_FAR
+
+    pts, light, (inv_rot, inv_trans), tris, (b_0, b_1), inst_sel, tri_sel = args
+
+    def columns(tables, sel):
+        if sel is None:
+            return tables
+        ids, valid = sel
+        return tuple(torch.where(valid.reshape(-1, *(1,) * (x.dim() - 1)), x[ids], 0.0)
+                     for x in tables)
+
+    rot, trans = columns((inv_rot, inv_trans), inst_sel)
+    tri = None if tris is None else columns(tris, tri_sel)
+    n = rot.shape[0] + (0 if tri is None else tri[0].shape[0])
+    if n == 0:
+        return 0, torch.zeros(pts.shape[0], dtype=torch.bool, device=pts.device)
+
+    def dot(a, b):
+        """(a0 b0 + a1 b1) + a2 b2 over [m, 1] x [N] -> [m, N]."""
+        return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
+
+    box_steps, face_ops, tri_steps = SHADOW_BOX_STEPS, SHADOW_FACE_OPS, SHADOW_TRI_STEPS
+    ops, blocked = 0, []
+    step = max(1, plane // n)
+    for i in range(0, pts.shape[0], step):
+        p = pts[i:i + step].T[:, :, None]
+        l = light[i:i + step].T[:, :, None]
+        cost, hit = [], []
+        if rot.shape[0]:
+            r = rot.permute(1, 2, 0)                                   # [3 rows, 3, N]
+            dz = dot(l, r[2])
+            live = dz.abs() > 1e-12
+            oz = dot(p, r[2]) + trans[:, 2]
+            n_top, n_bot = b_1[2] - oz, b_0[2] - oz
+            top = (dz < 0) & (n_top < 0)
+            bot = torch.where(dz > 0, n_bot > 0, n_bot < 0)
+            ox, oy = dot(p, r[0]) + trans[:, 0], dot(p, r[1]) + trans[:, 1]
+            dx, dy = dot(l, r[0]), dot(l, r[1])
+
+            def face(num):
+                t = num / dz
+                inside = (t > 0) & (t < T_FAR)
+                x, y = ox + t * dx, oy + t * dy
+                return inside, inside & (x >= b_0[0]) & (x <= b_1[0]) & (y >= b_0[1]) & (
+                    y <= b_1[1])
+
+            in_top, hit_top = face(n_top)
+            in_bot, hit_bot = face(n_bot)
+            top_hit = top & hit_top
+            bot_tried = bot & ~top_hit
+            faces = (top * (face_ops[0] + face_ops[1] * in_top)
+                     + bot_tried * (face_ops[0] + face_ops[1] * in_bot))
+            cost.append(box_steps[0] + live * (box_steps[1] + (top | bot) * (box_steps[2]
+                                                                             + faces)))
+            hit.append(live & (top_hit | (bot_tried & hit_bot)))
+        if tri is not None and tri[0].shape[0]:
+            v0, e1, e2, ng = (x.T for x in tri)                         # [3, N] each
+            front = dot(l, ng) < 0
+            pv = (l[1] * e2[2] - l[2] * e2[1], l[2] * e2[0] - l[0] * e2[2],
+                  l[0] * e2[1] - l[1] * e2[0])
+            det = dot(e1, pv)
+            det_ok = det.abs() > 1e-12
+            inv = 1.0 / det
+            tv = (p[0] - v0[0], p[1] - v0[1], p[2] - v0[2])
+            u = dot(tv, pv) * inv
+            q = (tv[1] * e1[2] - tv[2] * e1[1], tv[2] * e1[0] - tv[0] * e1[2],
+                 tv[0] * e1[1] - tv[1] * e1[0])
+            v = dot(l, q) * inv
+            uv_ok = u + v <= 1
+            t = dot(e2, q) * inv
+            u_ok, v_ok = u >= 0, v >= 0
+            s0, s1, s2, s3, s4, s5 = tri_steps
+            cost.append(s0 + front * (s1 + det_ok * (s2 + u_ok * (s3 + v_ok * (
+                s4 + uv_ok * s5)))))
+            hit.append(front & det_ok & u_ok & v_ok & uv_ok & (t > 1e-6) & (t < T_FAR))
+        cost, hit = torch.cat(cost, 1), torch.cat(hit, 1)
+        any_hit = hit.any(1)
+        first = torch.where(any_hit, hit.to(torch.uint8).argmax(1), n - 1)
+        walked = torch.arange(n, device=pts.device)[None, :] <= first[:, None]
+        ops += int((cost * walked).sum())
+        blocked.append(any_hit)
+    return ops, torch.cat(blocked)
+
+
+def shadow_query_bound(args):
+    """(least ms, operations, bytes) of one query: the float operations of
+    the kernel's own walk (shadow_query_work: each test to its exit, each
+    point to its first blocking column) over the f32 pipes' unfused rate,
+    against the points, directions, flags and gathered columns over HBM's
+    bandwidth; and the walk's blocked flags.  No run of the kernel can beat
+    it: warps that diverge, loads, the barriers and the division's
+    instructions beyond one are not counted."""
+    pts, _, boxes, tris, _, inst_sel, tri_sel = args
+    m = pts.shape[0]
+    n_box = boxes[0].shape[0] if inst_sel is None else inst_sel[0].shape[0]
+    n_tri = 0 if tris is None else tris[0].shape[0] if tri_sel is None else tri_sel[0].shape[0]
+    ops, blocked = shadow_query_work(args)
+    id_bytes = 9 * (n_box * (inst_sel is not None) + n_tri * (tri_sel is not None))
+    nbytes = m * (12 + 12 + 1) + 48 * (n_box + n_tri) + id_bytes + 24
+    return max(ops / H100_F32_OPS, nbytes / H100_BYTES_PER_S) * 1e3, ops, nbytes, blocked
+
+
+def main_shadow_query(card):
+    """Phase 18 (module docstring): the shadow query kernel against its plain
+    chain, bit for bit, on a full grass and a full plush ray block in the
+    culled and the full branch, each timed (kernel calls replayed from a
+    CUDA graph, the plain chain by events) beside its bound.  Returns
+    {scene: {branch: row}}."""
+    from nerftex_torch.kernels import shadow_query as sq
+
+    t_phase = time.perf_counter()
+    rows = {}
+    for name, render_cfg in (("grass", grass_renderer_config()),
+                             ("plush", plush_renderer_config())):
+        block, culled = shadow_block_capture(name, render_cfg)
+        rows[name] = {}
+        for branch in ("culled", "full"):
+            args = culled if branch == "culled" else culled[:5] + (None, None)
+            before = sq.shadow_query.launches
+            got = sq.shadow_query(*args)
+            want = sq.shadow_query_plain(*args)
+            if sq.shadow_query.launches != before + 1:
+                raise AssertionError(f"shadow_query {name} {branch}: the kernel did not launch")
+            if not torch.equal(got, want):
+                raise AssertionError(f"shadow_query {name} {branch}: the kernel differs from the "
+                                     f"plain chain at {int((got != want).sum())} of "
+                                     f"{got.numel()} points")
+            bound, ops, nbytes, walked = shadow_query_bound(args)
+            if not torch.equal(walked, want):
+                raise AssertionError(f"shadow_query {name} {branch}: the bound's walk blocks "
+                                     f"{int(walked.sum())} points, the plain chain "
+                                     f"{int(want.sum())}")
+            row = {"block": block, "points": int(got.numel()),
+                   "boxes": int((args[2][0] if args[5] is None else args[5][0]).shape[0]),
+                   "triangles": 0 if args[3] is None else int(
+                       (args[3][0] if args[6] is None else args[6][0]).shape[0]),
+                   "blocked": float(got.float().mean()),
+                   "device_ms": device_ms(lambda: sq.shadow_query(*args), SHADOW_TIMED_CALLS),
+                   "plain_ms": time_ms(lambda: sq.shadow_query_plain(*args), iters=3, warmup=1),
+                   "bound_ms": bound, "ops": ops, "bytes": nbytes}
+            row["share_of_bound"] = row["bound_ms"] / row["device_ms"]
+            if not row["share_of_bound"] <= 1.0:
+                raise AssertionError(f"shadow_query {name} {branch}: {row['device_ms']} ms beats "
+                                     f"its bound of {bound} ms")
+            log(f"shadow_query {name} {branch}: {json.dumps(row)}")
+            rows[name][branch] = row
+    log(f"phase shadow query: {time.perf_counter() - t_phase:.1f} s on {card}")
+    return rows
+
+
 def kernel_counts():
     """(reset, read, check) over the kernel wrappers' launch counters:
     reset() zeroes every count; read() gives ({kernel: launches},
     {kernel: {variant: launches}}); check(frame, launches, variants, idle,
-    want) fails unless every kernel outside ``idle`` launched, those in it
-    did not, and every launch of a kernel in ``want`` ran its variant."""
+    want, shadows) fails unless every kernel outside ``idle`` launched, those
+    in it did not, and every launch of a kernel in ``want`` ran its variant;
+    shadow_query is idle unless ``shadows`` (the frame casts shadow rays)."""
     from nerftex_torch.kernels import mlp_fused as fused, selk_resolve as selk, tex_gather
+    from nerftex_torch.kernels import shadow_query as sq
 
     counters = {"tex_fetch": tex_gather.sample_channel, "mlp_fused": fused.mlp_fused,
-                "selk_resolve": selk.selk_resolve}
+                "selk_resolve": selk.selk_resolve, "shadow_query": sq.shadow_query}
 
     def reset_counts():
         for fn in counters.values():
@@ -4388,7 +4617,8 @@ def kernel_counts():
                 {name: dict(fn.variant_launches) for name, fn in counters.items()
                  if hasattr(fn, "variant_launches")})
 
-    def check_counts(frame, launches, variants, idle=(), want=FRAME_VARIANTS):
+    def check_counts(frame, launches, variants, idle=(), want=FRAME_VARIANTS, shadows=False):
+        idle = tuple(idle) + (() if shadows else ("shadow_query",))
         for name, n in launches.items():
             if name in idle and n:
                 raise AssertionError(f"the {frame} frame launched {name} {n} times, not 0")
@@ -4595,7 +4825,7 @@ def main():
     plush_launches, plush_variants = read_counts()
     log(f"plush frame (first render {first_s:.2f} s, recorded by the tracer): launches "
         f"{plush_launches}, variants {plush_variants}, shadow branches {shadow_branches()}")
-    check_counts("plush", plush_launches, plush_variants)
+    check_counts("plush", plush_launches, plush_variants, shadows=True)
     rows["plush"]["selk_resolve"].update(
         selk_frame_record(selk_calls, plush_launches["selk_resolve"], "plush"))
     p_psnr = frame_psnr("plush", out, h, w)
@@ -4636,7 +4866,8 @@ def main():
     log(f"grass frame (first render {first_s:.2f} s, recorded by the tracer): launches "
         f"{grass_launches}, variants {grass_variants}, shadow branches {shadow_branches()}")
     # Grass has no texture channel (textures ["", "point"]): no tex_fetch.
-    check_counts("grass", grass_launches, grass_variants, idle=("tex_fetch",))
+    check_counts("grass", grass_launches, grass_variants, idle=("tex_fetch",),
+                 shadows=True)
     g_psnr = frame_psnr("grass", out, h, w)
     log(f"grass golden check: {g_psnr:.2f} dB (floor {GRASS_GOLDEN_PSNR_DB}, 8x downsample)")
     if not g_psnr >= GRASS_GOLDEN_PSNR_DB:
@@ -4740,6 +4971,10 @@ def main():
     # -- the device instancer against the host oracle ---------------------------
     frames["oracle"] = main_oracle(counts, card)
 
+    # -- the shadow query kernel against its plain chain, timed ------------------
+    for scene, row in main_shadow_query(card).items():
+        rows[scene]["shadow_query"] = row
+
     kernels = [dict(row, frame=frame, launches=launches[frame][name])
                for frame in launches for name, row in rows[frame].items()]
     log(json.dumps({"frames": frames, "serving": serve, "card": card,
@@ -4767,7 +5002,10 @@ def main():
                 "(MipRenderer for the mip configs)"}
         for frame in ("carpet_train", "grass_filtered_train", "carpet_train_device",
                       "grass_mip_train", "carpet_tp")
-        for name in ("tex_fetch", "selk_resolve")]}))
+        for name in ("tex_fetch", "selk_resolve")] + [
+        {"frame": frame, "name": "shadow_query", "launches": n["shadow_query"],
+         "why": "the frame casts no shadow rays (cast_shadow_rays false, or no instancer)"}
+        for frame, n in launches.items() if n.get("shadow_query") == 0]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

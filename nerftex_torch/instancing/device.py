@@ -62,24 +62,20 @@ import math
 import numpy as np
 import torch
 
+from nerftex_torch.instancing.geometry import T_FAR, moller_trumbore
 from nerftex_torch.instancing.scene import Scene
 from nerftex_torch.kernels.selk_resolve import fma, selk_resolve
+from nerftex_torch.kernels.shadow_query import shadow_query
 from nerftex_torch.kernels.tex_gather import byte_quads, sample_channel
 from nerftex_torch.models.encodings import check_matmul_precision, round_operand
 from nerftex_torch.ops.volume import mean_distance
 from nerftex_torch.utils import jax_rng, trace
 from nerftex_torch.utils.util import as_f32
 
-T_FAR = 100.0
 _INF = float("inf")
 # The sorted path's per-sample stream folds this into the key (JAX's
 # render_grid_sorted), disjoint from the per-block folds of the offsets.
 _SORTED_FOLD = 0x7FFFFFFF
-# Shadow queries are chunked over points so that each [points, columns]
-# float32 plane stays at or under 2^24 elements (64 MiB); the box and
-# triangle tests hold about 15 such planes at once (~1 GiB).  One plush
-# block's full query would be [65536, 3120] per plane (0.8 GiB).
-_SHADOW_PLANE = 1 << 24
 
 
 class DeviceScene:
@@ -198,36 +194,6 @@ class DeviceScene:
 # ---------------------------------------------------------------------------
 # geometry helpers
 # ---------------------------------------------------------------------------
-
-
-def _moller_trumbore(o, d, v0, e1, e2, t_max=T_FAR):
-    """First-hit distance of each ray [R,3] to each triangle [T,3] and the
-    barycentrics: (t [R,T], inf where missed; u; v)."""
-    ox, oy, oz = (o[:, c, None] for c in range(3))
-    dx, dy, dz = (d[:, c, None] for c in range(3))
-    e2x, e2y, e2z = e2.unbind(-1)
-    e1x, e1y, e1z = e1.unbind(-1)
-    v0x, v0y, v0z = v0.unbind(-1)
-
-    px = dy * e2z - dz * e2y
-    py = dz * e2x - dx * e2z
-    pz = dx * e2y - dy * e2x
-    det = e1x * px + e1y * py + e1z * pz
-    inv_det = 1.0 / torch.where(det.abs() < 1e-12, 1e-12, det)
-
-    tx = ox - v0x
-    ty = oy - v0y
-    tz = oz - v0z
-    u = (tx * px + ty * py + tz * pz) * inv_det
-
-    qx = ty * e1z - tz * e1y
-    qy = tz * e1x - tx * e1z
-    qz = tx * e1y - ty * e1x
-    v = (dx * qx + dy * qy + dz * qz) * inv_det
-    t = (e2x * qx + e2y * qy + e2z * qz) * inv_det
-
-    ok = (det.abs() > 1e-12) & (u >= 0) & (v >= 0) & (u + v <= 1) & (t > 1e-6) & (t < t_max)
-    return torch.where(ok, t, _INF), u, v
 
 
 def _block_fan(rays_o, rays_d):
@@ -767,11 +733,11 @@ class DeviceInstancer:
                     keep_t = _fan_keep(fan, ds.tri_center, ds.tri_radius)
                     if _cull_fits(keep_t, TC):
                         tcand, tvalid = _keep_to_candidates(keep_t, TC)
-                        t_all, u_all, v_all = _moller_trumbore(
+                        t_all, u_all, v_all = moller_trumbore(
                             rays_o, rays_d, ds.tri_v0[tcand], ds.tri_e1[tcand], ds.tri_e2[tcand])
                         first = (torch.where(tvalid[None, :], t_all, _INF), u_all, v_all, tcand)
                 if first is None:
-                    first = (*_moller_trumbore(rays_o, rays_d, ds.tri_v0, ds.tri_e1, ds.tri_e2),
+                    first = (*moller_trumbore(rays_o, rays_d, ds.tri_v0, ds.tri_e1, ds.tri_e2),
                              None)
                 t_all, u_all, v_all, tri_ids = first
                 t_mesh, best = t_all.min(-1)
@@ -904,12 +870,12 @@ class DeviceInstancer:
 
     @trace.span("instancer.shadow")
     def _occlusion_branched(self, pts, light_dir, pt_valid):
-        """``_shadow_query`` through the exact 3-way block branch, chosen on
-        the host: no valid point -> nothing is blocked; the swept-cone keep
-        sets of the valid points' bounding sphere fit the shadow budgets ->
-        the query over those candidates only; otherwise -> the full query.
-        pts [..., 3]; light_dir broadcastable to pts; pt_valid
-        broadcastable to pts[..., 0]."""
+        """The shadow query (kernels/shadow_query.py) through the exact 3-way
+        block branch, chosen on the host: no valid point -> nothing is
+        blocked; the swept-cone keep sets of the valid points' bounding
+        sphere fit the shadow budgets -> the query over those candidates
+        only; otherwise -> the full query.  pts [..., 3]; light_dir
+        broadcastable to pts; pt_valid broadcastable to pts[..., 0]."""
         ds = self.ds
         C = self.shadow_cull_budget
         C = C if (C and C < ds.n_instances) else 0
@@ -942,71 +908,9 @@ class DeviceInstancer:
         if fits:
             inst_sel = None if keep_i is None else _keep_to_candidates(keep_i, C)
             tri_sel = None if keep_t is None else _keep_to_candidates(keep_t, TC)
-        return self._shadow_query(flat_p, flat_l, inst_sel, tri_sel).reshape(shape)
-
-    def _shadow_query(self, pts, light_dir, inst_sel=None, tri_sel=None):
-        """Whether anything blocks each point [M, 3] toward its light
-        direction [M, 3]: a top or bottom face of an instance box (the top
-        only from above), or a mesh triangle hit from its front.
-        inst_sel/tri_sel: optional (ids, valid) candidate subsets; invalid
-        (padding) columns never block.  Computed in chunks of points so
-        that no [points, columns] plane exceeds _SHADOW_PLANE elements."""
-        ds = self.ds
-        if inst_sel is not None:
-            rot, trans = ds.inv_rot[inst_sel[0]], ds.inv_trans[inst_sel[0]]
-            col_valid = inst_sel[1]
-        else:
-            rot, trans, col_valid = ds.inv_rot, ds.inv_trans, None
-        tris = None
-        if ds.n_tris > 0:
-            if tri_sel is not None:
-                ids = tri_sel[0]
-                tris = (ds.tri_v0[ids], ds.tri_e1[ids], ds.tri_e2[ids], ds.tri_ng[ids], tri_sel[1])
-            else:
-                tris = (ds.tri_v0, ds.tri_e1, ds.tri_e2, ds.tri_ng, None)
-        n_cols = max(rot.shape[0], 0 if tris is None else tris[0].shape[0], 1)
-        m = max(1, _SHADOW_PLANE // n_cols)
-        return torch.cat([self._shadow_chunk(pts[i:i + m], light_dir[i:i + m], rot, trans,
-                                             col_valid, tris)
-                          for i in range(0, pts.shape[0], m)])
-
-    def _shadow_chunk(self, p, l, rot, trans, col_valid, tris):
-        ds = self.ds
-
-        def row(c, v):
-            return (v[:, 0, None] * rot[:, c, 0] + v[:, 1, None] * rot[:, c, 1]
-                    + v[:, 2, None] * rot[:, c, 2])
-
-        # Local-frame rays as broadcast multiply-adds, [m, N] per component.
-        o_lx = row(0, p) + trans[:, 0]
-        o_ly = row(1, p) + trans[:, 1]
-        o_lz = row(2, p) + trans[:, 2]
-        d_lx, d_ly, dz = row(0, l), row(1, l), row(2, l)
-        safe_dz = torch.where(dz.abs() < 1e-12, 1e-12, dz)
-        dz_ok = dz.abs() > 1e-12
-
-        def face(z_plane):
-            t = (z_plane - o_lz) / safe_dz
-            px = o_lx + t * d_lx
-            py = o_ly + t * d_ly
-            return ((t > 0) & (t < T_FAR) & (px >= ds.b_0[0]) & (px <= ds.b_1[0])
-                    & (py >= ds.b_0[1]) & (py <= ds.b_1[1]) & dz_ok)
-
-        face_ok = (face(ds.b_1[2]) & (dz < 0)) | face(ds.b_0[2])
-        if col_valid is not None:
-            face_ok = face_ok & col_valid
-        blocked = face_ok.any(-1)
-
-        if tris is not None:
-            v0, e1, e2, ng, tri_valid = tris
-            t_hit = _moller_trumbore(p, l, v0, e1, e2)[0]
-            front = (l[:, 0, None] * ng[:, 0] + l[:, 1, None] * ng[:, 1]
-                     + l[:, 2, None] * ng[:, 2]) < 0
-            tri_ok = torch.isfinite(t_hit) & front
-            if tri_valid is not None:
-                tri_ok = tri_ok & tri_valid
-            blocked = blocked | tri_ok.any(-1)
-        return blocked
+        tris = (ds.tri_v0, ds.tri_e1, ds.tri_e2, ds.tri_ng) if ds.n_tris > 0 else None
+        return shadow_query(flat_p.contiguous(), flat_l.contiguous(), (ds.inv_rot, ds.inv_trans),
+                            tris, (ds.b_0, ds.b_1), inst_sel, tri_sel).reshape(shape)
 
     # -- terminator shading ------------------------------------------------
 

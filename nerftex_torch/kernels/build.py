@@ -23,6 +23,7 @@ SOURCES = {
     "tex_fetch": ("tex_fetch.cu", []),
     "mlp_fused": ("mlp_fused.cu", []),
     "selk_resolve": ("selk_resolve.cu", []),
+    "shadow_query": ("shadow_query.cu", []),
 }
 _BASE_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -35,6 +36,8 @@ ENTRIES = {
     "tex_fetch": ("nt_tex_fetch", [_I, _P, _I, _I, _P, _P, ctypes.c_longlong, _P]),
     "mlp_fused": ("nt_mlp_fused", [_I, _P, _P, _I, _I, _P, _P, _P, _I, _P, _I, _P]),
     "selk_resolve": ("nt_selk_resolve", [_P] * 7 + [_I, _I, _I, _I, ctypes.c_float] + [_P] * 4),
+    "shadow_query": ("nt_shadow_query", [_P, _P, _I] + [_P] * 4 + [_I] + [_P] * 6 + [_I]
+                     + [_P] * 4),
 }
 
 _LOADED = {}  # name -> (library, entry point)

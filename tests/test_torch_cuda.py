@@ -546,3 +546,191 @@ def test_a_render_waits_for_the_card_only_in_host_reads(cuda, tmp_path, name):
         # The shadow pass ran its branch read and its light-down read.
         assert {"sync.shadow_branch", "sync.light_down"} <= set(inside), Counter(inside)
         assert sum(totals.get(f"shadow.{k}", 0) for k in ("skip", "culled", "full")) > 0
+
+
+# -- the shadow query kernel (kernels/shadow_query.py) ------------------------
+
+SHADOW_BOUNDS = ([-0.5, -0.5, -0.2], [0.5, 0.5, 0.6])
+
+
+def _shadow_scene(rs, n_box, n_tri, m):
+    """Boxes turned about z and tilted a little over [-3, 3]^2 (instance 0
+    the identity at the origin), triangles of every size over the same
+    ground, and m points with directions toward a light above, as numpy."""
+    ang = rs.uniform(0, 2 * np.pi, n_box)
+    tilt = rs.normal(0, 0.1, (n_box, 3, 3))
+    rot = np.zeros((n_box, 3, 3))
+    rot[:, 0, 0], rot[:, 0, 1], rot[:, 1, 0], rot[:, 1, 1] = (np.cos(ang), np.sin(ang),
+                                                              -np.sin(ang), np.cos(ang))
+    rot[:, 2, 2] = 1
+    rot = (rot + tilt) / rs.uniform(0.5, 1.5, (n_box, 1, 1))
+    origin = np.concatenate([rs.uniform(-3, 3, (n_box, 2)), rs.uniform(-0.3, 0.3, (n_box, 1))], 1)
+    rot[0], origin[0] = np.eye(3), 0
+    trans = -np.einsum("nij,nj->ni", rot, origin)
+    v0 = np.concatenate([rs.uniform(-3, 3, (n_tri, 2)), rs.uniform(-0.5, 1.5, (n_tri, 1))], 1)
+    e1 = rs.normal(0, 1, (n_tri, 3)) * rs.uniform(0.01, 1, (n_tri, 1))
+    e2 = rs.normal(0, 1, (n_tri, 3)) * rs.uniform(0.01, 1, (n_tri, 1))
+    pts = np.concatenate([rs.uniform(-3, 3, (m, 2)), rs.uniform(-0.4, 1.0, (m, 1))], 1)
+    light = rs.normal(0, 0.5, (m, 3)) + [0, 0, 1]
+    return rot, trans, (v0, e1, e2), pts, light
+
+
+def _shadow_args(device, rot, trans, tri, pts, light, inst_sel=None, tri_sel=None):
+    def f32(x):
+        return torch.tensor(np.asarray(x, np.float32), device=device)
+
+    tris = None
+    if tri is not None:
+        v0, e1, e2 = (f32(x) for x in tri)
+        tris = (v0, e1, e2, torch.linalg.cross(e1, e2))
+
+    def sel(s):
+        if s is None:
+            return None
+        ids, valid = s
+        return (torch.tensor(ids, dtype=torch.int64, device=device),
+                torch.tensor(valid, dtype=torch.bool, device=device))
+
+    return (f32(pts), f32(light), (f32(rot), f32(trans)), tris,
+            tuple(f32(b) for b in SHADOW_BOUNDS), sel(inst_sel), sel(tri_sel))
+
+
+def _candidates(rs, n, c):
+    """c candidate ids of n, ascending, the last quarter padding (id 0,
+    invalid), as _keep_to_candidates lays them out."""
+    k = c - c // 4
+    ids = np.concatenate([np.sort(rs.choice(n, k, replace=False)), np.zeros(c - k, np.int64)])
+    return ids, np.arange(c) < k
+
+
+def _shadow_case(name, device):
+    """(query arguments, the share of blocked points the case must show: a
+    (low, high) range) of one named case; m = 4099 points (not a multiple
+    of any CTA size) unless the case needs fewer."""
+    rs = np.random.RandomState(sorted(SHADOW_CASES).index(name))
+    rot, trans, tri, pts, light = _shadow_scene(rs, 300, 700, 4099)
+    b0, b1 = SHADOW_BOUNDS
+    if name == "full":
+        return _shadow_args(device, rot, trans, tri, pts, light), (0.3, 0.9)
+    if name == "culled_with_padding":
+        return _shadow_args(device, rot, trans, tri, pts, light, _candidates(rs, 300, 128),
+                            _candidates(rs, 700, 256)), (0.1, 0.6)
+    if name == "no_triangles":
+        return _shadow_args(device, rot, trans, None, pts, light), (0.1, 0.6)
+    if name == "no_boxes":
+        return _shadow_args(device, rot[:0], trans[:0], tri, pts, light), (0.3, 0.9)
+    if name == "face_planes":
+        # Points on the identity box's face planes and edges, lit straight
+        # up, along the axes and slanted: t = 0, crossings at the bounds.
+        xy = rs.choice([b0[0], b1[0], b0[1], b1[1], 0.0, 0.25], (4099, 2))
+        z = rs.choice([b0[2], b1[2], b0[2] - 0.1, b1[2] + 0.1, 0.0], (4099, 1))
+        dirs = np.array([[0, 0, 1], [0, 0, -1], [1, 0, 1], [0, -1, 1], [1, 1, -1], [1, 0, 0]])
+        light = dirs[rs.randint(0, len(dirs), 4099)]
+        return _shadow_args(device, rot, trans, tri, np.concatenate([xy, z], 1), light), (
+            0.5, 0.99)
+    if name == "dz_near_the_floor":
+        # Light directions whose local dz in box 0 (the identity) lies at
+        # and around 1e-12 (float32's nearest), either sign, 0 and denormal;
+        # 29 other boxes block some of the points.
+        eps = np.float32(1e-12)
+        zs = np.array([eps, np.nextafter(eps, np.float32(1)), np.nextafter(eps, np.float32(0)),
+                       -eps, -np.nextafter(eps, np.float32(1)), 0.0, 1e-13, 1e-11, 1e-40],
+                      np.float32)
+        light = np.concatenate([rs.uniform(-1, 1, (4099, 2)), rs.choice(zs, (4099, 1))], 1)
+        pts = np.concatenate([rs.uniform(-0.6, 0.6, (4099, 2)), rs.choice(
+            [b0[2], b1[2], 0.0, -0.3, 0.7], (4099, 1))], 1)
+        return _shadow_args(device, rot[:30], trans[:30], None, pts, light), (0.05, 0.95)
+    if name == "det_near_the_floor":
+        # Right triangles of legs a ~ 1e-6 in the xy plane, lit along z:
+        # det = -+a^2 at and around 1e-12.
+        a = np.float32(1e-6) * (1 + rs.choice([0.0, 1e-7, -1e-7, 1e-3, -1e-3, 0.5], (700, 1)))
+        v0 = np.concatenate([rs.uniform(-1e-6, 0, (700, 2)), rs.uniform(0.5, 1, (700, 1))], 1)
+        e1 = np.concatenate([a, np.zeros((700, 2))], 1) * rs.choice([1, -1], (700, 1))
+        e2 = np.concatenate([np.zeros((700, 1)), a, np.zeros((700, 1))], 1)
+        pts = np.concatenate([rs.uniform(-1e-6, 1e-6, (4099, 2)), np.zeros((4099, 1))], 1)
+        light = np.tile([0.0, 0.0, 1.0], (4099, 1))
+        return _shadow_args(device, rot[:0], trans[:0], (v0, e1, e2), pts, light), (0.2, 0.8)
+    if name == "every_point_blocked":
+        # One sheet over the whole ground, its front face toward the points.
+        sheet = (np.array([[-100, -100, 10.0]]), np.array([[0, 400, 0.0]]),
+                 np.array([[400, 0, 0.0]]))
+        light = np.tile([0.0, 0.0, 1.0], (4099, 1)) + rs.normal(0, 0.01, (4099, 3))
+        return _shadow_args(device, rot, trans, sheet, pts, light), (1.0, 1.0)
+    if name == "no_point_blocked":
+        # Every point above everything, lit from above.
+        pts = pts + [0, 0, 20.0]
+        light[:, 2] = np.abs(light[:, 2]) + 0.1
+        return _shadow_args(device, rot, trans, tri, pts, light), (0.0, 0.0)
+    if name == "one_point":
+        return _shadow_args(device, rot, trans, tri, pts[:1], light[:1]), (0.0, 1.0)
+    raise KeyError(name)
+
+
+SHADOW_CASES = ("full", "culled_with_padding", "no_triangles", "no_boxes", "face_planes",
+                "dz_near_the_floor", "det_near_the_floor", "every_point_blocked",
+                "no_point_blocked", "one_point")
+
+
+@pytest.mark.parametrize("name", SHADOW_CASES)
+def test_shadow_query_kernel_is_bit_equal_to_plain(cuda, name):
+    from nerftex_torch.kernels import shadow_query as sq
+
+    args, (low, high) = _shadow_case(name, cuda)
+    before = sq.shadow_query.launches
+    got = sq.shadow_query(*args)
+    torch.cuda.synchronize()
+    assert sq.shadow_query.launches == before + 1
+    assert got.dtype == torch.bool and got.shape == args[0].shape[:1]
+    assert torch.equal(got, sq.shadow_query_plain(*args))
+    share = got.float().mean().item()
+    assert low <= share <= high, (name, share)
+
+
+def test_shadow_query_kernel_refuses_bad_inputs(cuda):
+    from nerftex_torch.kernels import shadow_query as sq
+
+    args = list(_shadow_case("full", cuda)[0])
+    before = sq.shadow_query.launches
+    with pytest.raises(TypeError):
+        sq.shadow_query(args[0].double(), *args[1:])
+    with pytest.raises(ValueError):
+        sq.shadow_query(args[0], args[1][:-1], *args[2:])
+    with pytest.raises(ValueError):
+        sq.shadow_query(args[0].T.contiguous().T, *args[1:])
+    with pytest.raises(ValueError):
+        sq.shadow_query(args[0], args[1].cpu(), *args[2:])
+    assert sq.shadow_query.launches == before
+
+
+def test_grass_frame_answers_every_shadow_point_in_the_kernel(cuda, tmp_path):
+    """A 64x64 frame of configs/config_grass_render.py through RenderSession
+    at the grass operating point (f32 MLP, random weights), recorded: every
+    point that entered the shadow query was answered by the kernel."""
+    import importlib
+    import os
+
+    from nerftex_torch import operating_points
+    from nerftex_torch.kernels import shadow_query as sq
+    from nerftex_torch.render.serve import RenderSession
+    from nerftex_torch.utils import trace
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = dict(importlib.import_module("configs.config_grass_render").config,
+               target_path=str(tmp_path))
+    cfg["renderer_config"] = dict(cfg["renderer_config"])
+    inst = cfg["renderer_config"]["instancer_config"] = dict(
+        cfg["renderer_config"]["instancer_config"])
+    for k in ("mesh_path", "patch_origins_path"):
+        inst[k] = os.path.join(root, inst[k])
+    point = dict(operating_points.resolve("grass"), compute_dtype="float32")
+    session = RenderSession(cfg, height=64, width=64, operating_point=point)
+    before = sq.shadow_query.launches
+    trace.reset()
+    with trace.recording():
+        img = session.render([0.30614675, -0.73910363, 0.6], [0, 0.33, 0.47, -0.64, 0.6])
+    totals = trace.totals()
+    trace.reset()
+    assert img.shape == (64, 64, 4) and np.isfinite(img).all()
+    assert sq.shadow_query.launches > before
+    assert totals["shadow.points"] > 0
+    assert totals["shadow.kernel"] == totals["shadow.points"]

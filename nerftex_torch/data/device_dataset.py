@@ -25,6 +25,10 @@ Like the JAX package's device path it picks images iid per step, not
 through the host pipeline's shuffle buffer, and pixels iid within a draw.
 The pixel gather computes its flat offsets in int64 (the 5.24 GB table is
 past 2^31 bytes).
+
+Set-up records a ``data.table`` span over the decode, the hit-cell tables
+and the upload, and counts ``data.table_bytes`` (the image table's bytes)
+and ``data.table_views`` (its views) under it (utils/trace.py).
 """
 
 from typing import Any
@@ -36,7 +40,7 @@ from nerftex_torch.data import pixel_sampler as px_mod
 from nerftex_torch.data import ray_sampler as ray_mod
 from nerftex_torch.data import tfrecord as tfr
 from nerftex_torch.ops.rays import rays_from_camera
-from nerftex_torch.utils import jax_rng
+from nerftex_torch.utils import jax_rng, trace
 from nerftex_torch.utils.image import decode_png_u8
 from nerftex_torch.utils.util import resolve_device
 
@@ -94,23 +98,26 @@ class DeviceResidentSampler:
             self._proxy = ray_sampler.proxy
 
         n = len(source)
-        images, store = self._decode_all(source, n, max_bytes)
-        poses, params = (np.stack(rows) for rows in zip(*(self._pose_params(source, i)
-                                                          for i in range(n))))
-        if self._pixel_mode == "proxy":
-            cells, counts = self._hit_cell_tables(pixel_sampler, poses)
-        else:
-            cells = np.zeros((n, 1), np.int32)
-            counts = np.zeros((n,), np.int32)  # count 0: uniform over all cells
+        with trace.span("data.table"):
+            images, store = self._decode_all(source, n, max_bytes)
+            poses, params = (np.stack(rows) for rows in zip(*(self._pose_params(source, i)
+                                                              for i in range(n))))
+            if self._pixel_mode == "proxy":
+                cells, counts = self._hit_cell_tables(pixel_sampler, poses)
+            else:
+                cells = np.zeros((n, 1), np.int32)
+                counts = np.zeros((n,), np.int32)  # count 0: uniform over all cells
 
-        self._store = store
-        dev = self.device
-        self.images = torch.from_numpy(images).to(dev)
-        self.poses = torch.from_numpy(poses).to(dev)
-        self.parameters = torch.from_numpy(params).to(dev)
-        self.cells = torch.from_numpy(cells).to(dev)
-        self.counts = torch.from_numpy(counts).to(dev)
-        self._bkgd = torch.as_tensor(np.asarray(bkgd_color, np.float32), device=dev)
+            self._store = store
+            dev = self.device
+            self.images = torch.from_numpy(images).to(dev)
+            self.poses = torch.from_numpy(poses).to(dev)
+            self.parameters = torch.from_numpy(params).to(dev)
+            self.cells = torch.from_numpy(cells).to(dev)
+            self.counts = torch.from_numpy(counts).to(dev)
+            self._bkgd = torch.as_tensor(np.asarray(bkgd_color, np.float32), device=dev)
+            trace.count("data.table_bytes", images.nbytes)
+            trace.count("data.table_views", n)
         self.n_images = n
         self.n_parameters = params.shape[-1]
 

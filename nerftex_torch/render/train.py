@@ -163,7 +163,10 @@ class FusedStep:
     and from then on only replays.  A failed capture raises: nothing runs
     the step eagerly on the card, but under NERFTEX_DEBUG_NANS
     (utils/debug.py), whose checks a capture refuses.  On the CPU each step
-    runs eagerly.
+    runs eagerly.  The tracer (utils/trace.py) sees a capture as the span
+    ``train.capture`` and each replay's launch as a span ``train.launch``,
+    and counts each run's steps as ``train.replays`` or ``train.eager``,
+    beside ``step_counts``.
     ``_loss`` is the part of the step between sampling and Adam, which the
     data-parallel step (parallel/mesh.py) replaces."""
 
@@ -241,6 +244,7 @@ class FusedStep:
         return tensors + [g["lr"] for g in self.optimizer.param_groups
                           if isinstance(g["lr"], torch.Tensor)]
 
+    @trace.span("train.capture")
     def _capture(self) -> None:
         tensors = self._state_tensors()
         with torch.no_grad():
@@ -273,12 +277,15 @@ class FusedStep:
             if self.graph is None:
                 self._capture()
             for _ in range(k):
-                self.graph.replay()
+                with trace.span("train.launch"):
+                    self.graph.replay()
             step_counts["graph_replays"] += k
+            trace.count("train.replays", k)
         else:
             for _ in range(k):
                 self._body()
             step_counts["eager_steps"] += k
+            trace.count("train.eager", k)
         with trace.host_read("losses"):
             return self.losses[:k].cpu()
 

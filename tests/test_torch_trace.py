@@ -380,3 +380,80 @@ def test_the_prefetch_thread_records_each_batch_under_its_index(tfr_path):
     assert len(waits) == n + 1 and all(s["thread"] == threading.get_ident() for s in waits)
     decodes = [s for s in spans if s["name"] == "data.decode"]
     assert decodes and all(s["unit"] in [("batch", i) for i in range(n + 1)] for s in decodes)
+
+
+def _device_resident_run(tfr_path, device):
+    """A FusedStep of 3 steps a dispatch built with ``device_resident``
+    under the tracer, run for 2 steps, then 3; (its dataset, the spans)."""
+    from nerftex_torch.render.train import FusedStep, TrainState, build_step
+    from nerftex_torch.utils import rng
+
+    rng.set_seed(0)
+    model_config = {
+        "module": "network.model.ParamNerf",
+        "pos_embedding": {"module": "network.model.FourierFeatures", "n_freq_bands": 2},
+        "dir_embedding": {"module": "network.model.FourierFeatures", "n_freq_bands": 2},
+        "param_embedding": {"module": "network.model.FourierFeatures", "n_freq_bands": 2},
+        "n_parameters": [1, 6], "depth": 2, "width": 32, "skips": [],
+    }
+    loss_config = {"module": "network.loss.AlphaLoss", "loss_fn": "network.loss.smape",
+                   "alpha_loss_fn": "network.loss.mse"}
+    renderer_config = {"module": "network.renderer.Renderer", "n_samples": 8, "perturb": True}
+    with trace.recording():
+        dataset, _, _, step = build_step(
+            dict(_train_dataset_config(tfr_path, 0), device_resident=True), model_config,
+            loss_config, 5e-3, 500, renderer_config, device, TrainState(), steps_per_dispatch=3)
+        assert isinstance(step, FusedStep)
+        step.run(0, 2)
+        step.run(2, 3)
+    return dataset, _spans()
+
+
+def _steps_by_dispatch(roots, kind: str) -> list:
+    return [sum(c["n"] for c in trace.snapshot()["counts"]
+                if c["name"] == kind and c["unit"] == root["id"])
+            for root in sorted(roots, key=lambda s: s["start_ns"])]
+
+
+def test_a_device_resident_run_records_its_table_and_counts_its_steps(tfr_path):
+    """The device-resident path on the CPU: building the sampler records one
+    ``data.table`` span with the u8 table's bytes (N x H x W x 4 for PNG
+    records) and views; each FusedStep run is a ``train.replay`` root whose
+    ``train.replays`` and ``train.eager`` add up to the steps it ran (all
+    eager on the CPU, where nothing is captured or launched)."""
+    dataset, spans = _device_resident_run(tfr_path, "cpu")
+    tables = [s for s in spans if s["name"] == "data.table"]
+    assert len(tables) == 1 and tables[0]["parent"] is None
+    sampler = dataset.device_sampler
+    n, h, w = sampler.n_images, sampler.height, sampler.width
+    counts = {c["name"]: c for c in trace.snapshot()["counts"]}
+    assert counts["data.table_bytes"]["n"] == n * h * w * 4 == sampler.images.numel()
+    assert counts["data.table_views"]["n"] == n == 8
+    assert counts["data.table_bytes"]["unit"] == tables[0]["id"]
+    roots = [s for s in spans if s["name"] == "train.replay"]
+    assert len(roots) == 2 and all(s["parent"] is None for s in roots)
+    assert [a + b for a, b in zip(_steps_by_dispatch(roots, "train.replays"),
+                                  _steps_by_dispatch(roots, "train.eager"))] == [2, 3]
+    totals = trace.totals()
+    assert totals.get("train.replays", 0) + totals["train.eager"] == 5
+    assert not [s for s in spans if s["name"] in ("train.capture", "train.launch")]
+
+
+@pytest.mark.gpu
+def test_a_device_resident_run_on_the_card_records_its_capture_and_launches(tfr_path):
+    """On a CUDA card the first run captures the step once (one
+    ``train.capture`` span under its ``train.replay`` root) and every step
+    of both runs is a replay, each launch a ``train.launch`` span under its
+    dispatch's root."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    _, spans = _device_resident_run(tfr_path, "cuda")
+    roots = sorted((s for s in spans if s["name"] == "train.replay"),
+                   key=lambda s: s["start_ns"])
+    assert len(roots) == 2 and all(s["parent"] is None for s in roots)
+    assert _steps_by_dispatch(roots, "train.replays") == [2, 3]
+    assert _steps_by_dispatch(roots, "train.eager") == [0, 0]
+    captures = [s for s in spans if s["name"] == "train.capture"]
+    assert len(captures) == 1 and captures[0]["parent"] == roots[0]["id"]
+    launches = [s for s in spans if s["name"] == "train.launch"]
+    assert [sum(s["parent"] == r["id"] for s in launches) for r in roots] == [2, 3]

@@ -238,6 +238,23 @@ Phases (any failure raises and exits non-zero):
      rows go into the kernels line under the grass and plush frames, beside
      those frames' shadow_query launches; every other frame must launch it
      0 times.
+  19. the per-ray kernels (kernels/per_ray.py) against their plain chain
+     on every ray block of the carpet, grass and plush frames, with the
+     operating point's culls and with none: discrete outputs equal but on
+     rays whose float64 recompute moves under a tiny perturbation (knife
+     edges, listed), float tables within PER_RAY_FLOAT_TOL of their
+     scale, the drop counts equal; every fitting keep set ascending and
+     holding every column some ray of the block hits, at the block's own
+     slab operand rounding (per_ray_hit_columns); a ``per_ray <scene>`` line
+     each with a culled and a full block timed (the kernels' device ms from
+     a CUDA graph, the plain chain's and DeviceInstancer._per_ray's ms,
+     _per_ray's host issue ms, the bound: the float operations of the
+     kernels' own walk over the unfused f32 rate against the bytes it moves
+     over HBM's) and the tracer's per_ray.rays, per_ray.kernel and cull
+     counts over a frame of _per_ray calls.  The rows go into the kernels
+     line under the carpet, grass and plush frames, beside those frames'
+     per_ray launches; every frame that runs the device instancer must
+     launch it, and every training frame 0 times.
 The first render of each frame runs with its selk_resolve calls captured
 (selk_capture); the frame's launch histogram (launches by Rb, S, K and
 method, with the window and valid slots of their inputs) is printed on a
@@ -449,6 +466,30 @@ SHADOW_BOX_STEPS = (5, 8, 22)
 SHADOW_FACE_OPS = (1, 4)
 SHADOW_TRI_STEPS = (5, 14, 10, 15, 1, 6)
 SHADOW_TIMED_CALLS = 20               # kernel calls a CUDA graph holds
+PER_RAY_FLOAT_TOL = 1e-6              # kernel vs plain chain, x each float table's largest |value|
+# A ray whose discrete outputs differ between the kernels and the plain chain
+# must sit on a knife edge: its float64 recompute's discrete outputs change
+# when its origin or direction moves by PER_RAY_EDGE_RAY (x max(|o|, 1); a
+# dozen float32 ulps of the world coordinates) or every box's translation by
+# PER_RAY_EDGE_BOX (x (1 + |T|); the local frames are ~11-25x the world's,
+# and with bf16 dots only the translation enters the slab test unrounded).
+PER_RAY_EDGE_RAY = 1e-6
+PER_RAY_EDGE_BOX = 2e-6
+# Float operations of csrc/per_ray.cu's walk (multiplies, adds, subtracts,
+# reciprocals, square roots and transcendentals one each, an fma two;
+# comparisons and integers uncounted).  A box's slab test: per axis o_l (6),
+# d_l (5), 1 / d_l (1), t_a, t_b (4).  A triangle's test up to its exit:
+# the P vector and det (14); 1 / det, the T vector and u (10); Q and v (15);
+# u + v (1); t (6).  A hit slot's anchor terms (13); an event of the walk
+# (4).  The fan: a ray (80 over the three passes), a sphere's keep test (37),
+# an instance sphere's pad under bfloat16 operands (15: |c| 6, the two terms
+# and their sum 9).
+PER_RAY_BOX_OPS = 48
+PER_RAY_TRI_STEPS = (14, 10, 15, 1, 6)
+PER_RAY_SLOT_OPS, PER_RAY_EVENT_OPS = 13, 4
+PER_RAY_FAN_RAY_OPS, PER_RAY_FAN_SPHERE_OPS, PER_RAY_FAN_PAD_OPS = 80, 37, 15
+PER_RAY_TIMED_CALLS = 20              # kernel calls a CUDA graph holds
+PER_RAY_SCENES = ("carpet", "grass", "plush")
 
 
 def log(msg):
@@ -1888,7 +1929,7 @@ def check_validation_render(frame, config, target, n_steps, counts, dtype_name="
     torch.cuda.synchronize()
     direct_launches, direct_variants = read_counts()
     check_counts(f"{frame} (direct)", direct_launches, direct_variants,
-                 idle=("tex_fetch", "selk_resolve"),
+                 idle=("tex_fetch", "selk_resolve", "per_ray"),
                  want=F32_FRAME_VARIANTS if dtype_name == "float32" else FRAME_VARIANTS)
     with mlp_wrap(lambda real, *args: real.mlp_fused_plain(*args)):
         plain = renderer(**items[0], training=False, key=key)
@@ -1989,7 +2030,7 @@ def main_training(counts, card):
             f"{carpet_launches}, variants {variants} on {card}")
         # The only kernel of training is the validation renders' MLP.
         check_counts("carpet_train (main)", carpet_launches, variants,
-                     idle=("tex_fetch", "selk_resolve"), want=F32_FRAME_VARIANTS)
+                     idle=("tex_fetch", "selk_resolve", "per_ray"), want=F32_FRAME_VARIANTS)
         if not carpet_launches["mlp_fused"] > 1:
             raise AssertionError(f"the validation renders launched mlp_fused "
                                  f"{carpet_launches['mlp_fused']} times")
@@ -2050,7 +2091,7 @@ def main_training(counts, card):
         if len(gf_losses) != n or not np.isfinite(gf_losses).all():
             raise AssertionError(f"grass_filtered_train losses {gf_losses}")
         check_counts("grass_filtered_train (main)", gf_launches, gf_variants,
-                     idle=("tex_fetch", "selk_resolve"), want=F32_FRAME_VARIANTS)
+                     idle=("tex_fetch", "selk_resolve", "per_ray"), want=F32_FRAME_VARIANTS)
         if not gf_launches["mlp_fused"] > 1:
             raise AssertionError(f"the validation renders launched mlp_fused "
                                  f"{gf_launches['mlp_fused']} times")
@@ -2339,7 +2380,7 @@ def main_device_training(counts, card, keep_tfr):
             raise AssertionError(f"the device-resident run took {graph_counts}, not {n} graph "
                                  f"replays of one capture and no eager step")
         check_counts("carpet_train_device (main)", launches, variants,
-                     idle=("tex_fetch", "selk_resolve"), want=FRAME_VARIANTS)
+                     idle=("tex_fetch", "selk_resolve", "per_ray"), want=FRAME_VARIANTS)
         with open(os.path.join(target, "scalars.jsonl")) as f:
             losses = [json.loads(line)["Loss"] for line in f]
         first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
@@ -2599,7 +2640,7 @@ def main_mip(counts, card):
             f"{record['render_images']} s, saves {record['save_checkpoint']} s; peak device "
             f"memory {peak:.2f} GiB; launches {train_launches}, variants {variants} on {card}")
         check_counts("grass_mip_train (main)", train_launches, variants,
-                     idle=("tex_fetch", "selk_resolve"), want=F32_FRAME_VARIANTS)
+                     idle=("tex_fetch", "selk_resolve", "per_ray"), want=F32_FRAME_VARIANTS)
         with open(os.path.join(target, "scalars.jsonl")) as f:
             losses = [json.loads(line)["Loss"] for line in f]
         if len(losses) != n // 10 or not np.isfinite(losses).all():
@@ -2650,7 +2691,7 @@ def main_mip(counts, card):
         if not {"color_pred_coarse", "alpha_pred_coarse"} <= terms:
             raise AssertionError(f"the mip_importance loss had no coarse terms: {sorted(terms)}")
         check_counts("grass_mip_imp_train (main)", imp_launches, imp_variants,
-                     idle=("tex_fetch", "selk_resolve"), want=F32_FRAME_VARIANTS)
+                     idle=("tex_fetch", "selk_resolve", "per_ray"), want=F32_FRAME_VARIANTS)
         numbers["grass_mip_imp_train"] = {"steps": m, "steps_per_s": imp_rate, "main_s": imp_s,
                                           "losses": imp_losses, "loss_terms": sorted(terms),
                                           "launches": imp_launches}
@@ -3583,7 +3624,7 @@ def parallel_tp_step(mesh, counts, card):
             torch.cuda.synchronize()
             launches, variants = read_counts()
             check_counts("carpet_tp validation", launches, variants,
-                         idle=("tex_fetch", "selk_resolve"), want=F32_FRAME_VARIANTS)
+                         idle=("tex_fetch", "selk_resolve", "per_ray"), want=F32_FRAME_VARIANTS)
             with mlp_wrap(lambda real, *args: real.mlp_fused_plain(*args)):
                 plain = renderer(**data, training=False, key=jax_rng.key(0))
             plain_diff = max(float((out[k] - plain[k]).abs().max())
@@ -4269,7 +4310,7 @@ def oracle_scene(name, cfg, rays, n_samples, step, methods, device, counts, stat
     stats["device_s"] = time.perf_counter() - t0
     if counts is not None:
         launches = counts[1]()[0]
-        stats["launches"] = {k: launches[k] for k in ("selk_resolve", "tex_fetch",
+        stats["launches"] = {k: launches[k] for k in ("per_ray", "selk_resolve", "tex_fetch",
                                                       "shadow_query")}
         oracle_launches(name, launches, bool(scene.texture_parameter_idxs),
                         bool(scene.cast_shadow_rays))
@@ -4300,10 +4341,12 @@ def oracle_scene(name, cfg, rays, n_samples, step, methods, device, counts, stat
 
 
 def oracle_launches(name, launches, textured, shadowed):
-    """selk_resolve launched, tex_fetch exactly where the scene has a
-    parameter texture and shadow_query exactly where it casts shadow rays."""
-    if launches["selk_resolve"] <= 0:
-        raise AssertionError(f"oracle {name}: selk_resolve was not launched")
+    """per_ray and selk_resolve launched, tex_fetch exactly where the scene
+    has a parameter texture and shadow_query exactly where it casts shadow
+    rays."""
+    for kernel in ("per_ray", "selk_resolve"):
+        if launches[kernel] <= 0:
+            raise AssertionError(f"oracle {name}: {kernel} was not launched")
     if textured != (launches["tex_fetch"] > 0):
         raise AssertionError(f"oracle {name}: tex_fetch launched {launches['tex_fetch']} "
                              f"times with{'' if textured else 'out'} a parameter texture")
@@ -4338,7 +4381,7 @@ def oracle_aux_scene(device, counts, stats):
     out = oracle_run(dev, rays_o, rays_d, params, 32, 0.1)
     if counts is not None:
         launches = counts[1]()[0]
-        stats["launches"] = {k: launches[k] for k in ("selk_resolve", "tex_fetch",
+        stats["launches"] = {k: launches[k] for k in ("per_ray", "selk_resolve", "tex_fetch",
                                                       "shadow_query")}
         oracle_launches("aux", launches, False, False)
     orc = oracle.get_model_input(scene, rays_o, rays_d, params, 32, 0.1,
@@ -4593,6 +4636,408 @@ def main_shadow_query(card):
     return rows
 
 
+def per_ray_setup(name, device="cuda"):
+    """The per-ray stage's inputs in the scene's frame: (DeviceInstancer on
+    the card, rays_o, rays_d [R, 3], parameters [R, P], S, step).  carpet:
+    config_carpet_render's first dataset item at the carpet operating point
+    with bf16 dots (carpet_frame's); grass and plush: their golden frames'
+    rays and flags."""
+    from nerftex_torch.utils.util import instantiate
+
+    if name == "carpet":
+        data = config_item("carpet")[0]
+        render_cfg = carpet_configs("carpet")[1]
+    else:
+        data = scene_data(name)[0]
+        render_cfg = grass_renderer_config() if name == "grass" else plush_renderer_config()
+    dev = instantiate(dict(render_cfg["instancer_config"], device=device)).device_instancer
+
+    def rows(x, width):
+        x = x.cpu() if isinstance(x, torch.Tensor) else np.asarray(x)
+        return torch.as_tensor(x, dtype=torch.float32).reshape(-1, width).to(device).contiguous()
+
+    rays_o, rays_d = rows(data["rays_o"], 3), rows(data["rays_d"], 3)
+    params = rows(data["parameters"], np.asarray(data["parameters"]).shape[-1])
+    if params.shape[0] == 1:
+        params = params.expand(rays_o.shape[0], -1).contiguous()
+    S = min(render_cfg["n_samples"], dev.max_steps_per_ray)
+    return dev, rays_o, rays_d, params, S, render_cfg["step_size"]
+
+
+def per_ray_args(dev, rays_o, rays_d, S, step, culled=True):
+    """kernels.per_ray's arguments for these rays (offsets 0.5) at the
+    instancer's settings; culled False turns both culls off."""
+    ds = dev.ds
+    u_off = torch.full((rays_o.shape[0],), 0.5, device=rays_o.device)
+    budgets = (dev.cull_budget, dev.tri_cull_budget) if culled else (0, 0)
+    return (ds, rays_o, rays_d, u_off, min(dev.max_hits, ds.n_instances), S, step, *budgets,
+            dev.matmul_precision)
+
+
+def per_ray_hit_columns(args):
+    """(instances, triangles) that the full branch needs for the block, as
+    sorted id arrays: each box that gives some ray a valid interval (clipped
+    at the ray's first mesh hit) and each triangle that is some ray's first
+    hit; the slab test's operands rounded as the block's matmul_precision
+    rounds them."""
+    from nerftex_torch.instancing.geometry import T_FAR, moller_trumbore
+    from nerftex_torch.models.encodings import round_operand
+
+    ds, o, d, _, _, _, _, _, _, prec = args
+    t_mesh = torch.full((o.shape[0],), float("inf"), device=o.device)
+    tris = torch.zeros(0, dtype=torch.int64, device=o.device)
+    if ds.n_tris:
+        t_mesh, best = moller_trumbore(o, d, ds.tri_v0, ds.tri_e1, ds.tri_e2)[0].min(-1)
+        tris = best[torch.isfinite(t_mesh)].unique()
+    t0 = torch.full((o.shape[0], ds.n_instances), -float("inf"), device=o.device)
+    t1 = -t0
+    o_r, d_r = round_operand(o, prec), round_operand(d, prec)
+    for c in range(3):
+        rot_c = round_operand(ds.inv_rot[:, c, :].T, prec)
+        o_lc = o_r @ rot_c + ds.inv_trans[:, c]
+        inv = 1.0 / torch.where((d_r @ rot_c).abs() < 1e-12, 1e-12, d_r @ rot_c)
+        t_a, t_b = (ds.b_0[c] - o_lc) * inv, (ds.b_1[c] - o_lc) * inv
+        t0 = torch.maximum(t0, torch.minimum(t_a, t_b))
+        t1 = torch.minimum(t1, torch.maximum(t_a, t_b))
+    t1c = torch.minimum(torch.clamp(t1, 0.0, T_FAR), t_mesh[:, None])
+    valid = (t0 < t1) & (t1 > 0) & (t0 < T_FAR) & (torch.clamp(t0, 0.0, T_FAR) < t1c)
+    return valid.any(0).nonzero()[:, 0].cpu().numpy(), tris.cpu().numpy()
+
+
+def per_ray_keep_sets(args, got):
+    """The kernels' cull buffer of one block: {kind: (count, budget, kept
+    ids or None where the set does not fit)}; each kept set ascending and,
+    where it fits, holding every column that per_ray_hit_columns finds
+    (raise otherwise)."""
+    from nerftex_torch.kernels.per_ray import budgets
+
+    ds, _, _, _, K, _, _, cull_budget, tri_cull_budget, _ = args
+    C, TC = budgets(ds, K, cull_budget, tri_cull_budget)
+    if got["cull"] is None:
+        return {}
+    cull = got["cull"].cpu().numpy()
+    hits = per_ray_hit_columns(args)
+    out = {}
+    for i, (kind, budget, start, hit) in enumerate((("instances", C, 4, hits[0]),
+                                                     ("triangles", TC, 4 + C, hits[1]))):
+        if not budget:
+            continue
+        count = int(cull[i])
+        kept = cull[start:start + count] if count <= budget else None
+        if kept is not None:
+            if not (np.diff(kept) > 0).all():
+                raise AssertionError(f"per_ray: the kept {kind} are not ascending")
+            missed = np.setdiff1d(hit, kept)
+            if missed.size:
+                raise AssertionError(f"per_ray: the {kind} keep set misses hit columns "
+                                     f"{missed[:10].tolist()} ({missed.size})")
+        out[kind] = (count, budget, kept)
+    if int(cull[2]) + int(cull[3]) != len(out) or int(cull[2]) != sum(
+            v[2] is not None for v in out.values()):
+        raise AssertionError(f"per_ray: cull counts {cull[2:4].tolist()} for sets {out}")
+    return out
+
+
+def per_ray_discrete(t, S, step, exact=False):
+    """The discrete per-ray outputs of per_ray's result ``t`` as [R, ...]
+    tensors: hit slots' validity and ids (-1 in invalid slots, whose
+    contents no pick reads), n_steps, tiny, hit, the arc's whole steps
+    floor(total / step), the mesh's hit and triangle.  The quotient is the
+    correctly rounded one (the kernels' and the CPU's) with ``exact``,
+    else the one PyTorch computes on the tables' device (the chain's: a
+    card's division by a host scalar can differ in the last bit)."""
+    total = t["total"]
+    necessary = (torch.floor(total.cpu() / step).to(total.device) if exact
+                 else torch.floor(total / step))
+    mesh = torch.isfinite(t["t_mesh"])
+    out = {"kvalid": t["kvalid"], "inst_idx": torch.where(t["kvalid"], t["inst_idx"], -1),
+           "n_steps": t["n_steps"],
+           "tiny": t["tiny"], "hit": t["hit"], "necessary": necessary.long(), "mesh_hit": mesh}
+    if t["tri"] is not None:
+        out["tri"] = torch.where(mesh, t["tri"], -1)
+    return out
+
+
+def per_ray_rows_differ(a, b):
+    """[R] True where any discrete output of a and b differs."""
+    diff = None
+    for k, x in a.items():
+        y = b[k].to(x.device)
+        d = (x != y).reshape(x.shape[0], -1).any(1)
+        diff = d if diff is None else diff | d
+    return diff
+
+
+def per_ray_knife_edges(args, rows):
+    """Of the rays ``rows`` (indices into the block), those on a knife edge:
+    the float64 chain's discrete outputs (culls off, on the host) change
+    when the ray's origin or direction moves by PER_RAY_EDGE_RAY or every
+    box's translation by PER_RAY_EDGE_BOX, along an axis either way."""
+    import types
+
+    from nerftex_torch.kernels.per_ray import per_ray_plain
+
+    ds, o, d, u_off, K, S, step, _, _, prec = args
+    names = ("inv_rot", "inv_trans", "origins", "b_0", "b_1") + (
+        ("tri_v0", "tri_e1", "tri_e2") if ds.n_tris else ())
+    tables = {k: getattr(ds, k).double().cpu() for k in names}
+    idx = torch.as_tensor(rows, dtype=torch.int64, device=o.device)
+    o64, d64, u64 = (x[idx].double().cpu() for x in (o, d, u_off))
+
+    def discrete(o_, d_, trans=None):
+        scene = types.SimpleNamespace(n_instances=ds.n_instances, n_tris=ds.n_tris,
+                                      **dict(tables, inv_trans=tables["inv_trans"]
+                                             if trans is None else trans))
+        return per_ray_discrete(per_ray_plain(scene, o_, d_, u64, K, S, step, 0, 0, prec), S,
+                                step)
+
+    base = discrete(o64, d64)
+    moved = torch.zeros(len(rows), dtype=torch.bool)
+    scale_o = o64.abs().clamp(min=1.0)
+    trans = tables["inv_trans"]
+    for axis in range(3):
+        for sign in (1.0, -1.0):
+            e = torch.zeros(3, dtype=torch.float64)
+            e[axis] = sign
+            moved |= per_ray_rows_differ(discrete(o64 + PER_RAY_EDGE_RAY * scale_o * e, d64),
+                                         base)
+            moved |= per_ray_rows_differ(discrete(o64, d64 + PER_RAY_EDGE_RAY * e), base)
+            shifted = trans + PER_RAY_EDGE_BOX * (1.0 + trans.abs()) * e
+            moved |= per_ray_rows_differ(discrete(o64, d64, shifted), base)
+    return moved.numpy()
+
+
+def compare_per_ray(args, got, want):
+    """The kernels' result ``got`` against the plain chain's ``want`` on one
+    block: every discrete output equal but on rays that per_ray_knife_edges
+    finds on a knife edge (raise on any other; on more than 1 % of the
+    block at all), the float tables of the other rays within
+    PER_RAY_FLOAT_TOL x their largest |value| and infinite in the same
+    places (the anchor terms in the valid slots), the drop counts equal
+    (or, with knife edges, each consistent with its own tables).  Returns (knife-edge rays, largest float error
+    over its table's scale)."""
+    _, _, _, _, K, S, step, _, _, _ = args
+    dg, dw = per_ray_discrete(got, S, step, exact=True), per_ray_discrete(want, S, step)
+    if set(dg) != set(dw):
+        raise AssertionError(f"per_ray: outputs {sorted(dg)} against {sorted(dw)}")
+    differ = per_ray_rows_differ(dg, dw).cpu().numpy()
+    rows = np.nonzero(differ)[0]
+    if len(rows) > max(2, differ.size // 100):
+        raise AssertionError(f"per_ray: {len(rows)} of {differ.size} rays differ, e.g. "
+                             f"{rows[:10].tolist()}")
+    if len(rows):
+        edge = per_ray_knife_edges(args, rows)
+        if not edge.all():
+            raise AssertionError(f"per_ray: rays {rows[~edge].tolist()} differ from the plain "
+                                 f"chain and sit on no knife edge")
+    same = torch.as_tensor(~differ, device=got["tk0"].device)
+    mesh = torch.isfinite(want["t_mesh"])
+    worst = 0.0
+    for k in ("tk0", "tk1", "sel_a", "sel_b", "times_s", "cum_incl", "cum_excl", "arc_corr",
+              "total", "t_offset", "t_mesh", "tri_u", "tri_v", "alpha_last", "color_last"):
+        if want[k] is None:
+            continue
+        g, w = got[k], want[k]
+        mask = same[:, None] & want["kvalid"] if k in ("sel_a", "sel_b") else (
+            same & mesh if k in ("tri_u", "tri_v") else same)
+        g, w = g[mask], w[mask]
+        fin = torch.isfinite(w)
+        if not torch.equal(torch.isfinite(g), fin) or not torch.equal(g[~fin], w[~fin]):
+            raise AssertionError(f"per_ray: {k} is infinite in other places")
+        if fin.any():
+            scale = max(float(w[fin].abs().max()), 1e-30)
+            err = float((g[fin] - w[fin]).abs().max()) / scale
+            worst = max(worst, err)
+            if not err <= PER_RAY_FLOAT_TOL:
+                raise AssertionError(f"per_ray: {k} differs by {err:.3g} of its scale")
+    for k, name in (("overflow_hits", "hits"), ("overflow_steps", "steps")):
+        g, w = int(got[k]), int(want[k])
+        if k == "overflow_steps":
+            for side, t, n in (("kernels", dg, g), ("plain", dw, w)):
+                if int(torch.clamp(t["necessary"] - S, min=0).sum()) != n:
+                    raise AssertionError(f"per_ray: the {side}' dropped steps {n} are not "
+                                         f"their rays' own")
+        if g != w and not len(rows):
+            raise AssertionError(f"per_ray: dropped {name} {g} against the plain chain's {w}")
+    return rows.tolist(), worst
+
+
+def per_ray_walked(args, got):
+    """The columns the kernels walked on one block: (instance ids or None
+    for every instance, triangle ids or None for every triangle; on the
+    device), from its cull buffer (a fitting keep set: its ids)."""
+    from nerftex_torch.kernels.per_ray import budgets
+
+    ds, o, _, _, K, _, _, cull_budget, tri_cull_budget, _ = args
+    C, TC = budgets(ds, K, cull_budget, tri_cull_budget)
+    cull = None if got["cull"] is None else got["cull"].cpu().numpy()
+
+    def walked(budget, start, count_at):
+        if cull is not None and budget and cull[count_at] <= budget:
+            return torch.as_tensor(cull[start:start + cull[count_at]], dtype=torch.int64,
+                                   device=o.device)
+        return None
+
+    return walked(C, 4, 0), walked(TC, 4 + C, 1) if ds.n_tris else None
+
+
+def per_ray_work(args, got):
+    """Float operations of the kernels' own walk over one block (the
+    PER_RAY_* counts): each triangle test to its exit and each box's slab
+    test over the columns the kernel walked (the candidates where a keep
+    set fit, padding skipped), the anchor terms of every hit slot, the
+    events of the kept intervals, and, with a cull, the fan over the rays
+    and every sphere's keep test (the instance spheres' pads with bfloat16
+    operands)."""
+    from nerftex_torch.kernels.per_ray import budgets, inst_pad
+
+    ds, o, d, _, K, _, _, _, _, prec = args
+    rb = o.shape[0]
+    C, TC = budgets(ds, K, args[7], args[8])
+    boxes, tris = per_ray_walked(args, got)
+    n_box = ds.n_instances if boxes is None else int(boxes.numel())
+    ops = rb * n_box * PER_RAY_BOX_OPS + rb * K * PER_RAY_SLOT_OPS
+    ops += int(got["kvalid"].sum()) * 2 * PER_RAY_EVENT_OPS
+    if ds.n_tris:
+        v0, e1, e2 = ((ds.tri_v0, ds.tri_e1, ds.tri_e2) if tris is None else
+                      (ds.tri_v0[tris], ds.tri_e1[tris], ds.tri_e2[tris]))
+        s0, s1, s2, s3, s4 = PER_RAY_TRI_STEPS
+        for i in range(0, rb, 256):
+            oo, dd = o[i:i + 256, :, None], d[i:i + 256, :, None]
+            pv = (dd[:, 1] * e2[:, 2] - dd[:, 2] * e2[:, 1], dd[:, 2] * e2[:, 0] -
+                  dd[:, 0] * e2[:, 2], dd[:, 0] * e2[:, 1] - dd[:, 1] * e2[:, 0])
+            det = e1[:, 0] * pv[0] + e1[:, 1] * pv[1] + e1[:, 2] * pv[2]
+            inv = 1.0 / det
+            tv = (oo[:, 0] - v0[:, 0], oo[:, 1] - v0[:, 1], oo[:, 2] - v0[:, 2])
+            u = (tv[0] * pv[0] + tv[1] * pv[1] + tv[2] * pv[2]) * inv
+            q = (tv[1] * e1[:, 2] - tv[2] * e1[:, 1], tv[2] * e1[:, 0] - tv[0] * e1[:, 2],
+                 tv[0] * e1[:, 1] - tv[1] * e1[:, 0])
+            v = (dd[:, 0] * q[0] + dd[:, 1] * q[1] + dd[:, 2] * q[2]) * inv
+            det_ok, u_ok, v_ok = det.abs() > 1e-12, u >= 0, v >= 0
+            ops += int((s0 + det_ok * (s1 + u_ok * (s2 + v_ok * (s3 + (u + v <= 1) * s4))))
+                       .sum())
+    if got["cull"] is not None:
+        n_inst = ds.n_instances if C else 0
+        ops += rb * PER_RAY_FAN_RAY_OPS + PER_RAY_FAN_SPHERE_OPS * (
+            n_inst + (ds.n_tris if TC else 0))
+        if inst_pad(ds, C, prec) is not None:
+            ops += PER_RAY_FAN_PAD_OPS * n_inst
+    return ops
+
+
+def per_ray_bound(args, got):
+    """(least ms, operations, bytes) of one block: per_ray_work's operations
+    over the f32 pipes' unfused rate against the bytes the kernels move
+    over HBM's bandwidth, each once: the rays (origin, direction, offset);
+    the walked boxes' inv_rot and inv_trans rows, the valid hit slots'
+    origins rows and the walked triangles' v0, e1, e2 rows; with a cull,
+    every culled sphere's centre and radius and the cull buffer's counts
+    and kept ids; and the outputs as the kernels write them: a hit slot's
+    tk0, tk1, sel_a, sel_b, int64 id and bool (25 B), two events' times and
+    sums (32 B), and a ray's six f32 scalars, color_last, int64 triangle,
+    int32 n_steps and two bools (50 B)."""
+    from nerftex_torch.kernels.per_ray import budgets
+
+    ds, o, _, _, K, _, _, _, _, _ = args
+    rb = o.shape[0]
+    C, TC = budgets(ds, K, args[7], args[8])
+    ops = per_ray_work(args, got)
+    boxes, tris = per_ray_walked(args, got)
+    n_box = ds.n_instances if boxes is None else int(boxes.numel())
+    n_tri = 0 if not ds.n_tris else ds.n_tris if tris is None else int(tris.numel())
+    nbytes = rb * 28 + n_box * 48 + int(got["kvalid"].sum()) * 12 + n_tri * 36
+    if got["cull"] is not None:
+        kept = sum(int(x.numel()) for x in (boxes, tris) if x is not None)
+        nbytes += 16 * ((ds.n_instances if C else 0) + (ds.n_tris if TC else 0))
+        nbytes += 4 * (4 + kept)
+    nbytes += rb * (K * 25 + 2 * K * 16 + 50)
+    return max(ops / H100_F32_OPS, nbytes / H100_BYTES_PER_S) * 1e3, ops, nbytes
+
+
+def main_per_ray(card):
+    """Phase 19 (module docstring): the per-ray kernels against the plain
+    chain on every ray block of the carpet, grass and plush frames, with
+    the operating point's culls and with none; each block's keep sets
+    checked; one culled and one full block of each timed (kernel calls
+    replayed from a CUDA graph, the plain chain and DeviceInstancer.
+    _per_ray by events, _per_ray's host issue time) beside the bound; the
+    tracer's per_ray.rays and per_ray.kernel over a frame of _per_ray
+    calls.  Returns {scene: row}."""
+    from nerftex_torch.kernels import per_ray as pr
+    from nerftex_torch.utils import trace
+
+    t_phase = time.perf_counter()
+    rows = {}
+    for name in PER_RAY_SCENES:
+        dev, rays_o, rays_d, params, S, step = per_ray_setup(name)
+        rb = dev.ray_block
+        n_blocks = rays_o.shape[0] // rb
+        knife, worst, fits = [], 0.0, {"instances": 0, "triangles": 0}
+        budgets = (dev.cull_budget, dev.tri_cull_budget)
+        timed = {}
+        for b in range(n_blocks):
+            sl = slice(b * rb, (b + 1) * rb)
+            for culled in (True, False):
+                args = per_ray_args(dev, rays_o[sl], rays_d[sl], S, step, culled)
+                before = pr.per_ray.launches
+                got = pr.per_ray(*args)
+                if pr.per_ray.launches != before + 1:
+                    raise AssertionError(f"per_ray {name}: the kernels did not launch")
+                want = pr.per_ray_plain(*args)
+                edges, err = compare_per_ray(args, got, want)
+                knife += [b * rb + r for r in edges]
+                worst = max(worst, err)
+                sets = per_ray_keep_sets(args, got) if culled else {}
+                branch = ("culled" if culled and sets and all(
+                    v[2] is not None for v in sets.values()) else "full")
+                for kind, v in sets.items():
+                    fits[kind] += v[2] is not None
+                if branch not in timed and (branch == "full" or b >= n_blocks // 2):
+                    timed[branch] = (b, args, got)
+        row = {"blocks": n_blocks, "rays_per_block": rb, "K": args[4],
+               "knife_edge_rays": knife, "max_float_err": worst, "fits": fits}
+        for branch, (b, args, got) in sorted(timed.items()):
+            bound, ops, nbytes = per_ray_bound(args, got)
+            sl = slice(b * rb, (b + 1) * rb)
+            dev.cull_budget, dev.tri_cull_budget = args[7], args[8]
+            t0 = time.perf_counter()
+            for _ in range(PER_RAY_TIMED_CALLS):
+                dev._per_ray(rays_o[sl], rays_d[sl], params[sl], S, step, args[3])
+            issue_ms = (time.perf_counter() - t0) * 1e3 / PER_RAY_TIMED_CALLS
+            r = {"block": b, "device_ms": device_ms(lambda: pr.per_ray(*args),
+                                                     PER_RAY_TIMED_CALLS),
+                 "per_ray_ms": time_ms(lambda: dev._per_ray(rays_o[sl], rays_d[sl], params[sl],
+                                                            S, step, args[3]), iters=5),
+                 "per_ray_issue_ms": issue_ms,
+                 "plain_ms": time_ms(lambda: pr.per_ray_plain(*args), iters=3, warmup=1),
+                 "bound_ms": bound, "ops": ops, "bytes": nbytes}
+            r["share_of_bound"] = r["bound_ms"] / r["device_ms"]
+            if not r["share_of_bound"] <= 1.0:
+                raise AssertionError(f"per_ray {name} {branch}: {r['device_ms']} ms beats its "
+                                     f"bound of {bound} ms")
+            row[branch] = r
+        dev.cull_budget, dev.tri_cull_budget = budgets
+        trace.reset()
+        with trace.recording():
+            for b in range(n_blocks):
+                sl = slice(b * rb, (b + 1) * rb)
+                dev._per_ray(rays_o[sl], rays_d[sl], params[sl], S, step,
+                             torch.full((rb,), 0.5, device="cuda"))
+        totals = trace.totals()
+        trace.reset()
+        row["counts"] = {k: totals.get(k, 0) for k in ("per_ray.rays", "per_ray.kernel",
+                                                        "cull.fit", "cull.full", "sync")}
+        if row["counts"]["per_ray.kernel"] != row["counts"]["per_ray.rays"] or row["counts"][
+                "per_ray.rays"] != n_blocks * rb:
+            raise AssertionError(f"per_ray {name}: counts {row['counts']}")
+        log(f"per_ray {name}: {json.dumps(row)}")
+        rows[name] = row
+        del dev
+        torch.cuda.empty_cache()
+    log(f"phase per-ray: {time.perf_counter() - t_phase:.1f} s on {card}")
+    return rows
+
+
 def kernel_counts():
     """(reset, read, check) over the kernel wrappers' launch counters:
     reset() zeroes every count; read() gives ({kernel: launches},
@@ -4601,10 +5046,11 @@ def kernel_counts():
     in it did not, and every launch of a kernel in ``want`` ran its variant;
     shadow_query is idle unless ``shadows`` (the frame casts shadow rays)."""
     from nerftex_torch.kernels import mlp_fused as fused, selk_resolve as selk, tex_gather
-    from nerftex_torch.kernels import shadow_query as sq
+    from nerftex_torch.kernels import per_ray as pr, shadow_query as sq
 
     counters = {"tex_fetch": tex_gather.sample_channel, "mlp_fused": fused.mlp_fused,
-                "selk_resolve": selk.selk_resolve, "shadow_query": sq.shadow_query}
+                "selk_resolve": selk.selk_resolve, "shadow_query": sq.shadow_query,
+                "per_ray": pr.per_ray}
 
     def reset_counts():
         for fn in counters.values():
@@ -4975,6 +5421,10 @@ def main():
     for scene, row in main_shadow_query(card).items():
         rows[scene]["shadow_query"] = row
 
+    # -- the per-ray kernels against the plain chain, timed ----------------------
+    for scene, row in main_per_ray(card).items():
+        rows[scene]["per_ray"] = row
+
     kernels = [dict(row, frame=frame, launches=launches[frame][name])
                for frame in launches for name, row in rows[frame].items()]
     log(json.dumps({"frames": frames, "serving": serve, "card": card,
@@ -5002,7 +5452,7 @@ def main():
                 "(MipRenderer for the mip configs)"}
         for frame in ("carpet_train", "grass_filtered_train", "carpet_train_device",
                       "grass_mip_train", "carpet_tp")
-        for name in ("tex_fetch", "selk_resolve")] + [
+        for name in ("tex_fetch", "selk_resolve", "per_ray")] + [
         {"frame": frame, "name": "shadow_query", "launches": n["shadow_query"],
          "why": "the frame casts no shadow rays (cast_shadow_rays false, or no instancer)"}
         for frame, n in launches.items() if n.get("shadow_query") == 0]}))

@@ -11,7 +11,8 @@ shaded terminators):
      clipped at the first hit of the triangle soup (base mesh plus
      auxiliary meshes; Moller-Trumbore, optionally over the fan-culled
      triangles), the union of intervals as sorted events with prefix sums,
-     the per-ray sample layout (``n_steps``, offset) and, with shadows, the
+     the per-ray sample layout (``n_steps``, offset), all of it through
+     kernels.per_ray (one CUDA pass on the card), and, with shadows, the
      per-ray ``shadow_blocked`` table: occlusion toward the light of
      ``shadow_samples`` points spread over the inside arc, through the
      exact skip/culled/full branch of ``_occlusion_branched``; with
@@ -43,8 +44,9 @@ the instance's nearest base-mesh triangles (``"closest"``).
 
 The JAX package's one-hot selects, packed permutes, layout barriers and
 ``lax.switch`` buckets exist for the TPU; here they are plain indexing,
-``torch.sort`` and per-block dynamic shapes, with the same results.  The
-culls' branches are chosen on the host, one synchronisation per block.
+``torch.sort`` and per-block dynamic shapes, with the same results.  On
+the card the culls' branches are chosen by the per-ray kernels; the CPU's
+eager chain chooses them on the host.
 
 Random draws.  Per-ray stratified offsets are 0.5 with
 ``deterministic_offset``, else drawn from the caller's ``key``
@@ -62,12 +64,13 @@ import math
 import numpy as np
 import torch
 
-from nerftex_torch.instancing.geometry import T_FAR, moller_trumbore
+from nerftex_torch.instancing.geometry import dot3, fma, keep_to_candidates, slab_kappa
 from nerftex_torch.instancing.scene import Scene
-from nerftex_torch.kernels.selk_resolve import fma, selk_resolve
+from nerftex_torch.kernels.per_ray import per_ray
+from nerftex_torch.kernels.selk_resolve import selk_resolve
 from nerftex_torch.kernels.shadow_query import shadow_query
 from nerftex_torch.kernels.tex_gather import byte_quads, sample_channel
-from nerftex_torch.models.encodings import check_matmul_precision, round_operand
+from nerftex_torch.models.encodings import check_matmul_precision
 from nerftex_torch.ops.volume import mean_distance
 from nerftex_torch.utils import jax_rng, trace
 from nerftex_torch.utils.util import as_f32
@@ -169,6 +172,8 @@ class DeviceScene:
             center = wc.mean(1)
             self.inst_center = t(center)
             self.inst_radius = t(np.linalg.norm(wc - center[:, None], axis=-1).max(1))
+            # How far rounding inv_rot's entries moves a box (geometry.slab_pad).
+            self.slab_kappa = slab_kappa(inv[:, :3, :3])
 
         # A uniformly scaled rotation (the mesh placement path always is)
         # lets the local direction transform reuse inv_rot.
@@ -194,78 +199,6 @@ class DeviceScene:
 # ---------------------------------------------------------------------------
 # geometry helpers
 # ---------------------------------------------------------------------------
-
-
-def _block_fan(rays_o, rays_d):
-    """Anisotropic bound of a ray block: origin sphere (o_c, r_o), mean
-    direction u, principal in-fan axis w (power iteration), fan normal,
-    out-of-plane sine bound and in-plane half-angle."""
-    eps = 1e-12
-    o_c = rays_o.mean(0)
-    r_o = torch.sqrt(torch.clamp(torch.max(torch.sum((rays_o - o_c) ** 2, -1)), min=0.0))
-    d_n = rays_d / torch.clamp(torch.linalg.norm(rays_d, dim=-1, keepdim=True), min=eps)
-    u = d_n.mean(0)
-    u = u / torch.clamp(torch.linalg.norm(u), min=eps)
-
-    resid = d_n - (d_n @ u)[:, None] * u
-    cov = resid.T @ resid
-    with trace.host_read("fan"):
-        # A 0-d index tensor is read back to the host as an int.
-        w = cov[:, torch.argmax(torch.diagonal(cov))] + 1e-20
-    for _ in range(3):
-        w = cov @ w
-        w = w / torch.clamp(torch.linalg.norm(w), min=eps)
-    w = w - (w @ u) * u
-    w = w / torch.clamp(torch.linalg.norm(w), min=eps)
-    nrm = torch.linalg.cross(u, w)
-    nrm = nrm / torch.clamp(torch.linalg.norm(nrm), min=eps)
-
-    sin_perp = torch.max(torch.abs(d_n @ nrm)) + 1e-6
-    s_in = torch.max(torch.atan2(torch.abs(d_n @ w), d_n @ u)) + 1e-6
-    return o_c, r_o, u, w, nrm, sin_perp, s_in
-
-
-def _fan_keep(fan, centers, radii):
-    """Conservative sphere-vs-fan test: True for every sphere that can
-    intersect a ray of the block."""
-    o_c, r_o, u, w, nrm, sin_perp, s_in = fan
-    v = centers - o_c
-    dist = torch.linalg.norm(v, dim=-1)
-    reach = radii + r_o
-    inside = dist <= reach
-    out_ok = torch.abs(v @ nrm) <= (dist + reach) * sin_perp + reach
-    va = v @ u
-    vb = v @ w
-    pd = torch.sqrt(va**2 + vb**2)
-    theta = torch.atan2(torch.abs(vb), va)
-    dtheta = torch.clamp(torch.clamp(theta - s_in, min=0.0), max=math.pi / 2)
-    in_ok = (theta <= s_in) | (pd * torch.sin(dtheta) <= reach)
-    return inside | (out_ok & in_ok)
-
-
-def _keep_to_candidates(keep, C):
-    """The first C kept ids in ascending order and their validity."""
-    n = keep.shape[0]
-    idx = torch.arange(n, device=keep.device)
-    prio = torch.sort(torch.where(keep, idx, n + idx)).values[:C]
-    cand_valid = prio < n
-    return torch.where(cand_valid, prio, 0), cand_valid
-
-
-def _cull_fits(keep, budget) -> bool:
-    """Whether the kept ids fit the budget: a read of the device's count,
-    which picks the culled branch (counted ``cull.fit``) or the full one
-    (``cull.full``)."""
-    with trace.host_read("cull"):
-        fits = int(keep.sum()) <= budget
-    trace.count("cull.fit" if fits else "cull.full")
-    return fits
-
-
-def _dot3(a, b):
-    """sum(a * b, -1) over 3 components as XLA evaluates it:
-    fma(a2, b2, fma(a1, b1, a0 b0))."""
-    return fma(a[..., 2], b[..., 2], fma(a[..., 1], b[..., 1], a[..., 0] * b[..., 0]))
 
 
 def _light_cone(light_dir, valid):
@@ -323,9 +256,9 @@ def _closest_point_tri(p, a, b, c):
     region wins)."""
     ab, ac = b - a, c - a
     ap, bp, cp = p - a, p - b, p - c
-    d1, d2 = _dot3(ab, ap), _dot3(ac, ap)
-    d3, d4 = _dot3(ab, bp), _dot3(ac, bp)
-    d5, d6 = _dot3(ab, cp), _dot3(ac, cp)
+    d1, d2 = dot3(ab, ap), dot3(ac, ap)
+    d3, d4 = dot3(ab, bp), dot3(ac, bp)
+    d5, d6 = dot3(ab, cp), dot3(ac, cp)
     # a * b - c * d as XLA contracts it: fma(a, b, -(c d)).
     vc = fma(d1, d4, -(d3 * d2))
     vb = fma(d5, d2, -(d1 * d6))
@@ -713,116 +646,16 @@ class DeviceInstancer:
     @trace.span("instancer.per_ray")
     def _per_ray(self, rays_o, rays_d, parameters, S, step, u_off):
         ds = self.ds
-        Rb = rays_o.shape[0]
-        K = min(self.max_hits, ds.n_instances)
         P = parameters.shape[-1]
-        dev = rays_o.device
-
-        C = self.cull_budget
-        C = max(C, K) if (C and max(C, K) < ds.n_instances) else 0
-        TC = self.tri_cull_budget
-        TC = TC if (TC and 0 < TC < ds.n_tris) else 0
-        fan = _block_fan(rays_o, rays_d) if (C or TC) else None
-
-        # mesh first hit (clamps the intervals' exits): its distance,
-        # triangle and barycentrics (the first of equal distances).
-        with trace.span("per_ray.mesh_hit"):
-            if ds.n_tris > 0:
-                first = None
-                if TC:
-                    keep_t = _fan_keep(fan, ds.tri_center, ds.tri_radius)
-                    if _cull_fits(keep_t, TC):
-                        tcand, tvalid = _keep_to_candidates(keep_t, TC)
-                        t_all, u_all, v_all = moller_trumbore(
-                            rays_o, rays_d, ds.tri_v0[tcand], ds.tri_e1[tcand], ds.tri_e2[tcand])
-                        first = (torch.where(tvalid[None, :], t_all, _INF), u_all, v_all, tcand)
-                if first is None:
-                    first = (*moller_trumbore(rays_o, rays_d, ds.tri_v0, ds.tri_e1, ds.tri_e2),
-                             None)
-                t_all, u_all, v_all, tri_ids = first
-                t_mesh, best = t_all.min(-1)
-            else:
-                t_mesh = torch.full((Rb,), _INF, device=dev)
-            mesh_hit = torch.isfinite(t_mesh)
-
-        # instance slab intervals + top-K nearest
-        def intervals_topk(inv_rot_n, inv_trans_n, inst_ids, cand_valid):
-            n_cols = inv_trans_n.shape[0]
-            t0 = torch.full((Rb, n_cols), -_INF, device=dev)
-            t1 = torch.full((Rb, n_cols), _INF, device=dev)
-            prec = self.matmul_precision
-            o_r, d_r = round_operand(rays_o, prec), round_operand(rays_d, prec)
-            for c in range(3):
-                rot_c = round_operand(inv_rot_n[:, c, :].T, prec)
-                o_lc = o_r @ rot_c + inv_trans_n[:, c]
-                d_lc = d_r @ rot_c
-                inv_dl = 1.0 / torch.where(d_lc.abs() < 1e-12, 1e-12, d_lc)
-                t_a = (ds.b_0[c] - o_lc) * inv_dl
-                t_b = (ds.b_1[c] - o_lc) * inv_dl
-                t0 = torch.maximum(t0, torch.minimum(t_a, t_b))
-                t1 = torch.minimum(t1, torch.maximum(t_a, t_b))
-            if cand_valid is not None:
-                t0 = torch.where(cand_valid[None, :], t0, _INF)
-                t1 = torch.where(cand_valid[None, :], t1, -_INF)
-            box_hit = (t0 < t1) & (t1 > 0) & (t0 < T_FAR)
-            t0c = torch.clamp(t0, 0.0, T_FAR)
-            t1c = torch.minimum(torch.clamp(t1, 0.0, T_FAR), t_mesh[:, None])
-            valid_iv = box_hit & (t0c < t1c)
-            overflow = torch.clamp(valid_iv.sum(-1) - K, min=0).sum()
-            score = torch.where(valid_iv, t0c, _INF)
-            # Stable ascending sort: equal scores keep the lowest column
-            # first, the tie order of lax.top_k in the JAX package.
-            score_s, sel = torch.sort(score, dim=-1, stable=True)
-            sel = sel[:, :K]
-            tk0 = score_s[:, :K]
-            kvalid = torch.isfinite(tk0)
-            tk1 = torch.where(kvalid, t1c.gather(1, sel), _INF)
-            hit_box = (box_hit & (t1 > 0)).any(-1)
-            return tk0, tk1, inst_ids[sel], kvalid, overflow, hit_box
-
-        with trace.span("per_ray.slabs"):
-            res = None
-            if C:
-                keep_i = _fan_keep(fan, ds.inst_center, ds.inst_radius)
-                if _cull_fits(keep_i, C):
-                    cand, cand_valid = _keep_to_candidates(keep_i, C)
-                    res = intervals_topk(ds.inv_rot[cand], ds.inv_trans[cand], cand, cand_valid)
-            if res is None:
-                res = intervals_topk(ds.inv_rot, ds.inv_trans,
-                                     torch.arange(ds.n_instances, device=dev), None)
-            tk0, tk1, inst_idx, kvalid, overflow_hits, hit_box = res
-
-        with trace.span("per_ray.events"):
-            # |o + t d - c|^2 = a + 2 t b + t^2 (|d| = 1) per hit slot, for
-            # the anchor-distance picks; the 3-term dots rounded as XLA
-            # contracts them (the picks' distances cancel these terms, see
-            # selk_resolve).
-            diff = rays_o[:, None, :] - ds.origins[inst_idx]
-            sel_a = _dot3(diff, diff)
-            sel_b = _dot3(rays_d[:, None, :].expand_as(diff), diff)
-
-            # union of intervals via sorted events (starts before ends at
-            # equal t)
-            times = torch.cat([tk0, tk1], -1)
-            delta = torch.cat([torch.ones_like(tk0, dtype=torch.int32),
-                               torch.full_like(tk1, -1, dtype=torch.int32)], -1)
-            times_s, ev = torch.sort(times, dim=-1, stable=True)
-            count = torch.cumsum(delta.gather(1, ev), -1)
-            finite_t = torch.isfinite(times_s)
-            nxt = torch.cat([times_s[:, 1:], times_s[:, -1:]], -1)
-            gap = torch.where(torch.isfinite(nxt) & finite_t, nxt - times_s, 0.0)
-            seg_len = torch.where(count > 0, gap, 0.0)
-            cum_incl = torch.cumsum(seg_len, -1)
-            cum_excl = cum_incl - seg_len
-            total = cum_incl[:, -1]
-            arc_corr = torch.where(finite_t, times_s - cum_excl, 0.0)
-
-            # per-ray sample layout
-            necessary = torch.floor(total / step).to(torch.int32)
-            overflow_steps = torch.clamp(necessary - S, min=0).sum()
-            tiny = (necessary == 0) & (total > 0)
-            n_steps = torch.where(tiny, 1, torch.clamp(necessary, max=S)).to(torch.int32)
-            t_offset = torch.where(tiny, u_off * total, u_off * step)
+        # The culls, mesh hit, slab intervals, top-K and event walk
+        # (kernels.per_ray: its kernels on the card, the eager chain on the
+        # CPU).  The kernels choose each cull's branch on the card; their
+        # fit and full counts are read with the tracer's other counts.
+        ray = per_ray(ds, rays_o, rays_d, u_off, min(self.max_hits, ds.n_instances), S, step,
+                      self.cull_budget, self.tri_cull_budget, self.matmul_precision)
+        if ray["cull"] is not None and trace.is_recording():
+            trace.count("cull.fit", ray["cull"][2])
+            trace.count("cull.full", ray["cull"][3])
 
         light_dir_w = shadow_blocked = None
         if ds.light_dir_idx >= 0 and P > ds.light_dir_idx + 2:
@@ -830,26 +663,23 @@ class DeviceInstancer:
             if ds.cast_shadow_rays:
                 with trace.span("per_ray.shadow"):
                     shadow_blocked = self._shadow_blocked_sparse(
-                        rays_o, rays_d, light_dir_w, cum_incl, cum_excl, times_s, total)
+                        rays_o, rays_d, light_dir_w, ray["cum_incl"], ray["cum_excl"],
+                        ray["times_s"], ray["total"])
 
         # terminator: an opaque mesh, black unless an aux mesh is shaded
-        color_last = torch.zeros(Rb, 1, 3, device=dev)
+        color_last = ray["color_last"]
         if ds.n_tris > 0 and ds.n_meshes > 1:
             with trace.span("per_ray.terminator"):
                 color_last = self._shade_terminator(
-                    rays_o, rays_d, t_mesh, best if tri_ids is None else tri_ids[best],
-                    u_all.gather(1, best[:, None])[:, 0], v_all.gather(1, best[:, None])[:, 0],
-                    mesh_hit, light_dir_w)[:, None, :]
+                    rays_o, rays_d, ray["t_mesh"], ray["tri"], ray["tri_u"], ray["tri_v"],
+                    torch.isfinite(ray["t_mesh"]), light_dir_w)[:, None, :]
         return {
-            "tk0": tk0, "tk1": tk1, "inst_idx": inst_idx, "kvalid": kvalid,
-            "sel_a": sel_a, "sel_b": sel_b,
-            "cum_incl": cum_incl.contiguous(), "arc_corr": arc_corr,
-            "total": total, "n_steps": n_steps, "t_offset": t_offset, "tiny": tiny,
-            "color_last": color_last,
-            "alpha_last": mesh_hit[:, None].float(),
-            "hit": hit_box | mesh_hit,
+            **{k: ray[k] for k in ("tk0", "tk1", "inst_idx", "kvalid", "sel_a", "sel_b",
+                                   "cum_incl", "arc_corr", "total", "n_steps", "t_offset",
+                                   "tiny")},
+            "color_last": color_last, "alpha_last": ray["alpha_last"], "hit": ray["hit"],
             "light_dir_w": light_dir_w, "shadow_blocked": shadow_blocked,
-            "overflow_hits": overflow_hits, "overflow_steps": overflow_steps,
+            "overflow_hits": ray["overflow_hits"], "overflow_steps": ray["overflow_steps"],
         }
 
     # -- shadows -----------------------------------------------------------
@@ -906,8 +736,8 @@ class DeviceInstancer:
             return torch.zeros(shape, dtype=torch.bool, device=pts.device)
         inst_sel = tri_sel = None
         if fits:
-            inst_sel = None if keep_i is None else _keep_to_candidates(keep_i, C)
-            tri_sel = None if keep_t is None else _keep_to_candidates(keep_t, TC)
+            inst_sel = None if keep_i is None else keep_to_candidates(keep_i, C)
+            tri_sel = None if keep_t is None else keep_to_candidates(keep_t, TC)
         tris = (ds.tri_v0, ds.tri_e1, ds.tri_e2, ds.tri_ng) if ds.n_tris > 0 else None
         return shadow_query(flat_p.contiguous(), flat_l.contiguous(), (ds.inv_rot, ds.inv_trans),
                             tris, (ds.b_0, ds.b_1), inst_sel, tri_sel).reshape(shape)
@@ -1109,7 +939,7 @@ class DeviceInstancer:
         p = pts_w[..., None, :]
         bary = _closest_point_tri(p, a, b, c)                             # [..., Kt, 3]
         cp = fma(bary[..., 2:3], c, fma(bary[..., 1:2], b, bary[..., 0:1] * a))
-        best = torch.argmin(_dot3(cp - p, cp - p), -1, keepdim=True)
+        best = torch.argmin(dot3(cp - p, cp - p), -1, keepdim=True)
         tri = cand.gather(-1, best)[..., 0]
         bary_sel = bary.gather(-2, best[..., None].expand(*best.shape, 3))[..., 0, :]
         return torch.sum(bary_sel[..., None] * ds.tri_uv[tri], -2)

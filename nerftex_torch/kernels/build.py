@@ -24,6 +24,7 @@ SOURCES = {
     "mlp_fused": ("mlp_fused.cu", []),
     "selk_resolve": ("selk_resolve.cu", []),
     "shadow_query": ("shadow_query.cu", []),
+    "per_ray": ("per_ray.cu", []),
 }
 _BASE_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -38,6 +39,9 @@ ENTRIES = {
     "selk_resolve": ("nt_selk_resolve", [_P] * 7 + [_I, _I, _I, _I, ctypes.c_float] + [_P] * 4),
     "shadow_query": ("nt_shadow_query", [_P, _P, _I] + [_P] * 4 + [_I] + [_P] * 6 + [_I]
                      + [_P] * 4),
+    "per_ray": ("nt_per_ray", [_P, _P, _I, _I, _I, _I, _P, _I] + [_P] * 5 + [_I] + [_P] * 5
+                + [_I] + [_P] * 2 + [_I, _I, ctypes.c_float, ctypes.c_float, _P, _I, _I,
+                                     ctypes.c_float, _I] + [_P] * 5),
 }
 
 _LOADED = {}  # name -> (library, entry point)

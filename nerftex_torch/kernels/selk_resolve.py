@@ -22,16 +22,10 @@ p_sel is zero for ``nearest`` and ``random``, n_active is clamped to >= 1.
 
 import torch
 
+from nerftex_torch.instancing.geometry import fma
 from nerftex_torch.kernels import build
 
 METHODS = {"random": 0, "nearest": 1, "nearest_blend": 2}
-
-
-def fma(a, b, c):
-    """a * b + c rounded once to float32, as XLA contracts a multiply-add:
-    exact in float64 (a product of float32 values is exact there) but for
-    a double rounding once in ~2^29 cases."""
-    return (a.double() * b.double() + c.double()).float()
 
 
 def anchor_d2(sel_a, sel_b, t):

@@ -29,6 +29,14 @@ per (name, the innermost open span's name, that span's unit).
 device's answer: a span ``sync.<site>`` that also counts one ``sync``
 where it is opened.
 
+A count may be a device tensor of one integer (a flag the card computed,
+such as whether a ray block's cull fit): it is added on its device to a
+running sum under its key, and the sums are read when the counts are next
+read, all of a device at once, so that counting it makes no host read of
+its own.  ``snapshot()`` and ``totals()`` therefore wait for the device
+where such sums are pending: a wait that no ``sync`` counts, so read the
+counts after the stretch they measure.
+
 ``snapshot()`` returns what was recorded, ``reset()`` clears it.  At most
 ``MAX_SPANS`` spans and as many keys of counts are kept; a later span, or a
 count under a key that is not kept, is counted in ``dropped``.
@@ -40,6 +48,7 @@ import itertools
 import threading
 import time
 
+import torch
 from torch.autograd import profiler as _profiler
 
 MAX_SPANS = 1 << 20
@@ -48,6 +57,7 @@ SPAN_FIELDS = ("name", "id", "parent", "unit", "start_ns", "end_ns", "self_ns", 
 _recording = 0          # open trace.recording() blocks, over all threads
 _spans = []             # finished spans as SPAN_FIELDS tuples, in the order they ended
 _counts = {}            # (name, span name, unit) -> total
+_pending = {}           # (key of _counts, device) -> running int64 sum there, not read yet
 _dropped = 0
 _ids = itertools.count(1)
 _lock = threading.Lock()
@@ -155,22 +165,46 @@ class host_read(span):
         raise TypeError("host_read marks a statement: use it in a with block")
 
 
-def count(name: str, n: int = 1) -> None:
-    """Add ``n`` (a host int) to the count ``name`` of the innermost open
-    span and its unit."""
-    global _dropped
+def count(name: str, n=1) -> None:
+    """Add ``n`` (a host int, or a 0-d integer tensor read later) to the
+    count ``name`` of the innermost open span and its unit."""
     if not (_recording or _profiler._is_profiler_enabled):
         return
     stack = _stack()
     top = stack[-1] if stack else None
     key = (name, None, None) if top is None else (name, top.name, top.unit)
     with _lock:
-        if key in _counts:
-            _counts[key] += n
-        elif len(_counts) < MAX_SPANS:
-            _counts[key] = n
+        if isinstance(n, torch.Tensor):
+            acc = _pending.get((key, n.device))
+            if acc is None:
+                _pending[(key, n.device)] = n.reshape(()).to(torch.int64, copy=True)
+            else:
+                acc.add_(n.reshape(()))
         else:
-            _dropped += 1
+            _add(key, n)
+
+
+def _add(key, n) -> None:
+    """Add n to the count under ``key`` (the lock held)."""
+    global _dropped
+    if key in _counts:
+        _counts[key] += n
+    elif len(_counts) < MAX_SPANS:
+        _counts[key] = n
+    else:
+        _dropped += 1
+
+
+def _settle() -> None:
+    """Read the pending device sums into the counts, one read a device."""
+    with _lock:
+        by_device = {}
+        for (key, device), n in _pending.items():
+            by_device.setdefault(device, []).append((key, n))
+        _pending.clear()
+        for rows in by_device.values():
+            for (key, _), n in zip(rows, torch.stack([n for _, n in rows]).tolist()):
+                _add(key, n)
 
 
 @contextlib.contextmanager
@@ -193,7 +227,9 @@ def open_spans() -> list:
 
 def snapshot() -> dict:
     """{"spans": [{field: value} for SPAN_FIELDS], "counts": [{"name",
-    "span", "unit", "n"}], "dropped": spans and counts not kept}."""
+    "span", "unit", "n"}], "dropped": spans and counts not kept}.  Waits for
+    each device that holds pending count sums (module docstring)."""
+    _settle()
     with _lock:
         spans, counts, dropped = list(_spans), dict(_counts), _dropped
     return {"spans": [dict(zip(SPAN_FIELDS, row)) for row in spans],
@@ -204,8 +240,10 @@ def snapshot() -> dict:
 
 def totals(snap: dict = None) -> dict:
     """{name: total} of each count over its spans and units, in ``snap``
-    (a snapshot; the recorded counts without one)."""
+    (a snapshot; the recorded counts without one, which waits as
+    ``snapshot()`` does)."""
     if snap is None:
+        _settle()
         with _lock:
             counts = [{"name": k[0], "n": n} for k, n in _counts.items()]
     else:
@@ -222,4 +260,5 @@ def reset() -> None:
     with _lock:
         _spans.clear()
         _counts.clear()
+        _pending.clear()
         _dropped = 0

@@ -537,11 +537,18 @@ def test_a_render_waits_for_the_card_only_in_host_reads(cuda, tmp_path, name):
                 img = session.render(camera, parameters)
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    totals = trace.totals()
+    snap = trace.snapshot()
+    totals = trace.totals(snap)
     trace.reset()
     assert img.shape == (128, 128, 4) and np.isfinite(img).all()
     assert not outside, outside
     assert inside and totals["sync"] > 0
+    # The per-ray stage reads nothing back: its kernels choose the culls'
+    # branches on the card, and their counts are read with the tracer's.
+    sites = Counter(s["name"] for s in snap["spans"] if s["name"].startswith("sync."))
+    assert not {"sync.fan", "sync.cull"} & set(sites), sites
+    assert totals["per_ray.kernel"] == totals["per_ray.rays"] > 0
+    assert totals.get("cull.fit", 0) + totals.get("cull.full", 0) > 0
     if name == "grass":
         # The shadow pass ran its branch read and its light-down read.
         assert {"sync.shadow_branch", "sync.light_down"} <= set(inside), Counter(inside)
@@ -734,3 +741,238 @@ def test_grass_frame_answers_every_shadow_point_in_the_kernel(cuda, tmp_path):
     assert sq.shadow_query.launches > before
     assert totals["shadow.points"] > 0
     assert totals["shadow.kernel"] == totals["shadow.points"]
+
+
+# -- the per-ray kernels (kernels/per_ray.py) ----------------------------------
+
+
+
+@pytest.fixture(scope="module")
+def per_ray_frames():
+    """chip_smoke.per_ray_setup of each scene (instancer, rays, parameters,
+    S, step), built once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import chip_smoke
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return {name: chip_smoke.per_ray_setup(name) for name in chip_smoke.PER_RAY_SCENES}
+
+
+@pytest.mark.parametrize("culled", [True, False], ids=["culled", "full"])
+@pytest.mark.parametrize("name", ["carpet", "grass", "plush"])
+def test_per_ray_kernel_matches_plain(per_ray_frames, name, culled):
+    """The kernels against the plain chain on three blocks of the frame (an
+    eighth in from each end and the middle; carpet's middle blocks overrun
+    its budgets):
+    discrete outputs equal but on knife-edge rays (listed), floats within
+    chip_smoke.PER_RAY_FLOAT_TOL of their scale; culled, every fitting
+    keep set holds every column the block's rays hit, and one fits."""
+    import chip_smoke as cs
+    from nerftex_torch.kernels import per_ray as pr
+
+    dev, rays_o, rays_d, _, S, step = per_ray_frames[name]
+    rb = dev.ray_block
+    n = rays_o.shape[0] // rb
+    knife, fitting = [], 0
+    for b in (n // 8, n // 2, n - 1 - n // 8):
+        sl = slice(b * rb, (b + 1) * rb)
+        args = cs.per_ray_args(dev, rays_o[sl], rays_d[sl], S, step, culled)
+        before = pr.per_ray.launches
+        got = pr.per_ray(*args)
+        torch.cuda.synchronize()
+        assert pr.per_ray.launches == before + 1
+        assert (got["cull"] is not None) == culled
+        edges, _ = cs.compare_per_ray(args, got, pr.per_ray_plain(*args))
+        knife += [b * rb + r for r in edges]
+        if culled:
+            fitting += sum(v[2] is not None for v in cs.per_ray_keep_sets(args, got).values())
+    print(f"per_ray {name} {'culled' if culled else 'full'}: knife-edge rays {knife}")
+    assert not culled or fitting > 0
+
+
+def _per_ray_scene(rs, device, n_box=300, n_tri=400, thin=False, dup=0):
+    """A DeviceScene-like scene: boxes turned about z over [-3, 3]^2 at
+    scales 0.5-1.5 (the last ``dup`` copies of the first ones), triangles
+    of every size over the same ground, with the bounding spheres the
+    culls test."""
+    import types
+
+    from nerftex_torch.instancing.geometry import slab_kappa
+
+    b_0 = np.array([-0.5, -0.5, -0.2], np.float32)
+    b_1 = np.array([0.5, 0.5, -0.2 + 1e-3 if thin else 0.6], np.float32)
+    ang = rs.uniform(0, 2 * np.pi, n_box)
+    scale = rs.uniform(0.5, 1.5, n_box)
+    pos = np.stack([rs.uniform(-3, 3, n_box), rs.uniform(-3, 3, n_box),
+                    rs.uniform(0, 0.5, n_box)], 1)
+    if dup:
+        ang[-dup:], scale[-dup:], pos[-dup:] = ang[:dup], scale[:dup], pos[:dup]
+    c, s = np.cos(ang), np.sin(ang)
+    rot = np.zeros((n_box, 3, 3))
+    rot[:, 0, 0], rot[:, 0, 1], rot[:, 1, 0], rot[:, 1, 1], rot[:, 2, 2] = c, -s, s, c, 1
+    fwd = rot * scale[:, None, None]
+    inv = np.transpose(rot, (0, 2, 1)) / scale[:, None, None]
+    mid, half = (b_0 + b_1) / 2, (b_1 - b_0) / 2
+    t = lambda x: torch.tensor(np.ascontiguousarray(x, np.float32), device=device)  # noqa: E731
+    scene = types.SimpleNamespace(
+        n_instances=n_box, inv_rot=t(inv), inv_trans=t(-np.einsum("nij,nj->ni", inv, pos)),
+        origins=t(pos), inst_center=t(pos + np.einsum("nij,j->ni", fwd, mid)),
+        inst_radius=t(scale * np.linalg.norm(half)), b_0=t(b_0), b_1=t(b_1), n_tris=n_tri,
+        slab_kappa=slab_kappa(inv.astype(np.float32)))
+    if n_tri:
+        v0 = np.concatenate([rs.uniform(-4, 4, (n_tri, 2)), rs.uniform(-0.2, 0.3, (n_tri, 1))], 1)
+        e1, e2 = rs.normal(0, 0.4, (n_tri, 3)), rs.normal(0, 0.4, (n_tri, 3))
+        cen = v0 + (e1 + e2) / 3
+        rad = np.max([np.linalg.norm(cen - p, axis=1) for p in (v0, v0 + e1, v0 + e2)], 0)
+        scene.tri_v0, scene.tri_e1, scene.tri_e2 = t(v0), t(e1), t(e2)
+        scene.tri_center, scene.tri_radius = t(cen), t(rad)
+    return scene
+
+
+def _per_ray_rays(rs, m, up=False, spread=2.0):
+    """m rays from above the ground toward it (``up``: away from it), at
+    targets within ``spread`` of the middle."""
+    o = np.stack([rs.uniform(-1, 1, m), rs.uniform(-6, -5, m), rs.uniform(2.5, 3.5, m)], 1)
+    target = np.stack([rs.uniform(-spread, spread, m), rs.uniform(-spread, spread, m),
+                       rs.uniform(0, 0.3, m)], 1)
+    d = target - o
+    if up:
+        d[:, 2] = np.abs(d[:, 2])
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return o, d
+
+
+def _per_ray_case(name, device):
+    """(kernels.per_ray's arguments, a check of the result) of one named
+    case; 1,001 rays (not a multiple of a CTA's rays) unless it needs
+    others."""
+    rs = np.random.RandomState(sorted(PER_RAY_CASES).index(name) + 11)
+    scene = _per_ray_scene(rs, device, thin=name == "tiny_intervals",
+                           dup=100 if name == "equal_t0" else 0,
+                           n_tri=0 if name == "no_triangles" else 400)
+    o, d = _per_ray_rays(rs, 1001, up=name == "no_kept_column",
+                         spread=0.3 if name in ("culled", "bfloat16") else 2.0)
+    K, S, step, budgets, prec = 48, 320, 0.002, (128, 96), "float32"
+    check = None
+    if name == "no_triangles":
+        def check(got):
+            return got["tri"] is None and not torch.isfinite(got["t_mesh"]).any()
+    elif name == "no_kept_column":
+        o[:, 2] += 5.0
+
+        def check(got):
+            cull = got["cull"].cpu().tolist()
+            return cull[:4] == [0, 0, 2, 0] and not got["hit"].any()
+    elif name == "over_both_budgets":
+        budgets = (48, 8)
+        d = rs.normal(0, 1, (1001, 3))
+        d[:, 2] = -np.abs(d[:, 2])
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+
+        def check(got):
+            return got["cull"][2:4].cpu().tolist() == [0, 2]
+    elif name == "tiny_directions":
+        # Directions straight down with x, y components at and around
+        # 1e-12 (float32's nearest), either sign, 0 and denormal: the local
+        # d_x, d_y hit the slab test's floor.
+        eps = np.float32(1e-12)
+        comp = np.array([eps, np.nextafter(eps, np.float32(1)), np.nextafter(eps, np.float32(0)),
+                         -eps, 0.0, 1e-13, 1e-40], np.float32)
+        d = np.concatenate([rs.choice(comp, (1001, 2)), -np.ones((1001, 1))], 1)
+        o = np.concatenate([rs.uniform(-3, 3, (1001, 2)), np.full((1001, 1), 3.0)], 1)
+        scene.inv_rot[:] = torch.eye(3, device=device)
+        scene.inv_trans[:] = -scene.origins
+        scene.inst_center = scene.origins + (scene.b_0 + scene.b_1) / 2
+        scene.inst_radius[:] = float(torch.linalg.norm(scene.b_1 - scene.b_0)) / 2
+    elif name == "equal_t0":
+        # 100 boxes twice over, and half the rays starting inside box 0:
+        # equal t0 across columns (t0c = 0 inside), broken by column.
+        o[:500] = scene.origins[0].cpu().numpy() + [0.05, 0.0, 0.1]
+
+        def check(got):
+            tk0 = got["tk0"]
+            return bool(((tk0[:, 1:] == tk0[:, :-1]) & got["kvalid"][:, 1:]).any())
+    elif name == "more_than_k":
+        # Level rays through the boxes, 8 slots.
+        K = 8
+        o[:, 2] = 0.3
+        d[:, 2] = 0.0
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+
+        def check(got):
+            return int(got["overflow_hits"]) > 0
+    elif name == "tiny_intervals":
+        step = 0.05
+
+        def check(got):
+            return bool(got["tiny"].any())
+    elif name == "bfloat16":
+        # The narrow fan of "culled" with bfloat16 slab operands: both keep
+        # sets fit, the instance spheres widened by geometry.slab_pad.
+        prec = "bfloat16"
+        o[:] = o[0]
+        budgets = (256, 192)
+
+        def check(got):
+            return got["cull"][2:4].cpu().tolist() == [2, 0]
+    elif name == "strided_rays":
+        # One origin as a pose's column, expanded over the block (strides
+        # (0, 4)), and directions stored column-major (strides (1, m)).
+        o[:] = o[0]
+    elif name == "culled":
+        # One camera, a narrow fan: both keep sets fit.
+        o[:] = o[0]
+        budgets = (256, 192)
+
+        def check(got):
+            return got["cull"][2:4].cpu().tolist() == [2, 0]
+    else:
+        raise KeyError(name)
+    t = lambda x: torch.tensor(np.asarray(x, np.float32), device=device)  # noqa: E731
+    u_off = t(rs.uniform(0, 1, o.shape[0]))
+    rays_o, rays_d = t(o), t(d)
+    if name == "strided_rays":
+        pose = torch.eye(4, device=device)
+        pose[:3, 3] = rays_o[0]
+        rays_o, rays_d = pose[:3, 3].expand(o.shape[0], 3), rays_d.T.contiguous().T
+    return (scene, rays_o, rays_d, u_off, K, S, step, *budgets, prec), check
+
+
+PER_RAY_CASES = ("culled", "no_triangles", "no_kept_column", "over_both_budgets",
+                 "tiny_directions", "equal_t0", "more_than_k", "tiny_intervals", "bfloat16",
+                 "strided_rays")
+
+
+@pytest.mark.parametrize("name", PER_RAY_CASES)
+def test_per_ray_kernel_edge_cases_match_plain(cuda, name):
+    """The kernels against the plain chain on synthetic blocks, each case
+    with its own check that the edge it names was reached."""
+    import chip_smoke as cs
+    from nerftex_torch.kernels import per_ray as pr
+
+    args, check = _per_ray_case(name, cuda)
+    got = pr.per_ray(*args)
+    torch.cuda.synchronize()
+    edges, _ = cs.compare_per_ray(args, got, pr.per_ray_plain(*args))
+    print(f"per_ray {name}: knife-edge rays {edges}")
+    cs.per_ray_keep_sets(args, got)
+    assert check is None or check(got), name
+
+
+def test_per_ray_kernel_refuses_bad_inputs(cuda):
+    from nerftex_torch.kernels import per_ray as pr
+
+    args = list(_per_ray_case("culled", cuda)[0])
+    before = pr.per_ray.launches
+    with pytest.raises(TypeError):
+        pr.per_ray(args[0], args[1].double(), *args[2:])
+    with pytest.raises(ValueError):
+        pr.per_ray(args[0], args[1], args[2][:-1], *args[3:])
+    with pytest.raises(ValueError):
+        pr.per_ray(*args[:3], torch.stack([args[3], args[3]], 1)[:, 0], *args[4:])
+    with pytest.raises(ValueError):
+        pr.per_ray(*args[:4], pr.MAX_HITS + 1, *args[5:])
+    with pytest.raises(ValueError):
+        pr.per_ray(args[0], args[1], args[2], args[3].cpu(), *args[4:])
+    assert pr.per_ray.launches == before

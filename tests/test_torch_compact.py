@@ -16,6 +16,7 @@ import contextlib
 import copy
 import importlib
 import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -33,11 +34,16 @@ from nerftex_torch.instancing.device import DeviceInstancer, _closest_point_tri
 from nerftex_torch.instancing.instancer import Instancer
 from nerftex_torch.models import mlp as port_mlp
 from nerftex_torch.ops.rays import frame_rays
-from nerftex_torch.render.checkpoint import load_jax_params
+from nerftex_torch.render.checkpoint import flatten_params, load_jax_params
 from nerftex_torch.utils import jax_rng, rng
 from nerftex_torch.utils.util import instantiate
 
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from _jax_reference import group, recorded  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MODULE = "test_torch_compact"
 MESH = os.path.join(ROOT, "meshes", "cloth_mesh.ply")
 ANCHORS = os.path.join(ROOT, "meshes", "cloth_anchor_points.ply")
 SCENE_KW = dict(
@@ -63,22 +69,41 @@ def _rays():
     return o, d, np.repeat(data["parameters"], len(idx), 0)
 
 
-_PAIRS = {}
+_INSTANCERS = {}
 
 
-def _pair(method="nearest", shadows=False, lookup="jacobian"):
-    """The JAX and port device instancers of the carpet scene (cached)."""
+def _instancer(method="nearest", shadows=False, lookup="jacobian"):
+    """The port's device instancer of the carpet scene (cached)."""
     key = (method, shadows, lookup)
-    if key not in _PAIRS:
+    if key not in _INSTANCERS:
         kw = dict(SCENE_KW, instance_sampling_method=method, cast_shadow_rays=shadows)
-        js = JaxScene(**kw)
-        js.distribute_instances_on_mesh(MESH, 0.09, ANCHORS)
         inst = Instancer(mesh_path=MESH, patch_scale=0.09, patch_origins_path=ANCHORS,
                          device="cpu", **kw, **DEV_KW)
-        _PAIRS[key] = (JaxDeviceInstancer(js, texture_lookup=lookup, **DEV_KW),
-                       DeviceInstancer(inst.scene, torch.device("cpu"), texture_lookup=lookup,
-                                       **DEV_KW))
-    return _PAIRS[key]
+        _INSTANCERS[key] = DeviceInstancer(inst.scene, torch.device("cpu"),
+                                           texture_lookup=lookup, **DEV_KW)
+    return _INSTANCERS[key]
+
+
+def _jax_instancer(method="nearest", shadows=False, lookup="jacobian"):
+    """The JAX package's device instancer of the carpet scene."""
+    js = JaxScene(**dict(SCENE_KW, instance_sampling_method=method, cast_shadow_rays=shadows))
+    js.distribute_instances_on_mesh(MESH, 0.09, ANCHORS)
+    return JaxDeviceInstancer(js, texture_lookup=lookup, **DEV_KW)
+
+
+def _jax_compact(method, budget, shadows=False, lookup="jacobian"):
+    """JAX's get_model_input_compact of _rays() under key(0); with the
+    closest lookup also its dense grid's model input ("grid/<name>") and
+    the instancer's k_tri."""
+    jd = _jax_instancer(method, shadows, lookup)
+    o, d, p = _rays()
+    out = {k: np.asarray(v) for k, v in jd.get_model_input_compact(
+        o, d, p, N_SAMPLES, STEP, budget, key=jax.random.key(0)).items()}
+    if lookup == "closest":
+        jg = jd.get_model_input(o, d, p, N_SAMPLES, STEP, key=jax.random.key(0))
+        out.update({f"grid/{k}": np.asarray(jg[k]) for k in ("instance_id", "parameters")})
+        out["k_tri"] = np.asarray(jd.ds.k_tri)
+    return out
 
 
 def _assert_float(got, want, name, ulps=8, scale=None, mask=None):
@@ -164,9 +189,9 @@ def _compare_compact(jo, to, td, o, d, method, budget, ties=None):
 @pytest.mark.parametrize("budget", [COVER, DROP])
 @pytest.mark.parametrize("method", ["random", "nearest", "nearest_blend"])
 def test_compact_model_input_matches_jax(method, budget):
-    jd, td = _pair(method)
+    td = _instancer(method)
     o, d, p = _rays()
-    jo = jd.get_model_input_compact(o, d, p, N_SAMPLES, STEP, budget, key=jax.random.key(0))
+    jo = recorded(MODULE, f"test_compact_model_input_matches_jax[{method}-{budget}]")
     to = td.get_model_input_compact(o, d, p, N_SAMPLES, STEP, budget, key=jax_rng.key(0))
     _compare_compact(jo, to, td, o, d, method, budget)
     # Each block takes min(its samples, its budget); the rest are dropped.
@@ -180,9 +205,9 @@ def test_compact_with_textures_light_and_shadows_matches_jax():
     (each sample takes its arc-length bucket's occlusion) on the compact
     path, as the JAX suite's test_compact_matches_dense_with_textures_and_light
     covers textures and light."""
-    jd, td = _pair("nearest", shadows=True)
+    td = _instancer("nearest", shadows=True)
     o, d, p = _rays()
-    jo = jd.get_model_input_compact(o, d, p, N_SAMPLES, STEP, COVER, key=jax.random.key(0))
+    jo = recorded(MODULE, "test_compact_with_textures_light_and_shadows_matches_jax")
     to = td.get_model_input_compact(o, d, p, N_SAMPLES, STEP, COVER, key=jax_rng.key(0))
     _compare_compact(jo, to, td, o, d, "nearest", COVER)
     # Some samples are shadowed: their light slots point straight down.
@@ -194,17 +219,17 @@ def test_closest_texture_lookup_matches_jax():
     """texture_lookup="closest": each sample's uv from the exact closest
     point over its instance's k nearest base-mesh triangles, on the dense
     grid and the compact path."""
-    jd, td = _pair("nearest", lookup="closest")
-    assert not td.use_jac and td.ds.k_tri == jd.ds.k_tri > 0
+    td = _instancer("nearest", lookup="closest")
+    want = recorded(MODULE, "test_closest_texture_lookup_matches_jax")
+    jo, jg = {k: v for k, v in want.items() if "/" not in k}, group(want, "grid/")
+    assert not td.use_jac and td.ds.k_tri == int(want["k_tri"]) > 0
     o, d, p = _rays()
-    jo = jd.get_model_input_compact(o, d, p, N_SAMPLES, STEP, COVER, key=jax.random.key(0))
     to = td.get_model_input_compact(o, d, p, N_SAMPLES, STEP, COVER, key=jax_rng.key(0))
     ray = to["ray_idx"].numpy()
     ties = _closest_ties(td, o[ray] + d[ray] * to["t"].numpy()[:, None], to["instance_id"])
     _compare_compact(jo, to, td, o, d, "nearest", COVER, ties=ties)
     taken = to["taken"].numpy()
     _assert_tie_parameters(to["parameters"].numpy(), jo["parameters"], taken & ties, taken.sum())
-    jg = jd.get_model_input(o, d, p, N_SAMPLES, STEP, key=jax.random.key(0))
     tg = td.get_model_input(o, d, p, N_SAMPLES, STEP, key=jax_rng.key(0))
     valid = tg["dists"].numpy() > 0
     np.testing.assert_array_equal(tg["instance_id"].numpy(), np.asarray(jg["instance_id"]))
@@ -214,7 +239,7 @@ def test_closest_texture_lookup_matches_jax():
                   mask=valid & ~ties)
     _assert_tie_parameters(tg["parameters"].numpy(), jg["parameters"], valid & ties, valid.sum())
     # The lookup differs from the jacobian one: the texture slot moved.
-    jac = _pair("nearest")[1].get_model_input(o, d, p, N_SAMPLES, STEP, key=jax_rng.key(0))
+    jac = _instancer("nearest").get_model_input(o, d, p, N_SAMPLES, STEP, key=jax_rng.key(0))
     assert (tg["parameters"][..., 0] != jac["parameters"][..., 0])[valid].any()
 
 
@@ -262,15 +287,21 @@ def _reset(seed=0):
     port_mlp._INIT_COUNTER[0] = 0
 
 
-def _models(cfg):
+def _jax_model(cfg):
     _reset()
-    jm = jax_util.instantiate(jax_util.EasyDict(cfg))["model"]
+    return jax_util.instantiate(jax_util.EasyDict(cfg))["model"]
+
+
+def _port_model(setup, cfg):
+    """The port's model of ``cfg`` with the JAX init's weights (recorded
+    under "setup[<setup>]")."""
+    _reset()
     tm = instantiate(cfg, device="cpu")
-    load_jax_params(tm, jax.tree.map(np.asarray, jm.params))
-    return jm, tm
+    load_jax_params(tm, group(recorded(MODULE, f"setup[{setup}]"), "weights/"))
+    return tm
 
 
-def _carpet_setup(**renderer):
+def _carpet_setup(live=False, **renderer):
     """The carpet scene's renderer config at 12x12 rays of the bench view
     with a narrow ParamNerf (4/2/2 bands, depth 2, width 32)."""
     model = {"module": "network.model.ParamNerf", "pos_embedding": _ff(4),
@@ -286,18 +317,24 @@ def _carpet_setup(**renderer):
     return model, cfg, data
 
 
-def _mip_setup(**renderer):
+def _mip_setup(live=False, **renderer):
     """configs/demo_grass_mip_render.py at 12x12 rays of its test dataset's
     last camera, with its ParamNerf cut to 4/2/2 bands, depth 2, width 32
-    (as tests/test_torch_mip.py cuts it) and 32-ray blocks."""
+    (as tests/test_torch_mip.py cuts it) and 32-ray blocks.  The rays are
+    the JAX test dataset's: drawn when ``live``, else recorded."""
     cfg = copy.deepcopy(importlib.import_module("configs.demo_grass_mip_render").config)
     model = cfg["model_config"]
     model.update(depth=2, width=32, skips=[0])
     for k, n in (("pos_embedding", 4), ("dir_embedding", 2), ("param_embedding", 2)):
         model[k] = dict(model[k], n_freq_bands=n)
     cfg["test_dataset_config"]["data_loader_config"].update(height=12, width=12)
-    jax_streams.set_seed(0)
-    data = list(jax_util.instantiate(jax_util.EasyDict(cfg["test_dataset_config"])))[-1]
+    if live:
+        jax_streams.set_seed(0)
+        data = {k: np.asarray(v) for k, v in
+                list(jax_util.instantiate(jax_util.EasyDict(cfg["test_dataset_config"])))[-1]
+                .items()}
+    else:
+        data = group(recorded(MODULE, "setup[mip]"), "data/")
     rcfg = dict(cfg["renderer_config"], render_chunk=64, net_chunk=512, **renderer)
     rcfg["instancer_config"] = dict(rcfg["instancer_config"], ray_block=32, max_hits=32)
     for k in ("mesh_path", "patch_origins_path"):
@@ -305,18 +342,42 @@ def _mip_setup(**renderer):
     return model, rcfg, data
 
 
-def _render_both(setup, **renderer):
-    """The JAX package's render and the port's, of the same rays under
-    key(2) with the same weights, both renderers built under seed 0."""
-    model, cfg, data = setup(**renderer)
-    jm, tm = _models(model)
+SETUPS = {"instance": _carpet_setup, "mip": _mip_setup}
+
+
+def _jax_setup(setup):
+    """The JAX init's weights of ``setup``'s model, and the mip setup's rays."""
+    model, _, data = SETUPS[setup](live=True)
+    out = {f"weights/{k}": v for k, v in flatten_params(
+        jax.tree.map(np.asarray, _jax_model(model).params)).items()}
+    if setup == "mip":
+        out.update({f"data/{k}": v for k, v in data.items()})
+    return out
+
+
+def _jax_render(setup, **renderer):
+    """The JAX package's render of ``setup``'s rays under key(2), the
+    renderer built under seed 0."""
+    model, cfg, data = SETUPS[setup](live=True, **renderer)
+    jm = _jax_model(model)
     _reset()
     jr = jax_util.instantiate(jax_util.EasyDict(dict(cfg, model=jm)))
-    tr = instantiate(dict(cfg, model=tm, device="cpu"))
     want = jr(**data, training=False, key=jax.random.key(2))
+    return {"color": np.asarray(want["color_pred"]), "alpha": np.asarray(want["alpha_pred"])}
+
+
+def _render_both(case, setup, **renderer):
+    """The JAX package's render (recorded as ``case``) and the port's, of
+    the same rays under key(2) with the same weights, both renderers built
+    under seed 0."""
+    model, cfg, data = SETUPS[setup](**renderer)
+    tm = _port_model(setup, model)
+    _reset()
+    tr = instantiate(dict(cfg, model=tm, device="cpu"))
     got = tr(**data, key=jax_rng.key(2))
+    want = recorded(MODULE, case)
     return ((got["color_pred"].numpy(), got["alpha_pred"].numpy()),
-            (np.asarray(want["color_pred"]), np.asarray(want["alpha_pred"])), tr)
+            (want["color"], want["alpha"]), tr)
 
 
 def _assert_frames(got, want):
@@ -327,26 +388,35 @@ def _assert_frames(got, want):
     np.testing.assert_allclose(a_t, a_j, rtol=0, atol=FRAME_TOL)
 
 
+def _compact_kw(setup, false_color):
+    extra = {"blur_idx": 3} if setup == "instance" else {}
+    return dict(sample_budget_per_ray=24, raw_noise_std=0.1, false_color=false_color, **extra)
+
+
+SORTED_KW = dict(raw_noise_std=0.1, false_color=True)
+
+
 @pytest.mark.parametrize("false_color", [False, True])
-@pytest.mark.parametrize("setup", [_carpet_setup, _mip_setup], ids=["instance", "mip"])
+@pytest.mark.parametrize("setup", ["instance", "mip"])
 def test_compact_renderer_matches_jax(setup, false_color):
     """InstanceRenderer (blur_idx 3) and MipInstanceRenderer on the compact
     path at budget 24, with raw_noise_std 0.1 and with and without
     false_color: color and alpha within FRAME_TOL of the JAX renderers'."""
-    extra = {"blur_idx": 3} if setup is _carpet_setup else {}
-    got, want, tr = _render_both(setup, sample_budget_per_ray=24, raw_noise_std=0.1,
-                                 false_color=false_color, **extra)
+    got, want, tr = _render_both(f"test_compact_renderer_matches_jax[{setup}-{false_color}]",
+                                 setup, **_compact_kw(setup, false_color))
     _assert_frames(got, want)
     if false_color:
         assert tr.instance_color.shape == (tr.instancer.n_instances(), 3)
 
 
-@pytest.mark.parametrize("setup", [_carpet_setup, _mip_setup], ids=["instance", "mip"])
+@pytest.mark.parametrize("setup", ["instance", "mip"])
 def test_sorted_renderer_with_noise_and_false_color_matches_jax(setup):
     """The sorted grid path with raw_noise_std 0.1 (each sorted block's
     noise drawn under its shade key over JAX's bucket width) and
     false_color: within FRAME_TOL of the JAX renderers'."""
-    got, want, _ = _render_both(setup, raw_noise_std=0.1, false_color=True)
+    got, want, _ = _render_both(
+        f"test_sorted_renderer_with_noise_and_false_color_matches_jax[{setup}]", setup,
+        **SORTED_KW)
     _assert_frames(got, want)
 
 
@@ -355,7 +425,7 @@ def test_compact_frame_equals_grid_frame():
     the MLP's rows are independent and the unfilled slots composite exact
     zeros."""
     model, cfg, data = _carpet_setup()
-    _, tm = _models(model)
+    tm = _port_model("instance", model)
     frames = []
     for budget in (0, COVER):
         r = instantiate(dict(cfg, sample_budget_per_ray=budget, model=tm, device="cpu"))
@@ -393,22 +463,41 @@ def test_draw_keys_match_jax():
     np.testing.assert_allclose(got, want, rtol=0, atol=4 * 2**-23 * np.abs(want).max())
 
 
+REFERENCE_API_NAMES = ("rays_d", "pts", "t", "dists", "color_last", "alpha_last",
+                       "alpha_weight", "instance_id", "hit_idxs", "parameters")
+
+
+def _jax_reference_api():
+    """The JAX Instancer's get_model_input over two keyless calls
+    ("<call>/<name>"), then its get_model_input_dict without a key
+    ("dict/<name>")."""
+    ji = JaxInstancer(mesh_path=MESH, patch_scale=0.09, patch_origins_path=ANCHORS,
+                      **dict(SCENE_KW, instance_sampling_method="nearest", seed=3), **DEV_KW)
+    o, d, p = _rays()
+    out = {}
+    for call in range(2):
+        want = ji.get_model_input(o, d, p, N_SAMPLES, STEP)
+        assert len(want) == 10
+        out.update({f"{call}/{name}": np.asarray(w) for name, w in zip(REFERENCE_API_NAMES, want)})
+    want = ji.get_model_input_dict(o, d, p, N_SAMPLES, STEP)
+    out.update({f"dict/{k}": np.asarray(want[k]) for k in ("t", "hit")})
+    return out
+
+
 def test_instancer_reference_api_matches_jax():
     """Instancer.get_model_input's ten outputs over two keyless calls in a
     row (each draws under fold_in(key(seed), call)), then
     get_model_input_dict without a key (the third call's key), against the
     JAX Instancer's."""
     kw = dict(SCENE_KW, instance_sampling_method="nearest", seed=3)
-    ji = JaxInstancer(mesh_path=MESH, patch_scale=0.09, patch_origins_path=ANCHORS, **kw,
-                      **DEV_KW)
+    recording = recorded(MODULE, "test_instancer_reference_api_matches_jax")
     ti = Instancer(mesh_path=MESH, patch_scale=0.09, patch_origins_path=ANCHORS, device="cpu",
                    **kw, **DEV_KW)
     o, d, p = _rays()
-    names = ("rays_d", "pts", "t", "dists", "color_last", "alpha_last", "alpha_weight",
-             "instance_id", "hit_idxs", "parameters")
+    names = REFERENCE_API_NAMES
     ts = []
-    for _ in range(2):
-        want = ji.get_model_input(o, d, p, N_SAMPLES, STEP)
+    for call in range(2):
+        want = [recording[f"{call}/{name}"] for name in names]
         got = ti.get_model_input(o, d, p, N_SAMPLES, STEP)
         assert len(got) == len(want) == 10
         out = dict(zip(names, got))
@@ -427,7 +516,7 @@ def test_instancer_reference_api_matches_jax():
         ts.append(out["t"])
     # The two calls drew different offsets.
     assert not torch.equal(ts[0], ts[1])
-    want = ji.get_model_input_dict(o, d, p, N_SAMPLES, STEP)
+    want = group(recording, "dict/")
     got = ti.get_model_input_dict(o, d, p, N_SAMPLES, STEP)
     _assert_float(got["t"].numpy(), want["t"], "t", scale=float(np.abs(np.asarray(want["t"])).max()))
     np.testing.assert_array_equal(got["hit"].numpy(), np.asarray(want["hit"]))
@@ -466,6 +555,39 @@ def _bf16_slab_dots():
             del core.ShapedArray._matmul
 
 
+def _step_count_setup():
+    """Ray block 137 of configs/config_carpet_render.py's first item at the
+    carpet operating point: rays, parameters, scene and instancer
+    settings."""
+    import chip_smoke
+
+    data, _, _ = chip_smoke.config_item("carpet")
+    sl = slice(137 * 1024, 138 * 1024)
+    o, d = data["rays_o"][0][sl], data["rays_d"][0][sl]
+    p = np.repeat(np.asarray(data["parameters"], np.float32).reshape(1, -1), 1024, 0)
+    kw = dict(SCENE_KW, instance_sampling_method="nearest", min_shadow_samples=8,
+              n_shadow_samples=256, min_texture_samples=8, n_texture_samples=256)
+    dev = dict(max_hits=48, ray_block=1024, max_steps_per_ray=320, cull_budget=448,
+               tri_cull_budget=384)
+    return o, d, p, kw, dev
+
+
+def _jax_step_counts():
+    """The JAX per-ray stage of the block with the golden's bf16 slab dots."""
+    o, d, p, kw, dev = _step_count_setup()
+    js = JaxScene(**kw)
+    js.distribute_instances_on_mesh(MESH, 0.09, ANCHORS)
+    jd = JaxDeviceInstancer(js, **dev)
+    with _bf16_slab_dots():
+        jr = jax.jit(lambda o, d, p: jd._per_ray(o, d, p, 320, 0.002, jax.random.key(0)))(
+            jnp.asarray(o), jnp.asarray(d), jnp.asarray(p))
+    # JAX's products are its own again.
+    x = np.float32([[1.0 + 2**-12, 0, 0]])
+    assert float(jax.jit(lambda a, b: a @ b)(x, np.eye(3, 4, dtype=np.float32))[0, 0]) == x[0, 0]
+    return {k: np.asarray(jr[k]) for k in ("hit", "overflow_hits", "total", "tk1", "kvalid",
+                                           "n_steps", "overflow_steps")}
+
+
 def test_carpet_step_counts_match_jax_up_to_knife_edges():
     """The carpet frame's ray block 137 (configs/config_carpet_render.py's
     first item at the carpet operating point, the golden's bf16 slab dots)
@@ -477,25 +599,8 @@ def test_carpet_step_counts_match_jax_up_to_knife_edges():
     0.002, 337 in the JAX package on the CPU and 336 in the port; it is why
     the JAX package drops 576,101 samples of the frame on the CPU, 576,099
     on the TPU and the port 576,100 (ROADMAP Queue 3)."""
-    import chip_smoke
-
-    data, _, _ = chip_smoke.config_item("carpet")
-    sl = slice(137 * 1024, 138 * 1024)
-    o, d = data["rays_o"][0][sl], data["rays_d"][0][sl]
-    p = np.repeat(np.asarray(data["parameters"], np.float32).reshape(1, -1), 1024, 0)
-    kw = dict(SCENE_KW, instance_sampling_method="nearest", min_shadow_samples=8,
-              n_shadow_samples=256, min_texture_samples=8, n_texture_samples=256)
-    dev = dict(max_hits=48, ray_block=1024, max_steps_per_ray=320, cull_budget=448,
-               tri_cull_budget=384)
-    js = JaxScene(**kw)
-    js.distribute_instances_on_mesh(MESH, 0.09, ANCHORS)
-    jd = JaxDeviceInstancer(js, **dev)
-    with _bf16_slab_dots():
-        jr = jax.jit(lambda o, d, p: jd._per_ray(o, d, p, 320, 0.002, jax.random.key(0)))(
-            jnp.asarray(o), jnp.asarray(d), jnp.asarray(p))
-    # JAX's products are its own again.
-    x = np.float32([[1.0 + 2**-12, 0, 0]])
-    assert float(jax.jit(lambda a, b: a @ b)(x, np.eye(3, 4, dtype=np.float32))[0, 0]) == x[0, 0]
+    o, d, p, kw, dev = _step_count_setup()
+    jr = recorded(MODULE, "test_carpet_step_counts_match_jax_up_to_knife_edges")
     td = Instancer(mesh_path=MESH, patch_scale=0.09, patch_origins_path=ANCHORS, device="cpu",
                    matmul_precision="bfloat16", **kw, **dev).device_instancer
     tr = td._per_ray(torch.tensor(o), torch.tensor(d), torch.tensor(p), 320, 0.002,
@@ -514,3 +619,22 @@ def test_carpet_step_counts_match_jax_up_to_knife_edges():
     assert np.nonzero(edge)[0].tolist() == [898]
     assert (necessary[1][898], necessary[0][898]) == (337, 336)
     assert int(jr["overflow_steps"]) == int(tr["overflow_steps"]) + 1
+
+
+JAX_CASES = {
+    "test_instancer_reference_api_matches_jax": _jax_reference_api,
+    "test_carpet_step_counts_match_jax_up_to_knife_edges": _jax_step_counts,
+    **{f"test_compact_model_input_matches_jax[{method}-{budget}]":
+       (lambda method=method, budget=budget: _jax_compact(method, budget))
+       for method in ("random", "nearest", "nearest_blend") for budget in (COVER, DROP)},
+    "test_compact_with_textures_light_and_shadows_matches_jax":
+        lambda: _jax_compact("nearest", COVER, shadows=True),
+    "test_closest_texture_lookup_matches_jax":
+        lambda: _jax_compact("nearest", COVER, lookup="closest"),
+    **{f"setup[{setup}]": (lambda setup=setup: _jax_setup(setup)) for setup in SETUPS},
+    **{f"test_compact_renderer_matches_jax[{setup}-{fc}]":
+       (lambda setup=setup, fc=fc: _jax_render(setup, **_compact_kw(setup, fc)))
+       for setup in SETUPS for fc in (False, True)},
+    **{f"test_sorted_renderer_with_noise_and_false_color_matches_jax[{setup}]":
+       (lambda setup=setup: _jax_render(setup, **SORTED_KW)) for setup in SETUPS},
+}

@@ -23,6 +23,7 @@ import copy
 import json
 import os
 import sys
+import tempfile
 
 import jax
 import jax.numpy as jnp
@@ -53,7 +54,11 @@ from nerftex_torch.utils import jax_rng, rng
 from nerftex_torch.utils.util import instantiate
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from _jax_reference import file_bytes, group, recorded  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 from test_train_e2e import _train_config  # noqa: E402
+
+MODULE = "test_torch_device_train"
 
 SEEDS = (0, 42, 0xFFFFFFFF)
 # The JAX test's tolerances (tests/test_device_dataset.py): rays, t,
@@ -68,17 +73,6 @@ PARAM_TOL = 1e-5        # parameters after three Adam steps at lrate 5e-3 (+-lra
 @pytest.fixture(autouse=True)
 def _no_tensorboard(monkeypatch):
     monkeypatch.setenv("NERFTEX_NO_TENSORBOARD", "1")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The steps here are thousands of tiny ops: one intra-op thread runs
-    them several times faster than a pool that shares the cores with the
-    other test workers."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _reset(seed=0):
@@ -132,11 +126,15 @@ def test_randint_matches_jax(span):
 # -- the sampler ----------------------------------------------------------------------
 
 
-@pytest.fixture(scope="module")
-def tfr(tmp_path_factory):
-    path = str(tmp_path_factory.mktemp("data") / "train.tfr")
+def _synthetic_tfr(directory):
+    path = os.path.join(str(directory), "train.tfr")
     jax_synth(path, n_images=6, size=16)
     return path
+
+
+@pytest.fixture(scope="module")
+def tfr(tmp_path_factory):
+    return _synthetic_tfr(tmp_path_factory.mktemp("data"))
 
 
 def _dataset_cfg(tfr_path, n_samples=32, batchsize=2):
@@ -146,12 +144,19 @@ def _dataset_cfg(tfr_path, n_samples=32, batchsize=2):
     return cfg
 
 
-def _both_datasets(tfr_path, **kw):
-    _reset()
-    jd = jax_util.instantiate(jax_util.EasyDict(_dataset_cfg(tfr_path, **kw)))
-    _reset()
-    td = instantiate(_dataset_cfg(tfr_path, **kw), device="cpu")
-    return jd.device_sampler, td.device_sampler
+def _jax_sampler(seed):
+    """The JAX device sampler's tables and store, and its batch and aux
+    under key(seed)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        _reset()
+        js = jax_util.instantiate(jax_util.EasyDict(_dataset_cfg(_synthetic_tfr(tmp))))
+    js = js.device_sampler
+    batch, aux = js.sample(jax.random.key(seed), with_aux=True)
+    return {"store": np.array(js._store),
+            **{f"table/{k}": np.asarray(getattr(js, k))
+               for k in ("cells", "counts", "poses", "parameters", "images")},
+            **{f"batch/{k}": np.asarray(v) for k, v in batch.items()},
+            **{f"aux/{k}": np.asarray(aux[k]) for k in ("img_idx", "loc")}}
 
 
 def _compare_batches(jax_out, port_out, color_tol=COLOR_TOL):
@@ -170,13 +175,16 @@ def _compare_batches(jax_out, port_out, color_tol=COLOR_TOL):
 @pytest.mark.parametrize("seed", [0, 7, 123])
 def test_sampler_matches_jax(tfr, seed):
     """The u8 store with Proxy pixels and rays, under the same key."""
-    js, ts = _both_datasets(tfr)
-    assert ts._store == js._store == "u8"
+    want = recorded(MODULE, f"test_sampler_matches_jax[{seed}]")
+    _reset()
+    ts = instantiate(_dataset_cfg(tfr), device="cpu").device_sampler
+    assert ts._store == str(want["store"]) == "u8"
+    tables = group(want, "table/")
     for name in ("cells", "counts", "poses", "parameters"):
-        np.testing.assert_array_equal(getattr(ts, name).numpy(), np.asarray(getattr(js, name)))
-    np.testing.assert_array_equal(ts.images.numpy(), np.asarray(js.images))
-    key = jax.random.key(seed)
-    _compare_batches(js.sample(key, with_aux=True), ts.sample(jax_rng.key(seed), with_aux=True))
+        np.testing.assert_array_equal(getattr(ts, name).numpy(), tables[name])
+    np.testing.assert_array_equal(ts.images.numpy(), tables["images"])
+    _compare_batches((group(want, "batch/"), group(want, "aux/")),
+                     ts.sample(jax_rng.key(seed), with_aux=True))
 
 
 def _list_source(rs, n=3, size=8):
@@ -253,9 +261,14 @@ def _cfg(tfr_path, target="unused", n_iters=20, **overrides):
     return cfg
 
 
-def _jax_steps(tfr_path, n_steps):
-    """JAX's fused step, op by op, from the JAX init: (losses, step-0
-    gradient per leaf, parameters after n_steps) as numpy."""
+def _jax_steps(n_steps):
+    """JAX's fused step, op by op, from the JAX init: the losses, step 0's
+    gradient per leaf and the parameters after n_steps."""
+    with tempfile.TemporaryDirectory() as tmp:
+        return _jax_steps_on(_synthetic_tfr(tmp), n_steps)
+
+
+def _jax_steps_on(tfr_path, n_steps):
     cfg = jax_util.EasyDict(_cfg(tfr_path))
     _reset()
     sampler = jax_util.instantiate(cfg.train_dataset_config).device_sampler
@@ -282,8 +295,11 @@ def _jax_steps(tfr_path, n_steps):
                                            jax.random.fold_in(data_key, s),
                                            jax.random.fold_in(perturb_key, s))
             losses.append(float(loss))
-    return (losses, flatten_params(jax.tree.map(np.asarray, grads["model"])),
-            flatten_params(jax.tree.map(np.asarray, params["model"])))
+    return {"losses": np.array(losses),
+            **{f"grad/{k}": v for k, v in flatten_params(
+                jax.tree.map(np.asarray, grads["model"])).items()},
+            **{f"param/{k}": v for k, v in flatten_params(
+                jax.tree.map(np.asarray, params["model"])).items()}}
 
 
 def _port_step(tfr_path, flat=False, max_steps=3, **renderer):
@@ -311,8 +327,9 @@ def _params(model):
 
 
 @pytest.fixture(scope="module")
-def jax_three_steps(tfr):
-    return _jax_steps(tfr, 3)
+def jax_three_steps():
+    want = recorded(MODULE, "jax_three_steps")
+    return list(want["losses"]), group(want, "grad/"), group(want, "param/")
 
 
 @pytest.mark.parametrize("flat", [False, True])
@@ -393,11 +410,9 @@ def test_cast_params_once_f32_is_bit_identical_and_unroll_changes_nothing():
             np.testing.assert_array_equal(grads_k[leaf], g, err_msg=f"{kw} {leaf}")
 
 
-def test_cast_params_once_bf16_matches_jax():
-    """bf16 with save_encodings remat: the port's cast-once step against
-    JAX's, within tests/test_cast_once.py's tolerances (the loss to bf16
-    resolution, 1e-2; gradients 3e-2 of the leaf's max |g|, the bf16 sums
-    over four chunks)."""
+def _jax_cast_once_bf16():
+    """JAX's bf16 cast-once step with save_encodings remat: the loss and
+    each leaf's gradient."""
     _reset()
     models = jax_util.instantiate(jax_util.EasyDict(_model_cfg("bfloat16")))
     jr = JaxRenderer(n_samples=16, net_chunk=256, remat_net_chunks="save_encodings",
@@ -410,7 +425,18 @@ def test_cast_params_once_bf16_matches_jax():
         return loss_fn(color_true=batch["color"], alpha_true=batch["alpha"], **pred)
 
     jloss, jgrads = jax.jit(jax.value_and_grad(loss_of))({k: m.params for k, m in models.items()})
-    jgrads = flatten_params(jax.tree.map(np.asarray, jgrads["model"]))
+    return {"loss": np.asarray(jloss),
+            **{f"grad/{k}": v for k, v in flatten_params(
+                jax.tree.map(np.asarray, jgrads["model"])).items()}}
+
+
+def test_cast_params_once_bf16_matches_jax():
+    """bf16 with save_encodings remat: the port's cast-once step against
+    JAX's, within tests/test_cast_once.py's tolerances (the loss to bf16
+    resolution, 1e-2; gradients 3e-2 of the leaf's max |g|, the bf16 sums
+    over four chunks)."""
+    want = recorded(MODULE, "test_cast_params_once_bf16_matches_jax")
+    jloss, jgrads = want["loss"], group(want, "grad/")
     loss, grads = _port_loss_grads("bfloat16", remat="save_encodings", cast_params_once=True)
     np.testing.assert_allclose(loss, float(jloss), rtol=1e-2)
     for leaf, g in jgrads.items():
@@ -482,22 +508,46 @@ def test_resume_across_a_layout_switch(tfr, tmp_path, first, second):
         np.testing.assert_allclose(got[leaf], want[leaf], rtol=0, atol=1e-5, err_msg=leaf)
 
 
+def _flat_cfg(tfr_path, target):
+    cfg = _cfg(tfr_path, str(target), n_iters=5, flat_params=True)
+    cfg["logger_config"]["i_checkpoint"] = 5
+    return cfg
+
+
+def _jax_flat_train():
+    """JAX's Train with flat_params for five steps: its checkpoint and
+    scalars files, and the checkpoint's parameters and Adam mu unravelled
+    by the JAX model ("param/<leaf>", "mu/<leaf>")."""
+    with tempfile.TemporaryDirectory() as tmp:
+        target = os.path.join(tmp, "logs")
+        _reset()
+        jax_models = jax_util.instantiate(jax_util.EasyDict(
+            _flat_cfg(_synthetic_tfr(tmp), target)))
+        saved = CheckpointManager(os.path.join(target, "checkpoints")).restore_latest()
+        adam = next(s for s in saved["extra"]["opt_state"] if s.name == "ScaleByAdamState")
+        unravel = jax_models["model"]._unravel
+        return {"ckpt": file_bytes(os.path.join(target, "checkpoints", "ckpt-5.pkl")),
+                "scalars": file_bytes(os.path.join(target, "scalars.jsonl")),
+                **{f"param/{k}": v for k, v in flatten_params(jax.tree.map(
+                    np.asarray, unravel(np.asarray(saved["models"]["model"])))).items()},
+                **{f"mu/{k}": v for k, v in flatten_params(jax.tree.map(
+                    np.asarray, unravel(np.asarray(adam[1]["model"])))).items()}}
+
+
 def test_a_jax_flat_checkpoint_restores(tfr, tmp_path):
     """JAX's Train with flat_params (params and optax moments as flat
     vectors) for five steps; the port restores its checkpoint into flat and
     per-layer models, parameters and moments bit for bit, and resumes."""
     target = tmp_path / "logs"
-    cfg = _cfg(tfr, str(target), n_iters=5, flat_params=True)
-    cfg["logger_config"]["i_checkpoint"] = 5
-    _reset()
-    jax_models = jax_util.instantiate(jax_util.EasyDict(cfg))
+    cfg = _flat_cfg(tfr, target)
+    recording = recorded(MODULE, "test_a_jax_flat_checkpoint_restores")
+    os.makedirs(target / "checkpoints")
+    (target / "checkpoints" / "ckpt-5.pkl").write_bytes(recording["ckpt"].tobytes())
+    (target / "scalars.jsonl").write_bytes(recording["scalars"].tobytes())
     saved = CheckpointManager(str(target / "checkpoints")).restore_latest()
     theta = np.asarray(saved["models"]["model"])
     assert theta.ndim == 1
-    adam = next(s for s in saved["extra"]["opt_state"] if s.name == "ScaleByAdamState")
-    want = flatten_params(jax.tree.map(np.asarray, jax_models["model"]._unravel(theta)))
-    want_mu = flatten_params(jax.tree.map(np.asarray, jax_models["model"]._unravel(
-        np.asarray(adam[1]["model"]))))
+    want, want_mu = group(recording, "param/"), group(recording, "mu/")
     for flat in (False, True):
         _reset()
         model = instantiate(dict(cfg["model_config"], n_parameters=[1, 6]), device="cpu")
@@ -526,16 +576,34 @@ def test_train_end_to_end_matches_jax_and_resumes(tfr, tmp_path):
     op) for five steps, the loss falling over 25 steps, and a resume that
     continues at 26 (tests/test_device_dataset.py's
     test_fused_training_end_to_end)."""
-    jax_target, target = tmp_path / "jax", tmp_path / "port"
-    _reset()
-    with jax.disable_jit():
-        jax_util.instantiate(jax_util.EasyDict(_cfg(tfr, str(jax_target), n_iters=5)))
+    target = tmp_path / "port"
+    want = recorded(MODULE, "test_train_end_to_end_matches_jax_and_resumes")
     model = _train(tfr, target, 25)
     losses = [r["Loss"] for r in _losses(str(target))]
-    np.testing.assert_allclose(losses[:5], [r["Loss"] for r in _losses(str(jax_target))],
-                               rtol=1e-4)
+    np.testing.assert_allclose(losses[:5], want["losses"], rtol=1e-4)
     assert len(losses) == 25 and np.isfinite(losses).all()
     assert np.mean(losses[-5:]) < 0.9 * np.mean(losses[:5]), losses
     assert all(np.isfinite(v).all() for v in _params(model).values())
     _train(tfr, target, 30)
     assert [r["step"] for r in _losses(str(target))][-5:] == list(range(26, 31))
+
+
+def _jax_train():
+    """JAX's Train with device_resident, op by op, for five steps: the
+    logged losses."""
+    with tempfile.TemporaryDirectory() as tmp:
+        target = os.path.join(tmp, "jax")
+        _reset()
+        with jax.disable_jit():
+            jax_util.instantiate(jax_util.EasyDict(_cfg(_synthetic_tfr(tmp), target, n_iters=5)))
+        return {"losses": np.array([r["Loss"] for r in _losses(target)])}
+
+
+JAX_CASES = {
+    **{f"test_sampler_matches_jax[{seed}]": (lambda seed=seed: _jax_sampler(seed))
+       for seed in (0, 7, 123)},
+    "jax_three_steps": lambda: _jax_steps(3),
+    "test_cast_params_once_bf16_matches_jax": _jax_cast_once_bf16,
+    "test_a_jax_flat_checkpoint_restores": _jax_flat_train,
+    "test_train_end_to_end_matches_jax_and_resumes": _jax_train,
+}

@@ -10,6 +10,8 @@ light, inverse-square strength) and an auxiliary mesh's shaded terminator
 import importlib
 import math
 import os
+import sys
+import tempfile
 
 import jax
 import numpy as np
@@ -25,11 +27,16 @@ from nerftex_tpu.utils import util as jax_util
 from nerftex_torch.instancing.device import DeviceInstancer
 from nerftex_torch.instancing.scene import Scene, SceneMesh
 from nerftex_torch.ops.rays import frame_rays
-from nerftex_torch.render.checkpoint import load_jax_params
+from nerftex_torch.render.checkpoint import flatten_params, load_jax_params
 from nerftex_torch.utils import jax_rng, trace
 from nerftex_torch.utils.util import instantiate
 
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from _jax_reference import group, recorded  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MODULE = "test_torch_grass"
 INPUTS = os.path.join(ROOT, "tests", "torch_grass_inputs.npz")
 H = W = 24
 
@@ -77,17 +84,27 @@ def _renderer_cfg():
                 sorted_blocks=True)
 
 
-@pytest.fixture(scope="module")
-def frame():
+def _jax_frame():
+    """A narrow ParamNerf's JAX weights and the JAX frame of the rays with
+    key(1)."""
     data = _rays(H, W)
     rng.set_seed(0)
     jax_mlp._INIT_COUNTER[0] = 0
     jm = jax_util.instantiate(jax_util.EasyDict(_model_cfg()))["model"]
-    tm = instantiate(_model_cfg(), device="cpu")
-    load_jax_params(tm, jax.tree.map(np.asarray, jm.params))
     jr = jax_util.instantiate(jax_util.EasyDict(dict(_renderer_cfg(), model=jm)))
     out = jr(**data, training=False, key=jax.random.key(1))
-    return data, tm, (np.asarray(out["color_pred"]), np.asarray(out["alpha_pred"]))
+    return {**{f"weights/{k}": v for k, v in flatten_params(
+                jax.tree.map(np.asarray, jm.params)).items()},
+            "color": np.asarray(out["color_pred"]), "alpha": np.asarray(out["alpha_pred"])}
+
+
+@pytest.fixture(scope="module")
+def frame():
+    data = _rays(H, W)
+    want = recorded(MODULE, "frame")
+    tm = instantiate(_model_cfg(), device="cpu")
+    load_jax_params(tm, group(want, "weights/"))
+    return data, tm, (want["color"], want["alpha"])
 
 
 def test_grass_frame_matches_jax_with_the_same_key(frame):
@@ -112,36 +129,45 @@ def test_grass_frame_matches_jax_with_the_same_key(frame):
     assert err.max() <= 3e-2
 
 
-def _both(build):
-    """build(Scene, SceneMesh) on the JAX package's classes and the port's."""
-    return build(JaxScene, JaxMesh), build(Scene, SceneMesh)
-
-
-def _model_inputs(scenes, rays_o, rays_d, params, n_samples, step, max_hits, ray_block):
-    """get_model_input of both device instancers with the same key."""
-    jax_scene, port_scene = scenes
-    want = JaxInstancer(jax_scene, max_hits=max_hits, ray_block=ray_block).get_model_input(
+def _jax_model_input(scene, rays_o, rays_d, params, n_samples, step, max_hits, ray_block):
+    """get_model_input of the JAX device instancer under key(3)."""
+    want = JaxInstancer(scene, max_hits=max_hits, ray_block=ray_block).get_model_input(
         rays_o, rays_d, params, n_samples, step, jax.random.key(3))
-    got = DeviceInstancer(port_scene, "cpu", max_hits=max_hits, ray_block=ray_block
+    return {k: np.asarray(v) for k, v in want.items()}
+
+
+def _port_model_input(scene, rays_o, rays_d, params, n_samples, step, max_hits, ray_block):
+    """get_model_input of the port's device instancer with the same key."""
+    got = DeviceInstancer(scene, "cpu", max_hits=max_hits, ray_block=ray_block
                           ).get_model_input(rays_o, rays_d, params, n_samples, step,
                                             key=jax_rng.key(3))
-    return ({k: np.asarray(v) for k, v in want.items()},
-            {k: v.numpy() if hasattr(v, "numpy") else v for k, v in got.items()})
+    return {k: v.numpy() if hasattr(v, "numpy") else v for k, v in got.items()}
+
+
+def _point_light_scene(scene_cls):
+    scene = scene_cls(b_0=[-0.5, -0.5, -0.5], b_1=[0.5, 0.5, 0.5], textures=["point"])
+    scene.add_instance(np.eye(4, dtype=np.float32))
+    return scene
+
+
+def _point_light_rays():
+    rays_o = np.array([[0.0, 0.0, 5.0], [0.2, -0.1, 5.0]], np.float32)
+    rays_d = np.tile(np.array([0, 0, -1.0], np.float32), (2, 1))
+    params = np.array([[10.0, 0, 0, 3.0], [4.0, 0.3, 0.2, 2.0]], np.float32)
+    return rays_o, rays_d, params
+
+
+def _jax_point_light():
+    want = _jax_model_input(_point_light_scene(JaxScene), *_point_light_rays(), 32, 0.1, 4, 2)
+    return {k: want[k] for k in ("dists", "t", "parameters")}
 
 
 def test_point_light_slots_match_jax():
     """tests/test_device_instancer.py's point-light scene: one box, a ray
     straight down, params [strength, light position]; the strength slot
     (10 / (4 pi d^2 + 1e-6)) and the light direction agree within 1e-5."""
-    def build(scene_cls, _):
-        scene = scene_cls(b_0=[-0.5, -0.5, -0.5], b_1=[0.5, 0.5, 0.5], textures=["point"])
-        scene.add_instance(np.eye(4, dtype=np.float32))
-        return scene
-
-    rays_o = np.array([[0.0, 0.0, 5.0], [0.2, -0.1, 5.0]], np.float32)
-    rays_d = np.tile(np.array([0, 0, -1.0], np.float32), (2, 1))
-    params = np.array([[10.0, 0, 0, 3.0], [4.0, 0.3, 0.2, 2.0]], np.float32)
-    want, got = _model_inputs(_both(build), rays_o, rays_d, params, 32, 0.1, 4, 2)
+    want = recorded(MODULE, "test_point_light_slots_match_jax")
+    got = _port_model_input(_point_light_scene(Scene), *_point_light_rays(), 32, 0.1, 4, 2)
     n = (want["dists"] > 0).sum(-1)
     assert (n > 5).all()
     np.testing.assert_array_equal((got["dists"] > 0).sum(-1), n)
@@ -161,6 +187,25 @@ def assets(tmp_path_factory):
     out = tmp_path_factory.mktemp("meshes")
     gen_assets.generate(str(out), seed=0)
     return str(out)
+
+
+def _aux_rays():
+    rs = np.random.RandomState(0)
+    rays_o = np.concatenate([rs.uniform(-0.9, 0.9, (16, 2)), np.full((16, 1), 5.0)],
+                            -1).astype(np.float32)
+    rays_d = np.tile(np.array([0, 0, -1.0], np.float32), (16, 1))
+    params = np.tile(np.array([0.2, 0.1, 1.0], np.float32), (16, 1))
+    return rays_o, rays_d, params
+
+
+def _jax_aux_mesh(shadows):
+    """The JAX device instancer's terminator color and alpha on the
+    aux-mesh scene."""
+    with tempfile.TemporaryDirectory() as assets:
+        gen_assets.generate(assets, seed=0)
+        want = _jax_model_input(_aux_scene(JaxScene, JaxMesh, assets, shadows), *_aux_rays(),
+                                32, 0.1, 4, 8)
+    return {k: want[k] for k in ("alpha_last", "color_last")}
 
 
 def _aux_scene(scene_cls, mesh_cls, assets, shadows):
@@ -183,13 +228,10 @@ def test_aux_mesh_terminator_matches_jax(assets, shadows):
     terminator's color and alpha agree within 1e-5, with the occlusion
     query of aux-mesh terminator pixels when shadows are on (the box
     shadows some of the floor the rays see, not all of it)."""
-    rs = np.random.RandomState(0)
-    rays_o = np.concatenate([rs.uniform(-0.9, 0.9, (16, 2)), np.full((16, 1), 5.0)],
-                            -1).astype(np.float32)
-    rays_d = np.tile(np.array([0, 0, -1.0], np.float32), (16, 1))
-    params = np.tile(np.array([0.2, 0.1, 1.0], np.float32), (16, 1))
-    scenes = _both(lambda s, m: _aux_scene(s, m, assets, shadows))
-    want, got = _model_inputs(scenes, rays_o, rays_d, params, 32, 0.1, 4, 8)
+    rays_o, rays_d, params = _aux_rays()
+    want = recorded(MODULE, f"test_aux_mesh_terminator_matches_jax[{shadows}]")
+    got = _port_model_input(_aux_scene(Scene, SceneMesh, assets, shadows), rays_o, rays_d,
+                            params, 32, 0.1, 4, 8)
     assert (want["alpha_last"] == 1).all() and (want["color_last"] > 0).all()
     np.testing.assert_allclose(got["alpha_last"], want["alpha_last"], rtol=0, atol=1e-5)
     np.testing.assert_allclose(got["color_last"], want["color_last"], rtol=0, atol=1e-5)
@@ -199,3 +241,11 @@ def test_aux_mesh_terminator_matches_jax(assets, shadows):
                                                            key=jax_rng.key(3))["color_last"]
         dark = (got["color_last"] < lit.numpy() - 1e-3).all(-1)[:, 0]
         assert dark.any() and not dark.all()
+
+
+JAX_CASES = {
+    "frame": _jax_frame,
+    "test_point_light_slots_match_jax": _jax_point_light,
+    **{f"test_aux_mesh_terminator_matches_jax[{shadows}]":
+       (lambda shadows=shadows: _jax_aux_mesh(shadows)) for shadows in (False, True)},
+}

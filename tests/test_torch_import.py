@@ -15,6 +15,9 @@ import sys
 import pytest
 import torch
 
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from _torch_threads import one_torch_thread  # noqa: E402,F401
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "optax", "nerftex_tpu", "network", "instancer", "util", "data")
 

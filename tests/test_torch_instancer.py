@@ -7,6 +7,7 @@ magnitude; and the port's own culled, unculled, sorted and dense paths
 agree exactly."""
 
 import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -20,7 +21,14 @@ from nerftex_torch.instancing.instancer import Instancer
 from nerftex_torch.ops.rays import frame_rays
 from nerftex_torch.utils import jax_rng
 
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from _jax_reference import recorded  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MODULE = "test_torch_instancer"
+MESH = os.path.join(ROOT, "meshes", "cloth_mesh.ply")
+ANCHORS = os.path.join(ROOT, "meshes", "cloth_anchor_points.ply")
 SCENE_KW = dict(
     b_0=[-1.4, -1.2, -0.1], b_1=[1.2, 1.2, 1.8],
     textures=[os.path.join(ROOT, "meshes", "smooth_checkerboard.png"), "", "", "", "light"],
@@ -44,14 +52,42 @@ def _rays():
 
 @pytest.fixture(scope="module")
 def setup():
-    mesh = os.path.join(ROOT, "meshes", "cloth_mesh.ply")
-    anchors = os.path.join(ROOT, "meshes", "cloth_anchor_points.ply")
-    js = JaxScene(**SCENE_KW)
-    js.distribute_instances_on_mesh(mesh, 0.09, anchors)
-    jd = JaxDeviceInstancer(js, **DEV_KW)
-    inst = Instancer(mesh_path=mesh, patch_scale=0.09, patch_origins_path=anchors,
+    inst = Instancer(mesh_path=MESH, patch_scale=0.09, patch_origins_path=ANCHORS,
                      device="cpu", **SCENE_KW, **DEV_KW)
-    return jd, inst.device_instancer, _rays()
+    return inst.device_instancer, _rays()
+
+
+def _jax_instancer():
+    js = JaxScene(**SCENE_KW)
+    js.distribute_instances_on_mesh(MESH, 0.09, ANCHORS)
+    return JaxDeviceInstancer(js, **DEV_KW)
+
+
+PER_RAY_KEYS = ("hit", "n_steps", "inst_idx", "kvalid", "tiny", "tk0", "tk1", "sel_a", "sel_b",
+                "t_offset", "alpha_last", "light_dir_w", "cum_incl", "arc_corr", "total",
+                "overflow_hits", "overflow_steps")
+
+
+def _jax_per_ray():
+    """The JAX per-ray stage's tables of each 32-ray block:
+    "<first ray>/<table>"."""
+    jd = _jax_instancer()
+    o, d, p = _rays()
+    out = {}
+    for i in range(0, len(o), 32):
+        sl = slice(i, i + 32)
+        jr = jd._per_ray(jnp.asarray(o[sl]), jnp.asarray(d[sl]), jnp.asarray(p[sl]), 320, STEP,
+                         jax.random.key(0))
+        out.update({f"{i}/{k}": np.asarray(jr[k]) for k in PER_RAY_KEYS})
+    return out
+
+
+def _jax_model_input():
+    o, d, p = _rays()
+    jo = _jax_instancer().get_model_input(o, d, p, N_SAMPLES, STEP, key=jax.random.key(0))
+    return {k: np.asarray(jo[k]) for k in ("hit", "dists", "alpha_weight", "alpha_last",
+                                            "color_last", "t", "instance_id", "pts", "rays_d",
+                                            "parameters")}
 
 
 def _assert_float(got, want, name, ulps=8, scale=None):
@@ -68,11 +104,11 @@ def _assert_float(got, want, name, ulps=8, scale=None):
 
 
 def test_per_ray_tables_match_jax(setup):
-    jd, td, (o, d, p) = setup
+    td, (o, d, p) = setup
+    recording = recorded(MODULE, "test_per_ray_tables_match_jax")
     for i in range(0, len(o), 32):
         sl = slice(i, i + 32)
-        jr = jd._per_ray(jnp.asarray(o[sl]), jnp.asarray(d[sl]), jnp.asarray(p[sl]), 320, STEP,
-                         jax.random.key(0))
+        jr = {k: recording[f"{i}/{k}"] for k in PER_RAY_KEYS}
         tr = td._per_ray(torch.tensor(o[sl]), torch.tensor(d[sl]), torch.tensor(p[sl]), 320,
                          STEP, torch.full((32,), 0.5))
         for k in ("hit", "n_steps", "inst_idx", "kvalid", "tiny"):
@@ -103,8 +139,8 @@ def _near_ties(td, o, d, t, inst_a, inst_b):
 
 
 def test_model_input_matches_jax(setup):
-    jd, td, (o, d, p) = setup
-    jo = jd.get_model_input(o, d, p, N_SAMPLES, STEP, key=jax.random.key(0))
+    td, (o, d, p) = setup
+    jo = recorded(MODULE, "test_model_input_matches_jax")
     to = td.get_model_input(o, d, p, N_SAMPLES, STEP, key=jax_rng.key(0))
     np.testing.assert_array_equal(to["hit"].numpy(), np.asarray(jo["hit"]))
     valid = to["dists"].numpy() > 0
@@ -133,7 +169,7 @@ def test_model_input_matches_jax(setup):
 
 def test_culls_are_exact(setup):
     """The fan culls are speed tiers: the same tables with them off."""
-    _, td, (o, d, p) = setup
+    td, (o, d, p) = setup
     culled = td.get_model_input(o, d, p, N_SAMPLES, STEP, key=jax_rng.key(0))
     budgets = (td.cull_budget, td.tri_cull_budget)
     td.cull_budget = td.tri_cull_budget = 0
@@ -149,7 +185,7 @@ def test_sorted_blocks_equal_dense_grid(setup):
     """render_grid_sorted hands each sorted block's model input to the
     shading callback; padded back to the dense grid it equals
     get_model_input exactly."""
-    _, td, (o, d, p) = setup
+    td, (o, d, p) = setup
     cap = min(N_SAMPLES, td.max_steps_per_ray)
     keys = ("pts", "rays_d", "t", "dists", "parameters", "instance_id", "alpha_weight")
 
@@ -193,7 +229,7 @@ def test_pallas_selk_is_ignored(setup, monkeypatch, pallas_selk):
     version for these CPU tensors) and gives the same model input."""
     import nerftex_torch.instancing.device as device
 
-    _, td, (o, d, p) = setup
+    td, (o, d, p) = setup
     calls = []
     real = device.selk_resolve
 
@@ -229,7 +265,7 @@ def _assert_render_layout(tables):
 
 def test_per_ray_tables_are_in_render_layout(setup):
     """The bench view's per-ray tables."""
-    _, td, (o, d, p) = setup
+    td, (o, d, p) = setup
     n = torch.cat([_assert_render_layout(
         td._per_ray(torch.tensor(o[i:i + 32]), torch.tensor(d[i:i + 32]),
                     torch.tensor(p[i:i + 32]), 320, STEP, torch.full((32,), 0.5)))
@@ -259,3 +295,9 @@ def test_plush_per_ray_tables_are_in_render_layout():
                       torch.full((64,), 0.5)))
         for i in range(0, len(o), 64)])
     assert int(n.max()) >= 2 and int((n == 0).sum()) < len(n)
+
+
+JAX_CASES = {
+    "test_per_ray_tables_match_jax": _jax_per_ray,
+    "test_model_input_matches_jax": _jax_model_input,
+}

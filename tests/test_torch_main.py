@@ -18,6 +18,7 @@ import json
 import os
 import re
 import sys
+import tempfile
 
 import jax
 import numpy as np
@@ -29,12 +30,17 @@ from nerftex_tpu.render.checkpoint import CheckpointManager as JaxCheckpointMana
 from nerftex_tpu.utils import rng as jax_rng_streams
 from nerftex_tpu.utils import util as jax_util
 from nerftex_torch import main as port_main
-from nerftex_torch.render.checkpoint import load_jax_params
+from nerftex_torch.render.checkpoint import flatten_params, load_jax_params
 from nerftex_torch.utils import jax_rng
 from nerftex_torch.utils.image import decode_png_u8
 from nerftex_torch.utils.util import instantiate
 
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from _jax_reference import file_bytes, group, recorded  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MODULE = "test_torch_main"
 H = W = 24
 RENDER_SIZE = 16
 
@@ -63,23 +69,34 @@ def _renderer_cfg(sorted_blocks=True):
                 sorted_blocks=sorted_blocks)
 
 
-@pytest.fixture(scope="module")
-def frame():
+def _jax_frame():
     """The grass_filtered test dataset's last item (radius 5) at 24x24, a
-    narrow ParamNerf's weights in both packages, and JAX's frame with
-    key(1)."""
+    narrow ParamNerf's JAX weights, and JAX's frame with key(1)."""
     cfg = _config(size=H)
     jax_rng_streams.set_seed(0)
     data = list(jax_util.instantiate(jax_util.EasyDict(cfg["test_dataset_config"])))[-1]
     model_cfg = dict(cfg["model_config"], n_parameters=[2, 3])
     jax_mlp._INIT_COUNTER[0] = 0
     jm = jax_util.instantiate(jax_util.EasyDict(model_cfg))["model"]
-    tm = instantiate(model_cfg, device="cpu")
-    load_jax_params(tm, jax.tree.map(np.asarray, jm.params))
     jr = jax_util.instantiate(jax_util.EasyDict(dict(_renderer_cfg(), model=jm)))
     assert jr.blur_idx == 0
     out = jr(**data, training=False, key=jax.random.key(1))
-    return data, tm, (np.asarray(out["color_pred"]), np.asarray(out["alpha_pred"]))
+    return {**{f"data/{k}": np.asarray(v) for k, v in data.items()},
+            **{f"weights/{k}": v for k, v in flatten_params(
+                jax.tree.map(np.asarray, jm.params)).items()},
+            "color": np.asarray(out["color_pred"]), "alpha": np.asarray(out["alpha_pred"])}
+
+
+@pytest.fixture(scope="module")
+def frame():
+    """The grass_filtered test dataset's last item (radius 5) at 24x24, a
+    narrow ParamNerf with the JAX weights, and JAX's frame with key(1)."""
+    cfg = _config(size=H)
+    want = recorded(MODULE, "frame")
+    model_cfg = dict(cfg["model_config"], n_parameters=[2, 3])
+    tm = instantiate(model_cfg, device="cpu")
+    load_jax_params(tm, group(want, "weights/"))
+    return group(want, "data/"), tm, (want["color"], want["alpha"])
 
 
 def _port_render(data, tm, sorted_blocks=True):
@@ -123,30 +140,53 @@ def test_blur_sorted_frame_equals_dense_frame(frame):
     np.testing.assert_allclose(a_s, a_d, rtol=0, atol=5e-7)
 
 
-@pytest.fixture(scope="module")
-def renders(tmp_path_factory):
-    """The JAX package's Render and the port's main on the grass_filtered
-    render config at 16x16 (five frames, radius 20 down to 5), each
-    restoring one checkpoint written by the JAX package's
-    CheckpointManager."""
+def _drops(log):
+    """The (kind, count) of each capacity warning a render printed."""
+    return re.findall(r"WARNING: (hit|sample) capacity exceeded, dropped (\d+) ", log)
+
+
+def _jax_render():
+    """One checkpoint written by the JAX package's CheckpointManager, and
+    what the JAX package's Render on the grass_filtered render config at
+    16x16 (five frames, radius 20 down to 5) wrote from it and the drops
+    it warned of."""
     from nerftex_tpu.render.render import Render as JaxRender
 
+    cfg = _config(size=RENDER_SIZE)
+    with tempfile.TemporaryDirectory() as root:
+        ckpt_dir = os.path.join(root, "source")
+        jax_rng_streams.set_seed(3)
+        jax_mlp._INIT_COUNTER[0] = 0
+        params = jax_util.instantiate(jax_util.EasyDict(dict(cfg["model_config"],
+                                                             n_parameters=[2, 3])))["model"].params
+        JaxCheckpointManager(os.path.join(ckpt_dir, "checkpoints")).save(
+            {"models": {"model": params}, "extra": {"step": 7}}, 7)
+        jax_target = os.path.join(root, "jax")
+        jax_rng_streams.set_seed(cfg["seed"])
+        jax_log = io.StringIO()
+        with contextlib.redirect_stdout(jax_log):
+            JaxRender(**{k: v for k, v in dict(cfg, target_path=jax_target,
+                                               source_path=ckpt_dir).items() if k != "module"})
+        media = os.path.join(jax_target, "media", "test")
+        names = sorted(os.listdir(media))
+        return {"ckpt": file_bytes(os.path.join(ckpt_dir, "checkpoints", "ckpt-7.pkl")),
+                "names": np.array(names), "drops": np.array(_drops(jax_log.getvalue())),
+                **{f"media/{n}": file_bytes(os.path.join(media, n)) for n in names}}
+
+
+@pytest.fixture(scope="module")
+def renders(tmp_path_factory):
+    """The JAX package's Render (recorded) and the port's main on the
+    grass_filtered render config at 16x16 (five frames, radius 20 down to
+    5), each restoring one checkpoint written by the JAX package's
+    CheckpointManager."""
     root = tmp_path_factory.mktemp("render")
     ckpt_dir = str(root / "source")
     cfg = _config(size=RENDER_SIZE)
-    jax_rng_streams.set_seed(3)
-    jax_mlp._INIT_COUNTER[0] = 0
-    params = jax_util.instantiate(jax_util.EasyDict(dict(cfg["model_config"],
-                                                         n_parameters=[2, 3])))["model"].params
-    JaxCheckpointManager(os.path.join(ckpt_dir, "checkpoints")).save(
-        {"models": {"model": params}, "extra": {"step": 7}}, 7)
-
-    jax_target = str(root / "jax")
-    jax_rng_streams.set_seed(cfg["seed"])
-    jax_log = io.StringIO()
-    with contextlib.redirect_stdout(jax_log):
-        JaxRender(**{k: v for k, v in dict(cfg, target_path=jax_target,
-                                           source_path=ckpt_dir).items() if k != "module"})
+    want = recorded(MODULE, "renders")
+    os.makedirs(os.path.join(ckpt_dir, "checkpoints"))
+    with open(os.path.join(ckpt_dir, "checkpoints", "ckpt-7.pkl"), "wb") as f:
+        f.write(want["ckpt"].tobytes())
 
     # The port's CLI on the same config, written out as a config module.
     port_target = str(root / "port")
@@ -164,12 +204,12 @@ def renders(tmp_path_factory):
         sys.modules.pop(module, None)
         if str(root) in sys.path:
             sys.path.remove(str(root))
-    return jax_target, port_target, jax_log.getvalue(), port_log.getvalue()
+    return want, port_target, [tuple(d) for d in want["drops"]], port_log.getvalue()
 
 
 def test_render_writes_the_jax_file_names(renders):
-    jax_target, port_target, _, _ = renders
-    names = sorted(os.listdir(os.path.join(jax_target, "media", "test")))
+    want, port_target, _, _ = renders
+    names = list(want["names"])
     assert names == [f"{i}.png" for i in range(5)]
     assert sorted(os.listdir(os.path.join(port_target, "media", "test"))) == names
     with open(os.path.join(port_target, "config_render.py")) as f:
@@ -181,13 +221,10 @@ def test_render_writes_the_jax_images(renders, index):
     """Every image, in the JAX draw order (the renderer's n-th keyless call
     renders under stream_key(STREAM_PERTURB, n)): the decoded PNGs within
     one u8 level, and the alpha channel drawn at all."""
-    jax_target, port_target, _, _ = renders
-
-    def read(target):
-        with open(os.path.join(target, "media", "test", f"{index}.png"), "rb") as f:
-            return decode_png_u8(f.read()).astype(np.int32)
-
-    want, got = read(jax_target), read(port_target)
+    recording, port_target, _, _ = renders
+    with open(os.path.join(port_target, "media", "test", f"{index}.png"), "rb") as f:
+        got = decode_png_u8(f.read()).astype(np.int32)
+    want = decode_png_u8(recording[f"media/{index}.png"].tobytes()).astype(np.int32)
     assert want.shape == got.shape == (RENDER_SIZE, RENDER_SIZE, 4)
     assert want[..., 3].max() > 100
     # A one-level difference is an f32 difference that crosses a rounding
@@ -202,13 +239,9 @@ def test_render_reports_the_jax_overflows(renders):
     1024) drop intervals and samples; each frame's warnings name the
     counts the JAX package's name, in the same order, and the port's
     restore line names the checkpoint."""
-    _, _, jax_log, port_log = renders
-
-    def drops(log):
-        return re.findall(r"WARNING: (hit|sample) capacity exceeded, dropped (\d+) ", log)
-
-    assert drops(port_log) == drops(jax_log)
-    assert len(drops(jax_log)) >= 5
+    _, _, jax_drops, port_log = renders
+    assert _drops(port_log) == jax_drops
+    assert len(jax_drops) >= 5
     assert "Restored model from " in port_log and "ckpt-7.pkl" in port_log
 
 
@@ -352,3 +385,6 @@ def test_debug_nans_checks_each_rendered_frame(tmp_path, monkeypatch, debug_nans
             Logger(str(tmp_path), renderer=renderer, **kw)
     written = sorted(os.listdir(tmp_path / "media" / "test"))
     assert written == (["0.png"] if debug_nans else ["0.png", "1.png"])
+
+
+JAX_CASES = {"frame": _jax_frame, "renders": _jax_render}

@@ -25,6 +25,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 
 import jax
 import jax.numpy as jnp
@@ -42,11 +43,16 @@ from nerftex_torch import main as port_main
 from nerftex_torch.models import mlp as port_mlp
 from nerftex_torch.models.encodings import IntegratedPositionalEncoding
 from nerftex_torch.ops import volume
-from nerftex_torch.render.checkpoint import load_jax_params
+from nerftex_torch.render.checkpoint import flatten_params, load_jax_params
 from nerftex_torch.utils import jax_rng, rng
 from nerftex_torch.utils.util import instantiate
 
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from _jax_reference import group, recorded  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MODULE = "test_torch_mip"
 N_ITERS = 10
 LOSS_RTOL = 1e-4        # ten logged losses, the port vs JAX's op-by-op Train
 H = W = 24
@@ -179,29 +185,47 @@ def _mip_model_cfg(**kw):
     return cfg
 
 
-@pytest.mark.parametrize("extra", [
+N_POS6_EXTRAS = [
     {},
     {"embedding_config": {"module": "network.layer.FourierFeatures", "n_freq_bands": 2}},
     {"embedding_config": {"module": "network.model.FourierFeatures", "n_freq_bands": 1},
      "include_param_dims": True},
-])
-def test_param_nerf_n_pos6_matches_jax_apply(extra):
-    """forward and infer (the fused kernel's plain version) against the JAX
-    model's apply, with the extra features after the position encoding.
-    (The JAX package's Pallas wrapper drops them; apply is the reference.)"""
-    cfg = _mip_model_cfg(**extra)
-    _reset()
-    jm = jax_util.instantiate(jax_util.EasyDict(cfg))["model"]
-    tm = instantiate(cfg, device="cpu")
-    load_jax_params(tm, jax.tree.map(np.asarray, jm.params))
-    # IPE 4 x 6, then 6 x 5 or 10 x 3 extra features, then Length 5.
-    assert tm.pos_dim == 24 + (30 if extra else 0) + 5 and tm.dir_dim == 15 + 15
+]
+
+
+def _n_pos6_inputs():
     rs = np.random.RandomState(5)
     pos = np.concatenate([rs.uniform(-1, 1, (200, 3)), rs.uniform(0, 0.02, (200, 3))],
                          -1).astype(np.float32)
     dirs = rs.normal(size=(200, 3)).astype(np.float32)
     prm = rs.uniform(0, 1, (200, 4)).astype(np.float32)
-    c_j, d_j = (np.asarray(v) for v in jm.apply(jm.params, pos, dirs, prm))
+    return pos, dirs, prm
+
+
+def _jax_n_pos6(extra):
+    """The JAX model's init and its apply on _n_pos6_inputs()."""
+    _reset()
+    jm = jax_util.instantiate(jax_util.EasyDict(_mip_model_cfg(**extra)))["model"]
+    c_j, d_j = (np.asarray(v) for v in jm.apply(jm.params, *_n_pos6_inputs()))
+    return {**{f"weights/{k}": v for k, v in flatten_params(
+        jax.tree.map(np.asarray, jm.params)).items()}, "color": c_j, "density": d_j}
+
+
+@pytest.mark.parametrize("extra", N_POS6_EXTRAS)
+def test_param_nerf_n_pos6_matches_jax_apply(extra):
+    """forward and infer (the fused kernel's plain version) against the JAX
+    model's apply, with the extra features after the position encoding.
+    (The JAX package's Pallas wrapper drops them; apply is the reference.)"""
+    cfg = _mip_model_cfg(**extra)
+    case = f"extra{N_POS6_EXTRAS.index(extra)}"
+    want = recorded(MODULE, f"test_param_nerf_n_pos6_matches_jax_apply[{case}]")
+    _reset()
+    tm = instantiate(cfg, device="cpu")
+    load_jax_params(tm, group(want, "weights/"))
+    # IPE 4 x 6, then 6 x 5 or 10 x 3 extra features, then Length 5.
+    assert tm.pos_dim == 24 + (30 if extra else 0) + 5 and tm.dir_dim == 15 + 15
+    pos, dirs, prm = _n_pos6_inputs()
+    c_j, d_j = want["color"], want["density"]
     args = (torch.tensor(pos), torch.tensor(dirs), torch.tensor(prm))
     with torch.no_grad():
         c_f, d_f = tm(*args)
@@ -238,20 +262,45 @@ def _train_cfg(tfr, target, n_iters=N_ITERS, importance=False, device_resident=F
     return cfg
 
 
-@pytest.fixture(scope="module")
-def tfr(tmp_path_factory):
+def _synthetic_tfr(directory):
     """A synthetic TFRecord with the grass dataset's 5 parameters."""
     cfg = importlib.import_module("configs.demo_grass_mip_train").config
     proxy = cfg["train_dataset_config"]["proxy_config"]
-    path = str(tmp_path_factory.mktemp("data") / "train.tfr")
+    path = os.path.join(str(directory), "train.tfr")
     jax_synth(path, n_images=6, size=16, n_parameters=(2, 3), b_0=tuple(proxy["b_0"]),
               b_1=tuple(proxy["b_1"]))
     return path
 
 
+@pytest.fixture(scope="module")
+def tfr(tmp_path_factory):
+    return _synthetic_tfr(tmp_path_factory.mktemp("data"))
+
+
 def _losses(target):
     with open(os.path.join(target, "scalars.jsonl")) as f:
         return [json.loads(line)["Loss"] for line in f]
+
+
+def _files(root):
+    """Every file under ``root``, "/"-joined relative paths, sorted."""
+    return sorted(os.path.relpath(os.path.join(d, f), root).replace(os.sep, "/")
+                  for d, _, names in os.walk(root) for f in names)
+
+
+def _jax_train(variant):
+    """JAX's Train, op by op, on the cut config of ``variant``: its logged
+    losses and the files it wrote under media/."""
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = _train_cfg(_synthetic_tfr(tmp), os.path.join(tmp, "jax"),
+                         n_iters=5 if variant == "device_resident" else N_ITERS,
+                         importance=variant == "importance",
+                         device_resident=variant == "device_resident")
+        _reset()
+        with jax.disable_jit():
+            jax_util.instantiate(jax_util.EasyDict(cfg))
+        return {"losses": np.array(_losses(cfg["target_path"])),
+                "media": np.array(_files(os.path.join(cfg["target_path"], "media")))}
 
 
 @pytest.mark.parametrize("variant", ["plain", "importance", "device_resident"])
@@ -266,49 +315,60 @@ def test_train_through_main_matches_jax_losses(tfr, tmp_path, variant):
     tests/test_torch_train.py)."""
     importance = variant == "importance"
     n_iters = 5 if variant == "device_resident" else N_ITERS
-    sides = {}
-    for side in ("jax", "port"):
-        cfg = _train_cfg(tfr, tmp_path / side, n_iters=n_iters, importance=importance,
-                         device_resident=variant == "device_resident")
-        _reset()
-        if side == "jax":
-            with jax.disable_jit():
-                jax_util.instantiate(jax_util.EasyDict(cfg))
-        else:
-            module = f"_cut_mip_train_{variant}"
-            (tmp_path / f"{module}.py").write_text(f"config = {cfg!r}\n")
-            cwd = os.getcwd()
-            os.chdir(tmp_path)
-            try:
-                port_main.main([f"{module}.py", "--device", "cpu"])
-            finally:
-                os.chdir(cwd)
-                sys.modules.pop(module, None)
-                if str(tmp_path) in sys.path:
-                    sys.path.remove(str(tmp_path))
-        sides[side] = _losses(cfg["target_path"])
-    assert len(sides["port"]) == len(sides["jax"]) == n_iters
-    np.testing.assert_allclose(sides["port"], sides["jax"], rtol=LOSS_RTOL, atol=0)
-    for side in ("jax", "port"):
-        assert (tmp_path / side / "media" / "validation" / str(n_iters) / "0.png").exists()
+    want = recorded(MODULE, f"test_train_through_main_matches_jax_losses[{variant}]")
+    cfg = _train_cfg(tfr, tmp_path / "port", n_iters=n_iters, importance=importance,
+                     device_resident=variant == "device_resident")
+    _reset()
+    module = f"_cut_mip_train_{variant}"
+    (tmp_path / f"{module}.py").write_text(f"config = {cfg!r}\n")
+    cwd = os.getcwd()
+    os.chdir(tmp_path)
+    try:
+        port_main.main([f"{module}.py", "--device", "cpu"])
+    finally:
+        os.chdir(cwd)
+        sys.modules.pop(module, None)
+        if str(tmp_path) in sys.path:
+            sys.path.remove(str(tmp_path))
+    got = _losses(cfg["target_path"])
+    assert len(got) == len(want["losses"]) == n_iters
+    np.testing.assert_allclose(got, want["losses"], rtol=LOSS_RTOL, atol=0)
+    assert f"validation/{n_iters}/0.png" in list(want["media"])
+    assert (tmp_path / "port" / "media" / "validation" / str(n_iters) / "0.png").exists()
 
 
-def _mip_renderer_pair(importance=False, **kw):
-    """The cut demo_grass_mip_train model in both packages (same weights) and
-    a MipRenderer of each."""
+def _mip_renderer_cfgs(importance=False, **kw):
+    """The cut demo_grass_mip_train model's config and a MipRenderer's."""
     cfg = _cut_model(copy.deepcopy(importlib.import_module("configs.demo_grass_mip_train")
                                    .config))
     rcfg = dict(cfg["renderer_config"], n_samples=16, **kw)
     if importance:
         rcfg.update(n_importance=16, mip_importance=True)
+    return cfg["model_config"], rcfg
+
+
+def _jax_mip_renderer(importance=False, **kw):
+    model_cfg, rcfg = _mip_renderer_cfgs(importance, **kw)
     _reset()
-    jm = jax_util.instantiate(jax_util.EasyDict(cfg["model_config"]))["model"]
-    tm = instantiate(cfg["model_config"], device="cpu")
-    load_jax_params(tm, jax.tree.map(np.asarray, jm.params))
-    jr = jax_util.instantiate(jax_util.EasyDict(dict(rcfg, model=jm)))
+    jm = jax_util.instantiate(jax_util.EasyDict(model_cfg))["model"]
+    return jax_util.instantiate(jax_util.EasyDict(dict(rcfg, model=jm)))
+
+
+def _jax_mip_weights():
+    return {f"weights/{k}": v for k, v in flatten_params(
+        jax.tree.map(np.asarray, _jax_mip_renderer().model.params)).items()}
+
+
+def _mip_renderer(importance=False, **kw):
+    """The port's MipRenderer of the cut demo_grass_mip_train model with
+    the JAX init's weights."""
+    model_cfg, rcfg = _mip_renderer_cfgs(importance, **kw)
+    _reset()
+    tm = instantiate(model_cfg, device="cpu")
+    load_jax_params(tm, group(recorded(MODULE, "mip_renderer"), "weights/"))
     tr = instantiate(dict(rcfg, model=tm, device="cpu"))
     assert tr.blur_idx is None and tr.blur_idx_mip == 0
-    return jr, tr
+    return tr
 
 
 def _rays(n_rays=12, seed=6):
@@ -331,9 +391,9 @@ def test_mip_renderer_eval_render_matches_jax(importance):
     the JAX MipRenderer under one key; with mip_importance the
     deterministic resample of an eval render (det = not training).
     Measured: within 2.4e-7."""
-    jr, tr = _mip_renderer_pair(importance)
+    tr = _mip_renderer(importance)
     data = _rays()
-    want = jr(**data, training=False, key=jax.random.key(7))
+    want = recorded(MODULE, f"test_mip_renderer_eval_render_matches_jax[{importance}]")
     got = tr(**data, training=False, key=jax_rng.key(7))
     assert set(got) == set(want)
     for k in want:
@@ -342,24 +402,34 @@ def test_mip_renderer_eval_render_matches_jax(importance):
     assert np.all(got["alpha_pred"].numpy()[0, :3] == 0)
 
 
+def _jax_eval_render(importance):
+    want = _jax_mip_renderer(importance)(**_rays(), training=False, key=jax.random.key(7))
+    return {k: np.asarray(v) for k, v in want.items()}
+
+
 def test_mip_renderer_refuses_importance_without_opt_in():
-    _, tr = _mip_renderer_pair(n_importance=16)
+    tr = _mip_renderer(n_importance=16)
     with pytest.raises(NotImplementedError):
         tr(**_rays(), key=jax_rng.key(0))
 
 
-@pytest.mark.parametrize("importance", [False, True])
-def test_mip_training_finite_with_miss_rays(importance):
-    """Proxy-missing rays (t = inf, zeroed to mu = hw = 0) leave the loss
-    and every gradient finite, and the step is JAX's (tests/
-    test_more_paths.py's regression, here against the same step in JAX)."""
-    jr, tr = _mip_renderer_pair(importance, raw_noise_std=0.1)
-    loss_cfg = importlib.import_module("configs.demo_grass_mip_train").config["loss_config"]
-    jl, tl = jax_util.instantiate(jax_util.EasyDict(loss_cfg)), instantiate(loss_cfg)
+_MIP_LOSS = importlib.import_module("configs.demo_grass_mip_train").config["loss_config"]
+
+
+def _miss_batch():
     data = _rays(16, seed=8)
     rs = np.random.RandomState(9)
     data["color"] = rs.rand(1, 16, 3).astype(np.float32)
     data["alpha"] = (rs.rand(1, 16) > 0.4).astype(np.float32)
+    return data
+
+
+def _jax_miss_step(importance):
+    """JAX's training loss on _miss_batch() under key(3) and its gradient
+    of trunk/0/w."""
+    jr = _jax_mip_renderer(importance, raw_noise_std=0.1)
+    jl = jax_util.instantiate(jax_util.EasyDict(_MIP_LOSS))
+    data = _miss_batch()
 
     def loss_of(params):
         pred = jr.apply(params, {k: jnp.asarray(v) for k, v in data.items()},
@@ -367,6 +437,20 @@ def test_mip_training_finite_with_miss_rays(importance):
         return jl(color_true=data["color"], alpha_true=data["alpha"], **pred)
 
     jloss, jgrad = jax.jit(jax.value_and_grad(loss_of))({"model": jr.model.params})
+    return {"loss": np.asarray(jloss),
+            "grad/trunk/0/w": np.asarray(jgrad["model"]["trunk"][0]["w"])}
+
+
+@pytest.mark.parametrize("importance", [False, True])
+def test_mip_training_finite_with_miss_rays(importance):
+    """Proxy-missing rays (t = inf, zeroed to mu = hw = 0) leave the loss
+    and every gradient finite, and the step is JAX's (tests/
+    test_more_paths.py's regression, here against the same step in JAX)."""
+    tr = _mip_renderer(importance, raw_noise_std=0.1)
+    tl = instantiate(_MIP_LOSS)
+    data = _miss_batch()
+    want = recorded(MODULE, f"test_mip_training_finite_with_miss_rays[{importance}]")
+    jloss = want["loss"]
     tb = {k: torch.as_tensor(v) for k, v in data.items()}
     pred = tr.apply(tb, jax_rng.key(3), training=True)
     loss = tl(color_true=tb["color"], alpha_true=tb["alpha"], **pred)
@@ -376,7 +460,7 @@ def test_mip_training_finite_with_miss_rays(importance):
     assert all(torch.isfinite(g).all() for g in grads)
     # tests/test_torch_train.py's one-step pins: 1e-6 relative loss.
     np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=1e-6)
-    want = np.asarray(jgrad["model"]["trunk"][0]["w"])
+    want = want["grad/trunk/0/w"]
     np.testing.assert_allclose(tr.model.trunk[0].weight.grad.numpy().T, want, rtol=0,
                                atol=1e-5 * np.abs(want).max())
 
@@ -397,27 +481,47 @@ def _render_cfg(size=None):
     return cfg
 
 
+def _mip_instance_setup():
+    """The cut demo_grass_mip_render config at 24x24 and its renderer
+    config with 64-ray blocks and max_hits 32."""
+    cfg = _render_cfg(size=H)
+    rcfg = dict(cfg["renderer_config"], render_chunk=4096, net_chunk=8192)
+    rcfg["instancer_config"] = dict(rcfg["instancer_config"], ray_block=64, max_hits=32)
+    return cfg, rcfg
+
+
+def _jax_mip_instance_frame():
+    """The test dataset's last item, the JAX model's weights and the JAX
+    sorted MipInstanceRenderer's frame of it under key(1)."""
+    cfg, rcfg = _mip_instance_setup()
+    jax_streams.set_seed(0)
+    data = list(jax_util.instantiate(jax_util.EasyDict(cfg["test_dataset_config"])))[-1]
+    _reset()
+    jm = jax_util.instantiate(jax_util.EasyDict(cfg["model_config"]))["model"]
+    jr = jax_util.instantiate(jax_util.EasyDict(dict(rcfg, model=jm)))
+    want = jr(**data, training=False, key=jax.random.key(1))
+    return {**{f"data/{k}": np.asarray(v) for k, v in data.items()},
+            **{f"weights/{k}": v for k, v in flatten_params(
+                jax.tree.map(np.asarray, jm.params)).items()},
+            "color": np.asarray(want["color_pred"]), "alpha": np.asarray(want["alpha_pred"])}
+
+
 def test_mip_instance_frame_matches_jax():
     """The demo_grass_mip_render test dataset's last item (radius 5) at
     24x24 with 64-ray blocks and max_hits 32 (both sides drop the same
     intervals), the same key and weights: the JAX sorted
     MipInstanceRenderer against the port's.  tests/test_torch_main.py's
     float32 frame gates; measured 142.2 dB, max error 8.0e-7."""
-    cfg = _render_cfg(size=H)
-    jax_streams.set_seed(0)
-    data = list(jax_util.instantiate(jax_util.EasyDict(cfg["test_dataset_config"])))[-1]
+    cfg, rcfg = _mip_instance_setup()
+    want = recorded(MODULE, "test_mip_instance_frame_matches_jax")
+    data = group(want, "data/")
     _reset()
-    jm = jax_util.instantiate(jax_util.EasyDict(cfg["model_config"]))["model"]
     tm = instantiate(cfg["model_config"], device="cpu")
-    load_jax_params(tm, jax.tree.map(np.asarray, jm.params))
-    rcfg = dict(cfg["renderer_config"], render_chunk=4096, net_chunk=8192)
-    rcfg["instancer_config"] = dict(rcfg["instancer_config"], ray_block=64, max_hits=32)
-    jr = jax_util.instantiate(jax_util.EasyDict(dict(rcfg, model=jm)))
+    load_jax_params(tm, group(want, "weights/"))
     tr = instantiate(dict(rcfg, model=tm, device="cpu"))
     assert tr.blur_idx is None and tr.blur_idx_mip == 0
-    want = jr(**data, training=False, key=jax.random.key(1))
     got = tr(**data, key=jax_rng.key(1))
-    c_j, a_j = np.asarray(want["color_pred"]), np.asarray(want["alpha_pred"])
+    c_j, a_j = want["color"], want["alpha"]
     c_t, a_t = got["color_pred"].numpy(), got["alpha_pred"].numpy()
     assert c_t.shape == c_j.shape == (1, H * W, 3)
     assert a_j.max() > 0.3 and (a_j > 0.05).mean() > 0.1
@@ -512,3 +616,17 @@ def test_main_trains_and_renders_the_mip_demo_without_jax(tmp_path):
     assert any("Restored model from " in line and "ckpt-3.pkl" in line for line in lines), lines
     names = sorted(os.listdir(logs / "media" / "test"))
     assert names == [f"{i}.png" for i in range(5)]
+
+
+JAX_CASES = {
+    **{f"test_param_nerf_n_pos6_matches_jax_apply[extra{i}]": (lambda e=e: _jax_n_pos6(e))
+       for i, e in enumerate(N_POS6_EXTRAS)},
+    "mip_renderer": _jax_mip_weights,
+    **{f"test_mip_renderer_eval_render_matches_jax[{imp}]": (lambda imp=imp: _jax_eval_render(imp))
+       for imp in (False, True)},
+    **{f"test_mip_training_finite_with_miss_rays[{imp}]": (lambda imp=imp: _jax_miss_step(imp))
+       for imp in (False, True)},
+    **{f"test_train_through_main_matches_jax_losses[{v}]": (lambda v=v: _jax_train(v))
+       for v in ("plain", "importance", "device_resident")},
+    "test_mip_instance_frame_matches_jax": _jax_mip_instance_frame,
+}

@@ -3,6 +3,9 @@ same transplanted weights: FourierFeatures, ParamNerf (plain forward, f32
 and bf16) and Nerf, the fused MLP's plain version against the Pallas kernel
 in interpret mode, and the weight transplant."""
 
+import os
+import sys
+
 import jax
 import numpy as np
 import pytest
@@ -18,6 +21,13 @@ from nerftex_torch.models.encodings import FourierFeatures
 from nerftex_torch.render.checkpoint import flatten_params, load_jax_params
 from nerftex_torch.utils.util import instantiate
 
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from _jax_reference import group, recorded  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
+
+TESTS = os.path.dirname(os.path.abspath(__file__))
+MODULE = "test_torch_models"
+
 
 def _cfg(n_pos_bands=10, n_dir_bands=4, n_param_bands=4, **kw):
     def ff(n):
@@ -30,15 +40,48 @@ def _cfg(n_pos_bands=10, n_dir_bands=4, n_param_bands=4, **kw):
     return cfg
 
 
-def _pair(**kw):
-    """(JAX model, port ParamNerf with the JAX weights) from one config."""
+def _jax_model(**kw):
     rng.set_seed(0)
     jax_mlp._INIT_COUNTER[0] = 0
-    cfg = _cfg(**kw)
-    jm = jax_util.instantiate(jax_util.EasyDict(cfg))["model"]
-    tm = instantiate(cfg, device="cpu")
-    load_jax_params(tm, jax.tree.map(np.asarray, jm.params))
-    return jm, tm
+    return jax_util.instantiate(jax_util.EasyDict(_cfg(**kw)))["model"]
+
+
+def _port_model(weights, **kw):
+    """The port's ParamNerf of ``_cfg(**kw)`` with the given JAX weights."""
+    tm = instantiate(_cfg(**kw), device="cpu")
+    load_jax_params(tm, weights)
+    return tm
+
+
+def _pair(**kw):
+    """(JAX model, port ParamNerf with the JAX weights) from one config."""
+    jm = _jax_model(**kw)
+    return jm, _port_model(jax.tree.map(np.asarray, jm.params), **kw)
+
+
+def _input_weights(scene):
+    """The full-width seed-0 weights of tests/torch_<scene>_inputs.npz."""
+    return group(dict(np.load(os.path.join(TESTS, f"torch_{scene}_inputs.npz"))), "param/")
+
+
+def _jax_pallas(kw, n_prm, seed, weights_from=None):
+    """The Pallas kernel's output in interpret mode on _inputs(200) with the
+    JAX init's weights of ``_cfg(**kw)``: recorded with those weights, or
+    checked equal to tests/torch_<weights_from>_inputs.npz's."""
+    jm = _jax_model(**kw)
+    flat = flatten_params(jax.tree.map(np.asarray, jm.params))
+    out = {}
+    if weights_from is None:
+        out.update({f"weights/{k}": v for k, v in flat.items()})
+    else:
+        stored = _input_weights(weights_from)
+        assert set(stored) == set(flat), weights_from
+        for k, v in flat.items():
+            np.testing.assert_array_equal(stored[k], v, err_msg=f"{weights_from} {k}")
+    pos, dirs, prm = _inputs(200, n_prm=n_prm, seed=seed)
+    pallas = make_fused_apply(jm.static_topology, interpret=True, tile=128)
+    c_j, d_j = (np.asarray(v) for v in pallas(jm.params, pos, dirs, prm))
+    return {**out, "color": c_j, "density": d_j}
 
 
 def _inputs(n, n_prm=7, seed=0):
@@ -103,20 +146,23 @@ def test_param_nerf_bf16_forward_matches_jax():
     np.testing.assert_allclose(d_t.numpy(), d_j, rtol=0, atol=3 * 2**-8 * scale)
 
 
+GEO_ONLY = dict(n_pos_bands=4, n_dir_bands=2, n_param_bands=2, n_parameters=[2, 0],
+                param_depth=1, depth=3, width=64, skips=[1], color_depth=2)
+
+
 @pytest.mark.parametrize("variant", ["carpet_width", "param_mlp_geo_only"])
 def test_fused_plain_matches_pallas_interpret(variant):
     """The fused kernel's plain version against the Pallas kernel run in
     interpret mode (as tests/test_pallas_mlp.py runs it)."""
+    want = recorded(MODULE, f"test_fused_plain_matches_pallas_interpret[{variant}]")
     if variant == "carpet_width":
-        jm, tm = _pair()
+        tm = _port_model(_input_weights("bench"))
         n_prm = 7
     else:
-        jm, tm = _pair(n_pos_bands=4, n_dir_bands=2, n_param_bands=2, n_parameters=[2, 0],
-                       param_depth=1, depth=3, width=64, skips=[1], color_depth=2)
+        tm = _port_model(group(want, "weights/"), **GEO_ONLY)
         n_prm = 2
     pos, dirs, prm = _inputs(200, n_prm=n_prm, seed=5)
-    pallas = make_fused_apply(jm.static_topology, interpret=True, tile=128)
-    c_j, d_j = (np.asarray(v) for v in pallas(jm.params, pos, dirs, prm))
+    c_j, d_j = want["color"], want["density"]
     c_t, d_t = tm.infer(torch.tensor(pos), torch.tensor(dirs), torch.tensor(prm))
     np.testing.assert_allclose(c_t.numpy(), c_j, rtol=0, atol=1e-5)
     np.testing.assert_allclose(d_t.numpy(), d_j, rtol=0, atol=1e-5)
@@ -271,12 +317,11 @@ def test_tf32x3_rehearsal_matches_pallas_interpret(topology):
     on the CPU at the full 8x256 width, against the Pallas kernel in
     interpret mode at chip_smoke.py's f32 tolerance; single-pass TF32 on
     the same image misses it."""
-    jm, tm = _pair(**TOPOLOGIES[topology])
+    want = recorded(MODULE, f"test_tf32x3_rehearsal_matches_pallas_interpret[{topology}]")
+    tm = _port_model(_input_weights(topology), **TOPOLOGIES[topology])
     n_prm = sum(TOPOLOGIES[topology]["n_parameters"])
     pos, dirs, prm = _inputs(200, n_prm=n_prm, seed=11)
-    pallas = make_fused_apply(jm.static_topology, interpret=True, tile=128)
-    c_j, d_j = (np.asarray(v) for v in pallas(jm.params, pos, dirs, prm))
-    ref = np.concatenate([c_j, d_j], -1)
+    ref = np.concatenate([want["color"], want["density"]], -1)
     pos_map, dir_map = tm.feature_maps(torch.tensor(pos), torch.tensor(dirs), torch.tensor(prm))
     packed = tm.packed()
     got = _tf32x3_chain(packed, pos_map.numpy(), dir_map.numpy())
@@ -319,3 +364,16 @@ def test_nerf_matches_jax():
     c_i, d_i = tm.infer(*args)
     for got, want in ((c_f, c_j), (d_f, d_j), (c_i, c_j), (d_i, d_j)):
         np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
+
+
+JAX_CASES = {
+    "test_fused_plain_matches_pallas_interpret[carpet_width]":
+        lambda: _jax_pallas({}, 7, 5, weights_from="bench"),
+    "test_fused_plain_matches_pallas_interpret[param_mlp_geo_only]":
+        lambda: _jax_pallas(GEO_ONLY, 2, 5),
+    **{f"test_tf32x3_rehearsal_matches_pallas_interpret[{topology}]":
+       (lambda topology=topology: _jax_pallas(TOPOLOGIES[topology],
+                                              sum(TOPOLOGIES[topology]["n_parameters"]), 11,
+                                              weights_from=topology))
+       for topology in TOPOLOGIES},
+}

@@ -68,7 +68,12 @@ from nerftex_torch.render.renderer import MipRenderer, Renderer
 from nerftex_torch.utils import jax_rng, rng
 from nerftex_torch.utils.util import instantiate
 
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from _jax_reference import group, recorded  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MODULE = "test_torch_parallel"
 WORKER = os.path.join(ROOT, "tests", "_torch_parallel_worker.py")
 RANK_TIMEOUT_S = 120
 LOSS_RTOL = 1e-5     # tests/test_parallel.py:79
@@ -174,22 +179,22 @@ def _check_step(outs, want_loss, want_params, prefix="", rtol=LOSS_RTOL, atol=AT
 # -- the dp step and the single writer (one spawn) ------------------------------------
 
 
-@pytest.fixture(scope="module")
-def jax_steps():
-    """The model's weights, the batch, and JAX's single step and its
-    8-way dp and (2, 2) dp x tp sharded steps on them, key(7): (weights,
-    batch, {"single" | "dp" | "tp": (loss, parameters)}, the tp step's
-    blocks {(model rank, parameter name): block in nn.Linear's layout})."""
+def _jax_steps():
+    """The model's weights, and JAX's single step and its 8-way dp and
+    (2, 2) dp x tp sharded steps on _batch(), key(7): "weights/<leaf>",
+    "<single | dp | tp>/loss", "<single | dp | tp>/param/<leaf>", and the
+    tp step's blocks "block/<model rank>/<parameter name>" in nn.Linear's
+    layout."""
     model, renderer, loss_fn, optimizer = _jax_setup()
     params = {"model": model.params}
-    weights = _flat(params)  # before the sharded steps donate their buffers
+    out = {f"weights/{k}": v for k, v in _flat(params).items()}  # before the steps donate
     batch = _batch()
     key = jax.random.key(7)
     single = make_train_step(renderer, loss_fn, optimizer, False, [1, 1, 1.0], donate=False)
     p1, _, loss1 = single(params, optimizer.init(params),
                           {k: jnp.asarray(v) for k, v in batch.items()}, key)
-    want = {"single": (float(loss1), _flat(p1))}
-    blocks = {}
+    out["single/loss"] = np.asarray(loss1, np.float32)
+    out.update({f"single/param/{k}": v for k, v in _flat(p1).items()})
     for name, shape in (("dp", (8, 1)), ("tp", (2, 2))):
         mesh = jax_make_mesh(shape[0] * shape[1], shape=shape)
         step, place_params, place_batch = jax_dp(renderer, loss_fn, optimizer, mesh, False,
@@ -197,15 +202,34 @@ def jax_steps():
                                                  shard_model=name == "tp")
         placed = place_params(params)
         p2, _, loss2 = step(placed, optimizer.init(placed), place_batch(batch), key)
-        want[name] = (float(loss2), _flat(p2))
+        out[f"{name}/loss"] = np.asarray(loss2, np.float32)
+        out.update({f"{name}/param/{k}": v for k, v in _flat(p2).items()})
     for m in range(2):
         device = mesh.devices[0, m]
         for i, layer in enumerate(p2["model"]["trunk"]):
             for leaf, pname in (("w", f"trunk.{i}.weight"), ("b", f"trunk.{i}.bias")):
                 shard = next(s for s in layer[leaf].addressable_shards if s.device == device)
                 block = np.asarray(shard.data)
-                blocks[(m, pname)] = block.T if leaf == "w" else block
-    return weights, batch, want, blocks
+                out[f"block/{m}/{pname}"] = block.T if leaf == "w" else block
+    return out
+
+
+def _steps_of(want, names):
+    return {name: (float(want[f"{name}/loss"]), group(want, f"{name}/param/")) for name in names}
+
+
+@pytest.fixture(scope="module")
+def jax_steps():
+    """The model's weights, the batch, and JAX's single step and its
+    8-way dp and (2, 2) dp x tp sharded steps on them, key(7) (recorded):
+    (weights, batch, {"single" | "dp" | "tp": (loss, parameters)}, the tp
+    step's blocks {(model rank, parameter name): block in nn.Linear's
+    layout})."""
+    want = recorded(MODULE, "jax_steps")
+    blocks = {(int(k.split("/")[0]), k.split("/")[1]): v
+              for k, v in group(want, "block/").items()}
+    return (group(want, "weights/"), _batch(), _steps_of(want, ("single", "dp", "tp")),
+            blocks)
 
 
 @pytest.fixture(scope="module")
@@ -241,20 +265,12 @@ def test_single_writer_checkpoint(dp_run):
 # -- the fused dp step ------------------------------------------------------------------
 
 
-@pytest.fixture(scope="module")
-def fused_jax():
-    """tests/test_parallel.py's fused setup (four 16 x 16 records), and
-    JAX's make_parallel_fused_train_step on it, one step under the
-    streams' keys at step 0, on the 8-way dp mesh and on the (2, 2) mesh
-    with shard_model: (the port's inputs, {"dp" | "tp": (loss,
-    parameters)})."""
+def _fused_records():
+    """tests/test_parallel.py's fused setup: four 16 x 16 records, their
+    size and focal."""
     from math import tan
 
-    from nerftex_tpu.data.dataset import ListSource, look_at_np
-    from nerftex_tpu.data.device_dataset import DeviceResidentSampler
-    from nerftex_tpu.data.pixel_sampler import Proxy as ProxyPixels
-    from nerftex_tpu.data.ray_sampler import Proxy as ProxyRays
-    from nerftex_tpu.ops.proxy import AABB
+    from nerftex_tpu.data.dataset import look_at_np
 
     rs = np.random.RandomState(5)
     size, angle = 16, 0.63
@@ -267,6 +283,21 @@ def fused_jax():
                         "alpha": rs.rand(size, size).astype(np.float32),
                         "pose": look_at_np(direction / np.linalg.norm(direction) * 5.0),
                         "parameters": rs.rand(7).astype(np.float32)})
+    return records, size, focal
+
+
+def _jax_fused():
+    """JAX's make_parallel_fused_train_step on _fused_records(), one step
+    under the streams' keys at step 0, on the 8-way dp mesh and on the
+    (2, 2) mesh with shard_model: "weights/<leaf>", "<dp | tp>/loss" and
+    "<dp | tp>/param/<leaf>"."""
+    from nerftex_tpu.data.dataset import ListSource
+    from nerftex_tpu.data.device_dataset import DeviceResidentSampler
+    from nerftex_tpu.data.pixel_sampler import Proxy as ProxyPixels
+    from nerftex_tpu.data.ray_sampler import Proxy as ProxyRays
+    from nerftex_tpu.ops.proxy import AABB
+
+    records, size, focal = _fused_records()
     proxy = AABB([-1.5, -1.3, -0.2], [1.3, 1.3, 1.9])
     sampler = DeviceResidentSampler(
         ListSource(records),
@@ -275,7 +306,7 @@ def fused_jax():
         ProxyRays(height=size, width=size, focal=focal, proxy=proxy),
         batchsize=2, height=size, width=size, focal=focal, composite_bkgd=False,
         bkgd_color=[1, 1, 1.0])
-    want = {}
+    out = {}
     for name, shape in (("dp", (8, 1)), ("tp", (2, 2))):
         model, renderer, loss_fn, optimizer = _jax_setup()
         params = {"model": model.params}
@@ -288,13 +319,26 @@ def fused_jax():
         data_key = jax.random.fold_in(jax_streams.stream_key(jax_streams.STREAM_DATA), 0)
         key = jax.random.fold_in(jax_streams.stream_key(jax_streams.STREAM_PERTURB), 0)
         p2, _, loss2 = step(placed, optimizer.init(placed), place_tables(), data_key, key)
-        want[name] = (float(loss2), _flat(p2))
+        out[f"{name}/loss"] = np.asarray(loss2, np.float32)
+        out.update({f"{name}/param/{k}": v for k, v in _flat(p2).items()})
+    out.update({f"weights/{k}": v for k, v in weights.items()})
+    return out
 
+
+@pytest.fixture(scope="module")
+def fused_jax():
+    """tests/test_parallel.py's fused setup (four 16 x 16 records), and
+    JAX's make_parallel_fused_train_step on it (recorded), one step under
+    the streams' keys at step 0, on the 8-way dp mesh and on the (2, 2)
+    mesh with shard_model: (the port's inputs, {"dp" | "tp": (loss,
+    parameters)})."""
+    records, size, focal = _fused_records()
+    want = recorded(MODULE, "fused_jax")
     inputs = {"size": np.int64(size), "focal": np.float64(focal),
-              **{f"param/{k}": v for k, v in weights.items()},
+              **{f"param/{k}": v for k, v in group(want, "weights/").items()},
               **{name: np.stack([np.asarray(r[name], np.float32) for r in records])
                  for name in ("image", "alpha", "pose", "parameters")}}
-    return inputs, want
+    return inputs, _steps_of(want, ("dp", "tp"))
 
 
 def test_fused_dp_step_matches_jax(tmp_path, fused_jax):
@@ -429,22 +473,38 @@ def _instanced_rays(n=128):
     )
 
 
-@pytest.fixture(scope="module")
-def render_run(tmp_path_factory):
+def _render_data():
+    plain_data = {k: v for k, v in _batch().items() if k not in ("color", "alpha")}
+    return plain_data, _instanced_rays()
+
+
+def _jax_renders():
+    """The model's weights, and JAX's unsharded and 8-way sharded renders
+    of the plain and compact renderers under key(0):
+    "<plain | compact>/<jax | jax_sharded>/<output>"."""
     model, plain, _, _ = _jax_setup(render_chunk=CHUNKS["plain"])
     mesh = jax_make_mesh(8, shape=(8, 1))
-    plain_data = {k: v for k, v in _batch().items() if k not in ("color", "alpha")}
-    inst_data = _instanced_rays()
+    plain_data, inst_data = _render_data()
     compact = _instanced_jax(model, render_chunk=CHUNKS["compact"], sample_budget_per_ray=16)
-    want = {}
+    out = {f"weights/{k}": v for k, v in _flat({"model": model.params}).items()}
     for name, renderer, data in (("plain", plain, plain_data), ("compact", compact, inst_data)):
         key = jax.random.key(0)
         ref = renderer(**data, training=False, key=key)
         sharded = jax_shard_render(renderer, mesh)(**data, training=False, key=key)
-        want[name] = {side: {k: np.asarray(v) for k, v in out.items() if not k.startswith("_")}
-                      for side, out in (("jax", ref), ("jax_sharded", sharded))}
+        for side, res in (("jax", ref), ("jax_sharded", sharded)):
+            out.update({f"{name}/{side}/{k}": np.asarray(v) for k, v in res.items()
+                        if not k.startswith("_")})
+    return out
+
+
+@pytest.fixture(scope="module")
+def render_run(tmp_path_factory):
+    recording = recorded(MODULE, "render_run")
+    want = {name: {side: group(recording, f"{name}/{side}/") for side in ("jax", "jax_sharded")}
+            for name in ("plain", "compact")}
     assert want["compact"]["jax"]["alpha_pred"].max() > 0, "the scene must be hit"
-    inputs = {**{f"param/{k}": v for k, v in _flat({"model": model.params}).items()},
+    plain_data, inst_data = _render_data()
+    inputs = {**{f"param/{k}": v for k, v in group(recording, "weights/").items()},
               **{f"plain/{k}": v for k, v in plain_data.items()},
               **{f"instanced/{k}": v for k, v in inst_data.items()},
               **{f"{name}_chunk": np.int64(c) for name, c in CHUNKS.items()}}
@@ -538,9 +598,40 @@ def test_model_shardings_match_jax():
     assert {k: v.spec for k, v in flat.items()} == {"flat": ()}
 
 
-@pytest.mark.parametrize("config,tp", [("config_carpet_train", 2), ("config_carpet_train", 4),
-                                       ("config_grass_filtered_train", 2),
-                                       ("demo_grass_mip_train", 2)])
+SHARDING_CASES = [("config_carpet_train", 2), ("config_carpet_train", 4),
+                  ("config_grass_filtered_train", 2), ("demo_grass_mip_train", 2)]
+
+
+def _full_width_cfg(config):
+    import importlib
+
+    cfg = dict(importlib.import_module(f"configs.{config}").config["model_config"])
+    cfg.setdefault("n_parameters", {"config_carpet_train": [1, 6],
+                                    "config_grass_filtered_train": [2, 3]}.get(config))
+    return cfg
+
+
+def _jax_placement(config, tp):
+    """JAX's device_put of the config's full-width model under
+    model_shardings on a (2, tp) mesh: the trunk's w shapes, and the
+    ValueError it raised ("" if it placed the model)."""
+    from nerftex_tpu.parallel.mesh import model_shardings as jax_model_shardings
+
+    jax_streams.set_seed(0)
+    jax_mlp._INIT_COUNTER[0] = 0
+    params = {"model": jax_util.instantiate(jax_util.EasyDict(_full_width_cfg(config)))["model"]
+              .params}
+    shapes = [tuple(layer["w"].shape) for layer in params["model"]["trunk"]]
+    try:
+        jax.device_put(params, jax_model_shardings(params, jax_make_mesh(2 * tp,
+                                                                         shape=(2, tp))))
+        jax_error = ""
+    except ValueError as e:
+        jax_error = str(e)
+    return {"shapes": np.array(shapes), "error": np.array(jax_error)}
+
+
+@pytest.mark.parametrize("config,tp", SHARDING_CASES)
 def test_model_shardings_refuse_what_jax_refuses(config, tp):
     """A shipped train config's full-width model at tp 2 or 4: JAX's
     device_put under model_shardings and the port's model_shardings both
@@ -548,24 +639,10 @@ def test_model_shardings_refuse_what_jax_refuses(config, tp):
     [328, 256] places at tp 2 and 4, grass_filtered [337, 256] and mip
     [325, 256] do not at tp 2), the port's naming the layer and the
     dimension."""
-    import importlib
-
-    from nerftex_tpu.parallel.mesh import model_shardings as jax_model_shardings
-
-    cfg = dict(importlib.import_module(f"configs.{config}").config["model_config"])
-    cfg.setdefault("n_parameters", {"config_carpet_train": [1, 6],
-                                    "config_grass_filtered_train": [2, 3]}.get(config))
-    jax_streams.set_seed(0)
-    jax_mlp._INIT_COUNTER[0] = 0
-    params = {"model": jax_util.instantiate(jax_util.EasyDict(cfg))["model"].params}
-    shapes = [tuple(layer["w"].shape) for layer in params["model"]["trunk"]]
-    try:
-        jax.device_put(params, jax_model_shardings(params, jax_make_mesh(2 * tp,
-                                                                         shape=(2, tp))))
-        jax_error = None
-    except ValueError as e:
-        jax_error = e
-    port = _port_model(cfg)
+    want = recorded(MODULE, f"test_model_shardings_refuse_what_jax_refuses[{config}-{tp}]")
+    shapes = [tuple(int(n) for n in s) for s in want["shapes"]]
+    jax_error = str(want["error"]) or None
+    port = _port_model(_full_width_cfg(config))
     mesh = Mesh(0, 2 * tp, "cpu", tp=tp)
     if jax_error is None:
         specs = parallel.model_shardings({"model": port}, mesh)["model"]
@@ -619,3 +696,12 @@ def test_refusals():
     with pytest.raises(ValueError, match="trunk layer 5 .* dimension of 337 "):
         parallel.make_parallel_fused_train_step(renderer, loss_fn, None, None, tp_mesh, False,
                                                 [1, 1, 1.0], grass, shard_model=True)
+
+
+JAX_CASES = {
+    "jax_steps": _jax_steps,
+    "fused_jax": _jax_fused,
+    "render_run": _jax_renders,
+    **{f"test_model_shardings_refuse_what_jax_refuses[{config}-{tp}]":
+       (lambda config=config, tp=tp: _jax_placement(config, tp)) for config, tp in SHARDING_CASES},
+}

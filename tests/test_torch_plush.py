@@ -9,6 +9,7 @@ accepts and ignores)."""
 import importlib
 import math
 import os
+import sys
 
 import jax
 import numpy as np
@@ -18,11 +19,16 @@ import nerftex_tpu.models.mlp as jax_mlp
 from nerftex_tpu.utils import rng
 from nerftex_tpu.utils import util as jax_util
 from nerftex_torch.ops.rays import frame_rays
-from nerftex_torch.render.checkpoint import load_jax_params
+from nerftex_torch.render.checkpoint import flatten_params, load_jax_params
 from nerftex_torch.utils import jax_rng, trace
 from nerftex_torch.utils.util import instantiate
 
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from _jax_reference import group, recorded  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MODULE = "test_torch_plush"
 INPUTS = os.path.join(ROOT, "tests", "torch_plush_inputs.npz")
 H = W = 24
 PROXY = ((-0.9, -0.6, -0.8), (0.9, 0.8, 0.9))
@@ -76,17 +82,27 @@ def _renderer_cfg(pallas_selk):
     }
 
 
-@pytest.fixture(scope="module")
-def frame():
+def _jax_frame():
+    """A narrow ParamNerf's JAX weights and the JAX frame of the rays with
+    key(1)."""
     data = _rays(H, W)
     rng.set_seed(0)
     jax_mlp._INIT_COUNTER[0] = 0
     jm = jax_util.instantiate(jax_util.EasyDict(_model_cfg()))["model"]
-    tm = instantiate(_model_cfg(), device="cpu")
-    load_jax_params(tm, jax.tree.map(np.asarray, jm.params))
     jr = jax_util.instantiate(jax_util.EasyDict(dict(_renderer_cfg(False), model=jm)))
     out = jr(**data, training=False, key=jax.random.key(1))
-    return data, tm, (np.asarray(out["color_pred"]), np.asarray(out["alpha_pred"]))
+    return {**{f"weights/{k}": v for k, v in flatten_params(
+                jax.tree.map(np.asarray, jm.params)).items()},
+            "color": np.asarray(out["color_pred"]), "alpha": np.asarray(out["alpha_pred"])}
+
+
+@pytest.fixture(scope="module")
+def frame():
+    data = _rays(H, W)
+    want = recorded(MODULE, "frame")
+    tm = instantiate(_model_cfg(), device="cpu")
+    load_jax_params(tm, group(want, "weights/"))
+    return data, tm, (want["color"], want["alpha"])
 
 
 def test_plush_frame_matches_jax_with_the_same_key(frame):
@@ -109,3 +125,6 @@ def test_plush_frame_matches_jax_with_the_same_key(frame):
     assert 10 * np.log10(1 / mse) >= 60
     assert np.mean(err > 1e-3) <= 0.02
     assert err.max() <= 3e-2
+
+
+JAX_CASES = {"frame": _jax_frame}

@@ -4,6 +4,7 @@ rays, the carpet scene, a narrow ParamNerf with the same weights, once with
 deterministic offsets and once with the offsets JAX draws for the same key."""
 
 import os
+import sys
 
 import jax
 import numpy as np
@@ -12,12 +13,17 @@ import pytest
 import nerftex_tpu.models.mlp as jax_mlp
 from nerftex_tpu.utils import rng
 from nerftex_tpu.utils import util as jax_util
-from nerftex_torch.render.checkpoint import load_jax_params
+from nerftex_torch.render.checkpoint import flatten_params, load_jax_params
 from nerftex_torch.ops.rays import frame_rays
 from nerftex_torch.utils import jax_rng
 from nerftex_torch.utils.util import instantiate
 
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from _jax_reference import group, recorded  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MODULE = "test_torch_render"
 
 H = W = 24
 RAY_BLOCK, RENDER_CHUNK = 64, 512
@@ -53,22 +59,40 @@ def _renderer_cfg(deterministic, sorted_blocks=True):
     }
 
 
-@pytest.fixture(scope="module")
-def frame():
-    data = frame_rays(H, W, np.array([0.47, -0.65, 0.6]) * 6.0, 0.55,
-                      [1, 1, 1, 0.1, 0, 0, 1.0])
+def _frame_rays():
+    return frame_rays(H, W, np.array([0.47, -0.65, 0.6]) * 6.0, 0.55, [1, 1, 1, 0.1, 0, 0, 1.0])
+
+
+def _jax_model():
     rng.set_seed(0)
     jax_mlp._INIT_COUNTER[0] = 0
-    jm = jax_util.instantiate(jax_util.EasyDict(_model_cfg()))["model"]
+    return jax_util.instantiate(jax_util.EasyDict(_model_cfg()))["model"]
+
+
+def _jax_weights():
+    return {f"weights/{k}": v
+            for k, v in flatten_params(jax.tree.map(np.asarray, _jax_model().params)).items()}
+
+
+@pytest.fixture(scope="module")
+def frame():
+    data = _frame_rays()
     tm = instantiate(_model_cfg(), device="cpu")
-    load_jax_params(tm, jax.tree.map(np.asarray, jm.params))
-    return data, jm, tm
+    load_jax_params(tm, group(recorded(MODULE, "frame"), "weights/"))
+    return data, tm
 
 
-def _jax_render(data, jm, deterministic, key):
-    r = jax_util.instantiate(jax_util.EasyDict(dict(_renderer_cfg(deterministic), model=jm)))
-    out = r(**data, training=False, key=key)
-    return np.asarray(out["color_pred"]), np.asarray(out["alpha_pred"])
+def _jax_render(deterministic, key):
+    """The JAX sorted InstanceRenderer's frame of the rays under key(key)."""
+    r = jax_util.instantiate(jax_util.EasyDict(dict(_renderer_cfg(deterministic),
+                                                    model=_jax_model())))
+    out = r(**_frame_rays(), training=False, key=jax.random.key(key))
+    return {"color": np.asarray(out["color_pred"]), "alpha": np.asarray(out["alpha_pred"])}
+
+
+def _recorded_render(case):
+    want = recorded(MODULE, case)
+    return want["color"], want["alpha"]
 
 
 def _torch_render(data, tm, deterministic, sorted_blocks=True, **kw):
@@ -95,20 +119,20 @@ def _compare(got, want):
 
 
 def test_frame_matches_jax_deterministic_offsets(frame):
-    data, jm, tm = frame
-    want = _jax_render(data, jm, True, jax.random.key(0))
+    data, tm = frame
+    want = _recorded_render("test_frame_matches_jax_deterministic_offsets")
     _compare(_torch_render(data, tm, True), want)
 
 
 def test_frame_matches_jax_with_injected_offsets(frame):
     """The port draws JAX's per-ray offsets from the same key."""
-    data, jm, tm = frame
-    want = _jax_render(data, jm, False, jax.random.key(1))
+    data, tm = frame
+    want = _recorded_render("test_frame_matches_jax_with_injected_offsets")
     _compare(_torch_render(data, tm, False, key=jax_rng.key(1)), want)
 
 
 def test_sorted_frame_equals_dense_frame(frame):
-    data, _, tm = frame
+    data, tm = frame
     c_s, a_s = _torch_render(data, tm, True)
     c_d, a_d = _torch_render(data, tm, True, sorted_blocks=False)
     # Same per-sample inputs and MLP rows; only the composite's reduction
@@ -146,7 +170,7 @@ def test_unported_options_raise(frame):
     (sample_budget_per_ray > 0, false_color, raw_noise_std > 0) build and
     render the frame on the CPU: finite, some of it opaque, in palette
     colors, and the same frame for the same key."""
-    data, _, tm = frame
+    data, tm = frame
     cfg = dict(_renderer_cfg(True), sample_budget_per_ray=160, false_color=True,
                raw_noise_std=0.1, model=tm, device="cpu")
     r = instantiate(cfg)
@@ -204,3 +228,10 @@ def test_bench_rays_match_tpu_golden():
                           (alpha - golden["alpha"][sel].astype(np.float32))[:, None]], -1)
     assert alpha.max() > 0.5
     assert 10 * np.log10(1 / np.mean(err**2)) >= 55.0
+
+
+JAX_CASES = {
+    "frame": _jax_weights,
+    "test_frame_matches_jax_deterministic_offsets": lambda: _jax_render(True, 0),
+    "test_frame_matches_jax_with_injected_offsets": lambda: _jax_render(False, 1),
+}

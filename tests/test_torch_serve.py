@@ -14,6 +14,7 @@ import os
 import pickle
 import subprocess
 import sys
+import tempfile
 import threading
 import urllib.error
 import urllib.request
@@ -33,7 +34,12 @@ from nerftex_torch.render.serve import RenderSession, make_handler
 from nerftex_torch.utils import rng
 from nerftex_torch.utils.util import EasyDict, instantiate
 
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from _jax_reference import file_bytes, group, recorded  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MODULE = "test_torch_serve"
 H = W = 16
 POSES = ([0.30614675, -0.73910363, 0.6], [0.0, -0.7, 0.7])
 
@@ -58,28 +64,46 @@ def _grass_op():
     return op
 
 
+def _jax_sessions():
+    """A JAX checkpoint of a depth-2 grass ParamNerf (optimizer state in
+    its extra), and the JAX session on it: its default parameters, its
+    restored weights and its frames of POSES, requested in order."""
+    from nerftex_tpu.render.serve import RenderSession as JaxSession
+
+    with tempfile.TemporaryDirectory() as target:
+        cfg = _grass_config(target)
+        jax_rng_streams.set_seed(7)
+        import nerftex_tpu.models.mlp as jax_mlp
+
+        jax_mlp._INIT_COUNTER[0] = 0
+        params = jax_util.instantiate(jax_util.EasyDict(cfg["model_config"]))["model"].params
+        import optax
+
+        JaxCheckpointManager(os.path.join(target, "checkpoints")).save(
+            {"models": {"model": params},
+             "extra": {"step": 5, "opt_state": optax.adam(1e-3).init(params)}}, 5)
+        jax_session = JaxSession(cfg, height=H, width=W, operating_point=_grass_op())
+        return {"ckpt": file_bytes(os.path.join(target, "checkpoints", "ckpt-5.pkl")),
+                "default_parameters": np.asarray(jax_session.default_parameters),
+                **{f"weights/{k}": v for k, v in ckpt.flatten_params(
+                    jax.tree.map(np.asarray, jax_session.models["model"].params)).items()},
+                **{f"frame/{i}": jax_session.render(pose) for i, pose in enumerate(POSES)}}
+
+
 @pytest.fixture(scope="module")
 def sessions(tmp_path_factory):
     """A JAX checkpoint of a depth-2 grass ParamNerf (optimizer state in
-    its extra), the JAX session and the port's on it."""
-    from nerftex_tpu.render.serve import RenderSession as JaxSession
-
+    its extra), the JAX session's recording on it and the port's session
+    on it."""
     target = str(tmp_path_factory.mktemp("logs"))
     cfg = _grass_config(target)
-    jax_rng_streams.set_seed(7)
-    import nerftex_tpu.models.mlp as jax_mlp
-
-    jax_mlp._INIT_COUNTER[0] = 0
-    params = jax_util.instantiate(jax_util.EasyDict(cfg["model_config"]))["model"].params
-    import optax
-
-    JaxCheckpointManager(os.path.join(target, "checkpoints")).save(
-        {"models": {"model": params},
-         "extra": {"step": 5, "opt_state": optax.adam(1e-3).init(params)}}, 5)
-    jax_session = JaxSession(cfg, height=H, width=W, operating_point=_grass_op())
+    want = recorded(MODULE, "sessions")
+    os.makedirs(os.path.join(target, "checkpoints"))
+    with open(os.path.join(target, "checkpoints", "ckpt-5.pkl"), "wb") as f:
+        f.write(want["ckpt"].tobytes())
     port_session = RenderSession(cfg, height=H, width=W, operating_point=_grass_op(),
                                  device="cpu")
-    return jax_session, port_session
+    return want, port_session
 
 
 def test_render_session_serves_the_jax_frames(sessions):
@@ -94,9 +118,9 @@ def test_render_session_serves_the_jax_frames(sessions):
     assert port_session.renderer.render_chunk == H * W
     assert port_session.renderer.instancer.device_instancer.ray_block == 2048
     np.testing.assert_array_equal(port_session.default_parameters,
-                                  jax_session.default_parameters)
-    for pose in POSES:
-        want = jax_session.render(pose)
+                                  jax_session["default_parameters"])
+    for i, pose in enumerate(POSES):
+        want = jax_session[f"frame/{i}"]
         got = port_session.render(pose)
         assert got.shape == want.shape == (H, W, 4) and got.dtype == np.float32
         assert want[..., 3].max() > 0.5
@@ -217,8 +241,7 @@ def test_checkpoint_with_optax_state_restores_without_jax(sessions, tmp_path):
     process where jax and optax cannot be imported: the models equal the
     saved parameters and the optimizer state comes back as stand-ins."""
     target = os.path.dirname(os.path.dirname(sessions[1].restored_from))
-    want = {k: v for k, v in ckpt.flatten_params(
-        jax.tree.map(np.asarray, sessions[0].models["model"].params)).items()}
+    want = group(sessions[0], "weights/")
     np.savez(tmp_path / "want.npz", **{k.replace("/", "."): v for k, v in want.items()})
     code = (
         "import sys\n"
@@ -321,3 +344,6 @@ def test_loader_distributions_match_jax(scene):
             dist = make(loader[name])
             draws.append(np.stack([np.asarray(dist(), np.float64) for _ in range(7)]))
         np.testing.assert_array_equal(draws[1], draws[0], err_msg=f"{scene} {name}")
+
+
+JAX_CASES = {"sessions": _jax_sessions}

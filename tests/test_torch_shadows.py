@@ -7,6 +7,7 @@ full), culled equal to full."""
 
 import math
 import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -21,7 +22,12 @@ from nerftex_torch.instancing.instancer import Instancer
 from nerftex_torch.ops.rays import frame_rays
 from nerftex_torch.utils import jax_rng, trace
 
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from _jax_reference import recorded  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MODULE = "test_torch_shadows"
 MESH = os.path.join(ROOT, "meshes", "stanford_bunny.ply")
 SCENE_KW = dict(
     b_0=[-1.1, -1.1, -0.2], b_1=[1.1, 1.1, 1.1], cast_shadow_rays=True,
@@ -43,23 +49,30 @@ def plush_rays(h, w):
                       (0.9, 0.8, 0.9), focal=w / math.tan(angle / 2) / 2)
 
 
-@pytest.fixture(scope="module")
-def setup():
+def _jax_scene():
     js = JaxScene(**SCENE_KW)
     js.distribute_instances_on_mesh(MESH, 0.04, "")
-    jd = JaxDeviceInstancer(js, **DEV_KW)
-    inst = Instancer(mesh_path=MESH, patch_scale=0.04, device="cpu", **SCENE_KW, **DEV_KW)
+    return js
+
+
+def _rays():
+    """Four 64-ray blocks of a 32x32 plush frame: two rows of sky (no arc:
+    the skip branch) and three across the bunny."""
     data = plush_rays(32, 32)
-    # Four 64-ray blocks of a 32x32 plush frame: two rows of sky (no arc:
-    # the skip branch) and three across the bunny.
     idx = np.concatenate([np.arange(b * BLOCK, (b + 1) * BLOCK) for b in (0, 4, 7, 10)])
     o, d = data["rays_o"][0][idx], data["rays_d"][0][idx]
     p = np.repeat(data["parameters"], len(idx), 0)
-    return js, jd, inst, (o, d, p)
+    return o, d, p
+
+
+@pytest.fixture(scope="module")
+def setup():
+    inst = Instancer(mesh_path=MESH, patch_scale=0.04, device="cpu", **SCENE_KW, **DEV_KW)
+    return _jax_scene(), inst, _rays()
 
 
 def test_vertex_anchor_scene_tables_equal(setup):
-    js, _, inst, _ = setup
+    js, inst, _ = setup
     ts = inst.scene
     assert ts.n_instances() == js.n_instances() == 1600
     for k in ("forward", "inverse", "dir_inverse", "origins", "anchor_uv", "uv_jacobian",
@@ -75,15 +88,25 @@ def test_vertex_anchor_scene_tables_equal(setup):
     assert tds.cast_shadow_rays and tds.nearest_blend_range == jds.nearest_blend_range
 
 
-def test_shadow_blocked_matches_jax_on_every_branch(setup):
-    _, jd, inst, (o, d, p) = setup
-    td = inst.device_instancer
+def _jax_shadow_blocked():
+    """The JAX per-ray stage's shadow_blocked table of each 64-ray block."""
+    jd = JaxDeviceInstancer(_jax_scene(), **DEV_KW)
+    o, d, p = _rays()
     jax_per_ray = jax.jit(lambda o, d, p: jd._per_ray(o, d, p, 1280, STEP, jax.random.key(0)))
+    return {f"block/{i}": np.asarray(jax_per_ray(jnp.asarray(o[i:i + BLOCK]),
+                                                 jnp.asarray(d[i:i + BLOCK]),
+                                                 jnp.asarray(p[i:i + BLOCK]))["shadow_blocked"])
+            for i in range(0, len(o), BLOCK)}
+
+
+def test_shadow_blocked_matches_jax_on_every_branch(setup):
+    _, inst, (o, d, p) = setup
+    td = inst.device_instancer
+    recording = recorded(MODULE, "test_shadow_blocked_matches_jax_on_every_branch")
     branches = set()
     for i in range(0, len(o), BLOCK):
         sl = slice(i, i + BLOCK)
-        want = np.asarray(jax_per_ray(jnp.asarray(o[sl]), jnp.asarray(d[sl]),
-                                      jnp.asarray(p[sl]))["shadow_blocked"])
+        want = recording[f"block/{i}"]
         args = (torch.tensor(o[sl]), torch.tensor(d[sl]), torch.tensor(p[sl]), 1280, STEP,
                 torch.full((BLOCK,), 0.5))
         trace.reset()
@@ -108,6 +131,14 @@ def test_shadow_blocked_matches_jax_on_every_branch(setup):
     assert 50 < int(got.sum()) < got.numel()
 
 
+def _jax_dense_grid():
+    """The JAX dense grid's model inputs under key(3) that the test reads."""
+    jd = JaxDeviceInstancer(_jax_scene(), **DEV_KW)
+    o, d, p = _rays()
+    want = jd.get_model_input(o, d, p, 320, 4 * STEP, key=jax.random.key(3))
+    return {k: np.asarray(want[k]) for k in ("hit", "dists", "instance_id", "alpha_weight")}
+
+
 def test_dense_grid_with_a_key_matches_jax(setup):
     """The dense grid path under a key: block b's offsets and pick uniforms
     are JAX's (split(fold_in(key, b))), so instance picks agree except on
@@ -116,9 +147,9 @@ def test_dense_grid_with_a_key_matches_jax(setup):
     last-ulp differences left between the two (world t, arc lengths) move
     a few: measured 0.17 % of samples beyond rtol 1e-3 (the JAX suite's
     blend-weight pin), none beyond 8.3e-3."""
-    _, jd, inst, (o, d, p) = setup
+    _, inst, (o, d, p) = setup
+    want = recorded(MODULE, "test_dense_grid_with_a_key_matches_jax")
     # A coarser grid than plush's keeps the dense [Rb, S, K] planes small.
-    want = jd.get_model_input(o, d, p, 320, 4 * STEP, key=jax.random.key(3))
     got = inst.device_instancer.get_model_input(o, d, p, 320, 4 * STEP, key=jax_rng.key(3))
     valid = got["dists"].numpy() > 0
     assert valid.sum() > 1000
@@ -138,7 +169,7 @@ def test_sorted_hit_tiers_equal_the_dense_grid(setup):
     to the first 8, K/4 or K slots, as the JAX package's render_grid_sorted
     does): the nearest picks, shadowed light directions and every other
     model input equal the dense grid's over all K slots."""
-    _, _, _, (o, d, p) = setup
+    _, _, (o, d, p) = setup
     inst = Instancer(mesh_path=MESH, patch_scale=0.04, device="cpu",
                      **dict(SCENE_KW, instance_sampling_method="nearest"),
                      **dict(DEV_KW, max_hits=64, deterministic_offset=True))
@@ -170,3 +201,9 @@ def test_sorted_hit_tiers_equal_the_dense_grid(setup):
     tiers = {min(t for t in (8, 16, 64) if t >= h) for h, s in zip(hits.tolist(), steps.tolist())
              if s > 0}
     assert len(tiers) > 1, tiers
+
+
+JAX_CASES = {
+    "test_shadow_blocked_matches_jax_on_every_branch": _jax_shadow_blocked,
+    "test_dense_grid_with_a_key_matches_jax": _jax_dense_grid,
+}

@@ -3,6 +3,7 @@ and host reads that the render and training paths record on the CPU."""
 
 import importlib
 import os
+import sys
 import threading
 import time
 from collections import Counter
@@ -12,6 +13,9 @@ import pytest
 import torch
 
 from nerftex_torch.utils import trace
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

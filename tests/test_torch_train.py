@@ -25,11 +25,12 @@ jitted step; against the op-by-op step the port stays within 5.1e-5 over
 ten steps, which the 1e-4 gate holds."""
 
 import copy
+import functools
 import importlib
 import json
 import os
-import shutil
 import sys
+import tempfile
 
 import jax
 import jax.numpy as jnp
@@ -55,9 +56,12 @@ from nerftex_torch.utils.image import decode_png_u8
 from nerftex_torch.utils.util import instantiate
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from _jax_reference import file_bytes, group, recorded, sha256  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 from test_train_e2e import _train_config  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MODULE = "test_torch_train"
 N_ITERS = 20
 LOSS_RTOL = 1e-4        # ten logged losses, the port vs JAX's op-by-op Train
 STEP_LOSS_RTOL = 1e-6   # one step's loss
@@ -94,21 +98,51 @@ def _tree(root):
     return sorted((os.path.relpath(d, root), sorted(f)) for d, _, f in os.walk(root))
 
 
-@pytest.fixture(scope="module")
-def tfr(tmp_path_factory):
-    path = str(tmp_path_factory.mktemp("data") / "train.tfr")
+def _tree_lines(root):
+    """_tree(root) as strings "<directory>: <file>, <file>"."""
+    return [f"{d}: {', '.join(f)}" for d, f in _tree(root)]
+
+
+def _synthetic_tfr(directory):
+    path = os.path.join(str(directory), "train.tfr")
     jax_synth(path, n_images=8, size=16)
     return path
 
 
 @pytest.fixture(scope="module")
-def jax_run(tfr, tmp_path_factory):
-    """JAX's Train, op by op, for N_ITERS steps."""
-    target = str(tmp_path_factory.mktemp("jax"))
-    _reset()
-    with jax.disable_jit():
-        jax_util.instantiate(_config(tfr, target))
-    return target
+def tfr(tmp_path_factory):
+    return _synthetic_tfr(tmp_path_factory.mktemp("data"))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_train():
+    """JAX's Train, op by op, for N_ITERS steps: its logged steps and
+    losses, the checkpoints it kept (the bytes of those at steps 10 and 20)
+    and its media tree."""
+    with tempfile.TemporaryDirectory() as tmp:
+        target = os.path.join(tmp, "jax")
+        _reset()
+        with jax.disable_jit():
+            jax_util.instantiate(_config(_synthetic_tfr(tmp), target))
+        ckpts = os.path.join(target, "checkpoints")
+        return {"steps": np.array([r["step"] for r in _losses(target)]),
+                "losses": np.array([r["Loss"] for r in _losses(target)]),
+                "checkpoints": np.array(sorted(os.listdir(ckpts))),
+                **{f"ckpt/{n}": file_bytes(os.path.join(ckpts, n))
+                   for n in ("ckpt-10.pkl", "ckpt-20.pkl")},
+                "media": np.array(_tree_lines(os.path.join(target, "media")))}
+
+
+@pytest.fixture(scope="module")
+def jax_run(tmp_path_factory):
+    """JAX's Train, op by op, for N_ITERS steps (recorded): the recording,
+    and a directory holding its checkpoints at steps 10 and 20."""
+    want = recorded(MODULE, "jax_run")
+    target = tmp_path_factory.mktemp("jax")
+    os.makedirs(target / "checkpoints")
+    for name, data in group(want, "ckpt/").items():
+        (target / "checkpoints" / name).write_bytes(data.tobytes())
+    return str(target), want
 
 
 def _write_config_module(directory, name, cfg):
@@ -140,9 +174,10 @@ def port_run(tfr, tmp_path_factory):
 
 
 def test_train_through_main_matches_jax_losses(jax_run, port_run):
-    want, got = _losses(jax_run), _losses(port_run)
-    assert [r["step"] for r in got] == [r["step"] for r in want] == list(range(1, N_ITERS + 1))
-    w = np.array([r["Loss"] for r in want[:10]])
+    _, want = jax_run
+    got = _losses(port_run)
+    assert [r["step"] for r in got] == list(want["steps"]) == list(range(1, N_ITERS + 1))
+    w = want["losses"][:10]
     g = np.array([r["Loss"] for r in got[:10]])
     np.testing.assert_allclose(g, w, rtol=LOSS_RTOL, atol=0)
     assert np.isfinite([r["Loss"] for r in got]).all()
@@ -152,11 +187,12 @@ def test_train_through_main_writes_the_jax_files(jax_run, port_run):
     """The same checkpoints after retention (saves at 5, 10, 15 and 20,
     the newest three kept) and the same validation images; main's config
     copy is config_train.py."""
+    _, want = jax_run
     ckpts = sorted(os.listdir(os.path.join(port_run, "checkpoints")))
-    assert ckpts == sorted(os.listdir(os.path.join(jax_run, "checkpoints")))
+    assert ckpts == list(want["checkpoints"])
     assert ckpts == ["ckpt-10.pkl", "ckpt-15.pkl", "ckpt-20.pkl"]
     media = _tree(os.path.join(port_run, "media"))
-    assert media == _tree(os.path.join(jax_run, "media"))
+    assert _tree_lines(os.path.join(port_run, "media")) == list(want["media"])
     assert ("validation/20", ["0.png"]) in media
     assert os.path.exists(os.path.join(port_run, "config_train.py"))
     saved = CheckpointManager(os.path.join(port_run, "checkpoints")).restore_latest()
@@ -164,34 +200,45 @@ def test_train_through_main_writes_the_jax_files(jax_run, port_run):
     assert int(saved["extra"]["torch_adam"]["count"]) == N_ITERS
 
 
+def _resume(tfr_path, target, ckpt_10, side):
+    """Five steps from the checkpoint at step 10 under ``target``, by
+    ``side``'s Train (JAX's op by op): the logged records."""
+    os.makedirs(os.path.join(target, "checkpoints"))
+    with open(os.path.join(target, "checkpoints", "ckpt-10.pkl"), "wb") as f:
+        f.write(ckpt_10)
+    _reset()
+    if side == "jax":
+        with jax.disable_jit():
+            jax_util.instantiate(_config(tfr_path, target, n_iters=15))
+    else:
+        instantiate(_config(tfr_path, target, n_iters=15), device="cpu")
+    return _losses(target)
+
+
+def _jax_resume():
+    with tempfile.TemporaryDirectory() as tmp:
+        records = _resume(_synthetic_tfr(tmp), os.path.join(tmp, "jax"),
+                          _jax_train()["ckpt/ckpt-10.pkl"].tobytes(), "jax")
+    return {"losses": np.array([r["Loss"] for r in records])}
+
+
 def test_resume_from_a_jax_checkpoint_matches_jax(jax_run, tfr, tmp_path):
     """From JAX's checkpoint at step 10 (weights and optax moments), five
     port steps match five JAX steps from the same checkpoint.  Both
     packages restart the data stream on a resume, so JAX's uninterrupted
     steps 11-15 saw other batches; the reference is JAX's resume."""
-    sides = {}
-    for side in ("jax", "port"):
-        target = str(tmp_path / side)
-        os.makedirs(os.path.join(target, "checkpoints"))
-        shutil.copy(os.path.join(jax_run, "checkpoints", "ckpt-10.pkl"),
-                    os.path.join(target, "checkpoints"))
-        _reset()
-        if side == "jax":
-            with jax.disable_jit():
-                jax_util.instantiate(_config(tfr, target, n_iters=15))
-        else:
-            instantiate(_config(tfr, target, n_iters=15), device="cpu")
-        sides[side] = _losses(target)
-    assert [r["step"] for r in sides["port"]] == list(range(11, 16))
-    np.testing.assert_allclose([r["Loss"] for r in sides["port"]],
-                               [r["Loss"] for r in sides["jax"]], rtol=LOSS_RTOL, atol=0)
+    _, run = jax_run
+    want = recorded(MODULE, "test_resume_from_a_jax_checkpoint_matches_jax")
+    got = _resume(tfr, str(tmp_path / "port"), run["ckpt/ckpt-10.pkl"].tobytes(), "port")
+    assert [r["step"] for r in got] == list(range(11, 16))
+    np.testing.assert_allclose([r["Loss"] for r in got], want["losses"], rtol=LOSS_RTOL, atol=0)
 
 
 def test_jax_opt_state_loads_into_torch_adam(jax_run):
     """The optax moments and count of a JAX checkpoint land in the torch
     Adam state bit for bit, and the port writes them back in the same
     layout."""
-    saved = CheckpointManager(os.path.join(jax_run, "checkpoints")).restore_latest()
+    saved = CheckpointManager(os.path.join(jax_run[0], "checkpoints")).restore_latest()
     _reset()
     model = instantiate(_config("", "")["model_config"], device="cpu")
     load_jax_params(model, saved["models"]["model"])
@@ -256,21 +303,18 @@ def _port_grads(models):
             for name, m in models.items()}
 
 
-def _one_step(tfr, case, remat=False):
-    """JAX's and the port's (loss, {model: {leaf: grad}}) for the first
-    batch of the config's dataset under step 0's key."""
-    cfg = _step_case(tfr, case)
-    _reset()
-    batch = next(iter(jax_util.instantiate(jax_util.EasyDict(cfg["train_dataset_config"]))
-                      .take(1)))
+def _jax_step(case):
+    """JAX's first batch of the config's dataset, and the loss and
+    {model: {leaf: grad}} of JAX's step on it under step 0's key, op by op."""
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = _step_case(_synthetic_tfr(tmp), case)
+        _reset()
+        batch = next(iter(jax_util.instantiate(jax_util.EasyDict(cfg["train_dataset_config"]))
+                          .take(1)))
     model_cfg = dict(cfg["model_config"], n_parameters=[1, 6])
     jm = jax_util.instantiate(jax_util.EasyDict(model_cfg))
-    tm = port_mlp.model_dict(instantiate(model_cfg, device="cpu"))
     jr = jax_util.instantiate(jax_util.EasyDict(dict(cfg["renderer_config"], **jm)))
-    tr = instantiate(dict(cfg["renderer_config"], **tm, device="cpu",
-                          remat_net_chunks=remat, net_chunk=512))
-    loss_cfg = cfg["loss_config"]
-    jl, tl = jax_util.instantiate(jax_util.EasyDict(loss_cfg)), instantiate(loss_cfg)
+    jl = jax_util.instantiate(jax_util.EasyDict(cfg["loss_config"]))
     key = jax.random.fold_in(jax_streams.stream_key(jax_streams.STREAM_PERTURB), 0)
 
     def loss_of(params):
@@ -279,12 +323,30 @@ def _one_step(tfr, case, remat=False):
 
     with jax.disable_jit():
         jloss, jgrad = jax.value_and_grad(loss_of)({k: m.params for k, m in jm.items()})
+    return {"loss": np.asarray(jloss), **{f"batch/{k}": np.asarray(v) for k, v in batch.items()},
+            **{f"grad/{name}/{leaf}": g for name, tree in jgrad.items()
+               for leaf, g in flatten_params(jax.tree.map(np.asarray, tree)).items()}}
+
+
+def _one_step(tfr, case, remat=False):
+    """JAX's (recorded) and the port's (loss, {model: {leaf: grad}}) for
+    the first batch of the config's dataset under step 0's key."""
+    want = recorded(MODULE, f"test_one_step_matches_jax[{case}]")
+    batch = group(want, "batch/")
+    cfg = _step_case(tfr, case)
+    _reset()
+    model_cfg = dict(cfg["model_config"], n_parameters=[1, 6])
+    tm = port_mlp.model_dict(instantiate(model_cfg, device="cpu"))
+    tr = instantiate(dict(cfg["renderer_config"], **tm, device="cpu",
+                          remat_net_chunks=remat, net_chunk=512))
+    tl = instantiate(cfg["loss_config"])
     tb = {k: torch.as_tensor(v) for k, v in batch.items()}
     pred = tr.apply(tb, jax_rng.fold_in(rng.stream_key(rng.STREAM_PERTURB), 0))
     tloss = tl(color_true=tb["color"], alpha_true=tb["alpha"], **pred)
     tloss.backward()
-    want = {k: flatten_params(jax.tree.map(np.asarray, g)) for k, g in jgrad.items()}
-    return (float(jloss), want), (float(tloss.detach()), _port_grads(tm))
+    grads = group(want, "grad/")
+    jgrad = {name: group(grads, f"{name}/") for name in {k.split("/", 1)[0] for k in grads}}
+    return (float(want["loss"]), jgrad), (float(tloss.detach()), _port_grads(tm))
 
 
 @pytest.mark.parametrize("case", ["plain", "noise_blur", "coarse_fine"])
@@ -390,26 +452,42 @@ def test_synthetic_tfrecord_is_the_jax_bytes(tmp_path, kw):
     assert (tmp_path / "port.tfr").read_bytes() == (tmp_path / "jax.tfr").read_bytes()
 
 
+INIT_CFG = {"module": "network.model.CoarseFine", "model_config": {
+    "module": "network.model.ParamNerf",
+    "pos_embedding": {"module": "network.model.FourierFeatures", "n_freq_bands": 10},
+    "dir_embedding": {"module": "network.model.FourierFeatures", "n_freq_bands": 4},
+    "param_embedding": {"module": "network.model.FourierFeatures", "n_freq_bands": 4},
+    "n_parameters": [1, 6], "param_depth": 1}}
+
+
+def _jax_init(seed):
+    """The JAX factories' models for ``seed``: their names, and each
+    leaf's SHA-256 and shape."""
+    _reset(seed)
+    want = jax_util.instantiate(jax_util.EasyDict(INIT_CFG))
+    out = {"models": np.array(list(want))}
+    for name, model in want.items():
+        for k, v in flatten_params(jax.tree.map(np.asarray, model.params)).items():
+            out[f"sha256/{name}/{k}"] = np.array(sha256(v))
+            out[f"shape/{name}/{k}"] = np.array(v.shape)
+    return out
+
+
 @pytest.mark.parametrize("seed", [0, 3])
 def test_model_init_is_jax_bit_for_bit(seed):
     """Coarse and fine models of a CoarseFine config, at the shipped
     width, initialise to the JAX factories' weights for the same seed."""
-    cfg = {"module": "network.model.CoarseFine", "model_config": {
-        "module": "network.model.ParamNerf",
-        "pos_embedding": {"module": "network.model.FourierFeatures", "n_freq_bands": 10},
-        "dir_embedding": {"module": "network.model.FourierFeatures", "n_freq_bands": 4},
-        "param_embedding": {"module": "network.model.FourierFeatures", "n_freq_bands": 4},
-        "n_parameters": [1, 6], "param_depth": 1}}
+    want = recorded(MODULE, f"test_model_init_is_jax_bit_for_bit[{seed}]")
     _reset(seed)
-    want = jax_util.instantiate(jax_util.EasyDict(cfg))
-    got = instantiate(cfg, device="cpu")
-    assert list(got) == list(want) == ["model", "model_fine"]
+    got = instantiate(INIT_CFG, device="cpu")
+    assert list(got) == list(want["models"]) == ["model", "model_fine"]
     for name, model in got.items():
         ours = flatten_params(export_jax_params(model))
-        theirs = flatten_params(jax.tree.map(np.asarray, want[name].params))
-        assert set(ours) == set(theirs)
-        for k in theirs:
-            np.testing.assert_array_equal(ours[k], theirs[k], err_msg=f"{name} {k}")
+        digests, shapes = group(want, f"sha256/{name}/"), group(want, f"shape/{name}/")
+        assert set(ours) == set(digests)
+        for k in digests:
+            assert ours[k].shape == tuple(shapes[k]), f"{name} {k}"
+            assert sha256(ours[k]) == str(digests[k]), f"{name} {k}"
 
 
 def test_packed_weights_follow_an_optimizer_step():
@@ -523,3 +601,13 @@ def test_shipped_train_config_takes_a_step_through_main(name, tmp_path):
     media = os.listdir(os.path.join(cfg["target_path"], "media", "validation", "2"))
     assert sorted(media) == ["0.png", "1.png"]
     assert os.listdir(os.path.join(cfg["target_path"], "checkpoints")) == ["ckpt-2.pkl"]
+
+
+JAX_CASES = {
+    "jax_run": _jax_train,
+    "test_resume_from_a_jax_checkpoint_matches_jax": _jax_resume,
+    **{f"test_one_step_matches_jax[{case}]": (lambda case=case: _jax_step(case))
+       for case in ("plain", "noise_blur", "coarse_fine")},
+    **{f"test_model_init_is_jax_bit_for_bit[{seed}]": (lambda seed=seed: _jax_init(seed))
+       for seed in (0, 3)},
+}

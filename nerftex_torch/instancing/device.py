@@ -369,6 +369,8 @@ class DeviceInstancer:
         if self.use_jac:
             cols += [ds.anchor_uv, ds.uv_jacobian.reshape(n, 6), ds.origins]
         self.inst_table = torch.cat(cols, -1).contiguous()
+        # The local light of a shadowed sample: straight from below.
+        self._light_down = torch.tensor([0.0, 0.0, -1.0], device=device)
 
     def n_instances(self) -> int:
         return self.ds.n_instances
@@ -908,9 +910,7 @@ class DeviceInstancer:
                 bucket = torch.floor(
                     s_arc / torch.clamp(ray["total"][:, None], min=1e-12) * n_sh).long()
                 shadowed = blocked.gather(1, torch.clamp(bucket, 0, n_sh - 1))
-                with trace.host_read("light_down"):
-                    down = local_l.new_tensor([0.0, 0.0, -1.0])
-                local_l = torch.where(shadowed[..., None], down, local_l)
+                local_l = torch.where(shadowed[..., None], self._light_down, local_l)
             params_out[..., li:li + 3] = local_l
             if ds.light_strength_idx >= 0:
                 # Inverse-square falloff of the point light's strength.

@@ -118,22 +118,18 @@ class InstanceRenderer(Renderer):
                   f"samples (raise n_samples / sample_budget_per_ray / max_steps_per_ray).")
 
     def _eval_mlp(self, pos, dirs, prms, mask):
-        """The MLP on the valid samples only (mask [R,S]); invalid slots
-        get color logits and density 0, as the JAX path's masking does."""
+        """The MLP over every slot of the [R,S] grid, as the JAX path
+        evaluates it, with no host read; invalid slots (mask [R,S] false)
+        get color logits and density exactly 0, set with where, not by a
+        product: a padding slot may hold inf."""
         r, s = mask.shape
-        color = pos.new_zeros(r, s, 3)
-        density = pos.new_zeros(r, s)
-        # Each boolean gather and scatter reads the mask's count back.
-        rows = []
-        for x in (pos, dirs, prms):
-            with trace.host_read("mlp_gather"):
-                rows.append(x[mask])
-        c, d = chunked_apply(self.model.infer, tuple(rows), self.net_chunk)
-        with trace.host_read("mlp_scatter"):
-            color[mask] = c
-        with trace.host_read("mlp_scatter"):
-            density[mask] = d[:, 0]
-        return color, density
+        if trace.is_recording():
+            trace.count("mlp.valid", mask.sum())
+        color, density = chunked_apply(
+            self.model.infer, tuple(x.reshape(r * s, -1) for x in (pos, dirs, prms)),
+            self.net_chunk)
+        return (torch.where(mask[..., None], color.reshape(r, s, 3), 0.0),
+                torch.where(mask, density.reshape(r, s), 0.0))
 
     def _model_inputs(self, inst, cone_scale):
         """The per-sample model positions [R,S,3] and parameters [R,S,P],

@@ -174,6 +174,45 @@ def test_mlp_tf32x3_matches_plain(cuda, topology, n):
     assert float(err.max()) <= 1e-4 * scale
 
 
+@pytest.mark.parametrize("dtype,variant", [("float32", "wgmma_tf32x3"),
+                                           ("bfloat16", "wgmma_bf16")])
+def test_mlp_fused_rows_do_not_depend_on_the_launch(cuda, dtype, variant):
+    """Each row's output is a function of that row alone: the rows of a
+    32,768-row launch equal, bit for bit, the same rows inside a 1,000-row
+    launch, wherever the 1,000 rows start (a tile boundary or not), so an
+    MLP run over every slot of a block and masked gives its valid slots the
+    values that the MLP on the gathered valid rows gives them."""
+    def ff(bands):
+        return {"module": "network.model.FourierFeatures", "n_freq_bands": bands}
+
+    model = instantiate(dict({"module": "network.model.ParamNerf", "pos_embedding": ff(10),
+                              "dir_embedding": ff(4), "param_embedding": ff(4),
+                              "compute_dtype": dtype}, **TOPOLOGIES["bench"]), device=cuda)
+    rs = np.random.RandomState(9)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.Linear):
+                m.bias.copy_(torch.tensor(rs.uniform(-0.2, 0.2, m.bias.shape).astype(np.float32)))
+    n = 32768
+    pos = torch.tensor(rs.uniform(-1, 1, (n, 3)).astype(np.float32), device=cuda)
+    dirs = torch.nn.functional.normalize(
+        torch.tensor(rs.normal(size=(n, 3)).astype(np.float32), device=cuda), dim=-1)
+    prm = torch.tensor(rs.uniform(0, 1, (n, model.n_geo + model.n_app)).astype(np.float32),
+                       device=cuda)
+    pos_map, dir_map = model.feature_maps(pos, dirs, prm)
+    packed = model.packed()
+    before = dict(fused.mlp_fused.variant_launches)
+    whole = fused.mlp_fused(pos_map, dir_map, packed)
+    starts = (0, 128, 12345, n - 1000)
+    parts = [fused.mlp_fused(pos_map[i:i + 1000], dir_map[i:i + 1000], packed) for i in starts]
+    assert fused.mlp_fused.variant_launches == dict(
+        before, **{variant: before[variant] + 1 + len(starts)})
+    torch.cuda.synchronize()
+    assert torch.isfinite(whole).all()
+    for i, part in zip(starts, parts):
+        assert torch.equal(part, whole[i:i + 1000]), i
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_mlp_fused_refuses_bad_inputs(cuda, dtype):
     """Maps of another dtype, width or device than the packed weights, or
@@ -481,23 +520,15 @@ HOST_READ_RENDERS = {
 }
 
 
-@pytest.mark.parametrize("name", sorted(HOST_READ_RENDERS))
-def test_a_render_waits_for_the_card_only_in_host_reads(cuda, tmp_path, name):
-    """A 128x128 frame of configs/config_<name>_render.py through
-    RenderSession at the scene's operating point, the MLP in float32, random
-    weights, under the tracer's recording, with
-    torch.cuda.set_sync_debug_mode("warn"): every call that synchronises
-    with the card warns, and each warning comes while a sync.* span is
-    open, so the tracer's sync count misses no host read of the path."""
+def _host_read_session(name, tmp_path):
+    """A 128x128 RenderSession of configs/config_<name>_render.py at the
+    scene's operating point, the MLP in float32, random weights, after one
+    request (which builds, packs and uploads once)."""
     import importlib
     import os
-    import traceback
-    import warnings
-    from collections import Counter
 
     from nerftex_torch import operating_points
     from nerftex_torch.render.serve import RenderSession
-    from nerftex_torch.utils import trace
 
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     cfg = dict(importlib.import_module(f"configs.config_{name}_render").config,
@@ -511,9 +542,26 @@ def test_a_render_waits_for_the_card_only_in_host_reads(cuda, tmp_path, name):
                         for t in inst["textures"]]
     point = dict(operating_points.resolve(name), compute_dtype="float32")
     session = RenderSession(cfg, height=128, width=128, operating_point=point)
-    camera, parameters = HOST_READ_RENDERS[name]
-    session.render(camera, parameters)          # builds, packs and uploads once
+    session.render(*HOST_READ_RENDERS[name])
     torch.cuda.synchronize()
+    return session
+
+
+@pytest.mark.parametrize("name", sorted(HOST_READ_RENDERS))
+def test_a_render_waits_for_the_card_only_in_host_reads(cuda, tmp_path, name):
+    """A 128x128 frame of configs/config_<name>_render.py through
+    RenderSession (_host_read_session) under the tracer's recording, with
+    torch.cuda.set_sync_debug_mode("warn"): every call that synchronises
+    with the card warns, and each warning comes while a sync.* span is
+    open, so the tracer's sync count misses no host read of the path."""
+    import traceback
+    import warnings
+    from collections import Counter
+
+    from nerftex_torch.utils import trace
+
+    session = _host_read_session(name, tmp_path)
+    camera, parameters = HOST_READ_RENDERS[name]
 
     inside, outside = [], []
 
@@ -550,9 +598,60 @@ def test_a_render_waits_for_the_card_only_in_host_reads(cuda, tmp_path, name):
     assert totals["per_ray.kernel"] == totals["per_ray.rays"] > 0
     assert totals.get("cull.fit", 0) + totals.get("cull.full", 0) > 0
     if name == "grass":
-        # The shadow pass ran its branch read and its light-down read.
-        assert {"sync.shadow_branch", "sync.light_down"} <= set(inside), Counter(inside)
+        # The shadow pass ran its branch read; its shadowed samples take
+        # the instancer's own light-down constant, with no read.
+        assert "sync.shadow_branch" in set(inside), Counter(inside)
+        assert "sync.light_down" not in sites, sites
         assert sum(totals.get(f"shadow.{k}", 0) for k in ("skip", "culled", "full")) > 0
+
+
+@pytest.mark.parametrize("name", sorted(HOST_READ_RENDERS))
+def test_the_sorted_block_loop_never_synchronises(cuda, tmp_path, monkeypatch, name):
+    """The 128x128 frame of _host_read_session with
+    torch.cuda.set_sync_debug_mode("error") from the end of each
+    sync.block_table read to the next sync.overflow read: the sorted blocks
+    (per-sample stage, the MLP over every slot, the composite) and the
+    reorder behind them raise on any call that waits for the card.  The
+    frame reads the host only at the pose, the copies, the keys, the block
+    table, the drop counts, the read-back and (grass) the shadow branch."""
+    from collections import Counter
+
+    from nerftex_torch.utils import trace
+
+    session = _host_read_session(name, tmp_path)
+    real = trace.host_read
+    armed = []
+
+    class host_read(real):
+        __slots__ = ()
+
+        def __enter__(self):
+            if self.name == "overflow":
+                torch.cuda.set_sync_debug_mode("default")
+            return real.__enter__(self)
+
+        def __exit__(self, *exc):
+            out = real.__exit__(self, *exc)
+            if self.name == "block_table" and exc[0] is None:
+                armed.append(self.name)
+                torch.cuda.set_sync_debug_mode("error")
+            return out
+
+    monkeypatch.setattr(trace, "host_read", host_read)
+    trace.reset()
+    try:
+        with trace.recording():
+            img = session.render(*HOST_READ_RENDERS[name])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    snap = trace.snapshot()
+    trace.reset()
+    assert img.shape == (128, 128, 4) and np.isfinite(img).all()
+    sites = Counter(s["name"] for s in snap["spans"] if s["name"].startswith("sync."))
+    assert armed and sites["sync.block_table"] == len(armed), sites
+    allowed = {"sync.pose", "sync.copy", "sync.keys", "sync.block_table", "sync.overflow",
+               "sync.readback"} | ({"sync.shadow_branch"} if name == "grass" else set())
+    assert set(sites) <= allowed, sites
 
 
 # -- the shadow query kernel (kernels/shadow_query.py) ------------------------

@@ -129,6 +129,43 @@ def test_grass_frame_matches_jax_with_the_same_key(frame):
     assert err.max() <= 3e-2
 
 
+def test_shadowed_samples_see_the_light_from_below_with_no_read(frame, monkeypatch):
+    """The grass frame's sorted blocks: every sample whose arc-length
+    bucket the shadow pass found blocked takes exactly [0, 0, -1] as its
+    local light direction, the others their own, and no block reads the
+    host for it (no sync.light_down span)."""
+    import torch
+
+    data, tm, _ = frame
+    renderer = instantiate(dict(_renderer_cfg(), model=tm, device="cpu"))
+    real = DeviceInstancer._per_sample_grid_tail
+    seen = []
+
+    def tail(self, ray, rays_d, parameters, inst, weight, s_arc, t_mu, pts_w):
+        out = real(self, ray, rays_d, parameters, inst, weight, s_arc, t_mu, pts_w)
+        blocked = ray["shadow_blocked"]
+        bucket = torch.floor(s_arc / torch.clamp(ray["total"][:, None], min=1e-12)
+                             * blocked.shape[-1]).long()
+        shadowed = blocked.gather(1, torch.clamp(bucket, 0, blocked.shape[-1] - 1))
+        li = self.ds.light_dir_idx
+        seen.append((shadowed, out["parameters"][..., li:li + 3]))
+        return out
+
+    monkeypatch.setattr(DeviceInstancer, "_per_sample_grid_tail", tail)
+    trace.reset()
+    with trace.recording():
+        renderer(**data, key=jax_rng.key(1))
+    names = {s["name"] for s in trace.snapshot()["spans"]}
+    trace.reset()
+    assert seen and "sync.light_down" not in names and "sync.shadow_branch" in names
+    shadowed = torch.cat([sh.reshape(-1) for sh, _ in seen])
+    light = torch.cat([lt.reshape(-1, 3) for _, lt in seen])
+    assert 0 < int(shadowed.sum()) < shadowed.numel()
+    down = torch.tensor([0.0, 0.0, -1.0])
+    assert (light[shadowed] == down).all()
+    assert not (light[~shadowed] == down).all(-1).all()
+
+
 def _jax_model_input(scene, rays_o, rays_d, params, n_samples, step, max_hits, ray_block):
     """get_model_input of the JAX device instancer under key(3)."""
     want = JaxInstancer(scene, max_hits=max_hits, ray_block=ray_block).get_model_input(

@@ -141,6 +141,62 @@ def test_sorted_frame_equals_dense_frame(frame):
     np.testing.assert_allclose(a_s, a_d, rtol=0, atol=5e-7)
 
 
+def _gathered_mlp(model, net_chunk, pos, dirs, prms, mask):
+    """The MLP on the valid slots alone: a boolean gather of each input,
+    the rows through model.infer, a scatter into zeros."""
+    from nerftex_torch.render.renderer import chunked_apply
+
+    r, s = mask.shape
+    c, d = chunked_apply(model.infer, tuple(x[mask] for x in (pos, dirs, prms)), net_chunk)
+    color, density = pos.new_zeros(r, s, 3), pos.new_zeros(r, s)
+    color[mask], density[mask] = c, d[:, 0]
+    return color, density
+
+
+@pytest.mark.parametrize("net_chunk", [32768, 1000])
+def test_dense_masked_mlp_equals_the_gathered_valid_samples(net_chunk):
+    """InstanceRenderer._eval_mlp runs configs/config_carpet_render.py's
+    ParamNerf (8 x 256, [1, 6]) over every slot of a carpet-sized block,
+    1,024 rays x 24 slots: full rays, rays cut short, a tiny ray of one
+    sample and an empty ray, the padding slots' positions inf.  The valid
+    slots equal the MLP on the gathered valid samples; the padding slots
+    are exactly 0, not the NaN the inf positions give."""
+    import importlib
+
+    import torch
+
+    from nerftex_torch.render.instance_renderer import InstanceRenderer
+    from nerftex_torch.utils import trace
+
+    torch.manual_seed(0)
+    cfg = importlib.import_module("configs.config_carpet_render").config["model_config"]
+    model = instantiate(cfg, device="cpu")
+    r, s = 1024, 24
+    n_steps = torch.full((r,), s)
+    n_steps[::3] = torch.randint(2, s, (len(n_steps[::3]),))
+    n_steps[5], n_steps[7] = 1, 0
+    mask = torch.arange(s)[None, :] < n_steps[:, None]
+    pos = torch.where(mask[..., None], torch.rand(r, s, 3) * 2 - 1, float("inf"))
+    dirs = torch.nn.functional.normalize(torch.randn(r, s, 3), dim=-1)
+    prms = torch.rand(r, s, 7)
+    renderer = InstanceRenderer.__new__(InstanceRenderer)
+    renderer.model, renderer.net_chunk = model, net_chunk
+    trace.reset()
+    with trace.recording():
+        color, density = renderer._eval_mlp(pos, dirs, prms, mask)
+    totals = trace.totals()
+    trace.reset()
+    want_c, want_d = _gathered_mlp(model, net_chunk, pos, dirs, prms, mask)
+    assert totals["mlp.valid"] == int(mask.sum()) and totals["mlp.rows"] == r * s
+    assert "sync" not in totals
+    for got, want in ((color, want_c), (density, want_d)):
+        assert torch.isfinite(got).all()
+        scale = want.abs().max()
+        assert scale > 0
+        torch.testing.assert_close(got[mask], want[mask], rtol=0, atol=1e-6 * float(scale))
+        assert (got[~mask] == 0).all()
+
+
 def test_carpet_render_config_instantiates():
     """configs/config_carpet_render.py's model and renderer configs resolve
     to the port's classes."""

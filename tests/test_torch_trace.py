@@ -280,18 +280,20 @@ def test_a_render_session_request_records_its_layers(carpet_session, monkeypatch
     shaded = n_blocks - totals.get("blocks.empty", 0)
     assert shaded == len(valid) > 0
     assert names["renderer.shade"] == names["instancer.per_sample"] == shaded
-    assert totals["mlp.rows"] == sum(valid)
+    # The MLP runs over every slot of the sorted grid and counts the
+    # valid ones on the card.
+    assert totals["mlp.rows"] == totals["grid.samples"]
+    assert totals["mlp.valid"] == sum(valid)
     assert totals["cull.fit"] + totals["cull.full"] == 2 * n_blocks
     assert totals["dropped.hits"] >= 0 and totals["dropped.steps"] >= 0
     # Every host read, site by site: the pose, the parameters and the
     # offsets' keys in, the fan's axis and two culls a ray block, the
-    # sorted blocks' table, three masked gathers and two scatters a shaded
-    # block, the two drop counts and the two read-backs.
+    # sorted blocks' table, the two drop counts and the two read-backs; a
+    # shaded block reads nothing.
     sites = Counter(s["name"] for s in spans if s["name"].startswith("sync."))
     assert sites == Counter({"sync.pose": 1, "sync.copy": 1, "sync.keys": 1,
                              "sync.fan": n_blocks, "sync.cull": 2 * n_blocks,
                              "sync.block_table": 1,
-                             "sync.mlp_gather": 3 * shaded, "sync.mlp_scatter": 2 * shaded,
                              "sync.overflow": 2, "sync.readback": 2})
     assert totals["sync"] == sum(sites.values())
 

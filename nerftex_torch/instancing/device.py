@@ -810,20 +810,28 @@ class DeviceInstancer:
         pts_w = rays_o[:, None, :] + rays_d[:, None, :] * t_pt[..., None]  # [Rb,S,3]
 
         sel_k, weight = self._pick(
-            [ray[k] for k in ("tk0", "tk1", "kvalid", "sel_a", "sel_b")], t_pt, u_sel)
+            [ray[k] for k in ("tk0", "tk1", "kvalid", "sel_a", "sel_b")], t_pt, u_sel,
+            ray["n_steps"])
         inst = ray["inst_idx"].gather(1, sel_k.long())                    # [Rb,S]
         return self._per_sample_grid_tail(ray, rays_d, parameters, inst, weight, s_arc, t_mu,
                                           pts_w)
 
-    def _pick(self, tables, t_pt, u_sel):
+    def _pick(self, tables, t_pt, u_sel, n_steps=None):
         """The overlap pick over the K hit slots of ``tables`` (tk0, tk1,
         kvalid, sel_a, sel_b [Rb, K]) at t_pt [Rb, S] (the kernel; its plain
         [Rb, S, K] chain for CPU tensors) and the pick's density weight:
         the active count (random), 1 (nearest) or 1 / p_sel (nearest_blend),
-        and 1 where one slot is active.  Returns (sel_k, weight) [Rb, S]."""
+        and 1 where one slot is active.  Returns (sel_k, weight) [Rb, S].
+        Given the rays' n_steps [Rb], a recording tracer counts
+        ``pick.blend``: the valid samples (the MLP's mask, each ray's first
+        n_steps slots) whose blended pick weighed two or more active
+        slots, summed on the device and read with the other counts."""
         method = self.ds.instance_sampling_method
         sel_k, p_sel, n_active = selk_resolve(*tables, t_pt, u_sel, method=method,
                                               blend_range=self.ds.nearest_blend_range)
+        if n_steps is not None and method == "nearest_blend" and trace.is_recording():
+            valid = torch.arange(t_pt.shape[1], device=t_pt.device)[None, :] < n_steps[:, None]
+            trace.count("pick.blend", (valid & (n_active > 1)).sum())
         if method == "random":
             weight = n_active.to(torch.float32)
         elif method == "nearest":

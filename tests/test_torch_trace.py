@@ -298,6 +298,81 @@ def test_a_render_session_request_records_its_layers(carpet_session, monkeypatch
     assert totals["sync"] == sum(sites.values())
 
 
+PLUSH_POINT = {"compute_dtype": "float32", "renderer": {"sorted_blocks": True},
+               "instancer": {"ray_block": 64, "max_hits": 128, "max_steps_per_ray": 1280,
+                             "cull_budget": 384, "tri_cull_budget": 1024,
+                             "shadow_cull_budget": 768, "shadow_tri_cull_budget": 1536}}
+PLUSH_VIEW = ([0.2472136, -0.76084521, 0.6], [1, 1, 0.5, 0.3, 0.6])
+
+
+@pytest.fixture(scope="module")
+def plush_session(tmp_path_factory):
+    """configs/config_plush_render.py (instances on the bunny's vertices,
+    ``nearest_blend``, a directional light with shadows) at 16x16 on the
+    CPU in ray blocks of 64, random weights."""
+    from nerftex_torch.render.serve import RenderSession
+
+    cfg = dict(importlib.import_module("configs.config_plush_render").config,
+               target_path=str(tmp_path_factory.mktemp("plush")))
+    cfg["renderer_config"] = dict(cfg["renderer_config"])
+    inst = cfg["renderer_config"]["instancer_config"] = dict(
+        cfg["renderer_config"]["instancer_config"])
+    inst["mesh_path"] = os.path.join(ROOT, inst["mesh_path"])
+    inst["textures"] = [os.path.join(ROOT, t) if t.endswith(".png") else t
+                        for t in inst["textures"]]
+    session = RenderSession(cfg, height=16, width=16, operating_point=PLUSH_POINT,
+                            device="cpu")
+    session.render(*PLUSH_VIEW, radius=4)
+    return session
+
+
+def _plush_request(session, monkeypatch):
+    """One traced plush request: (totals, host-read sites, the samples
+    under the MLP's mask whose pick weighed two or more active slots)."""
+    from nerftex_torch.instancing import device
+    from nerftex_torch.render.instance_renderer import InstanceRenderer
+
+    n_active, masks = [], []
+    real_selk, real_eval = device.selk_resolve, InstanceRenderer._eval_mlp
+
+    def selk_resolve(*args, **kwargs):
+        out = real_selk(*args, **kwargs)
+        n_active.append(out[2])
+        return out
+
+    def eval_mlp(self, pos, dirs, prms, mask):
+        masks.append(mask)
+        return real_eval(self, pos, dirs, prms, mask)
+
+    monkeypatch.setattr(device, "selk_resolve", selk_resolve)
+    monkeypatch.setattr(InstanceRenderer, "_eval_mlp", eval_mlp)
+    trace.reset()
+    with trace.recording():
+        session.render(*PLUSH_VIEW, radius=4)
+    monkeypatch.undo()
+    assert len(n_active) == len(masks) > 0
+    blended = sum(int((m & (n > 1)).sum()) for n, m in zip(n_active, masks))
+    sites = Counter(s["name"] for s in _spans() if s["name"].startswith("sync."))
+    return trace.totals(), sites, blended
+
+
+def test_the_blended_pick_is_counted_on_the_device_without_a_host_read(plush_session,
+                                                                       monkeypatch):
+    ds = plush_session.renderer.instancer.device_instancer.ds
+    assert ds.instance_sampling_method == "nearest_blend"
+    totals, sites, blended = _plush_request(plush_session, monkeypatch)
+    assert 0 < totals["pick.blend"] == blended < totals["mlp.valid"]
+    ds.instance_sampling_method = "nearest"
+    try:
+        totals_n, sites_n, blended_n = _plush_request(plush_session, monkeypatch)
+    finally:
+        ds.instance_sampling_method = "nearest_blend"
+    # Under ``nearest`` nothing is counted; the blended pick's count adds
+    # no host read.
+    assert blended_n > 0 and totals_n.get("pick.blend", 0) == 0
+    assert sites == sites_n and totals["sync"] == totals_n["sync"]
+
+
 # -- the training path ----------------------------------------------------------
 
 def _train_dataset_config(tfr_path, prefetch):
